@@ -1,0 +1,80 @@
+"""The port's command line: a process in which importing jax fails runs
+`python -m mlsgpu_tpu_torch` end to end on PLY input (the package is
+jax-free), and the exit-code probes (2 for bad or unported options and for
+no inputs, 1 for an unknown device)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mlsgpu_tpu.io import ply
+from mlsgpu_tpu.utils.manifold import check_manifold
+from mlsgpu_tpu_torch import cli
+
+from tests import oracle
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CENTER = np.array([0.7, -0.3, 0.2])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers at once, and
+    oversubscribed torch threads slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+_JAX_FREE = """
+import runpy, sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.argv = ["mlsgpu_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("mlsgpu_tpu_torch", run_name="__main__")
+finally:
+    assert sys.modules["jax"] is None
+"""
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """The package is jax-free: a process in which importing jax fails runs
+    the CLI end to end on PLY input (plain path, --device cpu)."""
+    inp = str(tmp_path / "in.ply")
+    splats = oracle.sphere_cloud(CENTER, 3.0, 6000, 0.4,
+                                 np.random.default_rng(21))
+    ply.write_splats_ply(inp, splats)
+    out = str(tmp_path / "out.ply")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_FREE, "--fit-grid", "0.1",
+         "--fit-smooth", "1", "--levels", "3", "--leaf-cells", "8",
+         "--device", "cpu", "--no-progress", "-o", out, inp],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    verts, tris = ply.read_mesh(out)
+    rep = check_manifold(verts, tris)
+    assert rep.is_manifold and rep.num_boundary_edges == 0, rep.reason
+    r = np.linalg.norm(verts - CENTER, axis=1)
+    assert len(verts) > 500 and abs(np.median(r) - 3.0) < 0.08
+
+
+@pytest.mark.parametrize("argv,code", [
+    (["--fit-grid", "-1", "-o", "x.ply", "in.ply"], 2),
+    (["-o", "x.ply"], 2),                                  # no inputs
+    (["--readback", "packed", "-o", "x.ply", "in.ply"], 2),  # not ported
+    (["--num-devices", "2", "-o", "x.ply", "in.ply"], 2),
+    (["--num-processes", "2", "-o", "x.ply", "in.ply"], 2),
+    (["--statistics-device", "-o", "x.ply", "in.ply"], 2),
+    (["--mls-backend", "pallas", "-o", "x.ply", "in.ply"], 2),
+    (["--device", "tpu", "-o", "x.ply", "in.ply"], 1),
+])
+def test_cli_probes(argv, code, tmp_path, capsys):
+    argv = [a if a != "x.ply" else str(tmp_path / a) for a in argv]
+    assert cli.main(argv) == code
+    assert "error:" in capsys.readouterr().err
