@@ -3,8 +3,8 @@
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --through 3  # stop after phase 3 (quick kernel check)
 
-Phases, each printing one line of findings; any failure raises, exits
-non-zero and prints no result line:
+Phases, each printing one line of findings (phase 6 runs last); any failure
+raises, exits non-zero and prints no result line:
   1. toolchain and card (torch, CUDA, nvcc, triton, nvidia-smi);
   2. build the MLS field kernel from mlsgpu_tpu_torch/csrc with nvcc (sm_90a);
   3. kernel vs its plain PyTorch version on the card at main-path shapes
@@ -16,7 +16,25 @@ non-zero and prints no result line:
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
      cloud (bench.make_cloud) written as a PLY: manifold output, kernel
      launches >= blocks;
+  7. the same run with `--readback packed` and `--readback raw`: the codes
+     run's vertex, triangle and boundary-edge counts, manifold; the seconds
+     of all three modes;
+  8. `--statistics-device` (codes, then packed): the same counts, and every
+     `device.<stage>.time`;
+  9. on the densest 512^3-corner dispatch (`--levels 7`, 64^3 tiles, 7
+     levels): the kernel against its plain version as in phase 3 (sphere
+     fit, the run's boundary factor), then tiled against dense
+     classification of the block's field: the codes images bitwise equal;
+     all four times;
+ 10. `DeviceScaleBias(scale=2, bias)` through `reconstruct(device_filter=)`
+     on a small cloud: each block's filtered vertices equal its unfiltered
+     ones transformed on the host within 1e-5 of a cell; manifold;
   6. no jax in sys.modules.
+Kernel launches are counted per main-path run (the counter set to 0 just
+before it and read just after; the comparisons of phases 3 and 9
+excluded); each run must launch the kernel, and the kernel record's
+`launches` is their sum; its `max_abs_err` is the largest of phases 3
+and 9.
 The second-last lines are the kernel JSON record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -24,6 +42,7 @@ power limit; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -48,12 +67,16 @@ from mlsgpu_tpu.utils.manifold import check_manifold  # noqa: E402
 from mlsgpu_tpu.utils.statistics import get_registry  # noqa: E402
 from mlsgpu_tpu_torch import cli  # noqa: E402
 from mlsgpu_tpu_torch.device import set_precision  # noqa: E402
-from mlsgpu_tpu_torch.ops import (binning, block, kernel_gate, mls,  # noqa: E402
-                                  mls_cuda)
+from mlsgpu_tpu_torch.ops import (binning, block, kernel_gate,  # noqa: E402
+                                  marching, mls, mls_cuda)
+from mlsgpu_tpu_torch.pipeline import bucket as port_bucket  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
 from mlsgpu_tpu_torch.pipeline.streamer import prepare_block_inputs  # noqa: E402
 
 N_SPLATS = 2_000_000
 LEVELS, SUB = 6, 3   # bench.py:201-215: 256^3-corner dispatches
+TILED_LEVELS = 7     # 512^3-corner dispatches: tiled classification
 GAMMAS = (1.0, 0.5)  # --fit-boundary-limit values; boundary factor = 1 - g^2
 REPS = 7
 
@@ -71,8 +94,11 @@ def sphere_cloud(center, radius, n, splat_radius, rng) -> np.ndarray:
     return out
 
 
+T0 = time.monotonic()
+
+
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    print(f"[phase {n} @{time.monotonic() - T0:.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -139,6 +165,30 @@ def bench_setup():
     return splats, spacing, cfg
 
 
+def kernel_vs_plain(n, binned, starts, lens, origin, tpa, fit, bf,
+                    reps=REPS) -> dict:
+    """The kernel against its plain version on one bucket's binned entries:
+    kernel_gate's bar (NaN agreement > 0.9995, |d| < 1e-3) and both
+    CUDA-event times. Its launches are comparisons: not counted by callers,
+    who reset the counter after it."""
+    args = (binned.entry_data, starts, lens, origin, tpa, fit, bf)
+    got = mls_cuda.launch(*args)
+    ref = mls.eval_field(*args)
+    torch.cuda.synchronize()
+    summary = kernel_gate.compare_fields(ref, got)
+    del got, ref
+    kernel_gate.check(summary, min_defined=10_000)
+    k_ms = cuda_ms(lambda: mls_cuda.launch(*args), reps)
+    p_ms = cuda_ms(lambda: mls.eval_field(*args), reps)
+    phase(n, f"{fit} bf={bf:g} at {tpa}^3 tiles, {starts.shape[1]} levels: "
+             f"agreement {summary['pattern_agreement']:.6f}, max|d| "
+             f"{summary['max_abs_err']:.3e}, defined "
+             f"{summary['defined_corners']}, kernel {k_ms:.3f} ms, "
+             f"plain {p_ms:.3f} ms")
+    return dict(fit=fit, boundary_factor=bf, kernel_ms=k_ms, plain_ms=p_ms,
+                **summary)
+
+
 def phase3_kernel_vs_plain(splats, cfg, dev) -> dict:
     src = SequenceSource(splats)
     info = blobs_mod.compute_blobs(src, cfg.fit_grid, cfg.micro_cells)
@@ -162,25 +212,8 @@ def phase3_kernel_vs_plain(splats, cfg, dev) -> dict:
     rows = []
     for fit in ("sphere", "plane"):
         for gamma in GAMMAS:
-            bf = 1.0 - gamma * gamma
-            got = mls_cuda.launch(binned.entry_data, starts, lens, origin,
-                                  tpa, fit, bf)
-            ref = mls.eval_field(binned.entry_data, starts, lens, origin,
-                                 tpa, fit, bf)
-            torch.cuda.synchronize()
-            summary = kernel_gate.compare_fields(ref, got)
-            kernel_gate.check(summary, min_defined=10_000)
-            k_ms = cuda_ms(lambda: mls_cuda.launch(
-                binned.entry_data, starts, lens, origin, tpa, fit, bf))
-            p_ms = cuda_ms(lambda: mls.eval_field(
-                binned.entry_data, starts, lens, origin, tpa, fit, bf))
-            rows.append(dict(fit=fit, boundary_factor=bf, kernel_ms=k_ms,
-                             plain_ms=p_ms, **summary))
-            phase(3, f"{fit} bf={bf:g}: agreement "
-                     f"{summary['pattern_agreement']:.6f}, max|d| "
-                     f"{summary['max_abs_err']:.3e}, defined "
-                     f"{summary['defined_corners']}, kernel {k_ms:.3f} ms, "
-                     f"plain {p_ms:.3f} ms")
+            rows.append(kernel_vs_plain(3, binned, starts, lens, origin, tpa,
+                                        fit, 1.0 - gamma * gamma))
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
              f"{max_tile}: OK")
@@ -236,10 +269,13 @@ def phase4_seams(dev) -> None:
              f"bitwise equal over {len(checked)} planes: OK")
 
 
-def phase5_end_to_end(splats, spacing, info, workdir) -> dict:
-    inp = os.path.join(workdir, "bench_cloud.ply")
-    out = os.path.join(workdir, "bench_out.ply")
-    ply.write_splats_ply(inp, splats)
+def cli_run(cloud, name, extra=(), manifold=True) -> dict:
+    """One run of `cli.main` on the bench cloud, cloud = (PLY path, grid
+    spacing); kernel launches counted from 0 for this run alone. Returns
+    the run's numbers, statistics and a digest of its mesh; `manifold`
+    runs the manifold check (~30 s at this size)."""
+    inp, spacing = cloud
+    out = os.path.join(os.path.dirname(inp), f"{name}.ply")
     reg = get_registry()
     reg.clear()
     mls_cuda.launches = 0
@@ -247,37 +283,223 @@ def phase5_end_to_end(splats, spacing, info, workdir) -> dict:
     rc = cli.main([
         "--fit-grid", repr(spacing), "--fit-smooth", "1", "--levels",
         str(LEVELS), "--subsampling", str(SUB), "--max-device-splats",
-        "4194304", "--tile-candidates", "384", "--no-progress",
+        "4194304", "--tile-candidates", "384", "--no-progress", *extra,
         "-o", out, inp])
     elapsed = time.monotonic() - t0
     launches = mls_cuda.launches
     if rc != 0:
-        raise RuntimeError(f"cli.main returned {rc}")
+        raise RuntimeError(f"cli.main {' '.join(extra)} returned {rc}")
     verts, tris = ply.read_mesh(out)
-    rep = check_manifold(verts, tris)
-    if not rep.is_manifold:
-        raise AssertionError(f"output not manifold: {rep.reason}")
+    os.remove(out)
     blocks = reg.counter("bucket.count").get()
     if launches < blocks:
-        raise AssertionError(f"{launches} kernel launches < {blocks} blocks")
-    ncells = int(np.prod(info.grid.shape_cells))
-    res = {"seconds": elapsed, "msplats_per_s": N_SPLATS / elapsed / 1e6,
-           "mcells_per_s": ncells / elapsed / 1e6, "vertices": len(verts),
+        raise AssertionError(f"{name}: {launches} kernel launches < "
+                             f"{blocks} blocks")
+    res = {"seconds": elapsed, "vertices": len(verts),
            "triangles": len(tris), "blocks": blocks,
-           "boundary_edges": rep.num_boundary_edges,
-           "components": rep.num_components, "kernel_launches": launches,
-           "pass0_s": reg.variable("pass0.time").sum,
-           "pass1_s": reg.variable("pass1.time").sum,
-           "write_s": reg.variable("write.time").sum,
-           "device_s": reg.variable("device.time").sum}
+           "kernel_launches": launches, "stats": reg.to_dict(),
+           "digest": hashlib.sha256(verts.tobytes() + tris.tobytes())
+           .hexdigest()}
+    if manifold:
+        rep = check_manifold(verts, tris)
+        if not rep.is_manifold:
+            raise AssertionError(f"{name}: output not manifold: "
+                                 f"{rep.reason}")
+        res.update(boundary_edges=rep.num_boundary_edges,
+                   components=rep.num_components)
+    return res
+
+
+def _same_mesh(res, ref, name):
+    keys = ("vertices", "triangles", "boundary_edges", "components")
+    if any(res[k] != ref[k] for k in keys):
+        raise AssertionError(f"{name}: {[res[k] for k in keys]} != codes "
+                             f"run's {[ref[k] for k in keys]}")
+
+
+def phase5_end_to_end(cloud, info) -> dict:
+    res = cli_run(cloud, "codes")
+    stats = res.pop("stats")
+    elapsed = res["seconds"]
+    ncells = int(np.prod(info.grid.shape_cells))
+    res.update({"msplats_per_s": N_SPLATS / elapsed / 1e6,
+                "mcells_per_s": ncells / elapsed / 1e6,
+                "readback_bytes": stats["readback.bytes"]["total"],
+                "pass0_s": stats["pass0.time"]["sum"],
+                "pass1_s": stats["pass1.time"]["sum"],
+                "write_s": stats["write.time"]["sum"],
+                "device_s": stats["device.time"]["sum"]})
     phase(5, f"end to end: {json.dumps(res)}")
+    return res
+
+
+def phase7_readbacks(cloud, codes) -> dict:
+    runs = {"codes": codes}
+    seconds = {"codes": codes["seconds"]}
+    for mode in ("packed", "raw"):
+        res = cli_run(cloud, mode, ["--readback", mode])
+        if res["stats"].get(f"readback.mode.{mode}", {}).get("total") != \
+                res["blocks"]:
+            raise AssertionError(f"{mode}: not every block read back {mode}")
+        _same_mesh(res, codes, mode)
+        seconds[mode] = res["seconds"]
+        runs[mode] = res
+        phase(7, f"--readback {mode}: {res['vertices']} vertices, "
+                 f"{res['triangles']} triangles, {res['boundary_edges']} "
+                 f"boundary edges, manifold, {res['kernel_launches']} "
+                 f"launches, readback {res['stats']['readback.bytes']['total']}"
+                 f" bytes, device.time "
+                 f"{res['stats']['device.time']['sum']:.3f} s: OK")
+    phase(7, f"end-to-end seconds by readback: {json.dumps(seconds)}")
+    return runs
+
+
+def phase8_statistics_device(cloud, plain) -> list:
+    """--statistics-device in the codes and packed modes: the mesh must be
+    bitwise the plain run's of the same mode (whose counts phases 5 and 7
+    checked), so no second manifold check is needed."""
+    runs = []
+    for mode in ("codes", "packed"):
+        res = cli_run(cloud, f"stats_{mode}",
+                      ["--statistics-device", "--readback", mode],
+                      manifold=False)
+        if res["digest"] != plain[mode]["digest"]:
+            raise AssertionError(f"--statistics-device {mode}: the mesh "
+                                 "differs from the plain run's")
+        stages = {k[len("device."):-len(".time")]:
+                  {"sum_s": v["sum"], "n": v["n"],
+                   "mean_ms": 1e3 * v["sum"] / max(v["n"], 1)}
+                  for k, v in sorted(res["stats"].items())
+                  if k.startswith("device.") and k.endswith(".time")
+                  and k != "device.time"}
+        want = ["binning", "segments", "mls", "faces", "skeleton",
+                "marching", "pack"] + (["weld"] if mode == "packed" else [])
+        missing = [s for s in want if s not in stages]
+        if missing:
+            raise AssertionError(f"--statistics-device: no {missing}")
+        runs.append(res)
+        phase(8, f"--statistics-device --readback {mode}: "
+                 f"{res['seconds']:.3f} s, mesh bitwise the plain run's "
+                 f"({res['vertices']} vertices); stages "
+                 f"{json.dumps(stages)}")
+    return runs
+
+
+def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
+    cfg = ReconstructConfig(fit_grid=spacing, fit_smooth=1.0,
+                            levels=TILED_LEVELS, subsampling=SUB,
+                            max_device_splats=4 << 20, tile_candidates=384,
+                            progress=False)
+    src = SequenceSource(splats)
+    info = blobs_mod.compute_blobs(src, cfg.fit_grid, cfg.micro_cells)
+    buckets = port_bucket.make_buckets(
+        info, cfg.device_block_cells, cfg.micro_cells,
+        max_splats=min(cfg.max_device_splats, cfg.mem_bucket_splats // 32))
+    b = max(buckets, key=lambda x: x.num_splats)
+    ranges = merge_ranges((int(info.blobs.start[i]),
+                           int(info.blobs.start[i] + info.blobs.count[i]))
+                          for i in b.blob_ids)
+    grid_form, valid = prepare_block_inputs(src.read_ranges(ranges), info.grid)
+    region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
+    origin = tuple(int(v) for v in b.cell_lo)
+    bf = float(cfg.boundary_factor)
+    sp = torch.as_tensor(grid_form, device=dev)
+    va = torch.as_tensor(valid, device=dev)
+    # the kernel against its plain version at this dispatch's shapes, before
+    # the face and skeleton passes overwrite the field
+    min_s, max_s = SUB, TILED_LEVELS + SUB - 1
+    tpa = 1 << (max_s - 3)
+    binned = binning.bin_splats(sp, va, origin, min_s, max_s)
+    starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
+    row = kernel_vs_plain(9, binned, starts, lens, origin, tpa,
+                          cfg.fit_shape, bf, reps=3)
+    del binned, starts, lens
+    mls_cuda.launches = 0
+    field, _ = block.block_field(
+        sp, va, region, origin, bf,
+        torch.as_tensor(b.skeleton, device=dev) if len(b.skeleton) else None,
+        levels=cfg.device_levels, subsampling=SUB)
+    launches = mls_cuda.launches
+    if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or launches != 1:
+        raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
+                             "launches")
+    images = {}
+    for tiled in (True, False):
+        cm = marching.generate_codes(field, region, tiled=tiled)
+        images[tiled] = (block.pack_codes(cm).cpu(), cm.num_tiles,
+                         cm.num_cells)
+    if not torch.equal(images[True][0], images[False][0]):
+        raise AssertionError("tiled and dense codes images differ")
+    ms = {name: cuda_ms(lambda t=tiled: marching.generate_codes(
+        field, region, tiled=t)) for name, tiled in (("tiled", True),
+                                                      ("dense", False))}
+    res = {"corners": field.shape[0], "splats": b.num_splats,
+           "cells": images[True][2], "candidate_tiles": images[True][1],
+           "tiles": (field.shape[0] // 8) ** 3,
+           "image_words": int(images[True][0].shape[0]),
+           "tiled_ms": ms["tiled"], "dense_ms": ms["dense"],
+           "kernel_launches": launches, "kernel_row": row}
+    phase(9, f"tiled vs dense classification, densest 512^3 dispatch: "
+             f"codes images bitwise equal; {json.dumps(res)}")
+    return res
+
+
+class _Recorder:
+    """Host filter that keeps each block's global grid vertices."""
+
+    def __init__(self):
+        self.blocks = []
+
+    def __call__(self, vertices, triangles):
+        self.blocks.append(vertices.copy())
+        return vertices, triangles
+
+
+def phase10_device_filter(workdir) -> dict:
+    rng = np.random.default_rng(8)
+    splats = sphere_cloud([0.7, -0.3, 0.2], 3.0, 20000, 0.25, rng)
+    cfg = ReconstructConfig(fit_grid=0.1, fit_smooth=1.0, levels=4,
+                            subsampling=SUB, leaf_cells=8, readback="raw",
+                            progress=False)
+    scale, bias = 2.0, (1.5, -2.0, 0.25)
+    chain = mesh_filter.DeviceFilterChain(
+        [mesh_filter.DeviceScaleBias(scale=scale, bias=bias)])
+    out, launches = {}, 0
+    for name, dfilter in (("plain", None), ("filtered", chain)):
+        rec = _Recorder()
+        path = os.path.join(workdir, f"{name}.ply")
+        mls_cuda.launches = 0
+        port_rec.reconstruct(SequenceSource(splats), cfg, path, device="cuda",
+                             filters=rec, device_filter=dfilter)
+        if mls_cuda.launches < len(rec.blocks):
+            raise AssertionError(f"{name}: {mls_cuda.launches} launches")
+        launches += mls_cuda.launches
+        verts, tris = ply.read_mesh(path)
+        out[name] = (verts, tris, rec.blocks)
+    (v1, t1, b1), (v2, t2, b2) = out["plain"], out["filtered"]
+    if not np.array_equal(t1, t2) or len(b1) != len(b2) or len(b1) < 2:
+        raise AssertionError("filtered run has another topology")
+    err = max(float(np.abs(g2 - (scale * g1.astype(np.float64)
+                                 + np.asarray(bias))).max(initial=0.0))
+              for g1, g2 in zip(b1, b2))
+    if err > 1e-5:
+        raise AssertionError(f"filtered vertices off by {err} cells")
+    rep = check_manifold(v2, t2)
+    if not rep.is_manifold:
+        raise AssertionError(f"filtered output not manifold: {rep.reason}")
+    res = {"blocks": len(b1), "vertices": len(v2), "triangles": len(t2),
+           "boundary_edges": rep.num_boundary_edges,
+           "max_err_cells": err, "kernel_launches": launches}
+    phase(10, f"DeviceScaleBias(scale={scale}, bias={bias}): "
+              f"{json.dumps(res)}: OK")
     return res
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--through", type=int, default=6,
-                   help="run phases 1..N [%(default)s]")
+    p.add_argument("--through", type=int, default=10,
+                   help="run phases 1..N (6, the jax check, runs last) "
+                        "[%(default)s]")
     args = p.parse_args(argv)
 
     phase1_toolchain()
@@ -294,8 +516,25 @@ def main(argv=None) -> int:
     phase4_seams(dev)
     if args.through < 5:
         return 0
+    launches = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke.") as workdir:
-        phase5_end_to_end(splats, spacing, k["info"], workdir)
+        inp = os.path.join(workdir, "bench_cloud.ply")
+        ply.write_splats_ply(inp, splats)
+        codes = phase5_end_to_end((inp, spacing), k["info"])
+        launches.append(codes["kernel_launches"])
+        if args.through >= 7:
+            plain = phase7_readbacks((inp, spacing), codes)
+            launches += [plain[m]["kernel_launches"]
+                         for m in ("packed", "raw")]
+        if args.through >= 8:
+            launches += [r["kernel_launches"] for r in
+                         phase8_statistics_device((inp, spacing), plain)]
+        if args.through >= 9:
+            tiled = phase9_tiled_vs_dense(splats, spacing, dev)
+            launches.append(tiled["kernel_launches"])
+            k["rows"].append(tiled["kernel_row"])
+        if args.through >= 10:
+            launches.append(phase10_device_filter(workdir)["kernel_launches"])
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     phase(6, "no jax in sys.modules: OK")
@@ -305,7 +544,7 @@ def main(argv=None) -> int:
         "name": "mls_field", "route": "cuda",
         "source": "mlsgpu_tpu_torch/csrc/mls_field.cu",
         "replaces": "mlsgpu_tpu/ops/mls_pallas.py:43",
-        "launches": mls_cuda.launches,
+        "launches": sum(launches),
         "max_abs_err": max(r["max_abs_err"] for r in k["rows"]),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"]}]}))
     print(nvidia_smi())

@@ -1,9 +1,11 @@
 """Command line: `python -m mlsgpu_tpu_torch -o out.ply in1.ply in2.ply`.
 
 The option surface is the JAX package's (`mlsgpu_tpu.cli.build_parser`),
-plus `--device` (default cuda). Options whose code paths are not ported yet
-(multi-process, multi-GPU, packed/raw readback, --statistics-device, the
-JAX --mls-backend choice) stop with a clear error.
+plus `--device` (default cuda). `--readback codes|packed|raw|auto` picks the
+block readback and `--statistics-device` times each block-step stage on the
+device (`device.<stage>.time`). Options whose code paths are not ported yet
+stop with a clear error: multi-host (`--coordinator`, `--num-processes`) and
+multi-GPU (`--num-devices > 1`); `--mls-backend` is a JAX-package choice.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ def build_parser():
 
 
 def unported_options(args) -> Optional[str]:
+    """The CLI-only options that are still unported (multi-host); the
+    configuration's own (--num-devices > 1) are refused by
+    pipeline.reconstruct.check_supported."""
     if args.coordinator or args.num_processes > 1:
         return "--coordinator/--num-processes: multi-host not yet ported"
     return None
@@ -98,9 +103,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             from mlsgpu_tpu.io.binary import make_writer
             from mlsgpu_tpu.io.ply import PlyWriter
             from mlsgpu_tpu_torch.device import resolve_device
-            from mlsgpu_tpu_torch.pipeline.resources import validate_device
             device = resolve_device(args.device)
-            validate_device(cfg, device)
             if cfg.decache:
                 from mlsgpu_tpu.io.decache import decache_all
                 decache_all(args.inputs)

@@ -2,9 +2,12 @@
 (port of mlsgpu_tpu/pipeline/reconstruct.py).
 
 blob pass -> bucketing -> per-bucket device block step (streamer) -> host
-rebuild + weld of each block's codes image -> out-of-core mesher -> write.
-The host layer (blobs, bucketing, mesher, native helpers) is the JAX
-package's own, imported rather than copied; it never imports jax.
+decode of each block's readback (codes: native rebuild + weld; packed:
+native unpack; raw: the welded arrays) -> optional host filters ->
+out-of-core mesher -> write. The host layer (blobs, bucketing, mesher,
+native helpers, host mesh filters) is the JAX package's own, imported
+rather than copied; it never imports jax. Sparse bucketing is the port's
+(pipeline/bucket.py): the JAX package's imports jax.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ from mlsgpu_tpu import _native
 from mlsgpu_tpu.config import ReconstructConfig
 from mlsgpu_tpu.io.splat_set import SplatSource
 from mlsgpu_tpu.pipeline import blobs as blobs_mod
-from mlsgpu_tpu.pipeline import bucket as bucket_mod
 from mlsgpu_tpu.pipeline.mesher import BlockInput, OOCMesher
 from mlsgpu_tpu.utils import logging as log
 from mlsgpu_tpu.utils import misc, timeplot
@@ -27,18 +29,16 @@ from mlsgpu_tpu.utils.progress import NullProgress, ProgressDisplay
 from mlsgpu_tpu.utils.statistics import get_registry
 
 from mlsgpu_tpu_torch.device import resolve_device
-from mlsgpu_tpu_torch.pipeline.streamer import (HostCodes, consume_threaded,
+from mlsgpu_tpu_torch.ops.block import resolve_readback, unpack_readback_global
+from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod
+from mlsgpu_tpu_torch.pipeline.resources import validate_device
+from mlsgpu_tpu_torch.pipeline.streamer import (HostBlock, consume_threaded,
                                                 stream_blocks)
 
 
 def check_supported(cfg: ReconstructConfig) -> None:
     """Options whose code paths are not ported yet stop the run; they never
     quietly take another path."""
-    if cfg.readback not in ("auto", "codes"):
-        raise InvalidOption(f"--readback {cfg.readback}: not yet ported "
-                            "(the port reads back codes only)")
-    if cfg.statistics_device:
-        raise InvalidOption("--statistics-device: not yet ported")
     if cfg.num_devices > 1:
         raise InvalidOption("--num-devices > 1: multi-GPU not yet ported")
     if cfg.mls_backend != "auto":
@@ -49,7 +49,8 @@ def check_supported(cfg: ReconstructConfig) -> None:
 
 def require_native():
     """The native host library (built with make on first use). The codes
-    readback needs its block rebuild: its absence is an error."""
+    readback needs its block rebuild: its absence is an error (--readback
+    auto resolves to packed without it)."""
     lib = _native.get_lib()
     if lib is None:
         raise MlsError("native host library unavailable: build it with "
@@ -58,16 +59,31 @@ def require_native():
     return lib
 
 
-def block_result_to_input(result: HostCodes, bucket) -> BlockInput:
-    """Rebuild and weld one block's mesh natively from its codes image."""
+def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
+    """One block's readback -> the mesher's BlockInput in global grid
+    coordinates (mlsgpu_tpu/pipeline/reconstruct.py:240-309): codes are
+    rebuilt and welded natively, a packed image is unpacked natively, raw
+    arrays get the block origin added and their 63-bit weld keys joined."""
     stats = get_registry()
+    origin = bucket.cell_lo.astype(np.int64)
     t_cpu = time.thread_time()
     with stats.timer("readback.decode"):
-        verts, tris, keys, fe = _native.rebuild_block(
-            result.packed, result.num_cells, result.num_unwelded,
-            result.num_indices, result.fmt.nc_axis,
-            bucket.cell_lo.astype(np.int64),
-            (bucket.cell_hi - bucket.cell_lo).astype(np.int64))
+        if result.readback == "codes":
+            verts, tris, keys, fe = _native.rebuild_block(
+                result.packed, result.num_cells, result.num_unwelded,
+                result.num_indices, result.fmt.nc_axis, origin,
+                (bucket.cell_hi - bucket.cell_lo).astype(np.int64))
+        elif result.readback == "packed":
+            fe = result.first_external
+            verts, tris, keys = unpack_readback_global(
+                result.packed, result.num_indices, result.num_vertices, fe,
+                result.fmt, origin)
+        else:
+            fe = result.first_external
+            verts, hi, lo, tris = result.arrays
+            verts = verts + origin.astype(np.float32)
+            keys = (((hi.astype(np.int64) & 0x7FFFFFFF) << 32)
+                    | lo.astype(np.int64))
     stats.variable("readback.decodeCpu").add(time.thread_time() - t_cpu)
     return BlockInput(chunk_id=bucket.chunk_id, vertices=verts,
                       first_external=fe, ext_keys=keys, triangles=tris)
@@ -76,13 +92,33 @@ def block_result_to_input(result: HostCodes, bucket) -> BlockInput:
 def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
                 device="cuda", writer_factory=None,
                 show_progress: Optional[bool] = None,
-                mesher: Optional[OOCMesher] = None) -> List[str]:
+                mesher: Optional[OOCMesher] = None,
+                filters=None, device_filter=None) -> List[str]:
     """Full single-device reconstruction. Returns the output files (none
-    when cfg.checkpoint is set)."""
+    when cfg.checkpoint is set).
+
+    filters: a host filter chain `(vertices, triangles) -> (vertices,
+    triangles)` run on each block's decoded mesh in global grid coordinates
+    (mesh_filter.MeshFilterChain). device_filter: a device vertex filter
+    (mesh_filter.DeviceFilterChain) run inside the block step; it makes the
+    readback raw. The readback mode is resolved here once, and the device
+    memory estimate is checked for it (resources.validate_device)."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve_device(str(device))
-    require_native()
+    # The one place the readback mode is decided: a device filter needs the
+    # raw arrays (its vertices leave the lattice the other layouts encode).
+    if device_filter is not None:
+        readback = "raw"
+    else:
+        readback = resolve_readback(cfg.readback, cfg.device_levels,
+                                    cfg.subsampling)
+    log.info(f"readback mode: {readback}"
+             + (" (a device filter needs raw arrays)"
+                if device_filter is not None else ""))
+    if readback == "codes":
+        require_native()
+    validate_device(cfg, dev, readback)
     misc.bound_mmap_threshold()  # keep cycling per-block buffers off brk
     stats = get_registry()
     show_progress = cfg.progress if show_progress is None else show_progress
@@ -90,11 +126,6 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
     with stats.timer("pass0.time"):
         info = blobs_mod.compute_blobs(source, cfg.fit_grid, cfg.micro_cells,
                                        mem_budget=cfg.mem_blobs)
-    if (info.micro_dims > bucket_mod.MAX_MICRO_GRID).any():
-        raise MlsError(
-            f"microblock grid {tuple(int(d) for d in info.micro_dims)} "
-            f"exceeds {bucket_mod.MAX_MICRO_GRID} per axis: sparse bucketing "
-            "is not yet ported (raise --leaf-cells or --fit-grid)")
 
     chunk_cells = None
     if cfg.output_split_size:
@@ -133,10 +164,16 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
             block = block_result_to_input(result, bucket)
             with timeplot.Action("mesher", mesher_worker,
                                  stats.variable("mesher.time")):
+                if filters is not None:
+                    v, t = filters(block.vertices, block.triangles)
+                    block = BlockInput(chunk_id=block.chunk_id, vertices=v,
+                                       first_external=block.first_external,
+                                       ext_keys=block.ext_keys, triangles=t)
                 mesher.add(block)
             progress.add(bucket.num_splats)
 
-        consume_threaded(stream_blocks(source, info, buckets, cfg, dev),
+        consume_threaded(stream_blocks(source, info, buckets, cfg, dev,
+                                       readback, device_filter=device_filter),
                          consume)
 
     if cfg.checkpoint:

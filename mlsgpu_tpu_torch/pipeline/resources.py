@@ -13,12 +13,25 @@ from mlsgpu_tpu.config import ReconstructConfig
 from mlsgpu_tpu.utils import logging as log
 from mlsgpu_tpu.utils.errors import InvalidOption
 
+from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
+
 F32 = 4
 I64 = 8
 
 
-def estimate_block_usage(cfg: ReconstructConfig) -> Dict[str, int]:
-    """Approximate peak device bytes of one block step."""
+#: Assumed shares of a dispatch's cells that the surface cuts and of its
+#: 8^3 tiles that hold finite corners (the MLS field is finite only near
+#: the surface). Both are generous: the 2M bench cloud's output has about
+#: 0.01 welded vertices per cell of its 50 blocks of 255^3 cells, and its
+#: densest block has MLS candidates in 2,841 of 32,768 tiles (8.7%).
+SURFACE_CELL_SHARE = 1 / 32
+CANDIDATE_TILE_SHARE = 1 / 4
+
+
+def estimate_block_usage(cfg: ReconstructConfig,
+                         readback: str = "codes") -> Dict[str, int]:
+    """Approximate peak device bytes of one block step in a readback mode
+    ("codes", "packed" or "raw")."""
     b = 1 << cfg.device_shift  # corners of one device dispatch
     cells = (b - 1) ** 3
     n = cfg.max_device_splats
@@ -28,13 +41,39 @@ def estimate_block_usage(cfg: ReconstructConfig) -> Dict[str, int]:
         # keys + vals (+ the sort's copies) and the gathered entry rows
         "binning": entries * (2 * I64 * 2 + 8 * F32),
         "field": b ** 3 * F32,
-        # dense classification: case code, finite/region/occupied masks and
-        # a shifted-corner temporary per cell
-        "marching_dense": cells * (I64 + 3 + F32),
         # per-chunk candidate tensors of the face pass (32 rows x 64 corners
         # x K slots x 9 moments), K ~ the per-tile candidate guess
         "faces": 32 * 64 * cfg.tile_candidates * 9 * F32 * 2,
     }
+    if b > TILED_ABOVE:
+        # tiled classification: the NaN-padded field copy, the candidate
+        # tiles' (tiles, 9, 9, 9) halo gather, and per candidate cell a
+        # case code and masks
+        tiles = int(-(-(b - 1) // TILE) ** 3 * CANDIDATE_TILE_SHARE)
+        usage["marching_tiled"] = ((b + TILE) ** 3 * F32
+                                   + tiles * (TILE + 1) ** 3 * F32
+                                   + tiles * TILE ** 3 * (I64 + 3))
+    else:
+        # dense classification: case code, finite/region/occupied masks and
+        # a shifted-corner temporary per cell
+        usage["marching_dense"] = cells * (I64 + 3 + F32)
+    # Emission, per occupied cell: code, (x, y, z), 8 corner isos; per
+    # emitted vertex (<= 13 per cell, ~4 on a surface) its producer, rank,
+    # edge and t.
+    occ = int(cells * SURFACE_CELL_SHARE)
+    verts = 4 * occ
+    usage["emission"] = occ * (4 * I64 + 8 * F32) + verts * (4 * I64 + F32)
+    if readback != "codes":
+        # mesh mode: f32 vertices, (hi, lo) keys and ~2 triangles of three
+        # int64 indices per vertex; the weld's sort key, order, first-mask,
+        # new ids and remap; the welded copies (~half the vertices)
+        usage["mesh"] = verts * (3 * F32 + 2 * I64 + 2 * 3 * I64)
+        usage["weld"] = verts * (4 * I64 + 1) + verts // 2 * (3 * F32
+                                                              + 2 * I64)
+        if readback == "packed":
+            # per welded vertex: doubled coords, parity, base, fractions,
+            # word fields; then the u16 byte pairs of both regions
+            usage["pack"] = verts // 2 * (6 * I64 + 3 * F32 + 4 * I64)
     usage["total"] = sum(usage.values())
     return usage
 
@@ -47,11 +86,11 @@ def device_memory_bytes(device: torch.device) -> Optional[int]:
     return int(total)
 
 
-def validate_device(cfg: ReconstructConfig,
-                    device: torch.device) -> Dict[str, int]:
-    """Estimate and check against the device; raises InvalidOption when the
-    block step cannot fit."""
-    usage = estimate_block_usage(cfg)
+def validate_device(cfg: ReconstructConfig, device: torch.device,
+                    readback: str) -> Dict[str, int]:
+    """Estimate one block step in the resolved readback mode and check it
+    against the device; raises InvalidOption when it cannot fit."""
+    usage = estimate_block_usage(cfg, readback)
     limit = device_memory_bytes(device)
     log.info("device block-step memory estimate: "
              + ", ".join(f"{k}={v / 1e6:.0f}M" for k, v in usage.items()))

@@ -1,7 +1,9 @@
 """The port's command line: a process in which importing jax fails runs
 `python -m mlsgpu_tpu_torch` end to end on PLY input (the package is
-jax-free), and the exit-code probes (2 for bad or unported options and for
-no inputs, 1 for an unknown device)."""
+jax-free), one in-process run each of `--readback packed`, `--readback raw`
+and `--statistics-device`, and the exit-code probes (2 for bad or unported
+options and for no inputs, 1 for a missing input file or an unknown
+device)."""
 
 import os
 import subprocess
@@ -67,10 +69,11 @@ def test_cli_runs_without_jax(tmp_path):
 @pytest.mark.parametrize("argv,code", [
     (["--fit-grid", "-1", "-o", "x.ply", "in.ply"], 2),
     (["-o", "x.ply"], 2),                                  # no inputs
-    (["--readback", "packed", "-o", "x.ply", "in.ply"], 2),  # not ported
+    # ported options: the run starts and stops at the missing input file
+    (["--readback", "packed", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
     (["--num-devices", "2", "-o", "x.ply", "in.ply"], 2),
     (["--num-processes", "2", "-o", "x.ply", "in.ply"], 2),
-    (["--statistics-device", "-o", "x.ply", "in.ply"], 2),
+    (["--statistics-device", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
     (["--mls-backend", "pallas", "-o", "x.ply", "in.ply"], 2),
     (["--device", "tpu", "-o", "x.ply", "in.ply"], 1),
 ])
@@ -78,3 +81,32 @@ def test_cli_probes(argv, code, tmp_path, capsys):
     argv = [a if a != "x.ply" else str(tmp_path / a) for a in argv]
     assert cli.main(argv) == code
     assert "error:" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def small_ply(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("cli") / "in.ply")
+    ply.write_splats_ply(path, oracle.sphere_cloud(
+        CENTER, 3.0, 5000, 0.4, np.random.default_rng(5)))
+    return path
+
+
+@pytest.mark.parametrize("extra", [["--readback", "packed"],
+                                   ["--readback", "raw"],
+                                   ["--statistics-device", "--statistics"]])
+def test_cli_readback_and_statistics_device(small_ply, tmp_path, capsys,
+                                            extra):
+    out = str(tmp_path / "out.ply")
+    assert cli.main(["--fit-grid", "0.1", "--fit-smooth", "1", "--levels",
+                     "4", "--leaf-cells", "8", "--device", "cpu",
+                     "--no-progress", *extra, "-o", out, small_ply]) == 0
+    verts, tris = ply.read_mesh(out)
+    rep = check_manifold(verts, tris)
+    assert rep.is_manifold and rep.num_boundary_edges == 0, rep.reason
+    r = np.linalg.norm(verts - CENTER, axis=1)
+    assert len(verts) > 500 and abs(np.median(r) - 3.0) < 0.08
+    if "--statistics-device" in extra:
+        printed = capsys.readouterr().out
+        for stage in ("binning", "segments", "mls", "faces", "marching",
+                      "pack"):
+            assert f"device.{stage}.time" in printed
