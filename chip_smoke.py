@@ -10,7 +10,11 @@ raises, exits non-zero and prints no result line:
   3. kernel vs its plain PyTorch version on the card at main-path shapes
      (the densest 256^3-corner bucket of the 2M-splat bench cloud), sphere
      and plane fits, two boundary factors; NaN-pattern agreement > 0.9995 and
-     |kernel - plain| < 1e-3 where both are defined; CUDA-event times;
+     |kernel - plain| < 1e-3 where both are defined; CUDA-event times of
+     the call (the tile order kernels and the field kernel) host-paced and
+     on the device alone, of the order kernels alone and of their plain
+     version, and of the field kernel alone from a profiler trace; the
+     bound on these inputs (kernel_bound) and the call's share of it;
   4. the seam contract on the card: shared-face and T-junction corners of
      adjacent blocks bitwise equal;
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
@@ -29,12 +33,14 @@ raises, exits non-zero and prints no result line:
  10. `DeviceScaleBias(scale=2, bias)` through `reconstruct(device_filter=)`
      on a small cloud: each block's filtered vertices equal its unfiltered
      ones transformed on the host within 1e-5 of a cell; manifold;
-  6. no jax in sys.modules.
+  6. neither jax nor the JAX package `mlsgpu_tpu` in sys.modules (checked
+     after every phase).
 Kernel launches are counted per main-path run (the counter set to 0 just
 before it and read just after; the comparisons of phases 3 and 9
 excluded); each run must launch the kernel, and the kernel record's
 `launches` is their sum; its `max_abs_err` is the largest of phases 3
-and 9.
+and 9; its `ms` is the call's host-paced time, as in earlier versions of
+this script, and `device_ms` the call's time on the device alone.
 The second-last lines are the kernel JSON record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -58,27 +64,33 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import bench  # noqa: E402  (numpy only: the bench cloud generator)
-from mlsgpu_tpu.config import ReconstructConfig  # noqa: E402
-from mlsgpu_tpu.io import ply  # noqa: E402
-from mlsgpu_tpu.io.splat_set import SequenceSource, merge_ranges  # noqa: E402
-from mlsgpu_tpu.pipeline import blobs as blobs_mod  # noqa: E402
-from mlsgpu_tpu.pipeline import bucket as bucket_mod  # noqa: E402
-from mlsgpu_tpu.utils.manifold import check_manifold  # noqa: E402
-from mlsgpu_tpu.utils.statistics import get_registry  # noqa: E402
 from mlsgpu_tpu_torch import cli  # noqa: E402
+from mlsgpu_tpu_torch.config import ReconstructConfig  # noqa: E402
 from mlsgpu_tpu_torch.device import set_precision  # noqa: E402
+from mlsgpu_tpu_torch.io import ply  # noqa: E402
+from mlsgpu_tpu_torch.io.splat_set import (SequenceSource,  # noqa: E402
+                                           merge_ranges)
 from mlsgpu_tpu_torch.ops import (binning, block, kernel_gate,  # noqa: E402
                                   marching, mls, mls_cuda)
-from mlsgpu_tpu_torch.pipeline import bucket as port_bucket  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import blobs as blobs_mod  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
 from mlsgpu_tpu_torch.pipeline.streamer import prepare_block_inputs  # noqa: E402
+from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
+from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
 
 N_SPLATS = 2_000_000
 LEVELS, SUB = 6, 3   # bench.py:201-215: 256^3-corner dispatches
 TILED_LEVELS = 7     # 512^3-corner dispatches: tiled classification
 GAMMAS = (1.0, 0.5)  # --fit-boundary-limit values; boundary factor = 1 - g^2
 REPS = 7
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): FP32
+# outside the tensor cores, and the HBM3 rate.
+FP32_PEAK = 67e12      # FLOP/s
+HBM_RATE = 3.35e12     # bytes/s
+SLEEP_CYCLES = 4_000_000  # ~2 ms of the card's clock: longer than any
+#                           host enqueue of one timed call
 
 
 def sphere_cloud(center, radius, n, splat_radius, rng) -> np.ndarray:
@@ -101,6 +113,14 @@ def phase(n: int, msg: str) -> None:
     print(f"[phase {n} @{time.monotonic() - T0:.1f}s] {msg}", flush=True)
 
 
+def check_isolated(after: str) -> None:
+    """Neither jax nor the JAX package may have been imported."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "mlsgpu_tpu"))
+    if bad:
+        raise AssertionError(f"imported after {after}: {bad[:5]}")
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -108,20 +128,45 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median CUDA-event time of fn() after one warm-up call."""
+def cuda_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
+    """Median CUDA-event time of fn() after one warm-up call. By default
+    the events also see the host: work the card finishes faster than the
+    host can queue it is timed at the host's pace. device_only: the card
+    first sleeps while the host queues fn's work, so the events time the
+    device's work alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, name: str = "mls_field_kernel", reps: int = REPS):
+    """Mean device time of the kernels whose name contains `name` over
+    `reps` calls of fn, from a torch.profiler trace; None when the trace
+    shows no device time for them."""
+    import torch.profiler as tp
+    fn()
+    torch.cuda.synchronize()
+    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total_us += ev.self_device_time_total
+            count += ev.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
 
 
 def phase1_toolchain() -> dict:
@@ -151,7 +196,7 @@ def phase2_build() -> None:
     mls_cuda.load()
     ptxas = [ln.strip() for ln in mls_cuda.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    phase(2, f"built {os.path.relpath(mls_cuda.LIBRARY, ROOT)} in "
+    phase(2, f"built {os.path.relpath(mls_cuda.library_path(), ROOT)} in "
              f"{time.monotonic() - t0:.2f}s (nvcc {mls_cuda.build_seconds:.2f}s); "
              f"ptxas: {' | '.join(ptxas)}")
 
@@ -165,12 +210,34 @@ def bench_setup():
     return splats, spacing, cfg
 
 
+def kernel_bound(binned, starts, lens, origin, tpa) -> dict:
+    """The least time the card could take for the field of these inputs:
+    the larger of its FP32 operations over the FP32 peak and its bytes over
+    the memory rate (entries and segments read once, the field written
+    once). Operations, counted on these inputs by mls.candidate_work: 13
+    per tile candidate (re-centring, |x|^2, n.x), 21 per candidate and
+    8x4x4 corner box (the box test), 9 per corner-candidate pair within
+    reach of its box (the distance and cutoff; the pairs out of reach need
+    none) and 21 more per pair within the radius (weight and sums)."""
+    pairs, reached, hits = mls.candidate_work(binned.entry_data, starts, lens,
+                                              origin, tpa)
+    flops = 13 * pairs // 512 + 21 * pairs // 128 + 9 * reached + 21 * hits
+    nbytes = (binned.entry_data.numel() * 4 + 2 * starts.numel() * 4
+              + (8 * tpa) ** 3 * 4)
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"pairs": pairs, "reached": reached, "hits": hits, "flops": flops,
+            "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def kernel_vs_plain(n, binned, starts, lens, origin, tpa, fit, bf,
-                    reps=REPS) -> dict:
+                    reps=REPS, bound=None) -> dict:
     """The kernel against its plain version on one bucket's binned entries:
-    kernel_gate's bar (NaN agreement > 0.9995, |d| < 1e-3) and both
-    CUDA-event times. Its launches are comparisons: not counted by callers,
-    who reset the counter after it."""
+    kernel_gate's bar (NaN agreement > 0.9995, |d| < 1e-3), both CUDA-event
+    times and the kernel's share of its bound (computed here unless given).
+    Its launches are comparisons: not counted by callers, who reset the
+    counter after it."""
     args = (binned.entry_data, starts, lens, origin, tpa, fit, bf)
     got = mls_cuda.launch(*args)
     ref = mls.eval_field(*args)
@@ -178,15 +245,38 @@ def kernel_vs_plain(n, binned, starts, lens, origin, tpa, fit, bf,
     summary = kernel_gate.compare_fields(ref, got)
     del got, ref
     kernel_gate.check(summary, min_defined=10_000)
-    k_ms = cuda_ms(lambda: mls_cuda.launch(*args), reps)
+    call = lambda: mls_cuda.launch(*args)  # noqa: E731
+    host_paced_ms = cuda_ms(call, reps)
+    device_ms = cuda_ms(call, reps, device_only=True)
+    alone_ms = kernel_device_ms(call, reps=reps)
+    order_ms = cuda_ms(lambda: mls_cuda.tile_order(lens), reps,
+                       device_only=True)
+    # the order's plain version (sum, argsort, count): what the two order
+    # kernels replace
+    argsort_ms = cuda_ms(lambda: mls_cuda.tile_order_plain(lens), reps,
+                         device_only=True)
     p_ms = cuda_ms(lambda: mls.eval_field(*args), reps)
+    bound = bound or kernel_bound(binned, starts, lens, origin, tpa)
+    share = bound["bound_ms"] / device_ms
+    alone = "not measured" if alone_ms is None else f"{alone_ms:.4f} ms"
     phase(n, f"{fit} bf={bf:g} at {tpa}^3 tiles, {starts.shape[1]} levels: "
              f"agreement {summary['pattern_agreement']:.6f}, max|d| "
              f"{summary['max_abs_err']:.3e}, defined "
-             f"{summary['defined_corners']}, kernel {k_ms:.3f} ms, "
-             f"plain {p_ms:.3f} ms")
-    return dict(fit=fit, boundary_factor=bf, kernel_ms=k_ms, plain_ms=p_ms,
-                **summary)
+             f"{summary['defined_corners']}; call {host_paced_ms:.4f} ms "
+             f"host-paced, {device_ms:.4f} ms on the device, of which the "
+             f"tile order kernels {order_ms:.4f} ms (their plain version "
+             f"{argsort_ms:.4f} ms); field kernel alone {alone} (profiler); "
+             f"plain {p_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
+             f"({bound['bound_by']}: {bound['flops']} operations, "
+             f"{bound['ops_ms']:.4f} ms, from {bound['pairs']} pairs, "
+             f"{bound['reached']} within reach, {bound['hits']} hits; "
+             f"{bound['bytes']} bytes, {bound['bytes_ms']:.4f} ms); the "
+             f"device time at {100 * share:.1f}% of it, the host-paced "
+             f"{100 * bound['bound_ms'] / host_paced_ms:.1f}%")
+    return dict(fit=fit, boundary_factor=bf, host_paced_ms=host_paced_ms,
+                device_ms=device_ms, kernel_alone_ms=alone_ms,
+                order_ms=order_ms, order_plain_ms=argsort_ms,
+                plain_ms=p_ms, share_of_bound=share, bound=bound, **summary)
 
 
 def phase3_kernel_vs_plain(splats, cfg, dev) -> dict:
@@ -209,11 +299,13 @@ def phase3_kernel_vs_plain(splats, cfg, dev) -> dict:
     starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
     n_occ = int((lens.sum(1) > 0).sum())
     max_tile = int(lens.sum(1).max())
+    bound = kernel_bound(binned, starts, lens, origin, tpa)
     rows = []
     for fit in ("sphere", "plane"):
         for gamma in GAMMAS:
             rows.append(kernel_vs_plain(3, binned, starts, lens, origin, tpa,
-                                        fit, 1.0 - gamma * gamma))
+                                        fit, 1.0 - gamma * gamma,
+                                        bound=bound))
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
              f"{max_tile}: OK")
@@ -392,7 +484,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
                             progress=False)
     src = SequenceSource(splats)
     info = blobs_mod.compute_blobs(src, cfg.fit_grid, cfg.micro_cells)
-    buckets = port_bucket.make_buckets(
+    buckets = bucket_mod.make_buckets(
         info, cfg.device_block_cells, cfg.micro_cells,
         max_splats=min(cfg.max_device_splats, cfg.mem_bucket_splats // 32))
     b = max(buckets, key=lambda x: x.num_splats)
@@ -502,18 +594,22 @@ def main(argv=None) -> int:
                         "[%(default)s]")
     args = p.parse_args(argv)
 
+    check_isolated("the imports")
     phase1_toolchain()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     set_precision()
     phase2_build()
+    check_isolated("phase 2")
     if args.through < 3:
         return 0
     splats, spacing, cfg = bench_setup()
     k = phase3_kernel_vs_plain(splats, cfg, dev)
+    check_isolated("phase 3")
     if args.through < 4:
         return 0
     phase4_seams(dev)
+    check_isolated("phase 4")
     if args.through < 5:
         return 0
     launches = []
@@ -521,23 +617,27 @@ def main(argv=None) -> int:
         inp = os.path.join(workdir, "bench_cloud.ply")
         ply.write_splats_ply(inp, splats)
         codes = phase5_end_to_end((inp, spacing), k["info"])
+        check_isolated("phase 5")
         launches.append(codes["kernel_launches"])
         if args.through >= 7:
             plain = phase7_readbacks((inp, spacing), codes)
+            check_isolated("phase 7")
             launches += [plain[m]["kernel_launches"]
                          for m in ("packed", "raw")]
         if args.through >= 8:
             launches += [r["kernel_launches"] for r in
                          phase8_statistics_device((inp, spacing), plain)]
+            check_isolated("phase 8")
         if args.through >= 9:
             tiled = phase9_tiled_vs_dense(splats, spacing, dev)
+            check_isolated("phase 9")
             launches.append(tiled["kernel_launches"])
             k["rows"].append(tiled["kernel_row"])
         if args.through >= 10:
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    phase(6, "no jax in sys.modules: OK")
+            check_isolated("phase 10")
+    check_isolated("every phase")
+    phase(6, "neither jax nor mlsgpu_tpu in sys.modules after any phase: OK")
 
     main_row = k["rows"][0]  # sphere, boundary factor 0: the default path
     print(json.dumps({"kernels": [{
@@ -546,7 +646,11 @@ def main(argv=None) -> int:
         "replaces": "mlsgpu_tpu/ops/mls_pallas.py:43",
         "launches": sum(launches),
         "max_abs_err": max(r["max_abs_err"] for r in k["rows"]),
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"]}]}))
+        "ms": main_row["host_paced_ms"], "device_ms": main_row["device_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound"]["bound_ms"],
+        "bound_by": main_row["bound"]["bound_by"],
+        "library_ms": None}]}))  # no single PyTorch call computes the field
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from mlsgpu_tpu.utils.errors import InvalidOption
+from mlsgpu_tpu_torch.utils.errors import InvalidOption
 
 
 def set_precision() -> None:

@@ -25,7 +25,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from mlsgpu_tpu.utils.statistics import get_registry
+from mlsgpu_tpu_torch.utils.statistics import get_registry
 
 from mlsgpu_tpu_torch.ops import binning, marching, mls, mls_cuda, weld
 
@@ -178,7 +178,7 @@ def resolve_readback(requested: str, levels: int, subsampling: int) -> str:
         if requested not in READBACK_MODES:
             raise ValueError(f"unknown readback mode {requested!r}")
         return requested
-    from mlsgpu_tpu import _native
+    from mlsgpu_tpu_torch import _native
     if _native.available() and codes_format(levels, subsampling) is not None:
         return "codes"
     return "packed"
@@ -475,7 +475,7 @@ def unpack_readback_global(flat: np.ndarray, num_indices: int,
                            fmt: PackFormat, cell_origin: np.ndarray):
     """unpack_readback with the block -> global cell-origin add folded in,
     through the native decoder when it is available (bitwise the same)."""
-    from mlsgpu_tpu import _native
+    from mlsgpu_tpu_torch import _native
     out = _native.unpack_readback(flat, int(num_indices), int(num_vertices),
                                   int(first_external), fmt.index_mode,
                                   fmt.vertex_words,

@@ -20,6 +20,20 @@ MIN_AGREEMENT = 0.9995
 MAX_ABS_ERR = 1e-3
 
 
+def _gate_cloud(n: int = 1500, seed: int = 41) -> np.ndarray:
+    """Deterministic synthetic sphere cloud in grid coordinates, sized for
+    one 64^3-corner block (mlsgpu_tpu/ops/kernel_gate.py::_gate_cloud)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    out = np.empty((n, 8), np.float32)
+    out[:, 0:3] = np.array([32.0, 31.0, 33.0]) + 18.0 * v
+    out[:, 3] = 3.0
+    out[:, 4:7] = v
+    out[:, 7] = 1.0 / 9.0
+    return out
+
+
 def compare_fields(ref: torch.Tensor, got: torch.Tensor) -> dict:
     """NaN-pattern agreement and max |got - ref| where both are defined."""
     ref = ref.detach().cpu().numpy()
@@ -51,7 +65,6 @@ def run_kernel_gate(fit_shape: str = "sphere", device="cuda",
     """Kernel against plain version on one 64^3-corner block (levels 4,
     subsampling 3) of the JAX gate's synthetic sphere cloud, on a CUDA
     device. Raises AssertionError on divergence; returns the summary."""
-    from mlsgpu_tpu.ops.kernel_gate import _gate_cloud  # numpy only
     from mlsgpu_tpu_torch.ops import binning, mls, mls_cuda
 
     dev = torch.device(device)

@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from mlsgpu_tpu.ops import tables
+from mlsgpu_tpu_torch.ops import tables
 
 TILE = 8  # cells per axis of a compaction tile
 

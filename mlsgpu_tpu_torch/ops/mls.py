@@ -23,7 +23,7 @@ the CPU and on the card alike.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,6 +167,52 @@ def eval_field(entry_data: torch.Tensor, seg_starts: torch.Tensor,
         m = torch.bmm(w, feats)                                 # (C, 512, 9)
         field[tids] = _fit(m, corners, hits, fit_shape, boundary_factor)
     return _untile(field, tpa)
+
+
+def candidate_work(entry_data: torch.Tensor, seg_starts: torch.Tensor,
+                   seg_lens: torch.Tensor, cell_origin: Sequence[int],
+                   tiles_per_axis: int, tile_chunk: int = 32
+                   ) -> Tuple[int, int, int]:
+    """What `eval_field` of these inputs has to compute, the work measure of
+    the field kernel's bound: (corner-candidate pairs; the pairs within
+    reach, those whose candidate passes the box test of its corner's 8x4x4
+    box, as csrc/mls_field.cu writes it, up to rounding; the pairs with
+    d < 0.99, counted with the plain version's own distance)."""
+    tpa = int(tiles_per_axis)
+    tabs = _segment_tables(seg_starts, seg_lens)
+    totals = tabs[3]
+    occ = torch.nonzero(totals > 0).squeeze(1)
+    occ_tot = totals[occ].cpu()
+    corners = corner_offsets(entry_data.device)[None]
+    ox, oy, oz = host_ints(cell_origin)
+    hits = reached = 0
+    for s in range(0, len(occ), tile_chunk):
+        tids = occ[s:s + tile_chunk]
+        width = int(occ_tot[s:s + tile_chunk].max())
+        idx, ok = _slot_entries(tabs, tids, width, entry_data.shape[0])
+        data = entry_data[idx]
+        org = torch.stack([(tids % tpa) * TILE + ox,
+                           ((tids // tpa) % tpa) * TILE + oy,
+                           (tids // (tpa * tpa)) * TILE + oz],
+                          dim=1).to(torch.float32)
+        x = data[..., 0:3] - org[:, None, :]
+        feats = _features(x, data[..., 4:7])
+        _, h = _weights(corners.expand(len(tids), -1, -1), x, feats,
+                        data[..., 3], data[..., 7], ok)
+        hits += int(h.sum())
+        slack = 4e-6 * (feats[..., 4] + 150.0)
+        zero = torch.zeros_like(slack)
+        ex = torch.maximum(torch.maximum(-x[..., 0], x[..., 0] - 7.0), zero)
+        for y0 in (0.0, 4.0):
+            ey = torch.maximum(torch.maximum(y0 - x[..., 1],
+                                             x[..., 1] - (y0 + 3.0)), zero)
+            for z0 in (0.0, 4.0):
+                ez = torch.maximum(torch.maximum(z0 - x[..., 2],
+                                                 x[..., 2] - (z0 + 3.0)), zero)
+                dist2 = ex * ex + ey * ey + ez * ez
+                reach = ~((dist2 - slack) * data[..., 3] >= RADIUS_CUTOFF)
+                reached += int((reach & ok).sum()) * (TILE_CORNERS // 4)
+    return int(occ_tot.sum()) * TILE_CORNERS, reached, hits
 
 
 def _canonical_moments(entry_data, cols_idx, sval, frame, corners,

@@ -19,16 +19,16 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from mlsgpu_tpu_torch.ops import mls
+from mlsgpu_tpu_torch.utils import native_build
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "mls_field.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libmls_field.so")
+LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,25 +56,32 @@ def find_nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put it on PATH)")
 
 
-def build(force: bool = False) -> str:
+def library_path() -> str:
+    return os.path.join(native_build.build_dir(), LIBRARY_NAME)
+
+
+def build(force: bool = False,
+          compiler: Optional[Sequence[str]] = None) -> str:
     """Compile the kernel library if it is missing or older than its
-    source; returns its path. Raises KernelBuildError on failure."""
-    global build_log, build_seconds
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.monotonic() - t0
-    build_log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    source; returns its path. The build is locked against other processes
+    and lands through a temporary file (utils/native_build.py). `compiler`
+    replaces the nvcc command (the flags and `-o <file> <source>` follow
+    it). Raises KernelBuildError on failure."""
+    target = library_path()
+
+    def compile_into(tmp: str) -> None:
+        global build_log, build_seconds
+        cmd = [*(compiler or [find_nvcc()]), *NVCC_FLAGS, "-o", tmp, SOURCE]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.monotonic() - t0
+        build_log = (proc.stdout + proc.stderr).strip()
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{build_log}")
+
+    native_build.build_locked(target, [SOURCE], compile_into, force=force)
+    return target
 
 
 def load():
@@ -85,8 +92,14 @@ def load():
             lib = ctypes.CDLL(build())
             fn = lib.mls_field_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+            fn = lib.mls_tile_order_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                           + [ctypes.c_void_p] * 4)
+            lib.mls_tile_order_scratch.restype = ctypes.c_int
+            lib.mls_tile_order_scratch.argtypes = []
             _lib = lib
         return _lib
 
@@ -106,6 +119,16 @@ def launch(entry_data: torch.Tensor, seg_starts: torch.Tensor,
            tiles_per_axis: int, fit_shape: str,
            boundary_factor: float) -> torch.Tensor:
     """Run the kernel on CUDA tensors; returns the (B, B, B) field."""
+    return _launch(entry_data, seg_starts, seg_lens, cell_origin,
+                   tiles_per_axis, fit_shape, boundary_factor)[0]
+
+
+def _launch(entry_data, seg_starts, seg_lens, cell_origin, tiles_per_axis,
+            fit_shape, boundary_factor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel launch; returns (field, number of occupied tiles as a
+    device scalar). The tile order (occupied tiles first, longest first,
+    from the order kernels) and the count stay on the device: no host
+    sync."""
     global launches
     dev = entry_data.device
     if dev.type != "cuda":
@@ -123,21 +146,56 @@ def launch(entry_data: torch.Tensor, seg_starts: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, entry_data on {dev}")
     if entry_data.data_ptr() % 16:
         raise ValueError("entry_data must be 16-byte aligned")
-    b = tpa * mls.TILE
-    field = torch.full((b, b, b), float("nan"), dtype=torch.float32,
-                       device=dev)
-    ox, oy, oz = mls.host_ints(cell_origin)
     lib = load()
+    order, n_occ = tile_order(seg_lens)
+    b = tpa * mls.TILE
+    field = torch.empty((b, b, b), dtype=torch.float32, device=dev)
+    ox, oy, oz = mls.host_ints(cell_origin)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mls_field_launch(
             entry_data.data_ptr(), seg_starts.data_ptr(), seg_lens.data_ptr(),
-            num_tiles, levels, tpa, ox, oy, oz, int(fit_shape == "plane"),
-            float(boundary_factor), field.data_ptr(), stream)
+            order.data_ptr(), n_occ.data_ptr(), num_tiles, levels, tpa,
+            ox, oy, oz, int(fit_shape == "plane"), float(boundary_factor),
+            field.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mls_field_launch failed: cudaError_t {err}")
     launches += 1
-    return field
+    return field, n_occ
+
+
+def tile_order(seg_lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order the kernel walks the tiles in, from its own order kernels:
+    (tile ids (T,) int32, number of occupied tiles) on the device."""
+    dev = seg_lens.device
+    if dev.type != "cuda":
+        raise ValueError(f"tile order kernels need CUDA tensors, got {dev}")
+    _check("seg_lens", seg_lens, torch.int32, tuple(seg_lens.shape))
+    lib = load()
+    order = torch.empty(seg_lens.shape[0], dtype=torch.int32, device=dev)
+    n_occ = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.mls_tile_order_scratch(), dtype=torch.int32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mls_tile_order_launch(
+            seg_lens.data_ptr(), seg_lens.shape[0], seg_lens.shape[1],
+            scratch.data_ptr(), order.data_ptr(), n_occ.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mls_tile_order_launch failed: cudaError_t {err}")
+    return order, n_occ
+
+
+def tile_order_plain(seg_lens: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the tile order: occupied tiles first, by class
+    7 - min(total // 32, 7) (longest first), ascending tile id inside a
+    class; the empty tiles last."""
+    totals = seg_lens.to(torch.int64).sum(dim=1)
+    cls = torch.where(totals == 0, torch.full_like(totals, 8),
+                      7 - torch.clamp(totals // 32, max=7))
+    return (torch.argsort(cls, stable=True).to(torch.int32),
+            (totals > 0).sum().to(torch.int32))
 
 
 def eval_field(entry_data: torch.Tensor, seg_starts: torch.Tensor,
@@ -150,11 +208,11 @@ def eval_field(entry_data: torch.Tensor, seg_starts: torch.Tensor,
     meaning of mlsgpu_tpu's eval_field_pallas: no candidate cap, so
     max_total is 0; n_occ counts tiles with candidates."""
     dev = entry_data.device
-    n_occ = (seg_lens.sum(dim=1) > 0).sum()
     if dev.type == "cuda":
-        field = launch(entry_data, seg_starts, seg_lens, cell_origin,
-                       tiles_per_axis, fit_shape, boundary_factor)
+        field, n_occ = _launch(entry_data, seg_starts, seg_lens, cell_origin,
+                               tiles_per_axis, fit_shape, boundary_factor)
     elif dev.type == "cpu":
+        n_occ = (seg_lens.sum(dim=1) > 0).sum()
         field = mls.eval_field(entry_data, seg_starts, seg_lens, cell_origin,
                                tiles_per_axis, fit_shape, boundary_factor)
     else:

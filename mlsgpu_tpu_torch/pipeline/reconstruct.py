@@ -5,28 +5,28 @@ blob pass -> bucketing -> per-bucket device block step (streamer) -> host
 decode of each block's readback (codes: native rebuild + weld; packed:
 native unpack; raw: the welded arrays) -> optional host filters ->
 out-of-core mesher -> write. The host layer (blobs, bucketing, mesher,
-native helpers, host mesh filters) is the JAX package's own, imported
-rather than copied; it never imports jax. Sparse bucketing is the port's
-(pipeline/bucket.py): the JAX package's imports jax.
+native helpers, host mesh filters) is the port's copy of the JAX package's
+(pipeline/blobs.py, bucket.py, mesher.py, mesh_filter.py, _native/).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional
 
 import numpy as np
 
-from mlsgpu_tpu import _native
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.io.splat_set import SplatSource
-from mlsgpu_tpu.pipeline import blobs as blobs_mod
-from mlsgpu_tpu.pipeline.mesher import BlockInput, OOCMesher
-from mlsgpu_tpu.utils import logging as log
-from mlsgpu_tpu.utils import misc, timeplot
-from mlsgpu_tpu.utils.errors import InvalidOption, MlsError
-from mlsgpu_tpu.utils.progress import NullProgress, ProgressDisplay
-from mlsgpu_tpu.utils.statistics import get_registry
+from mlsgpu_tpu_torch import _native
+from mlsgpu_tpu_torch.config import ReconstructConfig
+from mlsgpu_tpu_torch.io.splat_set import SplatSource
+from mlsgpu_tpu_torch.pipeline import blobs as blobs_mod
+from mlsgpu_tpu_torch.pipeline.mesher import BlockInput, OOCMesher
+from mlsgpu_tpu_torch.utils import logging as log
+from mlsgpu_tpu_torch.utils import misc, timeplot
+from mlsgpu_tpu_torch.utils.errors import InvalidOption, MlsError
+from mlsgpu_tpu_torch.utils.progress import NullProgress, ProgressDisplay
+from mlsgpu_tpu_torch.utils.statistics import get_registry
 
 from mlsgpu_tpu_torch.device import resolve_device
 from mlsgpu_tpu_torch.ops.block import resolve_readback, unpack_readback_global
@@ -48,14 +48,16 @@ def check_supported(cfg: ReconstructConfig) -> None:
 
 
 def require_native():
-    """The native host library (built with make on first use). The codes
+    """The native host library (built with g++ on first use). The codes
     readback needs its block rebuild: its absence is an error (--readback
     auto resolves to packed without it)."""
     lib = _native.get_lib()
     if lib is None:
-        raise MlsError("native host library unavailable: build it with "
-                       "`make -C mlsgpu_tpu/_native` (needs make and g++) "
-                       "and unset MLSGPU_TPU_NO_NATIVE")
+        why = (f"{_native.DISABLE_ENV} is set"
+               if os.environ.get(_native.DISABLE_ENV)
+               else _native.last_error or "unknown error")
+        raise MlsError(f"native host library unavailable ({why}); it "
+                       f"builds with g++ into {_native.library_path()}")
     return lib
 
 
@@ -189,8 +191,8 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
 
 def resume(checkpoint_path: str, cfg: ReconstructConfig, output: str,
            writer_factory=None) -> List[str]:
-    """Write-only run from a checkpoint (--resume). Checkpoints are the
-    shared mesher's files, so one written by the JAX package resumes here."""
+    """Write-only run from a checkpoint (--resume). The mesher is a copy of
+    the JAX package's, so a checkpoint written by either resumes in both."""
     misc.bound_mmap_threshold()
     mesher = OOCMesher.resume(checkpoint_path)
     return mesher.write(output, writer_factory=writer_factory,

@@ -9,9 +9,9 @@ from typing import Dict, Optional
 
 import torch
 
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.utils import logging as log
-from mlsgpu_tpu.utils.errors import InvalidOption
+from mlsgpu_tpu_torch.config import ReconstructConfig
+from mlsgpu_tpu_torch.utils import logging as log
+from mlsgpu_tpu_torch.utils.errors import InvalidOption
 
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
 

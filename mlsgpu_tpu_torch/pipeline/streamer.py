@@ -28,10 +28,10 @@ from typing import Iterator, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from mlsgpu_tpu.core.splat import SplatArray
-from mlsgpu_tpu.io.splat_set import SplatSource, merge_ranges
-from mlsgpu_tpu.utils import misc, timeplot
-from mlsgpu_tpu.utils.statistics import Peak, get_registry
+from mlsgpu_tpu_torch.core.splat import SplatArray
+from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
+from mlsgpu_tpu_torch.utils import misc, timeplot
+from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
 
 from mlsgpu_tpu_torch.ops.block import (CountsView, Format, block_step,
                                         block_step_staged, readback_tensors)

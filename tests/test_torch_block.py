@@ -15,11 +15,11 @@ import jax
 import jax.numpy as jnp
 
 from __graft_entry__ import _example_inputs
-from mlsgpu_tpu import _native as nat
 from mlsgpu_tpu.ops.block import block_step_body, codes_format
-from mlsgpu_tpu.utils.manifold import check_manifold
+from mlsgpu_tpu_torch import _native as nat
 from mlsgpu_tpu_torch.convert import block_inputs_from_numpy
 from mlsgpu_tpu_torch.ops import block
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
 
 LEVELS = 4
 CAPS = dict(max_candidates=1024, cell_cap=1 << 15, vertex_cap=1 << 17,

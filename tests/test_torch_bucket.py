@@ -1,23 +1,26 @@
-"""Sparse bucketing in the port (pipeline/bucket.py on ops/morton.py's
-numpy Morton code) against the JAX package's: the Morton codes bitwise,
-the same buckets (regions, blob ids, skeletons, chunks) with
-MAX_MICRO_GRID lowered so the sparse path runs on a small cloud, and one
-end-to-end run over an extent of more than 512 microblocks per axis."""
+"""Bucketing in the port (pipeline/bucket.py: the dense path copied, the
+sparse path on ops/morton.py's numpy Morton code) against the JAX
+package's: the Morton codes bitwise, the same buckets (regions, blob ids,
+skeletons, chunks) on the dense path and, with MAX_MICRO_GRID lowered in
+both packages, on the sparse one, and one end-to-end run over an extent of
+more than 512 microblocks per axis."""
 
 import numpy as np
 import pytest
 import torch
 
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.io import ply
-from mlsgpu_tpu.io.splat_set import SequenceSource
+from mlsgpu_tpu.io import splat_set as jsplat_set
 from mlsgpu_tpu.ops import morton as jmorton
-from mlsgpu_tpu.pipeline import blobs as blobs_mod
+from mlsgpu_tpu.pipeline import blobs as jblobs
 from mlsgpu_tpu.pipeline import bucket as jbucket
-from mlsgpu_tpu.utils.manifold import check_manifold
-from mlsgpu_tpu.utils.statistics import get_registry
+from mlsgpu_tpu_torch.config import ReconstructConfig
+from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.io.splat_set import SequenceSource
 from mlsgpu_tpu_torch.ops import morton
+from mlsgpu_tpu_torch.pipeline import blobs as blobs_mod
 from mlsgpu_tpu_torch.pipeline import bucket, reconstruct as trec
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
+from mlsgpu_tpu_torch.utils.statistics import get_registry
 
 from tests import oracle
 
@@ -53,28 +56,39 @@ def two_spheres(gap: float, n: int = 3000) -> np.ndarray:
         oracle.sphere_cloud(np.array([gap, 1.0, -0.5]), 2.0, n, 0.35, rng)])
 
 
-@pytest.mark.parametrize("max_grid,chunk_cells", [(4, None), (4, 16),
-                                                  (2, None)])
-def test_make_buckets_equals_jax(monkeypatch, max_grid, chunk_cells):
-    """With MAX_MICRO_GRID lowered (the port reads the JAX package's
-    constant, so one patch lowers it for both) the sparse path runs; the
-    port's buckets equal the JAX package's."""
-    splats = two_spheres(6.0)
-    info = blobs_mod.compute_blobs(SequenceSource(splats), 0.1, 8)
-    dense = jbucket.microblock_counts(info.blobs, info.micro_lo,
-                                      info.micro_dims)
-    monkeypatch.setattr(jbucket, "MAX_MICRO_GRID", max_grid)
-    assert (info.micro_dims > max_grid).any()
-    kw = dict(max_splats=400, chunk_cells=chunk_cells)
-    ref = jbucket.make_buckets(info, 31, 8, **kw)
-    got = bucket.make_buckets(info, 31, 8, **kw)
+def assert_same_buckets(got, ref):
     assert len(got) == len(ref) > 10
     for a, b in zip(got, ref):
-        assert a.chunk_id == b.chunk_id and a.num_splats == b.num_splats
+        assert (a.chunk_id.gen, a.chunk_id.coords) == (b.chunk_id.gen,
+                                                       b.chunk_id.coords)
+        assert a.num_splats == b.num_splats
         np.testing.assert_array_equal(a.cell_lo, b.cell_lo)
         np.testing.assert_array_equal(a.cell_hi, b.cell_hi)
         np.testing.assert_array_equal(a.blob_ids, b.blob_ids)
         np.testing.assert_array_equal(a.skeleton, b.skeleton)
+
+
+def both_infos(splats):
+    """The port's and the JAX package's blob pass over the same splats."""
+    return (blobs_mod.compute_blobs(SequenceSource(splats), 0.1, 8),
+            jblobs.compute_blobs(jsplat_set.SequenceSource(splats), 0.1, 8))
+
+
+@pytest.mark.parametrize("max_grid,chunk_cells", [(4, None), (4, 16),
+                                                  (2, None)])
+def test_make_buckets_equals_jax(monkeypatch, max_grid, chunk_cells):
+    """With MAX_MICRO_GRID lowered in both packages the sparse path runs;
+    the port's buckets equal the JAX package's."""
+    splats = two_spheres(6.0)
+    info, jinfo = both_infos(splats)
+    dense = jbucket.microblock_counts(jinfo.blobs, jinfo.micro_lo,
+                                      jinfo.micro_dims)
+    monkeypatch.setattr(jbucket, "MAX_MICRO_GRID", max_grid)
+    monkeypatch.setattr(bucket, "MAX_MICRO_GRID", max_grid)
+    assert (info.micro_dims > max_grid).any()
+    kw = dict(max_splats=400, chunk_cells=chunk_cells)
+    assert_same_buckets(bucket.make_buckets(info, 31, 8, **kw),
+                        jbucket.make_buckets(jinfo, 31, 8, **kw))
     # the sparse counts are the dense grid's occupied entries
     codes, counts = bucket.sparse_micro_counts(info.blobs, info.micro_lo)
     assert len(codes) == np.count_nonzero(dense)
@@ -91,7 +105,7 @@ def test_sparse_extent_end_to_end(tmp_path):
                             max_device_splats=200000, progress=False)
     info = blobs_mod.compute_blobs(SequenceSource(splats), 0.1,
                                    cfg.micro_cells)
-    assert info.micro_dims[0] > jbucket.MAX_MICRO_GRID
+    assert info.micro_dims[0] > bucket.MAX_MICRO_GRID
     out = str(tmp_path / "sparse.ply")
     get_registry().clear()
     assert trec.reconstruct(SequenceSource(splats), cfg, out,

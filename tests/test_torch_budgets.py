@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.io import ply
-from mlsgpu_tpu.io.splat_set import SequenceSource
-from mlsgpu_tpu.pipeline import blobs as blobs_mod
-from mlsgpu_tpu.pipeline import bucket
-from mlsgpu_tpu.utils.statistics import Peak, get_registry
+from mlsgpu_tpu_torch.config import ReconstructConfig
+from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.io.splat_set import SequenceSource
+from mlsgpu_tpu_torch.pipeline import blobs as blobs_mod
+from mlsgpu_tpu_torch.pipeline import bucket
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
+from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
 
 from tests import oracle
 

@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from mlsgpu_tpu.io import ply
-from mlsgpu_tpu.utils.manifold import check_manifold
 from mlsgpu_tpu_torch import cli
+from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
 
 from tests import oracle
 
@@ -35,6 +35,7 @@ def _one_torch_thread():
 _JAX_FREE = """
 import runpy, sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["mlsgpu_tpu"] = None   # nor may the JAX package be imported
 sys.argv = ["mlsgpu_tpu_torch"] + sys.argv[1:]
 try:
     runpy.run_module("mlsgpu_tpu_torch", run_name="__main__")

@@ -12,12 +12,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mlsgpu_tpu.core.chunk import ChunkId
 from mlsgpu_tpu.ops import binning as jbin
 from mlsgpu_tpu.ops import mls as jmls
-from mlsgpu_tpu.pipeline.bucket import Bucket, skeleton_points
 from mlsgpu_tpu_torch.convert import binned_from_numpy, block_inputs_from_numpy
+from mlsgpu_tpu_torch.core.chunk import ChunkId
 from mlsgpu_tpu_torch.ops import block, kernel_gate, mls
+from mlsgpu_tpu_torch.pipeline.bucket import Bucket, skeleton_points
 
 from tests import oracle
 

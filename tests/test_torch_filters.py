@@ -15,13 +15,13 @@ import torch
 
 import jax.numpy as jnp
 
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.io import ply
-from mlsgpu_tpu.io.splat_set import SequenceSource
 from mlsgpu_tpu.pipeline import mesh_filter as jfilter
-from mlsgpu_tpu.utils.manifold import check_manifold
-from mlsgpu_tpu.utils.statistics import get_registry
+from mlsgpu_tpu_torch.config import ReconstructConfig
+from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.io.splat_set import SequenceSource
 from mlsgpu_tpu_torch.pipeline import mesh_filter, reconstruct as trec
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
+from mlsgpu_tpu_torch.utils.statistics import get_registry
 
 from tests import oracle
 
@@ -134,9 +134,10 @@ def test_device_filter_scale_is_origin_independent(plain, scaled):
 
 
 def test_host_filters_hook_equals_device_filter(scaled, tmp_path):
-    """reconstruct(filters=...) runs the JAX package's host chain on each
-    block's global grid coordinates: the same map as the device filter."""
-    chain = jfilter.MeshFilterChain([jfilter.ScaleBiasFilter(SCALE, BIAS)])
+    """reconstruct(filters=...) runs the port's host chain on each block's
+    global grid coordinates: the same map as the device filter."""
+    chain = mesh_filter.MeshFilterChain(
+        [mesh_filter.ScaleBiasFilter(SCALE, BIAS)])
     (v3, t3), _ = run(tmp_path / "host.ply", filters=chain)
     v2, t2, _ = scaled
     np.testing.assert_array_equal(t3, t2)

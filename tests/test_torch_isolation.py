@@ -1,0 +1,81 @@
+"""The port stands alone: no module of `mlsgpu_tpu_torch`, nor its command
+line, nor `chip_smoke.py`, imports the JAX package `mlsgpu_tpu` or `jax`.
+
+A subprocess installs a `sys.meta_path` finder that raises on any import of
+either, then imports every module of the port and runs
+`python -m mlsgpu_tpu_torch --help`; `chip_smoke.py` is checked with `ast`
+(it needs a card to run)."""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("mlsgpu_tpu", "jax", "jaxlib")
+
+_GUARD = """
+import importlib.abc, sys
+FORBIDDEN = {forbidden!r}
+
+class Forbid(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError("the port imported " + name)
+        return None
+
+sys.meta_path.insert(0, Forbid())
+for name in FORBIDDEN:
+    sys.modules.pop(name, None)
+""".format(forbidden=FORBIDDEN)
+
+_IMPORT_ALL = _GUARD + """
+import importlib, pkgutil
+import mlsgpu_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mlsgpu_tpu_torch.__path__,
+                                               "mlsgpu_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+assert not bad, bad
+print(len(names))
+"""
+
+_RUN_HELP = _GUARD + """
+import runpy
+sys.argv = ["mlsgpu_tpu_torch", "--help"]
+runpy.run_module("mlsgpu_tpu_torch", run_name="__main__")
+"""
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax_package():
+    proc = _run(_IMPORT_ALL)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 40      # every module was imported
+
+
+def test_cli_help_without_jax_package():
+    proc = _run(_RUN_HELP)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage: mlsgpu_tpu_torch" in proc.stdout
+    assert "--device" in proc.stdout and "--readback" in proc.stdout
+
+
+def test_chip_smoke_imports_neither():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "mlsgpu_tpu_torch.cli" in names or "mlsgpu_tpu_torch" in names
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names

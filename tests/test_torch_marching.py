@@ -11,11 +11,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mlsgpu_tpu import _native as nat
 from mlsgpu_tpu.ops import marching as jmarch
 from mlsgpu_tpu.ops.block import _pack_codes
-from mlsgpu_tpu.utils.manifold import check_manifold
+from mlsgpu_tpu_torch import _native as nat
 from mlsgpu_tpu_torch.ops import block, marching
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
 
 CAPS = dict(cell_cap=1 << 14, vertex_cap=1 << 16, index_cap=3 << 16)
 

@@ -21,17 +21,17 @@ import jax
 import jax.numpy as jnp
 
 from __graft_entry__ import _example_inputs
-from mlsgpu_tpu import _native as nat
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.io import ply
-from mlsgpu_tpu.io.splat_set import SequenceSource
 from mlsgpu_tpu.ops.block import block_step_body
 from mlsgpu_tpu.ops.block import pack_format as jax_pack_format
-from mlsgpu_tpu.utils.manifold import check_manifold
-from mlsgpu_tpu.utils.statistics import get_registry
+from mlsgpu_tpu_torch import _native as nat
+from mlsgpu_tpu_torch.config import ReconstructConfig
 from mlsgpu_tpu_torch.convert import block_inputs_from_numpy
+from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.io.splat_set import SequenceSource
 from mlsgpu_tpu_torch.ops import block
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
+from mlsgpu_tpu_torch.utils.statistics import get_registry
 
 from tests import oracle
 
@@ -209,7 +209,7 @@ def test_statistics_device_staged_run(tmp_path):
 def test_codes_without_native_raises(monkeypatch, tmp_path):
     """--readback codes needs the native rebuild: without the library the
     run stops before it starts; 'auto' resolves to packed instead."""
-    from mlsgpu_tpu.utils.errors import MlsError
+    from mlsgpu_tpu_torch.utils.errors import MlsError
     monkeypatch.setattr(nat, "get_lib", lambda: None)
     splats = oracle.sphere_cloud(np.zeros(3), 3.0, 500, 0.35,
                                  np.random.default_rng(1))

@@ -1,18 +1,21 @@
 """End to end on the CPU: the port's `reconstruct(..., device=cpu)` against
 the JAX package's `reconstruct` on one small multi-bucket sphere (the
 tests/test_reconstruct.py settings), a bitwise port rerun, and checkpoints
-— one written by the JAX package resumed by the port."""
+— one written by the JAX package resumed by the port, whose mesher reads
+the JAX package's classes as its own copies of them."""
 
 import numpy as np
 import pytest
 import torch
 
-from mlsgpu_tpu.config import ReconstructConfig
-from mlsgpu_tpu.io import ply
-from mlsgpu_tpu.io.splat_set import SequenceSource
+from mlsgpu_tpu import config as jconfig
+from mlsgpu_tpu.io import splat_set as jsplat_set
 from mlsgpu_tpu.pipeline import reconstruct as jrec
-from mlsgpu_tpu.utils.manifold import check_manifold
+from mlsgpu_tpu_torch.config import ReconstructConfig
+from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.io.splat_set import SequenceSource
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
+from mlsgpu_tpu_torch.utils.manifold import check_manifold
 
 from tests import oracle
 
@@ -30,14 +33,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def small_config(**kw) -> ReconstructConfig:
+def small_config(jax=False, **kw) -> ReconstructConfig:
+    """The run's configuration, as the port's ReconstructConfig or (jax)
+    the JAX package's."""
     base = dict(fit_grid=0.1, fit_smooth=1.0, fit_prune=0.02,
                 levels=3, subsampling=3, leaf_cells=8,     # 32^3-corner blocks
                 max_device_splats=200000, tile_candidates=512,
                 cell_cap=1 << 15, vertex_cap=1 << 17, index_cap=3 << 17,
                 progress=False)
     base.update(kw)
-    return ReconstructConfig(**base)
+    return (jconfig.ReconstructConfig if jax else ReconstructConfig)(**base)
 
 
 def sphere_splats(n=20000, sr=0.25, seed=21):
@@ -64,14 +69,14 @@ def check_sphere(path):
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """The JAX package's run of the sphere: checkpointed, then written by
-    its resume (the write path is the shared mesher)."""
+    its resume (the write path is its own mesher)."""
     d = tmp_path_factory.mktemp("jax")
     ckpt = str(d / "jax.state")
-    src = SequenceSource(sphere_splats())
-    assert jrec.reconstruct(src, small_config(checkpoint=ckpt),
+    src = jsplat_set.SequenceSource(sphere_splats())
+    assert jrec.reconstruct(src, small_config(jax=True, checkpoint=ckpt),
                             str(d / "unused.ply")) == []
     out = str(d / "jax.ply")
-    jrec.resume(ckpt, small_config(), out)
+    jrec.resume(ckpt, small_config(jax=True), out)
     return ckpt, out
 
 

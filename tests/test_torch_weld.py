@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from mlsgpu_tpu import _native as nat
+from mlsgpu_tpu_torch import _native as nat
 from mlsgpu_tpu_torch.ops import block, marching, weld
 
 CAPS = dict(cell_cap=1 << 14, vertex_cap=1 << 16, index_cap=3 << 16)
