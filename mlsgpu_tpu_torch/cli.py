@@ -4,8 +4,10 @@ The option surface is the JAX package's (`mlsgpu_tpu/cli.py:23-178`,
 copied here with the same options and defaults), plus `--device` (default
 cuda). `--readback codes|packed|raw|auto` picks the block readback and
 `--statistics-device` times each block-step stage on the device
-(`device.<stage>.time`). Options whose code paths are not ported yet
-stop with a clear error: multi-host (`--coordinator`, `--num-processes`) and
+(`device.<stage>.time`). A multi-host run starts one process per rank with
+`--coordinator HOST:PORT --num-processes N --process-id R` (parallel/
+multihost.py: torch.distributed over gloo, rank 0 hosts the store). The one
+option whose code path is not ported yet stops with a clear error:
 multi-GPU (`--num-devices > 1`); `--mls-backend` is a JAX-package choice.
 """
 
@@ -189,12 +191,15 @@ def config_from_args(args) -> ReconstructConfig:
     )
 
 
-def unported_options(args) -> Optional[str]:
-    """The CLI-only options that are still unported (multi-host); the
-    configuration's own (--num-devices > 1) are refused by
-    pipeline.reconstruct.check_supported."""
-    if args.coordinator or args.num_processes > 1:
-        return "--coordinator/--num-processes: multi-host not yet ported"
+def distributed_problem(args) -> Optional[str]:
+    """What is wrong with the multi-host options, or None."""
+    if args.num_processes < 1:
+        return "--num-processes must be at least 1"
+    if args.num_processes > 1 and not args.coordinator:
+        return "--num-processes > 1 needs --coordinator HOST:PORT"
+    if not 0 <= args.process_id < args.num_processes:
+        return (f"--process-id {args.process_id} outside "
+                f"0..{args.num_processes - 1}")
     return None
 
 
@@ -217,6 +222,14 @@ def _profile(trace_dir: Optional[str], device):
     log.info(f"device profile written to {path}")
 
 
+def _leave_failed_job(code: int) -> None:
+    """End this rank of a distributed run without the interpreter's
+    shutdown, which could wait on a process group whose peers are gone."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.quiet:
@@ -232,7 +245,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     except MlsError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    problem = unported_options(args)
+    problem = distributed_problem(args)
+    if not problem and not args.resume and not args.inputs:
+        problem = "no input files"
     if problem:
         print(f"error: {problem}", file=sys.stderr)
         return 2
@@ -247,13 +262,20 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     start = time.monotonic()
     stats = get_registry()
+    transport = None
     try:
+        if args.num_processes > 1:
+            # MPI_Init analogue (mlsgpu-mpi.cpp:513)
+            from mlsgpu_tpu_torch.parallel import multihost
+            transport = multihost.init_distributed(
+                args.coordinator, args.num_processes, args.process_id)
         if args.resume:
-            outputs = resume(args.resume, cfg, args.output_file)
+            if transport is not None:
+                outputs = multihost.resume_distributed(
+                    args.resume, cfg, args.output_file, transport)
+            else:
+                outputs = resume(args.resume, cfg, args.output_file)
         else:
-            if not args.inputs:
-                print("error: no input files", file=sys.stderr)
-                return 2
             from mlsgpu_tpu_torch.io.binary import make_writer
             from mlsgpu_tpu_torch.io.ply import PlyWriter
             from mlsgpu_tpu_torch.device import resolve_device
@@ -272,14 +294,32 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 reader_type=args.reader)
             try:
                 with DiskUsage(), _profile(args.profile, device):
-                    outputs = reconstruct(source, cfg, args.output_file,
-                                          device=device,
-                                          writer_factory=writer_factory)
+                    if transport is not None:
+                        outputs = multihost.reconstruct_distributed(
+                            source, cfg, args.output_file, transport,
+                            device=device, writer_factory=writer_factory)
+                    else:
+                        outputs = reconstruct(source, cfg, args.output_file,
+                                              device=device,
+                                              writer_factory=writer_factory)
             finally:
                 source.close()
+        if transport is not None:
+            transport.close()
     except (MlsError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
+        if transport is not None:
+            _leave_failed_job(1)
         return 1
+    except BaseException:
+        if transport is None:
+            raise
+        # A rank that fails must leave at once with a failing code: its
+        # peers notice (a closed socket, a stale heartbeat) and abort too
+        # (reference MPI error handler semantics, mlsgpu-mpi.cpp:541-628).
+        import traceback
+        traceback.print_exc()
+        _leave_failed_job(1)
 
     elapsed = time.monotonic() - start
     stats.variable("run.time").add(elapsed)

@@ -61,6 +61,45 @@ def require_native():
     return lib
 
 
+def prepare_run(cfg: ReconstructConfig, device, device_filter=None):
+    """What every run settles before its first pass, single-process or one
+    rank of a distributed run: the options are valid and ported, the device
+    exists, the readback mode is resolved (here and nowhere else), the
+    native library is there when that mode needs it, and the device memory
+    estimate fits (resources.validate_device). Returns (torch device,
+    readback mode)."""
+    cfg.validate()
+    check_supported(cfg)
+    dev = resolve_device(str(device))
+    # A device filter needs the raw arrays (its vertices leave the lattice
+    # the other layouts encode).
+    if device_filter is not None:
+        readback = "raw"
+    else:
+        readback = resolve_readback(cfg.readback, cfg.device_levels,
+                                    cfg.subsampling)
+    log.info(f"readback mode: {readback}"
+             + (" (a device filter needs raw arrays)"
+                if device_filter is not None else ""))
+    if readback == "codes":
+        require_native()
+    validate_device(cfg, dev, readback)
+    misc.bound_mmap_threshold()  # keep cycling per-block buffers off brk
+    return dev, readback
+
+
+def output_chunk_cells(cfg: ReconstructConfig) -> Optional[int]:
+    """Cells per axis of one output chunk under --split-size (the
+    reference's heuristic, src/mlsgpu_core.cpp:632-653), rounded up to
+    whole blocks so chunks align with bucket boundaries; None for a single
+    output file."""
+    if not cfg.output_split_size:
+        return None
+    return misc.round_up(
+        int(np.ceil(np.sqrt(cfg.output_split_size / 760.0))),
+        cfg.device_block_cells)
+
+
 def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
     """One block's readback -> the mesher's BlockInput in global grid
     coordinates (mlsgpu_tpu/pipeline/reconstruct.py:240-309): codes are
@@ -103,25 +142,8 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
     triangles)` run on each block's decoded mesh in global grid coordinates
     (mesh_filter.MeshFilterChain). device_filter: a device vertex filter
     (mesh_filter.DeviceFilterChain) run inside the block step; it makes the
-    readback raw. The readback mode is resolved here once, and the device
-    memory estimate is checked for it (resources.validate_device)."""
-    cfg.validate()
-    check_supported(cfg)
-    dev = resolve_device(str(device))
-    # The one place the readback mode is decided: a device filter needs the
-    # raw arrays (its vertices leave the lattice the other layouts encode).
-    if device_filter is not None:
-        readback = "raw"
-    else:
-        readback = resolve_readback(cfg.readback, cfg.device_levels,
-                                    cfg.subsampling)
-    log.info(f"readback mode: {readback}"
-             + (" (a device filter needs raw arrays)"
-                if device_filter is not None else ""))
-    if readback == "codes":
-        require_native()
-    validate_device(cfg, dev, readback)
-    misc.bound_mmap_threshold()  # keep cycling per-block buffers off brk
+    readback raw (prepare_run resolves the mode once)."""
+    dev, readback = prepare_run(cfg, device, device_filter)
     stats = get_registry()
     show_progress = cfg.progress if show_progress is None else show_progress
 
@@ -129,13 +151,7 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
         info = blobs_mod.compute_blobs(source, cfg.fit_grid, cfg.micro_cells,
                                        mem_budget=cfg.mem_blobs)
 
-    chunk_cells = None
-    if cfg.output_split_size:
-        # Output-chunk heuristic (src/mlsgpu_core.cpp:632-653), rounded up
-        # to whole blocks so chunks align with bucket boundaries.
-        chunk_cells = misc.round_up(
-            int(np.ceil(np.sqrt(cfg.output_split_size / 760.0))),
-            cfg.device_block_cells)
+    chunk_cells = output_chunk_cells(cfg)
     max_splats = min(cfg.max_device_splats, cfg.mem_bucket_splats // 32)
     buckets = bucket_mod.make_buckets(
         info, cfg.device_block_cells, cfg.micro_cells,

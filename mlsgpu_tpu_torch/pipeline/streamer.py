@@ -23,7 +23,7 @@ from __future__ import annotations
 import queue
 import threading
 from collections import deque
-from typing import Iterator, List, NamedTuple, Sequence, Tuple
+from typing import Iterable, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -176,13 +176,21 @@ def _host_arrays(readback: str, hosts: List[torch.Tensor]):
     return verts, hi.view(np.uint32), lo.view(np.uint32), tris
 
 
-def stream_blocks(source: SplatSource, info, buckets: Sequence, cfg,
-                  device: torch.device, readback: str, device_filter=None
-                  ) -> Iterator[Tuple[object, HostBlock]]:
+def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
+                  device: torch.device, readback: str, device_filter=None,
+                  read_images: bool = True) -> Iterator[Tuple[object, HostBlock]]:
     """Yield (bucket, HostBlock) for every bucket, pipelined: loading runs
     ahead on a thread, and up to max(2, --device-threads) blocks have
     readbacks in flight (the reference's per-device command queues), fewer
     when their images would exceed --mem-mesh.
+
+    `buckets` is any iterable, drawn from by the loader alone and possibly
+    lazy: a distributed run passes its work queue, which claims chunks at
+    the loader's pace, so claim-ahead is bounded by the window and the byte
+    budgets. (The JAX package takes the list and a separate `bucket_iter=`;
+    here the one argument carries either.) With
+    `read_images` false no image is copied to the host and every HostBlock
+    carries its counts alone (tools/bench_split's compute-only pass).
 
     `readback` is the resolved mode ("codes", "packed" or "raw"; "raw"
     when `device_filter` is set). With --statistics-device every block step
@@ -251,7 +259,8 @@ def stream_blocks(source: SplatSource, info, buckets: Sequence, cfg,
         pk_mesh.set(mesh_bytes[0])
         return b, HostBlock(readback=result.readback, fmt=result.fmt,
                             counts=result.counts,
-                            arrays=_host_arrays(result.readback, hosts))
+                            arrays=(_host_arrays(result.readback, hosts)
+                                    if read_images else ()))
 
     forced = 0
     try:
@@ -280,7 +289,7 @@ def stream_blocks(source: SplatSource, info, buckets: Sequence, cfg,
                     device_filter=device_filter)
                 del sp, va, pts
             host_budget.release(nbytes)
-            tensors = readback_tensors(result)
+            tensors = readback_tensors(result) if read_images else []
             image_bytes = sum(t.numel() * t.element_size() for t in tensors)
             # --mem-mesh: make room for this block's image first, keeping
             # at least this block in flight.

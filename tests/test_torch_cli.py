@@ -73,10 +73,13 @@ def test_cli_runs_without_jax(tmp_path):
     # ported options: the run starts and stops at the missing input file
     (["--readback", "packed", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
     (["--num-devices", "2", "-o", "x.ply", "in.ply"], 2),
+    # multi-host without --coordinator
     (["--num-processes", "2", "-o", "x.ply", "in.ply"], 2),
     (["--statistics-device", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
     (["--mls-backend", "pallas", "-o", "x.ply", "in.ply"], 2),
     (["--device", "tpu", "-o", "x.ply", "in.ply"], 1),
+    (["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id",
+      "2", "-o", "x.ply", "in.ply"], 2),                   # rank out of range
 ])
 def test_cli_probes(argv, code, tmp_path, capsys):
     argv = [a if a != "x.ply" else str(tmp_path / a) for a in argv]

@@ -1,18 +1,23 @@
-"""The port stands alone: no module of `mlsgpu_tpu_torch`, nor its command
-line, nor `chip_smoke.py`, imports the JAX package `mlsgpu_tpu` or `jax`.
+"""The port stands alone: no module of `mlsgpu_tpu_torch` (its `tools` and
+`parallel` sub-packages included), nor its command line, nor
+`chip_smoke.py`, imports the JAX package `mlsgpu_tpu`, `jax`, or the JAX
+package's benchmark script `bench.py` at the root of the repo.
 
 A subprocess installs a `sys.meta_path` finder that raises on any import of
 either, then imports every module of the port and runs
-`python -m mlsgpu_tpu_torch --help`; `chip_smoke.py` is checked with `ast`
-(it needs a card to run)."""
+`python -m mlsgpu_tpu_torch --help` and every tool as
+`python -m mlsgpu_tpu_torch.tools.<name>`; `chip_smoke.py` is checked with
+`ast` (it needs a card to run)."""
 
 import ast
 import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("mlsgpu_tpu", "jax", "jaxlib")
+FORBIDDEN = ("mlsgpu_tpu", "jax", "jaxlib", "bench")
 
 _GUARD = """
 import importlib.abc, sys
@@ -39,6 +44,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
+for sub in ("tools.verify_chunks", "tools.bench_ooc", "tools.cloud",
+            "parallel.multihost"):
+    assert "mlsgpu_tpu_torch." + sub in names, sub
 print(len(names))
 """
 
@@ -58,7 +66,7 @@ def _run(code):
 def test_every_module_imports_without_jax_package():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) > 40      # every module was imported
+    assert int(proc.stdout.split()[-1]) > 55      # every module was imported
 
 
 def test_cli_help_without_jax_package():
@@ -66,6 +74,30 @@ def test_cli_help_without_jax_package():
     assert proc.returncode == 0, proc.stderr
     assert "usage: mlsgpu_tpu_torch" in proc.stdout
     assert "--device" in proc.stdout and "--readback" in proc.stdout
+
+
+_RUN_TOOL = _GUARD + """
+import runpy
+sys.argv = ["tool"] + {args!r}
+runpy.run_module("mlsgpu_tpu_torch.tools.{name}", run_name="__main__")
+"""
+
+# The tools that parse with argparse show their help; the three that read
+# sys.argv themselves print their usage line when called with no file.
+TOOLS = [("plymanifold", []), ("plypntcat", ["--help"]),
+         ("analyze_stats", []), ("analyze_timeplot", []),
+         ("draw_timeplot", ["--help"]), ("simulate", ["--help"]),
+         ("verify_chunks", ["--help"]), ("bench_ooc", ["--help"]),
+         ("bench_stage", ["--help"]), ("bench_split", ["--help"])]
+
+
+@pytest.mark.parametrize("name,args", TOOLS, ids=[t[0] for t in TOOLS])
+def test_tool_runs_as_a_module_without_jax_package(name, args):
+    proc = _run(_RUN_TOOL.format(name=name, args=args))
+    text = (proc.stdout + proc.stderr).lower()
+    assert "usage" in text, text[-2000:]
+    assert "the port imported" not in text
+    assert proc.returncode == (0 if args else 2), text[-2000:]
 
 
 def test_chip_smoke_imports_neither():
