@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --through 3  # stop after phase 3 (quick kernel check)
-    python3 chip_smoke.py --through 12 # skip the out-of-core phase
+    python3 chip_smoke.py --through 12 # skip the out-of-core phase and 14-16
 
 Phases, each printing one line of findings (phase 6 runs last); any failure
 raises, exits non-zero and prints no result line:
@@ -55,6 +55,28 @@ raises, exits non-zero and prints no result line:
      spill: return code and RSS, the spill counters non-zero, the mem.*
      peaks within their budgets, its chunks verified as in phase 11;
      Msplats/s and peak RSS;
+ 14. queues and cards through the CLI on the 2M cloud: on `--device cuda:0`
+     `--device-threads 1` (phase 5's run on a one-card machine, for a wall
+     time from the same moment), then `--device-threads 2` and `4` (that
+     many worker threads and CUDA streams on the one card) and, with more
+     than one card visible, `--device cuda --num-devices 0` (every card, a
+     worker each): each mesh's digest is phase 5's (the vertex and triangle
+     arrays phase 5 checked manifold), 50 kernel launches, every worker's
+     block counter above 0; wall, pass1.time, summed and per-worker
+     device.time, mesher.time and readback.decode of each, beside phase
+     12's two-process ratio; and `--num-devices` of one more card than is
+     visible exits non-zero with the option error;
+ 15. parallel/sharded.py on the card: two seam-adjacent blocks through
+     `data_parallel_block_step` over [cuda:0, cuda:0] (and over two cards
+     where there are two): counts and codes image bitwise the block step's
+     alone on the default stream; their fields, computed at once on two
+     streams, bitwise equal on the shared face and bitwise the
+     one-stream fields; the kernel launched on a non-default stream while
+     the default stream sleeps, held against its plain version (phase 3's
+     bar) at the densest 256^3 bucket; `distributed_cell_bounds` on the 2M
+     cloud split over the mesh against numpy (rtol 1e-6, equal count);
+ 16. the measuring tools at their default size, a few repetitions:
+     tools/bench_d2h, bench_micro and bench_micro2, their lines printed;
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase).
 Kernel launches are counted per main-path run (the counter set to 0 just
@@ -101,8 +123,11 @@ from mlsgpu_tpu_torch.ops import (binning, block, kernel_gate,  # noqa: E402
                                   marching, mls, mls_cuda)
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
+from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
-from mlsgpu_tpu_torch.tools import bench_ooc, cloud, verify_chunks  # noqa: E402
+from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
+                                    bench_micro2, bench_ooc, cloud,
+                                    verify_chunks)
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
 from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
 
@@ -113,7 +138,10 @@ LEVELS, SUB = 6, 3   # the bench configuration: 256^3-corner dispatches
 # 64M (510 cells) the 2M cloud falls into 4 files, one with two thirds of
 # the mesh: the chunk grid is anchored where the buckets are.
 SPLIT_SIZE = "16M"
-OOC_SPLATS = 10_000_000
+# 6M: the depth of this phase was cut from 10M when phases 14-16 came, to
+# keep the script near half its time limit on a slow host; the blob store
+# and the mesher still spill under these budgets.
+OOC_SPLATS = 6_000_000
 # Near-twin cracks (the two copies of one cut-plane vertex a few ulps apart:
 # a known defect of the face/skeleton design; tests/test_torch_tools.py
 # holds the port's count against the JAX package's on the same input)
@@ -932,9 +960,217 @@ def phase13_out_of_core(workdir) -> dict:
     return out
 
 
+def _worker_stats(stats: dict) -> dict:
+    """{worker: (blocks, seconds of its block steps)} from a run's
+    statistics (`device.blocks.<card>.<queue>`, `device.workerTime...`)."""
+    return {k[len("device.blocks."):]:
+            (v["total"],
+             stats.get("device.workerTime." + k[len("device.blocks."):],
+                       {}).get("sum", 0.0))
+            for k, v in sorted(stats.items())
+            if k.startswith("device.blocks.")}
+
+
+def phase14_queues_and_cards(cloud, codes, two_ranks) -> dict:
+    """`codes`: phase 5's result (the digest every run must repeat);
+    `two_ranks`: phase 12's (its two-process ratio is printed beside)."""
+    cards = torch.cuda.device_count()
+    one_card = ["--device", "cuda:0", "--device-threads"]
+    runs = [("1 queue", [*one_card, "1"], 1),
+            ("2 queues", [*one_card, "2"], 2),
+            ("4 queues", [*one_card, "4"], 4)]
+    if cards > 1:
+        runs.append((f"{cards} cards", ["--device", "cuda", "--num-devices",
+                                        "0"], cards))
+    out, launches = {}, 0
+    for name, extra, workers in runs:
+        # no second manifold check (~2 min at this size): the digest is of
+        # the vertex and triangle arrays, and phase 5 checked those
+        res = cli_run(cloud, "queues", extra, manifold=False)
+        stats = res.pop("stats")
+        per_worker = _worker_stats(stats)
+        if res["digest"] != codes["digest"]:
+            raise AssertionError(f"{name}: the mesh differs from phase 5's")
+        if res["kernel_launches"] != res["blocks"]:
+            raise AssertionError(f"{name}: {res['kernel_launches']} launches,"
+                                 f" {res['blocks']} blocks")
+        if len(per_worker) != workers or \
+                not all(n > 0 for n, _ in per_worker.values()) or \
+                sum(n for n, _ in per_worker.values()) != res["blocks"]:
+            raise AssertionError(f"{name}: blocks per worker {per_worker}")
+        launches += res["kernel_launches"]
+        out[name] = {
+            "seconds": res["seconds"], "launches": res["kernel_launches"],
+            "pass1_s": stats["pass1.time"]["sum"],
+            "device_s": stats["device.time"]["sum"],
+            "readback_wait_s": stats["readback.wait"]["sum"],
+            "mesher_s": stats["mesher.time"]["sum"],
+            "decode_s": stats["readback.decode"]["sum"],
+            "workers": {w: {"blocks": n, "device_s": t}
+                        for w, (n, t) in per_worker.items()},
+            "mesh_window_peak": stats["mem.meshWindow"]["peak"],
+            "digest_is_phase_5": True}
+        phase(14, f"{name} ({' '.join(extra)}): {json.dumps(out[name])}")
+    # more cards than are visible: an option error, never a run on fewer
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([*bench_args(cloud[1]), "--num-devices", str(cards + 1),
+                       "-o", os.path.join(os.path.dirname(cloud[0]),
+                                          "never.ply"), cloud[0]])
+    if rc == 0 or f"only {cards} card(s) visible" not in err.getvalue():
+        raise AssertionError(f"--num-devices {cards + 1} on {cards} card(s): "
+                             f"rc {rc}: {err.getvalue()[-500:]}")
+    one = out["1 queue"]
+    summary = {
+        "cards_visible": cards, "kernel_launches": launches,
+        "phase5_seconds": codes["seconds"], "phase5_pass1_s": codes["pass1_s"],
+        "phase5_device_s": codes["device_s"],
+        "wall_ratio_to_1_queue": {k: v["seconds"] / one["seconds"]
+                                  for k, v in out.items()},
+        "pass1_ratio_to_1_queue": {k: v["pass1_s"] / one["pass1_s"]
+                                   for k, v in out.items()},
+        "two_processes_wall_ratio": (two_ranks["two_ranks_seconds"]
+                                     / two_ranks["one_process_seconds"]),
+        "two_processes_run_ratio": (
+            max(two_ranks["rank_run_seconds"])
+            / two_ranks["one_process_run_seconds"]
+            if two_ranks["one_process_run_seconds"] else None),
+        "too_many_cards_rc": rc}
+    phase(14, f"queues and cards: {json.dumps(summary)}: OK")
+    return {"runs": out, **summary}
+
+
+def phase15_sharded(pts, src, info, densest, dev) -> dict:
+    """`pts`: the 2M bench cloud; `densest`: its densest bucket."""
+    cards = torch.cuda.device_count()
+    meshes = [[dev, dev]]
+    if cards > 1:
+        meshes.append([torch.device("cuda", 0), torch.device("cuda", 1)])
+    # two seam-adjacent blocks of phase 4's cloud (x = 28: misaligned)
+    b, plane = 1 << (3 + 3 - 1), 28
+    splats = sphere_cloud([plane, 14.0, 14.0], 9.0, 6000, 1.2,
+                          np.random.default_rng(42))
+    regions = [(plane, b - 1, b - 1), (b - 1, b - 1, b - 1)]
+    origins = [(0, 0, 0), (plane, 0, 0)]
+    stacked = np.stack([splats, splats])
+    valid = np.ones(stacked.shape[:2], bool)
+    kw = dict(levels=3, subsampling=3)
+    alone = [block.block_step(
+        torch.as_tensor(splats, device=dev),
+        torch.ones(len(splats), dtype=torch.bool, device=dev),
+        regions[i], origins[i], 0.0, readback="codes", **kw)
+        for i in range(2)]
+    fields_alone = [_seam_block(splats, origins[i],
+                                np.add(origins[i], regions[i]), dev)
+                    for i in range(2)]
+    launches, corners = 0, 0
+    for mesh in meshes:
+        mls_cuda.launches = 0
+        got = sharded.data_parallel_block_step(
+            mesh, stacked, valid, regions, origins, 0.0, readback="codes",
+            **kw)
+        launches += mls_cuda.launches
+        if mls_cuda.launches != 2:
+            raise AssertionError(f"sharded step: {mls_cuda.launches} launches")
+        for i, (res, ref) in enumerate(zip(got, alone)):
+            if res.packed.device != mesh[i] or res.num_cells < 100 or \
+                    not np.array_equal(res.counts, ref.counts) or \
+                    not torch.equal(res.packed.cpu(), ref.packed.cpu()):
+                raise AssertionError(f"sharded block {i} over {mesh} is not "
+                                     "the block step's alone")
+        # the two fields, computed at the same time on two streams
+        fields = sharded.run_per_entry(mesh, lambda i, d: block.block_field(
+            torch.as_tensor(splats, device=d),
+            torch.ones(len(splats), dtype=torch.bool, device=d),
+            regions[i], origins[i], 0.0, None, **kw)[0])
+        fa, fb = (f.cpu().numpy() for f in fields)
+        corners += _bitwise_equal(fa[:, :, plane], fb[:, :, 0], 100,
+                                  f"face x={plane} over {mesh}")
+        for i, f in enumerate((fa, fb)):
+            _bitwise_equal(f, fields_alone[i], 1000,
+                           f"block {i} over {mesh} against one stream")
+
+    # the kernel on a non-default stream, while the default stream sleeps
+    grid_form, bvalid = cloud.bucket_inputs(src, info, densest)
+    min_s, max_s = SUB, LEVELS + SUB - 1
+    tpa = 1 << (max_s - 3)
+    origin = tuple(int(v) for v in densest.cell_lo)
+    binned = binning.bin_splats(torch.as_tensor(grid_form, device=dev),
+                                torch.as_tensor(bvalid, device=dev),
+                                origin, min_s, max_s)
+    starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
+    args = (binned.entry_data, starts, lens, origin, tpa, "sphere", 0.0)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    torch.cuda._sleep(200 * SLEEP_CYCLES)   # ~0.4 s on the default stream
+    asleep = torch.cuda.Event()
+    asleep.record()
+    with torch.cuda.stream(side):
+        got = mls_cuda.launch(*args)
+        got_host = got.cpu()                # on `side`; returns when done
+    if asleep.query():
+        raise AssertionError("the default stream's sleep ended before the "
+                             "side stream's kernel: cannot tell the streams "
+                             "apart")
+    torch.cuda.synchronize()
+    ref = mls.eval_field(*args)
+    summary = kernel_gate.compare_fields(ref, got_host.to(dev))
+    kernel_gate.check(summary, min_defined=10_000)
+    del got, ref, binned, starts, lens
+
+    # distributed_cell_bounds on the bench cloud, split over the mesh
+    bounds = {}
+    for mesh in meshes:
+        d = len(mesh)
+        n = len(pts) // d
+        pos = pts[:n * d, 0:3].reshape(d, n, 3)
+        rad = pts[:n * d, 3].reshape(d, n)
+        ok = np.ones((d, n), bool)
+        ok[:, ::7] = False
+        lo, hi, cnt = sharded.distributed_cell_bounds(mesh, pos, rad, ok)
+        sel = ok.reshape(-1)
+        p, r = pos.reshape(-1, 3)[sel], rad.reshape(-1)[sel][:, None]
+        np.testing.assert_allclose(lo.cpu().numpy(), (p - r).min(0),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(hi.cpu().numpy(), (p + r).max(0),
+                                   rtol=1e-6)
+        if int(cnt) != int(sel.sum()) or lo.device != mesh[0]:
+            raise AssertionError(f"cell bounds over {mesh}: count {int(cnt)}")
+        bounds[str(mesh)] = int(cnt)
+    res = {"cards_visible": cards, "meshes": [str(m) for m in meshes],
+           "kernel_launches": launches, "shared_corners_bitwise": corners,
+           "side_stream_agreement": summary["pattern_agreement"],
+           "side_stream_max_abs_err": summary["max_abs_err"],
+           "cell_bounds_counts": bounds}
+    phase(15, f"sharded calls on the card: {json.dumps(res)}: OK")
+    return res
+
+
+def phase16_tools() -> dict:
+    """The measuring tools in process, their lines printed as they are."""
+    seconds = {}
+    for tool, argv in ((bench_d2h, ["--reps", "5"]),
+                       (bench_micro, ["--reps", "3"]),
+                       (bench_micro2, ["--reps", "3"])):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        captured = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(captured):
+            rc = tool.main(argv)
+        seconds[name] = time.monotonic() - t0
+        lines = captured.getvalue().splitlines()
+        if rc != 0 or len(lines) < 8:
+            raise AssertionError(f"tools/{name}: rc {rc}, {len(lines)} lines")
+        for line in lines:
+            json.loads(line)
+            phase(16, f"{name} {line}")
+    phase(16, f"tools ran: {json.dumps(seconds)}: OK")
+    return seconds
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--through", type=int, default=13,
+    p.add_argument("--through", type=int, default=16,
                    help="run phases 1..N (6, the jax check, runs last) "
                         "[%(default)s]")
     args = p.parse_args(argv)
@@ -988,7 +1224,6 @@ def main(argv=None) -> int:
             check_isolated("phase 9")
             launches.append(tiled["kernel_launches"])
             rows.append(tiled["kernel_row"])
-        del splats, src
         if args.through >= 10:
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
             check_isolated("phase 10")
@@ -997,8 +1232,20 @@ def main(argv=None) -> int:
             check_isolated("phase 11")
             launches.append(chunked["kernel_launches"])
         if args.through >= 12:
-            phase12_two_ranks(bench_cloud, small_cloud, workdir, chunked)
+            ranks = phase12_two_ranks(bench_cloud, small_cloud, workdir,
+                                      chunked)
             check_isolated("phase 12")
+        if args.through >= 14:
+            launches.append(phase14_queues_and_cards(
+                bench_cloud, codes, ranks)["kernel_launches"])
+            check_isolated("phase 14")
+        if args.through >= 15:
+            launches.append(phase15_sharded(
+                splats, src, info, densest, dev)["kernel_launches"])
+            check_isolated("phase 15")
+        if args.through >= 16:
+            phase16_tools()
+            check_isolated("phase 16")
     check_isolated("every phase")
     phase(6, "neither jax, mlsgpu_tpu nor bench in sys.modules after any "
              "phase: OK")

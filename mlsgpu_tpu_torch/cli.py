@@ -6,9 +6,15 @@ cuda). `--readback codes|packed|raw|auto` picks the block readback and
 `--statistics-device` times each block-step stage on the device
 (`device.<stage>.time`). A multi-host run starts one process per rank with
 `--coordinator HOST:PORT --num-processes N --process-id R` (parallel/
-multihost.py: torch.distributed over gloo, rank 0 hosts the store). The one
-option whose code path is not ported yet stops with a clear error:
-multi-GPU (`--num-devices > 1`); `--mls-backend` is a JAX-package choice.
+multihost.py: torch.distributed over gloo, rank 0 hosts the store).
+`--device cuda` streams the blocks over every visible card, or the first
+`--num-devices N`; `--device cuda:<i>` over that card alone; each card runs
+`--device-threads T` queues (a worker thread and CUDA stream each,
+pipeline/streamer.py), and any number of workers writes the same bytes. A
+rank of a multi-host run takes its cards as a single process does, so ranks
+that share a machine each name their own (`--device cuda:<i>`, or
+CUDA_VISIBLE_DEVICES). `--mls-backend` is a JAX-package choice and stops
+with a clear error.
 """
 
 from __future__ import annotations
@@ -70,9 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="splat budget per device block [%(default)s]")
     a.add_argument("--tile-candidates", type=parse_capacity, default=d.tile_candidates,
                    help="per-tile candidate cap (auto-grows) [%(default)s]")
-    a.add_argument("--device-threads", type=int, default=d.device_threads)
+    a.add_argument("--device-threads", type=int, default=d.device_threads,
+                   help="queues (worker threads, CUDA streams) per card "
+                        "[%(default)s]")
     a.add_argument("--num-devices", type=int, default=0,
-                   help="local devices to use (0 = all)")
+                   help="cards to use with --device cuda: the first N of "
+                        "the visible ones, 0 = all; more than are visible "
+                        "is an error [%(default)s]")
     a.add_argument("--split-size", type=parse_capacity, default=0,
                    help="approximate size of output chunks (0 = single file)")
     a.add_argument("--checkpoint", help="checkpoint state to PATH instead of writing")
@@ -141,14 +151,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="time each device stage (binning/MLS/marching/weld) "
                         "into the statistics registry; fences the pipeline, "
                         "so profiling only (the reference's --statistics-cl, "
-                        "src/statistics_cl.h:43-93)")
+                        "src/statistics_cl.h:43-93); with several queues a "
+                        "stage's time includes its wait for the card while "
+                        "other queues use it")
     o.add_argument("--timeplot", help="write timing trace to file")
     o.add_argument("--quiet", action="store_true")
     o.add_argument("--debug", action="store_true")
     o.add_argument("--no-progress", action="store_true")
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (the hand-written kernel) or "
-                        "cpu (the plain PyTorch path) [%(default)s]")
+                   help="torch device: cuda (the hand-written kernel; every "
+                        "visible card, see --num-devices), cuda:<i> (that "
+                        "card alone) or cpu (the plain PyTorch path) "
+                        "[%(default)s]")
     return p
 
 
@@ -204,7 +218,7 @@ def distributed_problem(args) -> Optional[str]:
 
 
 @contextlib.contextmanager
-def _profile(trace_dir: Optional[str], device):
+def _profile(trace_dir: Optional[str], devices):
     """--profile: a torch.profiler trace of the run, written as a Chrome
     trace into the directory."""
     if not trace_dir:
@@ -212,7 +226,7 @@ def _profile(trace_dir: Optional[str], device):
         return
     import torch.profiler as tp
     acts = [tp.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if any(d.type == "cuda" for d in devices):
         acts.append(tp.ProfilerActivity.CUDA)
     with tp.profile(activities=acts) as prof:
         yield
@@ -264,6 +278,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     stats = get_registry()
     transport = None
     try:
+        if not args.resume:
+            # before any rank connects: a bad device option ends the run here
+            from mlsgpu_tpu_torch.device import resolve_devices
+            devices = resolve_devices(args.device, cfg.num_devices)
         if args.num_processes > 1:
             # MPI_Init analogue (mlsgpu-mpi.cpp:513)
             from mlsgpu_tpu_torch.parallel import multihost
@@ -278,8 +296,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             from mlsgpu_tpu_torch.io.binary import make_writer
             from mlsgpu_tpu_torch.io.ply import PlyWriter
-            from mlsgpu_tpu_torch.device import resolve_device
-            device = resolve_device(args.device)
             if cfg.decache:
                 from mlsgpu_tpu_torch.io.decache import decache_all
                 decache_all(args.inputs)
@@ -293,14 +309,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 max_radius=cfg.max_radius,
                                 reader_type=args.reader)
             try:
-                with DiskUsage(), _profile(args.profile, device):
+                with DiskUsage(), _profile(args.profile, devices):
                     if transport is not None:
                         outputs = multihost.reconstruct_distributed(
                             source, cfg, args.output_file, transport,
-                            device=device, writer_factory=writer_factory)
+                            device=devices, writer_factory=writer_factory)
                     else:
                         outputs = reconstruct(source, cfg, args.output_file,
-                                              device=device,
+                                              device=devices,
                                               writer_factory=writer_factory)
             finally:
                 source.close()

@@ -9,6 +9,8 @@ off once, before any device work.
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
@@ -40,3 +42,39 @@ def resolve_device(name: str) -> torch.device:
         raise InvalidOption(f"unsupported device {name!r} (cuda or cpu)")
     set_precision()
     return dev
+
+
+def resolve_devices(name: str, num_devices: int = 0) -> List[torch.device]:
+    """The devices a run streams its blocks over (--device, --num-devices).
+
+    'cuda' means every visible card when `num_devices` is 0 and the first
+    `num_devices` otherwise (the JAX package's rule for its local devices,
+    mlsgpu_tpu/pipeline/streamer.py:52-56); an indexed 'cuda:i' means that
+    card alone, and 'cpu' the CPU. Asking for more cards than are visible,
+    or for more than one device with 'cpu' or an indexed card, is an error:
+    a run never quietly uses fewer devices than it was asked for."""
+    num_devices = int(num_devices)
+    if num_devices < 0:
+        raise InvalidOption("--num-devices must not be negative")
+    try:
+        indexed = torch.device(name).index is not None
+    except RuntimeError as e:
+        raise InvalidOption(f"unknown device {name!r}: {e}") from e
+    if num_devices > 1 and (indexed or torch.device(name).type == "cpu"):
+        raise InvalidOption(
+            f"--num-devices {num_devices} with --device {name}: {name} is "
+            "one device; pass --device cuda to use several cards")
+    dev = resolve_device(name)
+    if dev.type != "cuda":
+        return [dev]
+    visible = torch.cuda.device_count()
+    if indexed:
+        if dev.index >= visible:
+            raise InvalidOption(f"--device {name}: only {visible} card(s) "
+                                "visible")
+        return [dev]
+    if num_devices > visible:
+        raise InvalidOption(f"--num-devices {num_devices}: only {visible} "
+                            "card(s) visible")
+    return [torch.device("cuda", i)
+            for i in range(num_devices or visible)]

@@ -62,14 +62,12 @@ class BinnedSplats(NamedTuple):
     # global id, so equal rows <=> same physical splat)
 
 
-def bin_splats(splats: torch.Tensor, valid: torch.Tensor,
-               cell_origin, min_shift: int, max_shift: int) -> BinnedSplats:
-    """Bin splats into sorted (node, splat) entries for one block.
-
-    splats: (N, 8) f32 in global grid cell coords, col 3 = radius.
-    valid: (N,) bool. cell_origin: the block's first cell (3 ints, x y z).
-    Positions stay in the global frame so every block sees bitwise-identical
-    splat values (the seam contract)."""
+def splat_keys(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
+               min_shift: int, max_shift: int) -> torch.Tensor:
+    """The key pass of binning: the (8N,) int64 node keys of every splat's
+    8 candidate entries, entry c * N + i for corner c of splat i;
+    INVALID_KEY where the splat is invalid, misses the node or the node
+    lies outside the block."""
     dev = splats.device
     n = splats.shape[0]
     r = splats[:, 3]
@@ -86,8 +84,7 @@ def bin_splats(splats: torch.Tensor, valid: torch.Tensor,
     level_offset = offs[shift - min_shift]
     bound = torch.ones_like(shift) << (max_shift - shift)
 
-    r2 = r * r
-    r2_conservative = r2 * float(np.float32(1.00001))  # octree.cl:194
+    r2_conservative = r * r * float(np.float32(1.00001))  # octree.cl:194
 
     def axis_d2(a, d):
         """Node address on axis a and the squared distance from the splat
@@ -110,14 +107,34 @@ def bin_splats(splats: torch.Tensor, valid: torch.Tensor,
                 inb = (ax < bound) & (ay < bound) & (az < bound)
                 key = level_offset + morton.encode(ax, ay, az)
                 keys.append(torch.where(isect & inb & valid, key, invalid))
-    all_keys = torch.cat(keys)                                   # (8N,)
-    all_vals = torch.arange(n, dtype=torch.int64, device=dev).repeat(8)
+    return torch.cat(keys)                                       # (8N,)
 
+
+def sort_entries(all_keys: torch.Tensor, n: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sort of binning: (sorted keys, splat row of every sorted entry)
+    of splat_keys' output for n splats. Stable, so equal keys keep
+    ascending splat rows."""
+    all_vals = torch.arange(n, dtype=torch.int64,
+                            device=all_keys.device).repeat(8)
     sorted_keys, perm = torch.sort(all_keys, stable=True)
-    sorted_vals = all_vals[perm]
+    return sorted_keys, all_vals[perm]
 
+
+def bin_splats(splats: torch.Tensor, valid: torch.Tensor,
+               cell_origin, min_shift: int, max_shift: int) -> BinnedSplats:
+    """Bin splats into sorted (node, splat) entries for one block: the key
+    pass, the sort, and the gather of the splat rows into entry order.
+
+    splats: (N, 8) f32 in global grid cell coords, col 3 = radius.
+    valid: (N,) bool. cell_origin: the block's first cell (3 ints, x y z).
+    Positions stay in the global frame so every block sees bitwise-identical
+    splat values (the seam contract)."""
+    all_keys = splat_keys(splats, valid, cell_origin, min_shift, max_shift)
+    sorted_keys, sorted_vals = sort_entries(all_keys, splats.shape[0])
+    r = splats[:, 3]
     mls_form = splats.clone()
-    mls_form[:, 3] = 1.0 / r2
+    mls_form[:, 3] = 1.0 / (r * r)
     return BinnedSplats(entry_data=mls_form[sorted_vals],
                         entry_keys=sorted_keys, entry_vals=sorted_vals)
 

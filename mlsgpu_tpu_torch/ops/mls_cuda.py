@@ -32,10 +32,12 @@ LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: Kernel launches made by `eval_field` (a plain counter; reset it to 0
-#: before a run to count that run's launches).
+#: Kernel launches made by `eval_field`, counted by `count_launch` under a
+#: lock (the streamer launches from one thread per queue). Set it to 0
+#: before a run to count that run's launches.
 launches = 0
 
+_count_lock = threading.Lock()
 _lock = threading.Lock()
 _lib = None
 #: What the last build printed (nvcc's -Xptxas -v register/spill report)
@@ -104,6 +106,14 @@ def load():
         return _lib
 
 
+def count_launch() -> None:
+    """Add one to `launches`; called where the field kernel was launched
+    and nowhere else."""
+    global launches
+    with _count_lock:
+        launches += 1
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -129,7 +139,6 @@ def _launch(entry_data, seg_starts, seg_lens, cell_origin, tiles_per_axis,
     device scalar). The tile order (occupied tiles first, longest first,
     from the order kernels) and the count stay on the device: no host
     sync."""
-    global launches
     dev = entry_data.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
@@ -160,7 +169,7 @@ def _launch(entry_data, seg_starts, seg_lens, cell_origin, tiles_per_axis,
             field.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mls_field_launch failed: cudaError_t {err}")
-    launches += 1
+    count_launch()
     return field, n_occ
 
 

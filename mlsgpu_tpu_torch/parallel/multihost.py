@@ -627,14 +627,15 @@ def reconstruct_distributed(source: SplatSource, cfg: ReconstructConfig,
                             output: str, transport: Transport,
                             device="cuda", writer_factory=None) -> List[str]:
     """One rank of a distributed run: every process computes the same
-    buckets, runs its chunks on its device, exchanges prune info, writes
-    its own chunk files. Returns this process's output paths."""
+    buckets, runs its chunks over its devices (taken as a single process
+    takes them: pipeline.reconstruct.prepare_run), exchanges prune info,
+    writes its own chunk files. Returns this process's output paths."""
     from mlsgpu_tpu_torch.pipeline.reconstruct import (
         block_result_to_input, output_chunk_cells, prepare_run)
     from mlsgpu_tpu_torch.pipeline.streamer import (consume_threaded,
                                                     stream_blocks)
 
-    dev, readback = prepare_run(cfg, device)
+    devices, readback = prepare_run(cfg, device)
     info = distributed_blobs(source, cfg, transport)
 
     # Fault-injection hook for the real-process failure test (the reference
@@ -701,7 +702,7 @@ def reconstruct_distributed(source: SplatSource, cfg: ReconstructConfig,
 
     try:
         consume_threaded(
-            stream_blocks(source, info, mine_iter, cfg, dev, readback),
+            stream_blocks(source, info, mine_iter, cfg, devices, readback),
             consume)
     finally:
         progress.close()

@@ -28,7 +28,7 @@ from mlsgpu_tpu_torch.utils.errors import InvalidOption, MlsError
 from mlsgpu_tpu_torch.utils.progress import NullProgress, ProgressDisplay
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 
-from mlsgpu_tpu_torch.device import resolve_device
+from mlsgpu_tpu_torch.device import resolve_device, resolve_devices
 from mlsgpu_tpu_torch.ops.block import resolve_readback, unpack_readback_global
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod
 from mlsgpu_tpu_torch.pipeline.resources import validate_device
@@ -37,10 +37,8 @@ from mlsgpu_tpu_torch.pipeline.streamer import (HostBlock, consume_threaded,
 
 
 def check_supported(cfg: ReconstructConfig) -> None:
-    """Options whose code paths are not ported yet stop the run; they never
-    quietly take another path."""
-    if cfg.num_devices > 1:
-        raise InvalidOption("--num-devices > 1: multi-GPU not yet ported")
+    """Options of the JAX package that mean nothing here stop the run; they
+    never quietly take another path."""
     if cfg.mls_backend != "auto":
         raise InvalidOption(f"--mls-backend {cfg.mls_backend}: a JAX-package "
                             "option; the port always uses its CUDA kernel "
@@ -63,14 +61,22 @@ def require_native():
 
 def prepare_run(cfg: ReconstructConfig, device, device_filter=None):
     """What every run settles before its first pass, single-process or one
-    rank of a distributed run: the options are valid and ported, the device
-    exists, the readback mode is resolved (here and nowhere else), the
-    native library is there when that mode needs it, and the device memory
-    estimate fits (resources.validate_device). Returns (torch device,
-    readback mode)."""
+    rank of a distributed run: the options are valid and ported, the
+    devices exist, the readback mode is resolved (here and nowhere else),
+    the native library is there when that mode needs it, and the device
+    memory estimate fits every card once per queue
+    (resources.validate_device). `device` is a name or a torch device,
+    resolved with --num-devices (device.resolve_devices), or a sequence of
+    devices taken as it is (it may repeat one). Returns (list of torch
+    devices, readback mode)."""
     cfg.validate()
     check_supported(cfg)
-    dev = resolve_device(str(device))
+    if isinstance(device, (list, tuple)):
+        devices = [resolve_device(str(d)) for d in device]
+        if not devices:
+            raise InvalidOption("no device to run on")
+    else:
+        devices = resolve_devices(str(device), cfg.num_devices)
     # A device filter needs the raw arrays (its vertices leave the lattice
     # the other layouts encode).
     if device_filter is not None:
@@ -83,9 +89,9 @@ def prepare_run(cfg: ReconstructConfig, device, device_filter=None):
                 if device_filter is not None else ""))
     if readback == "codes":
         require_native()
-    validate_device(cfg, dev, readback)
+    validate_device(cfg, devices, readback, cfg.device_threads)
     misc.bound_mmap_threshold()  # keep cycling per-block buffers off brk
-    return dev, readback
+    return devices, readback
 
 
 def output_chunk_cells(cfg: ReconstructConfig) -> Optional[int]:
@@ -135,15 +141,16 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
                 show_progress: Optional[bool] = None,
                 mesher: Optional[OOCMesher] = None,
                 filters=None, device_filter=None) -> List[str]:
-    """Full single-device reconstruction. Returns the output files (none
-    when cfg.checkpoint is set).
+    """Full single-process reconstruction over the devices of `device`
+    (prepare_run: a name resolved with --num-devices, or a list). Returns
+    the output files (none when cfg.checkpoint is set).
 
     filters: a host filter chain `(vertices, triangles) -> (vertices,
     triangles)` run on each block's decoded mesh in global grid coordinates
     (mesh_filter.MeshFilterChain). device_filter: a device vertex filter
     (mesh_filter.DeviceFilterChain) run inside the block step; it makes the
     readback raw (prepare_run resolves the mode once)."""
-    dev, readback = prepare_run(cfg, device, device_filter)
+    devices, readback = prepare_run(cfg, device, device_filter)
     stats = get_registry()
     show_progress = cfg.progress if show_progress is None else show_progress
 
@@ -190,8 +197,9 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
                 mesher.add(block)
             progress.add(bucket.num_splats)
 
-        consume_threaded(stream_blocks(source, info, buckets, cfg, dev,
-                                       readback, device_filter=device_filter),
+        consume_threaded(stream_blocks(source, info, buckets, cfg,
+                                       devices, readback,
+                                       device_filter=device_filter),
                          consume)
 
     if cfg.checkpoint:

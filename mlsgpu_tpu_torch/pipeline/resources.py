@@ -1,11 +1,11 @@
 """Device memory precheck (port of mlsgpu_tpu/pipeline/resources.py, the
 reference's resourceUsage/validateDevice, src/mlsgpu_core.cpp:469-518):
 estimate one block step's device working set from the configuration and
-fail early when the card cannot hold it."""
+fail early when a card cannot hold it once for each of its queues."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -86,17 +86,25 @@ def device_memory_bytes(device: torch.device) -> Optional[int]:
     return int(total)
 
 
-def validate_device(cfg: ReconstructConfig, device: torch.device,
-                    readback: str) -> Dict[str, int]:
+def validate_device(cfg: ReconstructConfig,
+                    devices: Sequence[torch.device], readback: str,
+                    queues: int = 1) -> Dict[str, int]:
     """Estimate one block step in the resolved readback mode and check it
-    against the device; raises InvalidOption when it cannot fit."""
+    against every device used: `queues` workers run on each entry of
+    `devices` (an entry per use of a device), and each worker holds one
+    block step's working set at a time. Raises InvalidOption when a card
+    cannot hold its workers' steps."""
     usage = estimate_block_usage(cfg, readback)
-    limit = device_memory_bytes(device)
     log.info("device block-step memory estimate: "
              + ", ".join(f"{k}={v / 1e6:.0f}M" for k, v in usage.items()))
-    if limit is not None and usage["total"] > limit * 0.9:
-        raise InvalidOption(
-            f"estimated block usage {usage['total'] / 1e9:.2f} GB exceeds "
-            f"device memory {limit / 1e9:.2f} GB; reduce --levels, "
-            "--max-device-splats or --device-block-shift")
+    devices = list(devices)
+    for dev in sorted(set(devices), key=str):
+        workers = devices.count(dev) * max(1, int(queues))
+        limit = device_memory_bytes(dev)
+        if limit is not None and usage["total"] * workers > limit * 0.9:
+            raise InvalidOption(
+                f"estimated block usage {usage['total'] / 1e9:.2f} GB x "
+                f"{workers} queue(s) exceeds the memory of {dev}, "
+                f"{limit / 1e9:.2f} GB; reduce --device-threads, --levels, "
+                "--max-device-splats or --device-block-shift")
     return usage

@@ -1,16 +1,37 @@
 """Streaming block executor (port of mlsgpu_tpu/pipeline/streamer.py):
 a loader thread reads each bucket's blob ranges and converts them to block
-inputs behind a bounded queue, the main thread runs the block step on the
-device and keeps a small window of blocks whose readback is in flight, and
-`consume_threaded` hands finished blocks to the mesher on its own thread.
+inputs behind a bounded queue, device workers run the block step and start
+each block's readback, the generator hands the finished blocks out in the
+loader's order, and `consume_threaded` passes them to the mesher on its own
+thread.
+
+Workers. A run has D devices x T queues (--num-devices, --device-threads):
+one worker thread per (device, queue), each under `torch.cuda.device` and
+its own CUDA stream (the default stream when it is its card's only queue),
+the reference's several command queues per device with a thread each
+(src/workers.h:183-206). A free worker pulls the next loaded block, which
+is the reference's pull model (src/workers.cpp:315-351) and the port's form
+of the JAX loop's spare-capacity rule. The JAX loop's one dispatching
+thread is not carried over: there a block step is one asynchronous call of
+a compiled program, so one thread keeps any number of devices busy; an
+eager PyTorch block step is hundreds of small calls with host
+synchronisations between them (the counts that size the outputs), so one
+thread would run the devices one after the other.
+
+Order. The loader numbers the blocks and the generator yields them in that
+order whichever worker finished first, so the mesher sees one order and
+the output of any number of workers is bitwise the one-worker run's.
 
 Host memory is bounded as in the JAX streamer (the reference's
 CircularBuffer backpressure, src/circular_buffer.h:47-248), by the bytes
 really held: --mem-load-splats bounds the splats loaded and not yet taken
-by the device loop, --mem-host-splats the splats held on the host from
-loading until their block is launched, and --mem-mesh the readback images
-in flight. Each budget always admits one block. The peaks are recorded as
-mem.loadQueue, mem.hostSplats and mem.meshWindow.
+by a worker, --mem-host-splats the splats held on the host from loading
+until their block is launched, and --mem-mesh the readback images of all
+workers together from the start of the copy until the block is yielded.
+Each budget always admits one block; --mem-mesh always admits the oldest
+block not yet yielded, or a full budget would wait on a block that waits
+on the budget. The peaks are recorded as mem.loadQueue, mem.hostSplats and
+mem.meshWindow.
 
 What the JAX streamer needed only for XLA's static shapes is gone: no pow2
 padding of splat batches, no sizing probe, no caps and no overflow retry
@@ -20,10 +41,12 @@ speculative readback.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
-from collections import deque
-from typing import Iterable, Iterator, List, NamedTuple, Tuple
+import time
+from typing import (Dict, Iterable, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -40,6 +63,10 @@ _SENTINEL = object()
 
 # Return glibc-freed heap spans to the OS every N blocks (utils.misc).
 _TRIM_EVERY = 8
+
+#: Blocks one worker may have between the start of their step and their
+#: yield: one readback in flight while the next block computes.
+WORKER_WINDOW = 2
 
 
 #: Host bytes of one splat of a block input: (8,) f32 row + valid byte.
@@ -152,20 +179,88 @@ def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
         raise err[0]
 
 
-def _start_readback(tensors: List[torch.Tensor], device: torch.device):
-    """Queue the copy of a block's readback tensors to the host; returns
-    (host tensors, event or None). On the card each copy lands in pinned
-    memory asynchronously and the event marks their completion; on the CPU
-    the tensors are already the host's."""
+class MeshWindow:
+    """The finished blocks of all workers, handed out in the loader's order,
+    and the --mem-mesh budget over their images, under one lock.
+
+    A worker calls `admit(seq, nbytes)` before it starts a block's readback
+    and `deposit(seq, entry)` after; the generator takes the blocks with
+    `next_entry()` in sequence and calls `release(nbytes)` when it yields
+    one. `admit` waits while the images held would exceed the budget,
+    except for the oldest block not yet yielded, which always passes: every
+    other block can wait for it, it for none."""
+
+    def __init__(self, budget: int, peak: Peak, cancel: threading.Event):
+        self.budget = int(budget)
+        self.peak = peak
+        self.cancel = cancel
+        self.held = 0
+        self.next_seq = 0                 # oldest block not yet yielded
+        self.total: Optional[int] = None  # blocks in all, once known
+        self._ready: Dict[int, tuple] = {}
+        self._cond = threading.Condition()
+
+    def admit(self, seq: int, nbytes: int) -> bool:
+        with self._cond:
+            while seq != self.next_seq and self.held + nbytes > self.budget:
+                if self.cancel.is_set():
+                    return False
+                self._cond.wait(0.2)
+            self.held += nbytes
+            self.peak.set(self.held)
+            return True
+
+    def deposit(self, seq: int, entry: tuple) -> None:
+        with self._cond:
+            self._ready[seq] = entry
+            self._cond.notify_all()
+
+    def finish(self, total: int) -> None:
+        """The loader has numbered its last block."""
+        with self._cond:
+            self.total = total
+            self._cond.notify_all()
+
+    def wake(self) -> None:
+        with self._cond:
+            self._cond.notify_all()
+
+    def next_entry(self):
+        """The next block in order, or None when all have been handed out
+        or the run is cancelled."""
+        with self._cond:
+            while self.next_seq not in self._ready:
+                if self.cancel.is_set() or self.next_seq == self.total:
+                    return None
+                self._cond.wait(0.2)
+            return self._ready.pop(self.next_seq)
+
+    def release(self, nbytes: int) -> None:
+        """The block `next_entry` returned is about to be yielded."""
+        with self._cond:
+            self.held -= nbytes
+            self.next_seq += 1
+            self.peak.set(self.held)
+            self._cond.notify_all()
+
+
+def _start_readback(tensors: List[torch.Tensor], device: torch.device,
+                    stream: Optional["torch.cuda.Stream"] = None):
+    """Queue the copy of a block's readback tensors to the host on `stream`
+    of `device` (None: the CPU, whose tensors are already the host's);
+    returns (host tensors, event or None). On the card each copy lands in
+    pinned memory asynchronously and the event, recorded on that stream,
+    marks their completion."""
     if device.type != "cuda":
         return tensors, None
     hosts = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        hosts.append(h)
-    event = torch.cuda.Event()
-    event.record()
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
+        event = torch.cuda.Event()
+        event.record(stream)
     return hosts, event
 
 
@@ -176,30 +271,54 @@ def _host_arrays(readback: str, hosts: List[torch.Tensor]):
     return verts, hi.view(np.uint32), lo.view(np.uint32), tris
 
 
-def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
-                  device: torch.device, readback: str, device_filter=None,
-                  read_images: bool = True) -> Iterator[Tuple[object, HostBlock]]:
-    """Yield (bucket, HostBlock) for every bucket, pipelined: loading runs
-    ahead on a thread, and up to max(2, --device-threads) blocks have
-    readbacks in flight (the reference's per-device command queues), fewer
-    when their images would exceed --mem-mesh.
+def worker_streams(devices: Sequence[torch.device], queues: int):
+    """One (device, position of the device in `devices`, queue, stream) per
+    worker: `queues` workers for every entry of `devices`. A worker that is
+    its card's only one runs on the default stream (None on the CPU)."""
+    per_card = {d: devices.count(d) * queues for d in set(devices)}
+    out = []
+    for pos, dev in enumerate(devices):
+        for q in range(queues):
+            stream = None
+            if dev.type == "cuda":
+                stream = (torch.cuda.default_stream(dev) if per_card[dev] == 1
+                          else torch.cuda.Stream(dev))
+            out.append((dev, pos, q, stream))
+    return out
 
-    `buckets` is any iterable, drawn from by the loader alone and possibly
-    lazy: a distributed run passes its work queue, which claims chunks at
-    the loader's pace, so claim-ahead is bounded by the window and the byte
+
+def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
+                  devices: Union[torch.device, Sequence[torch.device]],
+                  readback: str, device_filter=None,
+                  read_images: bool = True) -> Iterator[Tuple[object, HostBlock]]:
+    """Yield (bucket, HostBlock) for every bucket in the loader's order,
+    pipelined: loading runs ahead on a thread, every device of `devices`
+    has max(1, --device-threads) workers (module docstring), and every
+    worker has up to WORKER_WINDOW blocks between the start of their step
+    and their yield, fewer when the images would exceed --mem-mesh.
+
+    `devices` is one device or a sequence; a sequence may name a device
+    more than once (each entry gets its own workers). `buckets` is any
+    iterable, drawn from by the loader alone and possibly lazy: a
+    distributed run passes its work queue, which claims chunks at the
+    loader's pace, so claim-ahead is bounded by the workers and the byte
     budgets. (The JAX package takes the list and a separate `bucket_iter=`;
-    here the one argument carries either.) With
-    `read_images` false no image is copied to the host and every HostBlock
-    carries its counts alone (tools/bench_split's compute-only pass).
+    here the one argument carries either.) With `read_images` false no
+    image is copied to the host and every HostBlock carries its counts
+    alone (tools/bench_split's compute-only pass).
 
     `readback` is the resolved mode ("codes", "packed" or "raw"; "raw"
     when `device_filter` is set). With --statistics-device every block step
-    is timed stage by stage (ops.block.block_step_staged)."""
+    is timed stage by stage (ops.block.block_step_staged). An exception in
+    the loader or in any worker cancels the others and is raised here;
+    closing the generator joins every thread."""
     stats = get_registry()
-    window = max(2, int(cfg.device_threads))
+    if isinstance(devices, torch.device):
+        devices = [devices]
+    workers = worker_streams(list(devices), max(1, int(cfg.device_threads)))
     misc.bound_mmap_threshold()
     step = block_step_staged if cfg.statistics_device else block_step
-    load_q: "queue.Queue" = queue.Queue(maxsize=window + 1)
+    load_q: "queue.Queue" = queue.Queue(maxsize=max(2, len(workers)) + 1)
     blob_start = info.blobs.start
     blob_count = info.blobs.count
     grid = info.grid
@@ -209,8 +328,12 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                              stats.peak("mem.loadQueue"), cancel)
     host_budget = ByteBudget(cfg.mem_host_splats,
                              stats.peak("mem.hostSplats"), cancel)
-    pk_mesh = stats.peak("mem.meshWindow")
-    mesh_bytes = [0]                   # images in flight
+    window = MeshWindow(cfg.mem_mesh, stats.peak("mem.meshWindow"), cancel)
+
+    def fail(e: BaseException) -> None:
+        error.append(e)
+        cancel.set()
+        window.wake()
 
     def _put(item) -> bool:
         while not cancel.is_set():
@@ -223,6 +346,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
 
     def loader():
         worker = timeplot.Worker("loader")
+        seq = 0
         try:
             for b in buckets:
                 nbytes = b.num_splats * SPLAT_BYTES
@@ -236,80 +360,126 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                         for i in b.blob_ids)
                     splats, valid = prepare_block_inputs(
                         source.read_ranges(ranges), grid)
-                if not _put((b, nbytes, splats, valid)):
+                if not _put((seq, b, nbytes, splats, valid)):
                     return
-        except BaseException as e:  # re-raised by the consumer loop
-            error.append(e)
+                seq += 1
+            window.finish(seq)
+        except BaseException as e:  # raised by the generator
+            fail(e)
         finally:
             _put(_SENTINEL)
 
-    thread = threading.Thread(target=loader, name="loader", daemon=True)
-    thread.start()
-    compute_worker = timeplot.Worker("device")
-    inflight: deque = deque()          # (bucket, result, hosts, event, bytes)
+    def run_block(device, stream, plot, taken: list):
+        """One block on this worker: h2d, the step and the start of its
+        readback, all on the worker's stream; the entry for the generator.
+        `taken` holds the loader's item and is emptied, so the host copy of
+        the splats goes as soon as it is on the device."""
+        seq, b, nbytes, splats, valid = taken.pop()
+        load_budget.release(nbytes)
+        t0 = time.monotonic()
+        with timeplot.Action("compute", plot, stats.variable("device.time")):
+            with stats.timer("dispatch.h2d"):
+                pts = (None if b.skeleton is None or not len(b.skeleton)
+                       else torch.as_tensor(b.skeleton, device=device))
+                sp = torch.as_tensor(splats).to(device)
+                va = torch.as_tensor(valid).to(device)
+            del splats, valid
+            result = step(
+                sp, va, tuple(int(v) for v in b.cell_hi - b.cell_lo),
+                tuple(int(v) for v in b.cell_lo),
+                float(cfg.boundary_factor), pts,
+                levels=cfg.device_levels, subsampling=cfg.subsampling,
+                fit_shape=cfg.fit_shape, readback=readback,
+                device_filter=device_filter)
+            del sp, va, pts
+        host_budget.release(nbytes)
+        tensors = readback_tensors(result) if read_images else []
+        image_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        if not window.admit(seq, image_bytes):
+            return None
+        hosts, event = _start_readback(tensors, device, stream)
+        stats.variable("device.occTiles").add(result.num_occ_tiles)
+        stats.counter(f"readback.mode.{readback}").add(1)
+        return seq, (b, result, hosts, event, image_bytes), \
+            time.monotonic() - t0
 
-    def force(entry):
-        b, result, hosts, event, nbytes = entry
-        with timeplot.Action("readback", compute_worker,
-                             stats.variable("readback.wait")):
-            if event is not None:
-                event.synchronize()
-        stats.counter("readback.bytes").add(nbytes)
-        mesh_bytes[0] -= nbytes
-        pk_mesh.set(mesh_bytes[0])
-        return b, HostBlock(readback=result.readback, fmt=result.fmt,
-                            counts=result.counts,
-                            arrays=(_host_arrays(result.readback, hosts)
-                                    if read_images else ()))
+    def worker(device, pos, q, stream, slots):
+        plot = timeplot.Worker(f"device.{pos}.{q}")
+        blocks = stats.counter(f"device.blocks.{pos}.{q}")
+        seconds = stats.variable(f"device.workerTime.{pos}.{q}")
+        on_card = device.type == "cuda"
+        try:
+            with (torch.cuda.device(device) if on_card
+                  else contextlib.nullcontext()), \
+                    (torch.cuda.stream(stream) if on_card
+                     else contextlib.nullcontext()):
+                while True:
+                    # a slot first: a worker whose window is full leaves
+                    # the next block to a free one
+                    while not slots.acquire(timeout=0.2):
+                        if cancel.is_set():
+                            return
+                    item = _SENTINEL
+                    while not cancel.is_set():
+                        try:
+                            item = load_q.get(timeout=0.2)
+                            break
+                        except queue.Empty:
+                            continue
+                    if item is _SENTINEL:
+                        _put(_SENTINEL)   # for the next worker
+                        return
+                    taken = [item]
+                    del item
+                    done = run_block(device, stream, plot, taken)
+                    if done is None:
+                        return
+                    seq, entry, dt = done
+                    blocks.add(1)
+                    seconds.add(dt)
+                    window.deposit(seq, entry + (slots,))
+                    del done, entry
+        except BaseException as e:  # raised by the generator
+            fail(e)
 
-    forced = 0
+    threads = [threading.Thread(target=loader, name="loader", daemon=True)]
+    for dev, pos, q, stream in workers:
+        threads.append(threading.Thread(
+            target=worker, name=f"device.{pos}.{q}", daemon=True,
+            args=(dev, pos, q, stream,
+                  threading.Semaphore(WORKER_WINDOW))))
+    for t in threads:
+        t.start()
+    wait_plot = timeplot.Worker("readback")
+    yielded = 0
     try:
         while True:
-            item = load_q.get()
-            if item is _SENTINEL:
-                if error:
-                    raise error[0]
+            entry = None if error else window.next_entry()
+            if error:
+                raise error[0]
+            if entry is None:
                 break
-            b, nbytes, splats, valid = item
-            load_budget.release(nbytes)
-            with timeplot.Action("compute", compute_worker,
-                                 stats.variable("device.time")):
-                with stats.timer("dispatch.h2d"):
-                    pts = (None if b.skeleton is None or not len(b.skeleton)
-                           else torch.as_tensor(b.skeleton, device=device))
-                    sp = torch.as_tensor(splats).to(device)
-                    va = torch.as_tensor(valid).to(device)
-                del item, splats, valid
-                result = step(
-                    sp, va, tuple(int(v) for v in b.cell_hi - b.cell_lo),
-                    tuple(int(v) for v in b.cell_lo),
-                    float(cfg.boundary_factor), pts,
-                    levels=cfg.device_levels, subsampling=cfg.subsampling,
-                    fit_shape=cfg.fit_shape, readback=readback,
-                    device_filter=device_filter)
-                del sp, va, pts
-            host_budget.release(nbytes)
-            tensors = readback_tensors(result) if read_images else []
-            image_bytes = sum(t.numel() * t.element_size() for t in tensors)
-            # --mem-mesh: make room for this block's image first, keeping
-            # at least this block in flight.
-            while inflight and mesh_bytes[0] + image_bytes > cfg.mem_mesh:
-                yield force(inflight.popleft())
-                forced += 1
-            hosts, event = _start_readback(tensors, device)
-            mesh_bytes[0] += image_bytes
-            pk_mesh.set(mesh_bytes[0])
-            stats.variable("device.occTiles").add(result.num_occ_tiles)
-            stats.counter(f"readback.mode.{readback}").add(1)
-            inflight.append((b, result, hosts, event, image_bytes))
-            if len(inflight) > window:
-                yield force(inflight.popleft())
-                forced += 1
-                if forced % _TRIM_EVERY == 0:
-                    misc.malloc_trim()
-        while inflight:
-            yield force(inflight.popleft())
+            b, result, hosts, event, nbytes, slots = entry
+            with timeplot.Action("readback", wait_plot,
+                                 stats.variable("readback.wait")):
+                if event is not None:
+                    event.synchronize()
+            stats.counter("readback.bytes").add(nbytes)
+            block = HostBlock(readback=result.readback, fmt=result.fmt,
+                              counts=result.counts,
+                              arrays=(_host_arrays(result.readback, hosts)
+                                      if read_images else ()))
+            del entry, result, hosts, event
+            window.release(nbytes)
+            slots.release()
+            yield b, block
+            del block
+            yielded += 1
+            if yielded % _TRIM_EVERY == 0:
+                misc.malloc_trim()
         misc.malloc_trim()
     finally:
         cancel.set()
-        thread.join()
+        window.wake()
+        for t in threads:
+            t.join()

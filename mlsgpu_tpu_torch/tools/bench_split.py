@@ -12,6 +12,7 @@ All times are the host's clock (time.monotonic around the whole pass; the
 statistics are the streamer's own timers).
 
 Usage: python -m mlsgpu_tpu_torch.tools.bench_split [n_splats] [--device cpu]
+           [--device-threads T]
 """
 
 import argparse
@@ -23,7 +24,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("splats", type=int, nargs="?", default=2_000_000)
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda or cpu [%(default)s]")
+                   help="torch device: cuda (every visible card), cuda:<i> "
+                        "or cpu [%(default)s]")
+    p.add_argument("--device-threads", type=int, default=1,
+                   help="queues (worker threads, CUDA streams) per card "
+                        "[%(default)s]")
     args = p.parse_args(argv)
 
     from mlsgpu_tpu_torch.io.splat_set import SequenceSource
@@ -35,7 +40,8 @@ def main(argv=None):
 
     splats, sr = cloud.make_cloud(args.splats)
     cfg = cloud.bench_config(sr)
-    dev, readback = prepare_run(cfg, args.device)
+    cfg.device_threads = args.device_threads
+    devices, readback = prepare_run(cfg, args.device)
     src = SequenceSource(splats)
     info, buckets, _ = cloud.densest_bucket(src, cfg)
 
@@ -43,7 +49,8 @@ def main(argv=None):
         get_registry().clear()
         t0 = time.monotonic()
         nv = 0
-        for b, res in stream_blocks(src, info, buckets, cfg, dev, readback,
+        for b, res in stream_blocks(src, info, buckets, cfg, devices,
+                                    readback,
                                     read_images=consume):
             if consume:
                 nv += len(block_result_to_input(res, b).vertices)
@@ -66,7 +73,9 @@ def main(argv=None):
     run(False, "warm (kernel build, allocator)")
     a = run(False, "A: counts-only (compute+dispatch)")
     b = run(True, "B: full readback+decode")
-    print(json.dumps({"device": str(dev), "readback": readback,
+    print(json.dumps({"devices": [str(d) for d in devices],
+                      "queues_per_device": max(1, cfg.device_threads),
+                      "readback": readback,
                       "transfer+decode_s": round(b - a, 2),
                       "per_block_ms": round((b - a) / len(buckets) * 1e3, 1)}),
           flush=True)

@@ -8,8 +8,13 @@ predict throughput without re-running the reconstruction. Use it to answer
 "would a deeper window / second loader / more chips help?".
 
 Pipeline model (pipeline/streamer.py): L loader threads feed a bounded
-queue of capacity W+1; D devices each process one block at a time (blocks
-round-robin); a single mesher consumes results in dispatch order.
+queue of capacity W+1; the streamer runs D devices x T queues, one worker
+per (device, queue), each processing one block at a time, and `--devices`
+here is that number of workers, D x T (the model deals the blocks
+round-robin where the streamer's free worker pulls the next one, the same
+for blocks of equal cost); a single mesher consumes results in the
+loader's order. A trace of a multi-worker run carries one worker per
+queue (`device.<card>.<queue>`); its `compute` spans are read together.
 
 Usage:
     python -m mlsgpu_tpu_torch.tools.simulate trace.txt [--window N]
@@ -91,7 +96,8 @@ def main(argv=None) -> int:
         prog="simulate", description=__doc__.split("\n")[0])
     ap.add_argument("trace")
     ap.add_argument("--window", type=int, default=2)
-    ap.add_argument("--devices", type=int, default=1)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="device workers: devices x queues per device")
     ap.add_argument("--loaders", type=int, default=1)
     args = ap.parse_args(argv)
 

@@ -2,8 +2,9 @@
 tests/test_pipeline.py:433-457): tight --mem-load-splats,
 --mem-host-splats and --mem-mesh budgets throttle the pipeline, their
 peaks (mem.loadQueue, mem.hostSplats, mem.meshWindow) are recorded and stay
-within budget, and the output is unchanged. Plus a stress test of the
-byte budget the loader thread and the device loop share."""
+within budget, and the output is unchanged, with one queue and with three.
+Plus a stress test of the byte budget the loader thread and the device
+workers share."""
 
 import random
 import sys
@@ -66,9 +67,17 @@ def test_tight_memory_budgets_end_to_end(tmp_path):
     maxn = max(b.num_splats for b in bucket.make_buckets(
         info, cfg.device_block_cells, cfg.micro_cells, max_splats=max_splats))
     block = max(maxn * SPLAT_BYTES, 32 * max_splats)
-    # The images of the blocks in flight at the roomy run's peak exceed a
-    # budget of one byte less, and every single image fits it.
-    mesh = roomy["mem.meshWindow"] - 1
+    # A mesh budget of exactly the largest image: every single image fits
+    # it and no two of the largest do. (An image is held from the start of
+    # its copy until its block is yielded, so how many the roomy run holds
+    # at its peak depends on how fast the mesher takes them: one at least.)
+    from mlsgpu_tpu_torch.pipeline.streamer import stream_blocks
+    devices, readback = trec.prepare_run(cfg, "cpu")
+    mesh = max(r.packed.nbytes for _, r in stream_blocks(
+        SequenceSource(splats), info, bucket.make_buckets(
+            info, cfg.device_block_cells, cfg.micro_cells,
+            max_splats=max_splats), cfg, devices, readback))
+    assert 0 < mesh <= roomy["mem.meshWindow"]
     tight = ReconstructConfig(mem_bucket_splats=32 * max_splats,
                               mem_load_splats=block, mem_host_splats=block,
                               mem_mesh=mesh, **base)
@@ -76,7 +85,36 @@ def test_tight_memory_budgets_end_to_end(tmp_path):
     (v2, t2), peaks = _run(splats, tight, str(tmp_path / "tight.ply"))
     assert 0 < peaks["mem.loadQueue"] <= block
     assert 0 < peaks["mem.hostSplats"] <= block < roomy["mem.hostSplats"]
-    assert 0 < peaks["mem.meshWindow"] <= mesh < roomy["mem.meshWindow"]
+    assert 0 < peaks["mem.meshWindow"] <= mesh
+    np.testing.assert_array_equal(v1, v2)
+    np.testing.assert_array_equal(t1, t2)
+
+
+def test_tight_memory_budgets_with_three_queues(tmp_path):
+    """The same budgets over three queues (--device-threads 3): the splat
+    budgets hold as they are the loader's, the images of all workers
+    together stay within --mem-mesh plus one image (the oldest block not
+    yet yielded is always admitted), and the output is the roomy
+    one-queue run's."""
+    splats = oracle.sphere_cloud(np.zeros(3), 3.0, 6000, 0.4,
+                                 np.random.default_rng(3))
+    max_splats = 2000
+    base = dict(fit_grid=0.1, fit_smooth=1.0, levels=3, subsampling=3,
+                leaf_cells=8, max_device_splats=max_splats,
+                tile_candidates=512, progress=False)
+    (v1, t1), roomy = _run(splats, ReconstructConfig(**base),
+                           str(tmp_path / "roomy.ply"))
+    block = 32 * max_splats
+    mesh = roomy["mem.meshWindow"] // 2
+    tight = ReconstructConfig(mem_bucket_splats=32 * max_splats,
+                              mem_load_splats=block, mem_host_splats=block,
+                              mem_mesh=mesh, device_threads=3, **base)
+    (v2, t2), peaks = _run(splats, tight, str(tmp_path / "tight.ply"))
+    assert 0 < peaks["mem.loadQueue"] <= block
+    assert 0 < peaks["mem.hostSplats"] <= block
+    # one image is at most the roomy run's peak, which held two or more
+    assert 0 < peaks["mem.meshWindow"] <= mesh + roomy["mem.meshWindow"]
+    assert get_registry().counter("device.blocks.0.2").get() > 0
     np.testing.assert_array_equal(v1, v2)
     np.testing.assert_array_equal(t1, t2)
 

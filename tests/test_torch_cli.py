@@ -2,8 +2,8 @@
 `python -m mlsgpu_tpu_torch` end to end on PLY input (the package is
 jax-free), one in-process run each of `--readback packed`, `--readback raw`
 and `--statistics-device`, and the exit-code probes (2 for bad or unported
-options and for no inputs, 1 for a missing input file or an unknown
-device)."""
+options and for no inputs, 1 for a missing input file, an unknown
+device, or device options that ask for more devices than there are)."""
 
 import os
 import subprocess
@@ -72,7 +72,16 @@ def test_cli_runs_without_jax(tmp_path):
     (["-o", "x.ply"], 2),                                  # no inputs
     # ported options: the run starts and stops at the missing input file
     (["--readback", "packed", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
-    (["--num-devices", "2", "-o", "x.ply", "in.ply"], 2),
+    # --num-devices: more than one device needs --device cuda and as many
+    # visible cards; never a quiet run on fewer (here no card is visible)
+    (["--num-devices", "2", "-o", "x.ply", "in.ply"], 1),
+    (["--num-devices", "2", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
+    (["--num-devices", "2", "--device", "cuda:0", "-o", "x.ply", "in.ply"],
+     1),
+    (["--num-devices", "-1", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
+    # one device on the CPU is fine: the run stops at the missing input
+    (["--num-devices", "1", "--device-threads", "2", "--device", "cpu", "-o",
+      "x.ply", "in.ply"], 1),
     # multi-host without --coordinator
     (["--num-processes", "2", "-o", "x.ply", "in.ply"], 2),
     (["--statistics-device", "--device", "cpu", "-o", "x.ply", "in.ply"], 1),
@@ -84,7 +93,22 @@ def test_cli_runs_without_jax(tmp_path):
 def test_cli_probes(argv, code, tmp_path, capsys):
     argv = [a if a != "x.ply" else str(tmp_path / a) for a in argv]
     assert cli.main(argv) == code
-    assert "error:" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "error:" in err
+    if "--num-devices" in argv:
+        option_error = "--num-devices" in err or "CUDA device requested" in err
+        assert option_error == (argv[argv.index("--num-devices") + 1] != "1")
+
+
+def test_num_devices_beyond_the_visible_cards(monkeypatch, tmp_path, capsys):
+    """With two cards visible `--num-devices 3` stops with the option
+    error before any input is opened."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert cli.main(["--num-devices", "3", "-o", str(tmp_path / "x.ply"),
+                     "in.ply"]) == 1
+    assert "--num-devices 3: only 2 card(s) visible" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

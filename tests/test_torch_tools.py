@@ -373,6 +373,14 @@ def test_bench_split_prints_its_passes():
     assert set(lines[3]) >= {"transfer+decode_s", "per_block_ms", "readback"}
 
 
+def test_bench_split_over_two_queues():
+    rc, text, _ = printed(bench_split.main, ["6000", "--device", "cpu",
+                                             "--device-threads", "2"])
+    assert rc == 0
+    last = json.loads(text.splitlines()[-1])
+    assert last["devices"] == ["cpu"] and last["queues_per_device"] == 2
+
+
 def test_streamer_counts_only_pass_matches_full_pass():
     """stream_blocks(read_images=False) runs the same block steps and
     yields the same counts, with no image."""
