@@ -157,14 +157,20 @@ def test_queues_and_devices_multiply():
     assert per_worker >= stats["device.time"]["sum"] > 0
 
 
-def test_four_devices_counts_agree_with_the_jax_packages():
+def _counts_agree_with_the_jax_packages(monkeypatch, cache_dir):
     """The same buckets through the JAX package's stream_blocks over four
     of its virtual devices give the same per-block integer counts
     (vertices, indices, cells). The two packages' fields agree to float
     noise, which can flip a handful of near-zero corners (the bar of
     tests/test_torch_block.py), so: most blocks are equal bit for bit,
     every block is within max(n // 100, 48) of the JAX package's count,
-    and the sums over the run within n // 500."""
+    and the sums over the run within n // 500.
+
+    Both sides run readback "codes", named: with "auto" each package
+    resolves the mode from its own native library, and a codes block
+    counts one vertex per emission where a packed one counts welded
+    vertices. The JAX caps cache is a fresh directory, so caps grown by
+    other tests in this process do not move the JAX package's fields."""
     import jax
     from mlsgpu_tpu.config import ReconstructConfig as JConfig
     from mlsgpu_tpu.io.splat_set import SequenceSource as JSource
@@ -176,10 +182,11 @@ def test_four_devices_counts_agree_with_the_jax_packages():
     devices = jax.local_devices()
     if len(devices) < 4:
         pytest.skip("needs >= 4 virtual devices")
-    cfg, source, info, buckets = _setup()
+    monkeypatch.setenv("MLSGPU_TPU_CACHE_DIR", str(cache_dir))
+    cfg, source, info, buckets = _setup(readback="codes")
     port = _stream(cfg, source, info, buckets, [CPU] * 4)
 
-    jcfg = JConfig(**OPTIONS)
+    jcfg = JConfig(**OPTIONS, readback="codes")
     jsource = JSource(make_cloud(n=8000, seed=7, sr=SR))
     jinfo = jblobs.compute_blobs(jsource, jcfg.fit_grid, jcfg.micro_cells)
     jbuckets = jbucket.make_buckets(jinfo, jcfg.block_cells, jcfg.micro_cells,
@@ -198,6 +205,23 @@ def test_four_devices_counts_agree_with_the_jax_packages():
     assert (pc == jc).all(axis=1).sum() >= 3 * len(port) // 4
     assert (np.abs(pc - jc) <= np.maximum(jc // 100, 48)).all(), (pc, jc)
     assert (np.abs(pc.sum(0) - jc.sum(0)) <= jc.sum(0) // 500).all()
+
+
+def test_four_devices_counts_agree_with_the_jax_packages(monkeypatch,
+                                                         tmp_path):
+    _counts_agree_with_the_jax_packages(monkeypatch, tmp_path)
+
+
+def test_four_devices_counts_agree_without_the_jax_native_library(
+        monkeypatch, tmp_path):
+    """The same with the JAX package's native library off, as when its
+    first-use build loses a race with another test process. Only the JAX
+    side's is turned off: the port's codes readback needs its own."""
+    from mlsgpu_tpu import _native as jnative
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", True)
+    assert jnative.get_lib() is None
+    _counts_agree_with_the_jax_packages(monkeypatch, tmp_path)
 
 
 @pytest.fixture(scope="module")
