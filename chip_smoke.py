@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --through 3  # stop after phase 3 (quick kernel check)
     python3 chip_smoke.py --through 12 # skip the out-of-core phase and 14-16
+    python3 chip_smoke.py --only 14    # phases 1-2, 14 and 5 (its digest)
 
 Phases, each printing one line of findings (phase 6 runs last); any failure
 raises, exits non-zero and prints no result line:
@@ -57,15 +58,23 @@ raises, exits non-zero and prints no result line:
      Msplats/s and peak RSS;
  14. queues and cards through the CLI on the 2M cloud: on `--device cuda:0`
      `--device-threads 1` (phase 5's run on a one-card machine, for a wall
-     time from the same moment), then `--device-threads 2` and `4` (that
-     many worker threads and CUDA streams on the one card) and, with more
-     than one card visible, `--device cuda --num-devices 0` (every card, a
-     worker each): each mesh's digest is phase 5's (the vertex and triangle
-     arrays phase 5 checked manifold), 50 kernel launches, every worker's
-     block counter above 0; wall, pass1.time, summed and per-worker
-     device.time, mesher.time and readback.decode of each, beside phase
-     12's two-process ratio; and `--num-devices` of one more card than is
-     visible exits non-zero with the option error;
+     time from the same moment; no worker process), then `--device-threads
+     2` and `4` (that many worker processes on the one card,
+     pipeline/workers.py) and, with more than one card visible, `--device
+     cuda --num-devices 0` (every card, a worker process each): each mesh's
+     digest is phase 5's (the vertex and triangle arrays phase 5 checked
+     manifold), 50 kernel launches (counted in the worker processes and
+     carried to this one), every worker's block counter above 0, one
+     process spawned per worker; wall, pass1.time, summed and per-worker
+     device.time, dispatch.h2d, readback.copy and readback.wait,
+     mesher.time and readback.decode of each, the worker processes' start
+     seconds, beside phase 12's two-process ratio; then one and two queues
+     (and every card) on a BIG_SPLATS cloud, each mesh the one-queue run's;
+     the device memory of an
+     idle worker process (its CUDA context and the kernel library), from
+     torch.cuda.mem_get_info and nvidia-smi, against
+     workers.WORKER_CONTEXT_BYTES; and `--num-devices` of one more card
+     than is visible exits non-zero with the option error;
  15. parallel/sharded.py on the card: two seam-adjacent blocks through
      `data_parallel_block_step` over [cuda:0, cuda:0] (and over two cards
      where there are two): counts and codes image bitwise the block step's
@@ -105,6 +114,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -125,6 +135,7 @@ from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, cloud,
                                     verify_chunks)
@@ -133,6 +144,9 @@ from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
 
 N_SPLATS = 2_000_000
 N_SMALL = 250_000    # the cloud of phases 7 and 8 and of the dead-rank pair
+# Phase 14's second cloud: long enough a run (~3x the 2M one) for worker
+# processes to pay back their start (~9 s each on the H100's host)
+BIG_SPLATS = 6_000_000
 LEVELS, SUB = 6, 3   # the bench configuration: 256^3-corner dispatches
 # Phases 11 and 12: chunks of 255 cells per axis (one block), ~25 files. At
 # 64M (510 cells) the 2M cloud falls into 4 files, one with two thirds of
@@ -971,26 +985,59 @@ def _worker_stats(stats: dict) -> dict:
             if k.startswith("device.blocks.")}
 
 
-def phase14_queues_and_cards(cloud, codes, two_ranks) -> dict:
-    """`codes`: phase 5's result (the digest every run must repeat);
-    `two_ranks`: phase 12's (its two-process ratio is printed beside)."""
-    cards = torch.cuda.device_count()
-    one_card = ["--device", "cuda:0", "--device-threads"]
-    runs = [("1 queue", [*one_card, "1"], 1),
-            ("2 queues", [*one_card, "2"], 2),
-            ("4 queues", [*one_card, "4"], 4)]
-    if cards > 1:
-        runs.append((f"{cards} cards", ["--device", "cuda", "--num-devices",
-                                        "0"], cards))
-    out, launches = {}, 0
+def smi_used_mib(index: int = 0) -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+         "nounits", "-i", str(index)], capture_output=True, text=True,
+        check=True).stdout.strip())
+
+
+def worker_context(n: int = 2) -> dict:
+    """Device memory of `n` idle worker processes on card 0, each with its
+    CUDA context and the kernel library loaded (ready for a block), per
+    process: the drop of the card's free memory (torch.cuda.mem_get_info)
+    and the rise of nvidia-smi's used memory."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    free0, used0 = torch.cuda.mem_get_info(dev)[0], smi_used_mib()
+    procs = workers_mod.start_workers([(dev, 0, q) for q in range(n)],
+                                      block.block_step, {}, True)
+    try:
+        cancel = threading.Event()
+        for p in procs:
+            if not p.wait_ready(cancel):
+                raise AssertionError(f"{p.name} did not start")
+        time.sleep(1.0)
+        free1, used1 = torch.cuda.mem_get_info(dev)[0], smi_used_mib()
+    finally:
+        for p in procs:
+            p.stop()
+    out = {"processes": n,
+           "bytes_per_process_mem_get_info": (free0 - free1) / n,
+           "mib_per_process_nvidia_smi": (used1 - used0) / n,
+           "estimate_bytes": workers_mod.WORKER_CONTEXT_BYTES}
+    if out["bytes_per_process_mem_get_info"] > out["estimate_bytes"]:
+        raise AssertionError(f"a worker process holds more than "
+                             f"WORKER_CONTEXT_BYTES: {out}")
+    return out
+
+
+def _queue_runs(cloud, runs, digest=None) -> dict:
+    """`runs` = [(name, CLI options, workers)] through cli_run on `cloud`:
+    each mesh's digest is `digest` (the first run's when None), launches
+    equal blocks, every worker ran a block, and more than one worker are as
+    many processes. Returns each run's numbers by name."""
+    out = {}
     for name, extra, workers in runs:
-        # no second manifold check (~2 min at this size): the digest is of
-        # the vertex and triangle arrays, and phase 5 checked those
+        # no second manifold check (~2 min at 2M): the digest is of the
+        # vertex and triangle arrays, and phase 5 checked those at 2M
         res = cli_run(cloud, "queues", extra, manifold=False)
         stats = res.pop("stats")
         per_worker = _worker_stats(stats)
-        if res["digest"] != codes["digest"]:
-            raise AssertionError(f"{name}: the mesh differs from phase 5's")
+        digest = digest or res["digest"]
+        if res["digest"] != digest:
+            raise AssertionError(f"{name}: the mesh differs from the "
+                                 "reference run's")
         if res["kernel_launches"] != res["blocks"]:
             raise AssertionError(f"{name}: {res['kernel_launches']} launches,"
                                  f" {res['blocks']} blocks")
@@ -998,46 +1045,102 @@ def phase14_queues_and_cards(cloud, codes, two_ranks) -> dict:
                 not all(n > 0 for n, _ in per_worker.values()) or \
                 sum(n for n, _ in per_worker.values()) != res["blocks"]:
             raise AssertionError(f"{name}: blocks per worker {per_worker}")
-        launches += res["kernel_launches"]
+        spawned = stats.get("workers.spawned", {}).get("total", 0)
+        if spawned != (workers if workers > 1 else 0):
+            raise AssertionError(f"{name}: {spawned} worker processes for "
+                                 f"{workers} worker(s)")
+
+        def total(key):
+            return stats.get(key, {}).get("sum", 0.0)
+
+        def mean(key):
+            return total(key) / stats[key]["n"] if key in stats else None
+
         out[name] = {
             "seconds": res["seconds"], "launches": res["kernel_launches"],
+            "blocks": res["blocks"],
             "pass1_s": stats["pass1.time"]["sum"],
             "device_s": stats["device.time"]["sum"],
-            "readback_wait_s": stats["readback.wait"]["sum"],
+            "dispatch_h2d_s": total("dispatch.h2d"),
+            "readback_copy_s": total("readback.copy"),
+            "readback_wait_s": total("readback.wait"),
             "mesher_s": stats["mesher.time"]["sum"],
             "decode_s": stats["readback.decode"]["sum"],
+            "loader_s": total("loader.time"),
+            "processes": spawned,
+            # mean seconds from a process's spawn to its being ready, and
+            # to its modules being imported
+            "worker_start_s": mean("workers.startTime"),
+            "worker_import_s": mean("workers.importTime"),
             "workers": {w: {"blocks": n, "device_s": t}
                         for w, (n, t) in per_worker.items()},
             "mesh_window_peak": stats["mem.meshWindow"]["peak"],
-            "digest_is_phase_5": True}
+            "digest_is_reference": True}
         phase(14, f"{name} ({' '.join(extra)}): {json.dumps(out[name])}")
+    return out
+
+
+def _ratios(out: dict, key: str) -> dict:
+    first = next(iter(out.values()))[key]
+    return {k: v[key] / first for k, v in out.items()}
+
+
+def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
+    """`bench`: the 2M cloud (PLY path, grid spacing); `codes`: phase 5's
+    result (the digest every 2M run must repeat); `two_ranks`: phase 12's
+    (its two-process ratio is printed beside), or None when phase 12 did
+    not run. Then one and two queues (and every card) at BIG_SPLATS, where
+    a run is long enough for the workers' start to be paid back."""
+    cards = torch.cuda.device_count()
+    context = worker_context()
+    phase(14, f"idle worker process on the card: {json.dumps(context)}")
+    one_card = ["--device", "cuda:0", "--device-threads"]
+    every_card = [(f"{cards} cards", ["--device", "cuda", "--num-devices",
+                                      "0"], cards)] if cards > 1 else []
+    out = _queue_runs(bench, [("1 queue", [*one_card, "1"], 1),
+                              ("2 queues", [*one_card, "2"], 2),
+                              ("4 queues", [*one_card, "4"], 4),
+                              *every_card], codes["digest"])
+    splats, sr = cloud.make_cloud(BIG_SPLATS)
+    big_ply = os.path.join(os.path.dirname(bench[0]), "big_cloud.ply")
+    ply.write_splats_ply(big_ply, splats)
+    del splats
+    big = _queue_runs((big_ply, cloud.bench_config(sr, LEVELS).fit_grid),
+                      [("1 queue", [*one_card, "1"], 1),
+                       ("2 queues", [*one_card, "2"], 2), *every_card])
+    os.remove(big_ply)
     # more cards than are visible: an option error, never a run on fewer
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        rc = cli.main([*bench_args(cloud[1]), "--num-devices", str(cards + 1),
-                       "-o", os.path.join(os.path.dirname(cloud[0]),
-                                          "never.ply"), cloud[0]])
+        rc = cli.main([*bench_args(bench[1]), "--num-devices", str(cards + 1),
+                       "-o", os.path.join(os.path.dirname(bench[0]),
+                                          "never.ply"), bench[0]])
     if rc == 0 or f"only {cards} card(s) visible" not in err.getvalue():
         raise AssertionError(f"--num-devices {cards + 1} on {cards} card(s): "
                              f"rc {rc}: {err.getvalue()[-500:]}")
-    one = out["1 queue"]
     summary = {
-        "cards_visible": cards, "kernel_launches": launches,
+        "cards_visible": cards,
+        "kernel_launches": sum(v["launches"] for v in
+                               [*out.values(), *big.values()]),
         "phase5_seconds": codes["seconds"], "phase5_pass1_s": codes["pass1_s"],
         "phase5_device_s": codes["device_s"],
-        "wall_ratio_to_1_queue": {k: v["seconds"] / one["seconds"]
-                                  for k, v in out.items()},
-        "pass1_ratio_to_1_queue": {k: v["pass1_s"] / one["pass1_s"]
-                                   for k, v in out.items()},
-        "two_processes_wall_ratio": (two_ranks["two_ranks_seconds"]
-                                     / two_ranks["one_process_seconds"]),
+        "wall_ratio_to_1_queue": _ratios(out, "seconds"),
+        "pass1_ratio_to_1_queue": _ratios(out, "pass1_s"),
+        f"{BIG_SPLATS}_wall_ratio_to_1_queue": _ratios(big, "seconds"),
+        f"{BIG_SPLATS}_pass1_ratio_to_1_queue": _ratios(big, "pass1_s"),
+        "processes_spawned": {k: v["processes"] for k, v in out.items()},
+        "worker_start_s": {k: v["worker_start_s"] for k, v in out.items()},
+        "worker_context": context,
+        "two_processes_wall_ratio": (
+            two_ranks["two_ranks_seconds"] / two_ranks["one_process_seconds"]
+            if two_ranks else None),
         "two_processes_run_ratio": (
             max(two_ranks["rank_run_seconds"])
             / two_ranks["one_process_run_seconds"]
-            if two_ranks["one_process_run_seconds"] else None),
+            if two_ranks and two_ranks["one_process_run_seconds"] else None),
         "too_many_cards_rc": rc}
     phase(14, f"queues and cards: {json.dumps(summary)}: OK")
-    return {"runs": out, **summary}
+    return {"runs": out, f"runs_{BIG_SPLATS}": big, **summary}
 
 
 def phase15_sharded(pts, src, info, densest, dev) -> dict:
@@ -1173,7 +1276,20 @@ def main(argv=None) -> int:
     p.add_argument("--through", type=int, default=16,
                    help="run phases 1..N (6, the jax check, runs last) "
                         "[%(default)s]")
+    p.add_argument("--only", default=None, metavar="N,M,...",
+                   help="run phases 1-2, these and what they need (7 for "
+                        "8, 11 for 12, 5 for 14): a several-card call runs "
+                        "the phases that need its cards alone")
     args = p.parse_args(argv)
+    only = None
+    if args.only:
+        only = {int(n) for n in args.only.split(",")}
+        for later, first in ((8, 7), (12, 11), (14, 5)):
+            if later in only:
+                only.add(first)
+
+    def want(n: int) -> bool:
+        return n in only if only else args.through >= n
 
     check_isolated("the imports")
     phase1_toolchain()
@@ -1182,74 +1298,87 @@ def main(argv=None) -> int:
     set_precision()
     phase2_build()
     check_isolated("phase 2")
-    if args.through < 3:
+    if not only and args.through < 3:
         return 0
     splats, spacing, cfg = bench_setup()
     src = SequenceSource(splats)
     info, _, densest = cloud.densest_bucket(src, cfg)
-    launches = []
-    rows = phase3_kernel_vs_plain(src, info, densest, dev)
-    check_isolated("phase 3")
-    if args.through >= 4:
+    launches, rows = [], []
+    if want(3):
+        rows = phase3_kernel_vs_plain(src, info, densest, dev)
+        check_isolated("phase 3")
+    if want(4):
         phase4_seams(dev)
         check_isolated("phase 4")
     with tempfile.TemporaryDirectory(prefix="chip_smoke.") as workdir:
-        if args.through >= 13:
+        if want(13):
             launches.append(
                 phase13_out_of_core(workdir)["kernel_launches"])
             check_isolated("phase 13")
         inp = os.path.join(workdir, "bench_cloud.ply")
         ply.write_splats_ply(inp, splats)
         bench_cloud = (inp, spacing)
-        if args.through >= 5:
+        ranks = None
+        if want(5):
             codes = phase5_end_to_end(bench_cloud, info)
             check_isolated("phase 5")
             launches.append(codes["kernel_launches"])
-        if args.through >= 7:
+        if want(7) or want(8) or want(12):
             small, small_sr = cloud.make_cloud(N_SMALL)
             small_ply = os.path.join(workdir, "small_cloud.ply")
             ply.write_splats_ply(small_ply, small)
             small_cloud = (small_ply, float(small_sr / 3.0))
             del small
+        if want(7):
             plain = phase7_readbacks(small_cloud)
             check_isolated("phase 7")
             launches += [plain[m]["kernel_launches"]
                          for m in ("codes", "packed", "raw")]
-        if args.through >= 8:
+        if want(8):
             launches += [r["kernel_launches"] for r in
                          phase8_statistics_device(small_cloud, plain)]
             check_isolated("phase 8")
-        if args.through >= 9:
+        if want(9):
             tiled = phase9_tiled_vs_dense(splats, spacing, dev)
             check_isolated("phase 9")
             launches.append(tiled["kernel_launches"])
             rows.append(tiled["kernel_row"])
-        if args.through >= 10:
+        if want(10):
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
             check_isolated("phase 10")
-        if args.through >= 11:
+        if want(11):
             chunked = phase11_chunked(bench_cloud, workdir)
             check_isolated("phase 11")
             launches.append(chunked["kernel_launches"])
-        if args.through >= 12:
+        if want(12):
             ranks = phase12_two_ranks(bench_cloud, small_cloud, workdir,
                                       chunked)
             check_isolated("phase 12")
-        if args.through >= 14:
+        if want(14):
             launches.append(phase14_queues_and_cards(
                 bench_cloud, codes, ranks)["kernel_launches"])
             check_isolated("phase 14")
-        if args.through >= 15:
+        if want(15):
             launches.append(phase15_sharded(
                 splats, src, info, densest, dev)["kernel_launches"])
             check_isolated("phase 15")
-        if args.through >= 16:
+        if want(16):
             phase16_tools()
             check_isolated("phase 16")
     check_isolated("every phase")
     phase(6, "neither jax, mlsgpu_tpu nor bench in sys.modules after any "
              "phase: OK")
 
+    if rows:  # no kernel record from --only without phase 3
+        print_kernel_record(rows, launches)
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def print_kernel_record(rows, launches) -> None:
     main_row = rows[0]  # sphere, boundary factor 0: the default path
     print(json.dumps({"kernels": [{
         "name": "mls_field", "route": "cuda",
@@ -1264,11 +1393,6 @@ def main(argv=None) -> int:
         "bound_by": main_row["bound"]["bound_by"],
         # no single PyTorch call computes the field
         "library_ms": None}]}))
-    print(nvidia_smi())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

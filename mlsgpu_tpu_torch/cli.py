@@ -9,8 +9,9 @@ cuda). `--readback codes|packed|raw|auto` picks the block readback and
 multihost.py: torch.distributed over gloo, rank 0 hosts the store).
 `--device cuda` streams the blocks over every visible card, or the first
 `--num-devices N`; `--device cuda:<i>` over that card alone; each card runs
-`--device-threads T` queues (a worker thread and CUDA stream each,
-pipeline/streamer.py), and any number of workers writes the same bytes. A
+`--device-threads T` queues (with more than one worker in all, a worker
+process each, pipeline/workers.py), and any number of workers writes the
+same bytes. A
 rank of a multi-host run takes its cards as a single process does, so ranks
 that share a machine each name their own (`--device cuda:<i>`, or
 CUDA_VISIBLE_DEVICES). `--mls-backend` is a JAX-package choice and stops
@@ -77,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--tile-candidates", type=parse_capacity, default=d.tile_candidates,
                    help="per-tile candidate cap (auto-grows) [%(default)s]")
     a.add_argument("--device-threads", type=int, default=d.device_threads,
-                   help="queues (worker threads, CUDA streams) per card "
-                        "[%(default)s]")
+                   help="queues per card; more than one worker in all "
+                        "run as worker processes [%(default)s]")
     a.add_argument("--num-devices", type=int, default=0,
                    help="cards to use with --device cuda: the first N of "
                         "the visible ones, 0 = all; more than are visible "

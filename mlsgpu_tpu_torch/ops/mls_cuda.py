@@ -33,8 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: Kernel launches made by `eval_field`, counted by `count_launch` under a
-#: lock (the streamer launches from one thread per queue). Set it to 0
-#: before a run to count that run's launches.
+#: lock, plus those of the streamer's worker processes (`add_launches`).
+#: Set it to 0 before a run to count that run's launches.
 launches = 0
 
 _count_lock = threading.Lock()
@@ -112,6 +112,14 @@ def count_launch() -> None:
     global launches
     with _count_lock:
         launches += 1
+
+
+def add_launches(n: int) -> None:
+    """Add the launches a worker process counted for one block
+    (pipeline/workers.py) to this process's `launches`."""
+    global launches
+    with _count_lock:
+        launches += int(n)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:

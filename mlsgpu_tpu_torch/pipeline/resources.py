@@ -1,7 +1,8 @@
 """Device memory precheck (port of mlsgpu_tpu/pipeline/resources.py, the
 reference's resourceUsage/validateDevice, src/mlsgpu_core.cpp:469-518):
 estimate one block step's device working set from the configuration and
-fail early when a card cannot hold it once for each of its queues."""
+fail early when a card cannot hold it once for each of its queues (and,
+with worker processes, a CUDA context for each)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from mlsgpu_tpu_torch.utils import logging as log
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
 
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
+from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
+                                               uses_processes)
 
 F32 = 4
 I64 = 8
@@ -92,18 +95,24 @@ def validate_device(cfg: ReconstructConfig,
     """Estimate one block step in the resolved readback mode and check it
     against every device used: `queues` workers run on each entry of
     `devices` (an entry per use of a device), and each worker holds one
-    block step's working set at a time. Raises InvalidOption when a card
-    cannot hold its workers' steps."""
+    block step's working set at a time. When the run has more than one
+    worker, each is a process (pipeline/workers.py) and also holds its own
+    CUDA context on its card (WORKER_CONTEXT_BYTES). Raises InvalidOption
+    when a card cannot hold its workers."""
     usage = estimate_block_usage(cfg, readback)
     log.info("device block-step memory estimate: "
              + ", ".join(f"{k}={v / 1e6:.0f}M" for k, v in usage.items()))
     devices = list(devices)
+    queues = max(1, int(queues))
+    processes = uses_processes(len(devices) * queues)
     for dev in sorted(set(devices), key=str):
-        workers = devices.count(dev) * max(1, int(queues))
+        workers = devices.count(dev) * queues
+        per_worker = usage["total"] + (
+            WORKER_CONTEXT_BYTES if processes and dev.type == "cuda" else 0)
         limit = device_memory_bytes(dev)
-        if limit is not None and usage["total"] * workers > limit * 0.9:
+        if limit is not None and per_worker * workers > limit * 0.9:
             raise InvalidOption(
-                f"estimated block usage {usage['total'] / 1e9:.2f} GB x "
+                f"estimated block usage {per_worker / 1e9:.2f} GB x "
                 f"{workers} queue(s) exceeds the memory of {dev}, "
                 f"{limit / 1e9:.2f} GB; reduce --device-threads, --levels, "
                 "--max-device-splats or --device-block-shift")

@@ -5,18 +5,18 @@ each block's readback, the generator hands the finished blocks out in the
 loader's order, and `consume_threaded` passes them to the mesher on its own
 thread.
 
-Workers. A run has D devices x T queues (--num-devices, --device-threads):
-one worker thread per (device, queue), each under `torch.cuda.device` and
-its own CUDA stream (the default stream when it is its card's only queue),
-the reference's several command queues per device with a thread each
-(src/workers.h:183-206). A free worker pulls the next loaded block, which
-is the reference's pull model (src/workers.cpp:315-351) and the port's form
-of the JAX loop's spare-capacity rule. The JAX loop's one dispatching
-thread is not carried over: there a block step is one asynchronous call of
-a compiled program, so one thread keeps any number of devices busy; an
-eager PyTorch block step is hundreds of small calls with host
-synchronisations between them (the counts that size the outputs), so one
-thread would run the devices one after the other.
+Workers. A run has D devices x T queues (--num-devices, --device-threads).
+One worker runs its block steps on a thread of this process, under
+`torch.cuda.device`. With more than one, each worker runs in a process of
+its own (pipeline/workers.py), the reference's several command queues per
+device with a worker each (src/workers.h:183-206): an eager block step is
+thousands of small calls with host synchronisations between them, and
+threads of one interpreter hand its lock over at each (PERF.md), where
+processes share none. Each worker process has a proxy thread here. A free
+worker pulls the next loaded block, which is the reference's pull model
+(src/workers.cpp:315-351) and the port's form of the JAX loop's
+spare-capacity rule. The JAX loop's one dispatching thread is not carried
+over: there a block step is one asynchronous call of a compiled program.
 
 Order. The loader numbers the blocks and the generator yields them in that
 order whichever worker finished first, so the mesher sees one order and
@@ -27,7 +27,9 @@ CircularBuffer backpressure, src/circular_buffer.h:47-248), by the bytes
 really held: --mem-load-splats bounds the splats loaded and not yet taken
 by a worker, --mem-host-splats the splats held on the host from loading
 until their block is launched, and --mem-mesh the readback images of all
-workers together from the start of the copy until the block is yielded.
+workers together from the start of the copy until the block is yielded
+(with worker processes these bytes are the shared copies that carry a
+block's splats to its worker and its images back).
 Each budget always admits one block; --mem-mesh always admits the oldest
 block not yet yielded, or a full budget would wait on a block that waits
 on the budget. The peaks are recorded as mem.loadQueue, mem.hostSplats and
@@ -42,11 +44,12 @@ speculative readback.
 from __future__ import annotations
 
 import contextlib
+import functools
 import queue
 import threading
 import time
-from typing import (Dict, Iterable, Iterator, List, NamedTuple, Optional,
-                    Sequence, Tuple, Union)
+from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -56,8 +59,10 @@ from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
 from mlsgpu_tpu_torch.utils import misc, timeplot
 from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
 
+from mlsgpu_tpu_torch.ops import mls_cuda
 from mlsgpu_tpu_torch.ops.block import (CountsView, Format, block_step,
                                         block_step_staged, readback_tensors)
+from mlsgpu_tpu_torch.pipeline import workers as workers_mod
 
 _SENTINEL = object()
 
@@ -244,23 +249,22 @@ class MeshWindow:
             self._cond.notify_all()
 
 
-def _start_readback(tensors: List[torch.Tensor], device: torch.device,
-                    stream: Optional["torch.cuda.Stream"] = None):
-    """Queue the copy of a block's readback tensors to the host on `stream`
-    of `device` (None: the CPU, whose tensors are already the host's);
-    returns (host tensors, event or None). On the card each copy lands in
-    pinned memory asynchronously and the event, recorded on that stream,
-    marks their completion."""
+def _start_readback(tensors: List[torch.Tensor], device: torch.device):
+    """Queue the copy of a block's readback tensors to the host on the
+    current stream of `device`; returns (host tensors, event). On the card
+    each copy lands in pinned memory asynchronously and the event marks
+    their completion; on the CPU the tensors are already the host's and
+    the event is None."""
     if device.type != "cuda":
         return tensors, None
     hosts = []
-    with torch.cuda.device(device), torch.cuda.stream(stream):
+    with torch.cuda.device(device):
         for t in tensors:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
             hosts.append(h)
         event = torch.cuda.Event()
-        event.record(stream)
+        event.record()
     return hosts, event
 
 
@@ -271,26 +275,19 @@ def _host_arrays(readback: str, hosts: List[torch.Tensor]):
     return verts, hi.view(np.uint32), lo.view(np.uint32), tris
 
 
-def worker_streams(devices: Sequence[torch.device], queues: int):
-    """One (device, position of the device in `devices`, queue, stream) per
-    worker: `queues` workers for every entry of `devices`. A worker that is
-    its card's only one runs on the default stream (None on the CPU)."""
-    per_card = {d: devices.count(d) * queues for d in set(devices)}
-    out = []
-    for pos, dev in enumerate(devices):
-        for q in range(queues):
-            stream = None
-            if dev.type == "cuda":
-                stream = (torch.cuda.default_stream(dev) if per_card[dev] == 1
-                          else torch.cuda.Stream(dev))
-            out.append((dev, pos, q, stream))
-    return out
+def device_workers(devices: Sequence[torch.device], queues: int):
+    """One (device, position of the device in `devices`, queue) per
+    worker: `queues` workers for every entry of `devices`."""
+    return [(dev, pos, q) for pos, dev in enumerate(devices)
+            for q in range(queues)]
 
 
 def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                   devices: Union[torch.device, Sequence[torch.device]],
                   readback: str, device_filter=None,
-                  read_images: bool = True) -> Iterator[Tuple[object, HostBlock]]:
+                  read_images: bool = True,
+                  step: Optional[Callable] = None
+                  ) -> Iterator[Tuple[object, HostBlock]]:
     """Yield (bucket, HostBlock) for every bucket in the loader's order,
     pipelined: loading runs ahead on a thread, every device of `devices`
     has max(1, --device-threads) workers (module docstring), and every
@@ -309,15 +306,23 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
 
     `readback` is the resolved mode ("codes", "packed" or "raw"; "raw"
     when `device_filter` is set). With --statistics-device every block step
-    is timed stage by stage (ops.block.block_step_staged). An exception in
+    is timed stage by stage (ops.block.block_step_staged). `step` replaces
+    the block step (ops.block.block_step's signature); a worker process
+    imports it by name, so it is a module-level callable. An exception in
     the loader or in any worker cancels the others and is raised here;
-    closing the generator joins every thread."""
+    closing the generator joins every thread and ends every worker
+    process."""
     stats = get_registry()
     if isinstance(devices, torch.device):
         devices = [devices]
-    workers = worker_streams(list(devices), max(1, int(cfg.device_threads)))
+    workers = device_workers(list(devices), max(1, int(cfg.device_threads)))
     misc.bound_mmap_threshold()
-    step = block_step_staged if cfg.statistics_device else block_step
+    if step is None:
+        step = block_step_staged if cfg.statistics_device else block_step
+    step_args = dict(boundary_factor=float(cfg.boundary_factor),
+                     levels=cfg.device_levels, subsampling=cfg.subsampling,
+                     fit_shape=cfg.fit_shape, readback=readback,
+                     device_filter=device_filter)
     load_q: "queue.Queue" = queue.Queue(maxsize=max(2, len(workers)) + 1)
     blob_start = info.blobs.start
     blob_count = info.blobs.count
@@ -369,107 +374,138 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         finally:
             _put(_SENTINEL)
 
-    def run_block(device, stream, plot, taken: list):
-        """One block on this worker: h2d, the step and the start of its
-        readback, all on the worker's stream; the entry for the generator.
-        `taken` holds the loader's item and is emptied, so the host copy of
-        the splats goes as soon as it is on the device."""
+    def region_of(b):
+        return (tuple(int(v) for v in b.cell_hi - b.cell_lo),
+                tuple(int(v) for v in b.cell_lo))
+
+    def run_here(device, plot, taken: list):
+        """One block on this thread: h2d, the step and the start of its
+        readback; the entry for the generator. `taken` holds the loader's
+        item and is emptied, so the host copy of the splats goes as soon
+        as it is on the device."""
         seq, b, nbytes, splats, valid = taken.pop()
         load_budget.release(nbytes)
         t0 = time.monotonic()
-        with timeplot.Action("compute", plot, stats.variable("device.time")):
-            with stats.timer("dispatch.h2d"):
-                pts = (None if b.skeleton is None or not len(b.skeleton)
-                       else torch.as_tensor(b.skeleton, device=device))
-                sp = torch.as_tensor(splats).to(device)
-                va = torch.as_tensor(valid).to(device)
+        with timeplot.Action("compute", plot, stats.variable("device.time")), \
+                (torch.cuda.device(device) if device.type == "cuda"
+                 else contextlib.nullcontext()):
+            sp, va, pts = workers_mod.to_device(device, splats, valid,
+                                                b.skeleton)
             del splats, valid
-            result = step(
-                sp, va, tuple(int(v) for v in b.cell_hi - b.cell_lo),
-                tuple(int(v) for v in b.cell_lo),
-                float(cfg.boundary_factor), pts,
-                levels=cfg.device_levels, subsampling=cfg.subsampling,
-                fit_shape=cfg.fit_shape, readback=readback,
-                device_filter=device_filter)
+            result = step(sp, va, *region_of(b), points=pts, **step_args)
             del sp, va, pts
         host_budget.release(nbytes)
         tensors = readback_tensors(result) if read_images else []
         image_bytes = sum(t.numel() * t.element_size() for t in tensors)
         if not window.admit(seq, image_bytes):
             return None
-        hosts, event = _start_readback(tensors, device, stream)
+        hosts, event = _start_readback(tensors, device)
         stats.variable("device.occTiles").add(result.num_occ_tiles)
-        stats.counter(f"readback.mode.{readback}").add(1)
-        return seq, (b, result, hosts, event, image_bytes), \
+        stats.counter(f"readback.mode.{result.readback}").add(1)
+        # the device tensors stay referenced until their copy is done
+        return seq, (b, result.readback, result.fmt, result.counts, hosts,
+                     event, tensors, image_bytes), time.monotonic() - t0
+
+    def run_in(proc, taken: list):
+        """One block in worker process `proc` (pipeline/workers.py's round
+        trip); the same entry, its images already on the host."""
+        seq, b, nbytes, splats, valid = taken.pop()
+        load_budget.release(nbytes)
+        t0 = time.monotonic()
+        proc.send_block(splats, valid, b.skeleton, *region_of(b))
+        del splats, valid
+        msg = proc.recv(cancel)
+        if msg is None:
+            return None
+        _, counts, mode, fmt, image_bytes = msg
+        host_budget.release(nbytes)
+        if not window.admit(seq, image_bytes):
+            return None
+        proc.send("read")
+        msg = proc.recv(cancel)
+        if msg is None:
+            return None
+        _, hosts, delta, c0, c1, launches = msg
+        workers_mod.merge_stat_delta(delta)
+        timeplot.record(proc.name, "compute", c0, c1)
+        mls_cuda.add_launches(launches)
+        return seq, (b, mode, fmt, counts, hosts, None, None, image_bytes), \
             time.monotonic() - t0
 
-    def worker(device, pos, q, stream, slots):
-        plot = timeplot.Worker(f"device.{pos}.{q}")
+    def worker(pos, q, run, slots):
         blocks = stats.counter(f"device.blocks.{pos}.{q}")
         seconds = stats.variable(f"device.workerTime.{pos}.{q}")
-        on_card = device.type == "cuda"
         try:
-            with (torch.cuda.device(device) if on_card
-                  else contextlib.nullcontext()), \
-                    (torch.cuda.stream(stream) if on_card
-                     else contextlib.nullcontext()):
-                while True:
-                    # a slot first: a worker whose window is full leaves
-                    # the next block to a free one
-                    while not slots.acquire(timeout=0.2):
-                        if cancel.is_set():
-                            return
-                    item = _SENTINEL
-                    while not cancel.is_set():
-                        try:
-                            item = load_q.get(timeout=0.2)
-                            break
-                        except queue.Empty:
-                            continue
-                    if item is _SENTINEL:
-                        _put(_SENTINEL)   # for the next worker
+            while True:
+                # a slot first: a worker whose window is full leaves the
+                # next block to a free one
+                while not slots.acquire(timeout=0.2):
+                    if cancel.is_set():
                         return
-                    taken = [item]
-                    del item
-                    done = run_block(device, stream, plot, taken)
-                    if done is None:
-                        return
-                    seq, entry, dt = done
-                    blocks.add(1)
-                    seconds.add(dt)
-                    window.deposit(seq, entry + (slots,))
-                    del done, entry
+                item = _SENTINEL
+                while not cancel.is_set():
+                    try:
+                        item = load_q.get(timeout=0.2)
+                        break
+                    except queue.Empty:
+                        continue
+                if item is _SENTINEL:
+                    _put(_SENTINEL)   # for the next worker
+                    return
+                taken = [item]
+                del item
+                done = run(taken)
+                if done is None:
+                    return
+                seq, entry, dt = done
+                blocks.add(1)
+                seconds.add(dt)
+                window.deposit(seq, entry + (slots,))
+                del done, entry
         except BaseException as e:  # raised by the generator
             fail(e)
 
+    procs: List[workers_mod.WorkerProcess] = []
     threads = [threading.Thread(target=loader, name="loader", daemon=True)]
-    for dev, pos, q, stream in workers:
-        threads.append(threading.Thread(
-            target=worker, name=f"device.{pos}.{q}", daemon=True,
-            args=(dev, pos, q, stream,
-                  threading.Semaphore(WORKER_WINDOW))))
-    for t in threads:
-        t.start()
     wait_plot = timeplot.Worker("readback")
     yielded = 0
     try:
+        threads[0].start()   # loading runs ahead while the workers start
+        if workers_mod.uses_processes(len(workers)):
+            procs = workers_mod.start_workers(workers, step, step_args,
+                                              read_images)
+            # all start together; none pulls a block before the slowest is
+            # ready, so a late start leaves no worker without blocks
+            for proc in procs:
+                proc.wait_ready(cancel)
+            runs = [(pos, q, proc.name, functools.partial(run_in, proc))
+                    for (_, pos, q), proc in zip(workers, procs)]
+        else:
+            (dev, pos, q), = workers
+            plot = timeplot.Worker(f"device.{pos}.{q}")
+            runs = [(pos, q, plot.name,
+                     functools.partial(run_here, dev, plot))]
+        for pos, q, name, run in runs:
+            threads.append(threading.Thread(
+                target=worker, name=name, daemon=True,
+                args=(pos, q, run, threading.Semaphore(WORKER_WINDOW))))
+            threads[-1].start()
         while True:
             entry = None if error else window.next_entry()
             if error:
                 raise error[0]
             if entry is None:
                 break
-            b, result, hosts, event, nbytes, slots = entry
+            b, mode, fmt, counts, hosts, event, _, nbytes, slots = entry
             with timeplot.Action("readback", wait_plot,
                                  stats.variable("readback.wait")):
                 if event is not None:
                     event.synchronize()
             stats.counter("readback.bytes").add(nbytes)
-            block = HostBlock(readback=result.readback, fmt=result.fmt,
-                              counts=result.counts,
-                              arrays=(_host_arrays(result.readback, hosts)
+            block = HostBlock(readback=mode, fmt=fmt, counts=counts,
+                              arrays=(_host_arrays(mode, hosts)
                                       if read_images else ()))
-            del entry, result, hosts, event
+            del entry, hosts, event
             window.release(nbytes)
             slots.release()
             yield b, block
@@ -482,4 +518,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         cancel.set()
         window.wake()
         for t in threads:
-            t.join()
+            if t.ident is not None:
+                t.join()
+        for proc in procs:
+            proc.stop()

@@ -27,8 +27,8 @@ def main(argv=None):
                    help="torch device: cuda (every visible card), cuda:<i> "
                         "or cpu [%(default)s]")
     p.add_argument("--device-threads", type=int, default=1,
-                   help="queues (worker threads, CUDA streams) per card "
-                        "[%(default)s]")
+                   help="queues per card; more than one worker in all "
+                        "run as worker processes [%(default)s]")
     args = p.parse_args(argv)
 
     from mlsgpu_tpu_torch.io.splat_set import SequenceSource

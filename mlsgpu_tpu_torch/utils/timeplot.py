@@ -33,6 +33,13 @@ def _write(line: str) -> None:
             _file.write(line + "\n")
 
 
+def record(worker: str, action: str, start: float, stop: float) -> None:
+    """Write one finished action of `worker` timed elsewhere, for example
+    in a worker process (time.monotonic is one clock for all processes of
+    the machine)."""
+    _write(f"EVENT {worker} {action} {start!r} {stop!r}")
+
+
 class Worker:
     """A traced worker (usually one per thread). Mirrors Timeplot::Worker."""
 
@@ -65,7 +72,7 @@ class Action:
         if self._running_since is not None:
             now = time.monotonic()
             self._elapsed += now - self._running_since
-            _write(f"EVENT {self.worker.name} {self.name} {self._running_since!r} {now!r}")
+            record(self.worker.name, self.name, self._running_since, now)
             self._running_since = None
 
     def _resume(self) -> None:

@@ -7,7 +7,9 @@ A subprocess installs a `sys.meta_path` finder that raises on any import of
 either, then imports every module of the port and runs
 `python -m mlsgpu_tpu_torch --help` and every tool as
 `python -m mlsgpu_tpu_torch.tools.<name>`; `chip_smoke.py` is checked with
-`ast` (it needs a card to run)."""
+`ast` (it needs a card to run). A worker process of the streamer starts
+from `pipeline/workers.py` alone; tests/test_torch_workers.py checks what
+such a process has imported while it runs blocks."""
 
 import ast
 import os
@@ -46,9 +48,20 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 for sub in ("tools.verify_chunks", "tools.bench_ooc", "tools.cloud",
             "tools.bench_d2h", "tools.bench_micro", "tools.bench_micro2",
-            "parallel.multihost", "parallel.sharded"):
+            "parallel.multihost", "parallel.sharded", "pipeline.workers"):
     assert "mlsgpu_tpu_torch." + sub in names, sub
 print(len(names))
+"""
+
+# What a spawned worker process imports before its first block: the
+# module of its main function and those of the pickled block step.
+_IMPORT_WORKER = _GUARD + """
+import mlsgpu_tpu_torch.pipeline.workers as w
+from mlsgpu_tpu_torch.ops.block import block_step, block_step_staged
+from mlsgpu_tpu_torch.pipeline.mesh_filter import DeviceFilterChain
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+assert not bad, bad
+print(w._worker_main.__module__)
 """
 
 _RUN_HELP = _GUARD + """
@@ -68,6 +81,12 @@ def test_every_module_imports_without_jax_package():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 59      # every module was imported
+
+
+def test_worker_process_imports_without_jax_package():
+    proc = _run(_IMPORT_WORKER)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "mlsgpu_tpu_torch.pipeline.workers"
 
 
 def test_cli_help_without_jax_package():

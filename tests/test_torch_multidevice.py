@@ -1,14 +1,16 @@
 """Several devices and several queues per device in the port's streamer
 (the port's counterpart of tests/test_pipeline.py::
 test_spare_capacity_device_scheduling, plus what only the port has: worker
-threads, the ordered yield, one --mem-mesh budget over all workers, a
-failing worker).
+processes, the ordered yield, one --mem-mesh budget over all workers, a
+failing worker). tests/test_torch_workers.py holds the worker processes
+themselves.
 
 The CPU stands in for the cards: a device list may name one device more
 than once and each entry gets its own workers, as the JAX tests get their
 virtual devices. Everything compared here is an integer or a byte string
 and must be equal bit for bit; no tolerance is used."""
 
+import multiprocessing
 import threading
 import time
 
@@ -22,6 +24,7 @@ from mlsgpu_tpu_torch.device import resolve_devices
 from mlsgpu_tpu_torch.io import ply
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource
 from mlsgpu_tpu_torch.ops import mls_cuda
+from mlsgpu_tpu_torch.ops.block import block_step
 from mlsgpu_tpu_torch.pipeline import blobs as blobs_mod
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
@@ -111,9 +114,11 @@ def _worker_blocks():
 
 
 def _no_streamer_threads():
+    """No loader or worker thread, and no worker process, is left."""
     names = [t.name for t in threading.enumerate()
              if t.name == "loader" or t.name.startswith("device.")]
     assert not names, names
+    assert not multiprocessing.active_children()
 
 
 @pytest.mark.parametrize("sr", [0.1, SR])
@@ -291,30 +296,37 @@ def test_mesh_budget_of_one_image_with_four_workers():
     _no_streamer_threads()
 
 
-def test_a_failing_worker_ends_the_run_with_its_exception(monkeypatch):
+class FailOn:
+    """A block step that raises on the block at `origin` and is the block
+    step elsewhere; picklable, as a worker process imports it by name."""
+
+    def __init__(self, origin):
+        self.origin = tuple(int(v) for v in origin)
+
+    def __call__(self, splats, valid, region, origin, **kw):
+        if tuple(origin) == self.origin:
+            raise RuntimeError("block step failed (test)")
+        return block_step(splats, valid, region, origin, **kw)
+
+
+def test_a_failing_worker_ends_the_run_with_its_exception():
     """A block step that raises on the run's third block ends the generator
-    with that exception within seconds and leaves no thread behind."""
+    with that exception, which names its worker process, within seconds,
+    and leaves no thread or process behind."""
     cfg, source, info, buckets = _setup()
     _, readback = trec.prepare_run(cfg, "cpu")
-    real, calls, lock = streamer_mod.block_step, [0], threading.Lock()
-
-    def failing(*a, **kw):
-        with lock:
-            calls[0] += 1
-            n = calls[0]
-        if n == 3:
-            raise RuntimeError("block step failed (test)")
-        return real(*a, **kw)
-
-    monkeypatch.setattr(streamer_mod, "block_step", failing)
+    get_registry().clear()
     t0 = time.monotonic()
     got, err = _bounded(lambda: list(streamer_mod.stream_blocks(
-        source, info, buckets, cfg, [CPU] * 4, readback)), seconds=30)
+        source, info, buckets, cfg, [CPU] * 4, readback,
+        step=FailOn(buckets[2].cell_lo))), seconds=30)
     assert got is None and isinstance(err, RuntimeError)
     assert "block step failed (test)" in str(err)
+    assert "raised in worker process device." in "".join(err.__notes__)
     assert time.monotonic() - t0 < 30
-    assert calls[0] < len(buckets) + 4
+    assert sum(_worker_blocks().values()) < len(buckets)
     _no_streamer_threads()
+    assert not multiprocessing.active_children()
 
 
 def test_a_failing_loader_and_a_closed_generator_join_every_thread():
@@ -369,10 +381,12 @@ def test_mesh_window_admits_the_oldest_block_over_budget():
 
 
 def test_worker_streams_on_the_cpu():
-    workers = streamer_mod.worker_streams([CPU, CPU], 3)
-    assert [(pos, q) for _, pos, q, _ in workers] == [
+    """Every (device entry, queue) is a worker; with more than one, each is
+    a process with its device's default stream to itself."""
+    workers = streamer_mod.device_workers([CPU, CPU], 3)
+    assert [(pos, q) for _, pos, q in workers] == [
         (0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
-    assert all(dev == CPU and stream is None for dev, _, _, stream in workers)
+    assert all(dev == CPU for dev, _, _ in workers)
 
 
 def test_launch_counter_is_thread_safe(monkeypatch):
