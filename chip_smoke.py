@@ -87,7 +87,8 @@ raises, exits non-zero and prints no result line:
  16. the measuring tools at their default size, a few repetitions:
      tools/bench_d2h, bench_micro and bench_micro2, their lines printed;
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
-     sys.modules (checked after every phase).
+     sys.modules (checked after every phase); at the end, no process that
+     this one started is left.
 Kernel launches are counted per main-path run (the counter set to 0 just
 before it and read just after; the comparisons of phases 3 and 9
 excluded); each run must launch the kernel, and the kernel record's
@@ -139,6 +140,7 @@ from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, cloud,
                                     verify_chunks)
+from mlsgpu_tpu_torch.utils import misc  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
 from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
 
@@ -206,6 +208,14 @@ def check_isolated(after: str) -> None:
                  if m.split(".")[0] in FORBIDDEN)
     if bad:
         raise AssertionError(f"imported after {after}: {bad[:5]}")
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return "?"
 
 
 def nvidia_smi() -> str:
@@ -1010,8 +1020,7 @@ def worker_context(n: int = 2) -> dict:
         time.sleep(1.0)
         free1, used1 = torch.cuda.mem_get_info(dev)[0], smi_used_mib()
     finally:
-        for p in procs:
-            p.stop()
+        workers_mod.stop_workers(procs)
     out = {"processes": n,
            "bytes_per_process_mem_get_info": (free0 - free1) / n,
            "mib_per_process_nvidia_smi": (used1 - used0) / n,
@@ -1368,6 +1377,10 @@ def main(argv=None) -> int:
     check_isolated("every phase")
     phase(6, "neither jax, mlsgpu_tpu nor bench in sys.modules after any "
              "phase: OK")
+    left = {pid: _cmdline(pid) for pid in misc.child_pids()}
+    if left:
+        raise AssertionError(f"processes left running: {left}")
+    phase(6, "no process started by this one is left: OK")
 
     if rows:  # no kernel record from --only without phase 3
         print_kernel_record(rows, launches)

@@ -520,5 +520,4 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         for t in threads:
             if t.ident is not None:
                 t.join()
-        for proc in procs:
-            proc.stop()
+        workers_mod.stop_workers(procs)

@@ -31,15 +31,21 @@ sets its card, FP32 precision and a small intra-op thread count, and
 loads the MLS kernel library before it reports ready. A process that
 cannot do so, or that raises or dies later, ends the run: no block is ever
 run in the parent or on the CPU in its place.
+
+Spawning also starts Python's resource tracker, a process that would live
+as long as this one. When the last group of workers has stopped, the
+tracker is stopped too if it was their start that launched it, so that no
+process of a run outlives it.
 """
 
 from __future__ import annotations
 
 import pickle
 import signal
+import threading
 import time
 import traceback
-from multiprocessing import connection
+from multiprocessing import connection, resource_tracker
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -66,6 +72,12 @@ STOP_S = 5.0
 
 # Return glibc-freed heap spans to the OS every N blocks (utils.misc).
 _TRIM_EVERY = 8
+
+# Groups of workers alive in this process, and whether the first of them
+# launched the resource tracker (module docstring).
+_groups_lock = threading.Lock()
+_groups = 0
+_own_tracker = False
 
 
 class WorkerDied(MlsError):
@@ -279,12 +291,33 @@ class WorkerProcess:
         self.conn.close()
 
 
+def _enter_group() -> None:
+    global _groups, _own_tracker
+    with _groups_lock:
+        if _groups == 0:
+            _own_tracker = resource_tracker._resource_tracker._fd is None
+        _groups += 1
+
+
+def _leave_group(procs: List[WorkerProcess]) -> None:
+    """Stop the resource tracker when the last group has left, if the
+    groups launched it and none of their processes still holds it open."""
+    global _groups
+    with _groups_lock:
+        _groups -= 1
+        if _groups == 0 and _own_tracker and \
+                not any(p.proc.is_alive() for p in procs):
+            resource_tracker._resource_tracker._stop()
+
+
 def start_workers(workers, step: Callable, step_args: Dict,
                   read_images: bool) -> List[WorkerProcess]:
     """One WorkerProcess per (device, position, queue) of `workers`, each
-    with an equal share of this process's intra-op threads."""
+    with an equal share of this process's intra-op threads. The caller
+    ends them with stop_workers."""
     threads = max(1, torch.get_num_threads() // max(1, len(workers)))
     procs: List[WorkerProcess] = []
+    _enter_group()
     try:
         for dev, pos, q in workers:
             procs.append(WorkerProcess(f"device.{pos}.{q}", dev, step,
@@ -292,6 +325,15 @@ def start_workers(workers, step: Callable, step_args: Dict,
     except BaseException:
         for p in procs:
             p.stop()
+        _leave_group(procs)
         raise
     return procs
 
+
+def stop_workers(procs: List[WorkerProcess]) -> None:
+    """Stop every process of a group from start_workers (an empty list: no
+    group, nothing to do)."""
+    if procs:
+        for p in procs:
+            p.stop()
+        _leave_group(procs)

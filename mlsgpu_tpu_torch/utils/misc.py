@@ -7,6 +7,7 @@ unnecessary in Python/JAX and intentionally omitted.
 
 from __future__ import annotations
 
+import glob
 import os
 import tempfile
 
@@ -79,6 +80,19 @@ def bound_mmap_threshold(limit: int = 128 * 1024) -> bool:
         return ok
     except Exception:
         return False
+
+
+def child_pids() -> set:
+    """The ids of this process's child processes that have not been waited
+    for (Linux /proc; an empty set elsewhere)."""
+    out = set()
+    for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
+        try:
+            with open(path) as f:
+                out.update(int(p) for p in f.read().split())
+        except OSError:
+            pass
+    return out
 
 
 def next_pow2(n: int) -> int:

@@ -30,6 +30,7 @@ from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
 from mlsgpu_tpu_torch.pipeline import resources
 from mlsgpu_tpu_torch.pipeline import streamer as streamer_mod
+from mlsgpu_tpu_torch.utils import misc
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
 from mlsgpu_tpu_torch.utils.manifold import check_manifold
 from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
@@ -98,10 +99,13 @@ def _bounded(fn, seconds=HANG_S):
 
 
 def _stream(cfg, source, info, buckets, devices, **kw):
+    """The run's blocks; no process it started is left, however it ends."""
     _, readback = trec.prepare_run(cfg, "cpu")
     get_registry().clear()
+    before = misc.child_pids()
     out, err = _bounded(lambda: list(streamer_mod.stream_blocks(
         source, info, buckets, cfg, devices, readback, **kw)))
+    assert misc.child_pids() <= before
     if err is not None:
         raise err
     return out

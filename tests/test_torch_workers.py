@@ -32,7 +32,7 @@ from mlsgpu_tpu_torch.pipeline import workers
 from mlsgpu_tpu_torch.pipeline.mesh_filter import (DeviceFilterChain,
                                                    DeviceScaleBias)
 from mlsgpu_tpu_torch.config import ReconstructConfig
-from mlsgpu_tpu_torch.utils import timeplot
+from mlsgpu_tpu_torch.utils import misc, timeplot
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
 from mlsgpu_tpu_torch.utils.statistics import Registry, get_registry
 
@@ -90,13 +90,17 @@ def small():
 
 def _run(cfg, source, info, buckets, devices, seconds=HANG_S, **kw):
     """stream_blocks under a bounded wait, statistics from 0: (blocks,
-    exception, seconds taken)."""
+    exception, seconds taken). No process started by the run, Python's
+    resource tracker included, is left when it ends, however it ends."""
     _, readback = trec.prepare_run(cfg, "cpu", kw.get("device_filter"))
     get_registry().clear()
+    before = misc.child_pids()
     t0 = time.monotonic()
     got, err = _bounded(lambda: list(streamer_mod.stream_blocks(
         source, info, buckets, cfg, devices, readback, **kw)), seconds)
-    return got, err, time.monotonic() - t0
+    dt = time.monotonic() - t0
+    assert misc.child_pids() <= before
+    return got, err, dt
 
 
 @pytest.fixture(scope="module")
@@ -301,6 +305,7 @@ def test_a_worker_that_cannot_start_is_an_error_not_the_cpu(small):
 def test_closing_the_generator_ends_every_worker_process(small):
     cfg, source, info, buckets = small
     _, readback = trec.prepare_run(cfg, "cpu")
+    before = misc.child_pids()
     gen = streamer_mod.stream_blocks(source, info, buckets, cfg, [CPU] * 2,
                                      readback)
     first, err = _bounded(lambda: [next(gen), next(gen)])
@@ -309,6 +314,7 @@ def test_closing_the_generator_ends_every_worker_process(small):
     _, err = _bounded(gen.close, seconds=30)
     assert err is None
     _no_streamer_threads()
+    assert misc.child_pids() <= before
 
 
 def test_tight_budgets_hold_with_four_processes(small, one):
@@ -413,3 +419,18 @@ def test_validate_device_counts_a_context_per_worker_process(
     else:
         with pytest.raises(InvalidOption, match=f"{queues} queue"):
             resources.validate_device(cfg, card, "codes", queues=queues)
+
+
+def test_child_pids_sees_a_child_until_it_is_waited_for():
+    """utils.misc.child_pids, which the checks above and chip_smoke.py use
+    to find processes left running: a child is listed while it runs and
+    until it is reaped, and not after."""
+    before = misc.child_pids()
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import sys; sys.stdin.read()"],
+                            stdin=subprocess.PIPE)
+    try:
+        assert proc.pid in misc.child_pids() - before
+    finally:
+        proc.communicate(timeout=30)
+    assert proc.pid not in misc.child_pids()
