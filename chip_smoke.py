@@ -18,7 +18,8 @@ raises, exits non-zero and prints no result line:
      version, and of the field kernel alone from a profiler trace; the
      bound on these inputs (kernel_bound) and the call's share of it;
   4. the seam contract on the card: shared-face and T-junction corners of
-     adjacent blocks bitwise equal;
+     adjacent blocks bitwise equal, also where a face patch straddles the
+     blocks' in-plane edge;
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
      cloud (tools/cloud.py make_cloud) written as a PLY: manifold output,
      kernel launches >= blocks;
@@ -37,8 +38,8 @@ raises, exits non-zero and prints no result line:
      ones transformed on the host within 1e-5 of a cell; manifold;
  11. chunked output: the 2M cloud through `cli.main --split-size 16M`, then
      tools/verify_chunks: a sample of chunks manifold, every cut plane that
-     carries surface compared (checked > 0), near-twin cracks counted
-     against TWIN_PPM_MAX; per-chunk vertex and triangle counts;
+     carries surface compared (checked > 0), no near-twin crack
+     (TWIN_PPM_MAX = 0); per-chunk vertex and triangle counts;
  12. two ranks on the one card: two processes of the CLI with
      `--coordinator 127.0.0.1:<port> --num-processes 2 --device cuda
      --split-size 16M` (dynamic scatter): both exit 0, their files are
@@ -68,7 +69,9 @@ raises, exits non-zero and prints no result line:
      process spawned per worker; wall, pass1.time, summed and per-worker
      device.time, dispatch.h2d, readback.copy and readback.wait,
      mesher.time and readback.decode of each, the worker processes' start
-     seconds, beside phase 12's two-process ratio; then one and two queues
+     seconds (they start before the blob pass) beside pass0.time,
+     bucketing's seconds and workers.readyWait (what the stream then waited
+     for them), beside phase 12's two-process ratio; then one and two queues
      (and every card) on a BIG_SPLATS cloud, each mesh the one-queue run's;
      the device memory of an
      idle worker process (its CUDA context and the kernel library), from
@@ -86,6 +89,9 @@ raises, exits non-zero and prints no result line:
      cloud split over the mesh against numpy (rtol 1e-6, equal count);
  16. the measuring tools at their default size, a few repetitions:
      tools/bench_d2h, bench_micro and bench_micro2, their lines printed;
+     bench_micro's face pass at 32 and 256 rows per chunk beside the same
+     pass with its sums over each row's whole list (the per-row tree it
+     had before its per-corner sort, kept in the tool for timing only);
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
@@ -136,6 +142,7 @@ from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
+from mlsgpu_tpu_torch.pipeline.streamer import load_bucket  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, cloud,
@@ -158,15 +165,13 @@ SPLIT_SIZE = "16M"
 # keep the script near half its time limit on a slow host; the blob store
 # and the mesher still spill under these budgets.
 OOC_SPLATS = 6_000_000
-# Near-twin cracks (the two copies of one cut-plane vertex a few ulps apart:
-# a known defect of the face/skeleton design; tests/test_torch_tools.py
-# holds the port's count against the JAX package's on the same input)
-# tolerated per million on-plane vertices compared. A temporary guard, set
-# just above the most seen on an H100 (38-47 ppm in this script's runs, 290
-# ppm at 100M splats), until the defect is mended: tools/verify_chunks and
-# tools/bench_ooc reject any twin, and so must a benchmark of chunked
-# output. Any other mismatch fails here too.
-TWIN_PPM_MAX = 500.0
+# Near-twin cracks (the two copies of one cut-plane vertex a few ulps apart)
+# tolerated per million on-plane vertices compared: none. The face pass
+# sums each corner over exactly the splats that reach it, in stream order
+# (ops/mls.py), so every block computes a shared corner bit for bit; the
+# JAX package, whose sums run over a block-dependent candidate list, still
+# shows them (tests/test_torch_tools.py). Any other mismatch fails too.
+TWIN_PPM_MAX = 0.0
 DEAD_RANK_BOUND_S = 120
 TILED_LEVELS = 7     # 512^3-corner dispatches: tiled classification
 GAMMAS = (1.0, 0.5)  # --fit-boundary-limit values; boundary factor = 1 - g^2
@@ -375,7 +380,7 @@ def kernel_vs_plain(n, binned, starts, lens, origin, tpa, fit, bf,
 
 def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     """`b`: the densest of the buckets the main path streams."""
-    grid_form, valid = cloud.bucket_inputs(src, info, b)
+    grid_form, valid = load_bucket(src, info, b)
     min_s, max_s = SUB, LEVELS + SUB - 1
     tpa = 1 << (max_s - 3)
     origin = tuple(int(v) for v in b.cell_lo)
@@ -430,6 +435,18 @@ def phase4_seams(dev) -> None:
                          dev)
         checked.append(_bitwise_equal(fa[:, :, plane], fb[:, :, 0], 100,
                                       f"face x={plane}"))
+    # in-plane origin y = 3: the face patch y in [0, 7] straddles both
+    # blocks' edge, and a splat in mid-stream reaches it only at y < 3 and
+    # reaches only A's tiles (tests/test_torch_faces.py's case)
+    rng = np.random.default_rng(42)
+    splats = sphere_cloud([28.0, 14.0, 12.0], 9.0, 6000, 1.2, rng)
+    extra = splats[:1].copy()
+    extra[0, 0:4] = [25.1, 0.8, 12.0, 3.0]
+    splats = np.concatenate([splats[:3000], extra, splats[3000:]])
+    fa = _seam_block(splats, (0, 3, 0), (28, 3 + b - 1, b - 1), dev)
+    fb = _seam_block(splats, (28, 3, 0), (28 + b - 1, 3 + b - 1, b - 1), dev)
+    checked.append(_bitwise_equal(fa[:, :, 28], fb[:, :, 0], 100,
+                                  "face x=28, y from 3"))
     rng = np.random.default_rng(3)
     splats = sphere_cloud([12.0, 12.0, 16.0], 7.0, 9000, 1.2, rng)
     mk = [bucket_mod.Bucket(chunk_id=None, cell_lo=np.array(lo, np.int64),
@@ -568,7 +585,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
                             progress=False)
     src = SequenceSource(splats)
     info, _, b = cloud.densest_bucket(src, cfg)
-    grid_form, valid = cloud.bucket_inputs(src, info, b)
+    grid_form, valid = load_bucket(src, info, b)
     region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
     origin = tuple(int(v) for v in b.cell_lo)
     bf = float(cfg.boundary_factor)
@@ -672,9 +689,9 @@ def verify_output(n: int, base: str, sample: int = 10) -> dict:
     """tools/verify_chunks on the chunk files of `base`. Raises unless every
     sampled chunk is manifold, continuity really ran (checked > 0: verify
     alone says ok when it compared nothing), every mismatched pair is a
-    pair of near-twin cracks and those stay under TWIN_PPM_MAX of the
-    on-plane vertices compared. Returns verify's dict with `twins` and
-    `on_plane` added."""
+    pair of near-twin cracks, those stay under TWIN_PPM_MAX of the
+    on-plane vertices compared (none), and verify says ok. Returns verify's
+    dict with `twins` and `on_plane` added."""
     on_plane, twins, cracked_pairs = 0, 0, 0
 
     def log(line: str) -> None:
@@ -699,6 +716,8 @@ def verify_output(n: int, base: str, sample: int = 10) -> dict:
     if twins * 1e6 > TWIN_PPM_MAX * on_plane:
         raise AssertionError(f"phase {n}: {twins} near-twin cracks in "
                              f"{on_plane} on-plane vertices: {res}")
+    if not res["ok"]:
+        raise AssertionError(f"phase {n}: verify failed: {res}")
     return res
 
 
@@ -1078,9 +1097,15 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
             "loader_s": total("loader.time"),
             "processes": spawned,
             # mean seconds from a process's spawn to its being ready, and
-            # to its modules being imported
+            # to its modules being imported; the processes start before the
+            # blob pass, and the stream waits for them (readyWait) after
+            # that pass and bucketing
             "worker_start_s": mean("workers.startTime"),
             "worker_import_s": mean("workers.importTime"),
+            "pass0_s": total("pass0.time"),
+            "bucket_s": total("bucket.time") + total("bucket.skeletonTime"),
+            "ready_wait_s": (total("workers.readyWait")
+                             if "workers.readyWait" in stats else None),
             "workers": {w: {"blocks": n, "device_s": t}
                         for w, (n, t) in per_worker.items()},
             "mesh_window_peak": stats["mem.meshWindow"]["peak"],
@@ -1139,6 +1164,7 @@ def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
         f"{BIG_SPLATS}_pass1_ratio_to_1_queue": _ratios(big, "pass1_s"),
         "processes_spawned": {k: v["processes"] for k, v in out.items()},
         "worker_start_s": {k: v["worker_start_s"] for k, v in out.items()},
+        "ready_wait_s": {k: v["ready_wait_s"] for k, v in out.items()},
         "worker_context": context,
         "two_processes_wall_ratio": (
             two_ranks["two_ranks_seconds"] / two_ranks["one_process_seconds"]
@@ -1203,7 +1229,7 @@ def phase15_sharded(pts, src, info, densest, dev) -> dict:
                            f"block {i} over {mesh} against one stream")
 
     # the kernel on a non-default stream, while the default stream sleeps
-    grid_form, bvalid = cloud.bucket_inputs(src, info, densest)
+    grid_form, bvalid = load_bucket(src, info, densest)
     min_s, max_s = SUB, LEVELS + SUB - 1
     tpa = 1 << (max_s - 3)
     origin = tuple(int(v) for v in densest.cell_lo)

@@ -12,13 +12,28 @@ mlsgpu_tpu/ops/mls.py).
   face planes and decomposition-edge points so that adjacent blocks agree
   bit for bit (the seam contract; see the JAX module's docstrings).
 
-Seam arithmetic. Every float expression of the face and skeleton passes is
-an elementwise op in a fixed order, and their candidate sums are a pairwise
-tree over a power-of-two slot axis (`_tree_sum`). Padding such an axis with
-zero slots leaves a pairwise tree's value unchanged, so the sums depend
-only on the canonical candidate list — not on chunk composition, slot width
-or the library's reduction strategy — and two blocks round identically on
-the CPU and on the card alike.
+Seam arithmetic. A face or skeleton corner's value depends only on the set
+of splats with positive weight at that corner (those within reach, d <
+RADIUS_CUTOFF), taken in global stream order: every block that holds the
+corner computes it bitwise alike. Every block has all of them, since a
+splat that reaches a corner of a block's tile is binned into that tile
+(the conservative node test of ops/binning.py) and each pass reads the
+tiles that hold its corner. The lists the passes gather are wider than
+that set and depend on the block: a face patch straddles a block's
+in-plane edge wherever the block origin is not a multiple of 8, and its
+rectangle filter then keeps splats that reach the patch only outside the
+block, which one neighbour lists and the other does not. Such a splat
+weighs exactly 0 at every corner of the block, but a zero in the middle of
+a list moves the later slots of a pairwise tree and so the rounding. So
+`_canonical_moments` moves each corner's candidates of positive weight to
+the front of its row, in the row's stream order, before it sums. Every
+float expression of both passes is an elementwise op in a fixed order, and
+each sum is a pairwise tree over a power-of-two slot axis (`_tree_sum`),
+which zero slots appended at the end leave unchanged: the sums depend
+neither on the list's width nor on chunk composition nor on the library's
+reduction strategy, and two blocks round identically on the CPU and on the
+card alike. Stream order is the block's splat order, which the streamer
+keeps the same for the splats two blocks share (streamer.load_bucket).
 """
 
 from __future__ import annotations
@@ -217,14 +232,23 @@ def candidate_work(entry_data: torch.Tensor, seg_starts: torch.Tensor,
 
 def _canonical_moments(entry_data, cols_idx, sval, frame, corners,
                        fit_shape, boundary_factor):
-    """Moments and fit of the canonical candidate lists: cols_idx/sval
+    """Moments and fit of candidate lists in stream order: cols_idx/sval
     (C, K) with K a power of two, frame (C, 3) the exact integer anchor,
-    corners (C, P, 3) in that frame. Sums are a pairwise tree over K."""
+    corners (C, P, 3) in that frame. Each corner sums over exactly the
+    candidates of positive weight there, moved to the front of the slot
+    axis in the row's order by a stable sort, as a pairwise tree over K; its
+    hit count is of the candidates within reach, the same set for positive
+    quality. So a corner's value depends only on that set and its stream
+    order, not on what else the row lists."""
     cols = entry_data[cols_idx]                                 # (C, K, 8)
     x = cols[..., 0:3] - frame[:, None, :]
     feats = _features(x, cols[..., 4:7])
     w, hits = _weights(corners, x, feats, cols[..., 3], cols[..., 7], sval)
-    m = _tree_sum(w[..., None] * feats[:, None, :, :], dim=2)  # (C, P, 9)
+    order = torch.sort((w == 0).to(torch.uint8), dim=2, stable=True).indices
+    rows = torch.arange(w.shape[0], device=w.device)[:, None, None]
+    wf = feats[rows, order]                                     # (C, P, K, 9)
+    wf.mul_(torch.gather(w, 2, order)[..., None])
+    m = _tree_sum(wf, dim=2)                                    # (C, P, 9)
     return _fit(m, corners, hits, fit_shape, boundary_factor)
 
 

@@ -630,12 +630,33 @@ def reconstruct_distributed(source: SplatSource, cfg: ReconstructConfig,
     buckets, runs its chunks over its devices (taken as a single process
     takes them: pipeline.reconstruct.prepare_run), exchanges prune info,
     writes its own chunk files. Returns this process's output paths."""
-    from mlsgpu_tpu_torch.pipeline.reconstruct import (
-        block_result_to_input, output_chunk_cells, prepare_run)
+    from mlsgpu_tpu_torch.pipeline.reconstruct import prepare_run
+    from mlsgpu_tpu_torch.pipeline.streamer import start_stream_workers
+    from mlsgpu_tpu_torch.pipeline.workers import stop_workers
+
+    devices, readback = prepare_run(cfg, device)
+    # Worker processes start beside the blob pass, as in a single-process
+    # run (pipeline.reconstruct), and stop with pass 1 or on any error.
+    group = start_stream_workers(cfg, devices, readback)
+    try:
+        mesher, local_splats = _rank_passes(source, cfg, transport, devices,
+                                            readback, group)
+    finally:
+        stop_workers(group)
+    return _finish_rank(cfg, output, transport, writer_factory, mesher,
+                        local_splats)
+
+
+def _rank_passes(source: SplatSource, cfg: ReconstructConfig,
+                 transport: Transport, devices, readback: str, group):
+    """A rank's blob pass, bucketing and pass 1 over the chunks it takes,
+    through the worker processes of `group` (or none): (mesher, the splats
+    of this rank's buckets)."""
+    from mlsgpu_tpu_torch.pipeline.reconstruct import (block_result_to_input,
+                                                       output_chunk_cells)
     from mlsgpu_tpu_torch.pipeline.streamer import (consume_threaded,
                                                     stream_blocks)
 
-    devices, readback = prepare_run(cfg, device)
     info = distributed_blobs(source, cfg, transport)
 
     # Fault-injection hook for the real-process failure test (the reference
@@ -702,11 +723,19 @@ def reconstruct_distributed(source: SplatSource, cfg: ReconstructConfig,
 
     try:
         consume_threaded(
-            stream_blocks(source, info, mine_iter, cfg, devices, readback),
+            stream_blocks(source, info, mine_iter, cfg, devices, readback,
+                          group=group),
             consume)
     finally:
         progress.close()
+    return mesher, local_splats
 
+
+def _finish_rank(cfg: ReconstructConfig, output: str, transport: Transport,
+                 writer_factory, mesher: OOCMesher,
+                 local_splats: int) -> List[str]:
+    """A rank's end of the run after pass 1: the load balance, then the
+    checkpoint or the prune exchange and its chunk files."""
     # Balance quality is measured, not assumed: gather actual per-rank
     # loads and record max/mean imbalance on rank 0.
     loads = transport.allgather(local_splats)

@@ -33,7 +33,9 @@ from mlsgpu_tpu_torch.ops.block import resolve_readback, unpack_readback_global
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod
 from mlsgpu_tpu_torch.pipeline.resources import validate_device
 from mlsgpu_tpu_torch.pipeline.streamer import (HostBlock, consume_threaded,
+                                                start_stream_workers,
                                                 stream_blocks)
+from mlsgpu_tpu_torch.pipeline.workers import stop_workers
 
 
 def check_supported(cfg: ReconstructConfig) -> None:
@@ -153,54 +155,63 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
     devices, readback = prepare_run(cfg, device, device_filter)
     stats = get_registry()
     show_progress = cfg.progress if show_progress is None else show_progress
+    # Worker processes (a run of more than one worker) start now, beside
+    # the blob pass and bucketing; they stop with pass 1 or on any error.
+    group = start_stream_workers(cfg, devices, readback, device_filter)
+    try:
+        with stats.timer("pass0.time"):
+            info = blobs_mod.compute_blobs(source, cfg.fit_grid,
+                                           cfg.micro_cells,
+                                           mem_budget=cfg.mem_blobs)
 
-    with stats.timer("pass0.time"):
-        info = blobs_mod.compute_blobs(source, cfg.fit_grid, cfg.micro_cells,
-                                       mem_budget=cfg.mem_blobs)
+        chunk_cells = output_chunk_cells(cfg)
+        max_splats = min(cfg.max_device_splats, cfg.mem_bucket_splats // 32)
+        buckets = bucket_mod.make_buckets(
+            info, cfg.device_block_cells, cfg.micro_cells,
+            max_splats=max_splats, chunk_cells=chunk_cells,
+            max_split=cfg.max_split)
+        misc.malloc_trim()
 
-    chunk_cells = output_chunk_cells(cfg)
-    max_splats = min(cfg.max_device_splats, cfg.mem_bucket_splats // 32)
-    buckets = bucket_mod.make_buckets(
-        info, cfg.device_block_cells, cfg.micro_cells,
-        max_splats=max_splats, chunk_cells=chunk_cells,
-        max_split=cfg.max_split)
-    misc.malloc_trim()
+        mesher = mesher or OOCMesher(info.grid, prune=cfg.fit_prune,
+                                     reorder_budget=cfg.mem_reorder)
+        if chunk_cells is not None:
+            mesher.chunk_cells = chunk_cells
+        if (cfg.output_split_size and not cfg.checkpoint
+                and getattr(cfg, "eager_write", True)):
+            expected: dict = {}
+            for b in buckets:
+                expected[b.chunk_id.coords] = \
+                    expected.get(b.chunk_id.coords, 0) + 1
+            mesher.enable_eager_write(output, expected,
+                                      writer_factory=writer_factory)
 
-    mesher = mesher or OOCMesher(info.grid, prune=cfg.fit_prune,
-                                 reorder_budget=cfg.mem_reorder)
-    if chunk_cells is not None:
-        mesher.chunk_cells = chunk_cells
-    if (cfg.output_split_size and not cfg.checkpoint
-            and getattr(cfg, "eager_write", True)):
-        expected: dict = {}
-        for b in buckets:
-            expected[b.chunk_id.coords] = expected.get(b.chunk_id.coords, 0) + 1
-        mesher.enable_eager_write(output, expected,
-                                  writer_factory=writer_factory)
+        total = sum(b.num_splats for b in buckets)
+        progress = (ProgressDisplay(total, label="reconstructing")
+                    if show_progress else NullProgress())
 
-    total = sum(b.num_splats for b in buckets)
-    progress = (ProgressDisplay(total, label="reconstructing")
-                if show_progress else NullProgress())
+        with stats.timer("pass1.time"):
+            mesher_worker = timeplot.Worker("mesher")
 
-    with stats.timer("pass1.time"):
-        mesher_worker = timeplot.Worker("mesher")
+            def consume(bucket, result):
+                block = block_result_to_input(result, bucket)
+                with timeplot.Action("mesher", mesher_worker,
+                                     stats.variable("mesher.time")):
+                    if filters is not None:
+                        v, t = filters(block.vertices, block.triangles)
+                        block = BlockInput(
+                            chunk_id=block.chunk_id, vertices=v,
+                            first_external=block.first_external,
+                            ext_keys=block.ext_keys, triangles=t)
+                    mesher.add(block)
+                progress.add(bucket.num_splats)
 
-        def consume(bucket, result):
-            block = block_result_to_input(result, bucket)
-            with timeplot.Action("mesher", mesher_worker,
-                                 stats.variable("mesher.time")):
-                if filters is not None:
-                    v, t = filters(block.vertices, block.triangles)
-                    block = BlockInput(chunk_id=block.chunk_id, vertices=v,
-                                       first_external=block.first_external,
-                                       ext_keys=block.ext_keys, triangles=t)
-                mesher.add(block)
-            progress.add(bucket.num_splats)
-
-        consume_threaded(stream_blocks(source, info, buckets, cfg,
-                                       devices, readback,
-                                       device_filter=device_filter),
-                         consume)
+            consume_threaded(stream_blocks(source, info, buckets, cfg,
+                                           devices, readback,
+                                           device_filter=device_filter,
+                                           group=group),
+                             consume)
+    finally:
+        stop_workers(group)
 
     if cfg.checkpoint:
         mesher.checkpoint(cfg.checkpoint)

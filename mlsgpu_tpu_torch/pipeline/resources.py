@@ -44,9 +44,13 @@ def estimate_block_usage(cfg: ReconstructConfig,
         # keys + vals (+ the sort's copies) and the gathered entry rows
         "binning": entries * (2 * I64 * 2 + 8 * F32),
         "field": b ** 3 * F32,
-        # per-chunk candidate tensors of the face pass (32 rows x 64 corners
-        # x K slots x 9 moments), K ~ the per-tile candidate guess
-        "faces": 32 * 64 * cfg.tile_candidates * 9 * F32 * 2,
+        # per-chunk tensors of the face pass over 32 rows x 64 corners x K
+        # slots, K ~ the per-tile candidate guess: the weighted moments
+        # (9 f32) and the first level of their pairwise tree, the per-corner
+        # sort's order (i64) and key (u8), the weights, their sorted copy
+        # and the distance temporaries (4 f32), the reach mask (u8)
+        "faces": 32 * 64 * cfg.tile_candidates * (2 * 9 * F32 + I64
+                                                  + 4 * F32 + 2),
     }
     if b > TILED_ABOVE:
         # tiled classification: the NaN-padded field copy, the candidate

@@ -139,6 +139,17 @@ def prepare_block_inputs(splats: np.ndarray, grid):
     return grid_form, arr.is_finite()
 
 
+def load_bucket(source: SplatSource, info, b):
+    """A bucket's block inputs (prepare_block_inputs) from its blobs' splat
+    ranges. The ranges are merged in ascending splat id, so two buckets
+    list the splats they share in the same relative order: the stream order
+    that the face and skeleton passes sum in (ops/mls.py)."""
+    start, count = info.blobs.start, info.blobs.count
+    ranges = merge_ranges((int(start[i]), int(start[i] + count[i]))
+                          for i in b.blob_ids)
+    return prepare_block_inputs(source.read_ranges(ranges), info.grid)
+
+
 def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
     """Run `fn(bucket, result)` on a consumer thread while the producer
     iterator keeps the device fed. `depth` bounds queued results.
@@ -282,11 +293,42 @@ def device_workers(devices: Sequence[torch.device], queues: int):
             for q in range(queues)]
 
 
+def _step_and_args(cfg, readback: str, device_filter,
+                   step: Optional[Callable]) -> Tuple[Callable, Dict]:
+    """A run's block step and its keyword arguments: they depend on the
+    configuration alone, not on the blocks."""
+    if step is None:
+        step = block_step_staged if cfg.statistics_device else block_step
+    return step, dict(boundary_factor=float(cfg.boundary_factor),
+                      levels=cfg.device_levels, subsampling=cfg.subsampling,
+                      fit_shape=cfg.fit_shape, readback=readback,
+                      device_filter=device_filter)
+
+
+def start_stream_workers(cfg, devices: Sequence[torch.device], readback: str,
+                         device_filter=None, read_images: bool = True,
+                         step: Optional[Callable] = None
+                         ) -> Optional[List[workers_mod.WorkerProcess]]:
+    """Start the worker processes of a run on `devices` before its blob
+    pass, so that their start (spawn, torch's import, a CUDA context, the
+    kernel library) runs beside that pass and bucketing; None when the run
+    has one worker, which stream_blocks runs in a thread. The arguments are
+    stream_blocks' own. The caller hands the group to
+    stream_blocks(group=) and ends it with workers.stop_workers however
+    the run ends."""
+    workers = device_workers(list(devices), max(1, int(cfg.device_threads)))
+    if not workers_mod.uses_processes(len(workers)):
+        return None
+    step, step_args = _step_and_args(cfg, readback, device_filter, step)
+    return workers_mod.start_workers(workers, step, step_args, read_images)
+
+
 def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                   devices: Union[torch.device, Sequence[torch.device]],
                   readback: str, device_filter=None,
                   read_images: bool = True,
-                  step: Optional[Callable] = None
+                  step: Optional[Callable] = None,
+                  group: Optional[List[workers_mod.WorkerProcess]] = None
                   ) -> Iterator[Tuple[object, HostBlock]]:
     """Yield (bucket, HostBlock) for every bucket in the loader's order,
     pipelined: loading runs ahead on a thread, every device of `devices`
@@ -308,25 +350,24 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
     when `device_filter` is set). With --statistics-device every block step
     is timed stage by stage (ops.block.block_step_staged). `step` replaces
     the block step (ops.block.block_step's signature); a worker process
-    imports it by name, so it is a module-level callable. An exception in
-    the loader or in any worker cancels the others and is raised here;
-    closing the generator joins every thread and ends every worker
-    process."""
+    imports it by name, so it is a module-level callable. `group` is the
+    run's worker processes from start_stream_workers (same arguments),
+    which the caller stops; without it the processes start here, after the
+    loader, and stop here. No worker pulls a block before every process of
+    the group is ready; workers.readyWait is the seconds this waited. An
+    exception in the loader or in any worker cancels the others and is
+    raised here; closing the generator joins every thread and ends every
+    worker process it started."""
     stats = get_registry()
     if isinstance(devices, torch.device):
         devices = [devices]
     workers = device_workers(list(devices), max(1, int(cfg.device_threads)))
     misc.bound_mmap_threshold()
-    if step is None:
-        step = block_step_staged if cfg.statistics_device else block_step
-    step_args = dict(boundary_factor=float(cfg.boundary_factor),
-                     levels=cfg.device_levels, subsampling=cfg.subsampling,
-                     fit_shape=cfg.fit_shape, readback=readback,
-                     device_filter=device_filter)
+    step, step_args = _step_and_args(cfg, readback, device_filter, step)
+    if group is not None and len(group) != len(workers):
+        raise ValueError(f"{len(group)} worker processes for "
+                         f"{len(workers)} workers")
     load_q: "queue.Queue" = queue.Queue(maxsize=max(2, len(workers)) + 1)
-    blob_start = info.blobs.start
-    blob_count = info.blobs.count
-    grid = info.grid
     error: List[BaseException] = []
     cancel = threading.Event()
     load_budget = ByteBudget(cfg.mem_load_splats,
@@ -360,11 +401,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                     return
                 with timeplot.Action("load", worker,
                                      stats.variable("loader.time")):
-                    ranges = merge_ranges(
-                        (int(blob_start[i]), int(blob_start[i] + blob_count[i]))
-                        for i in b.blob_ids)
-                    splats, valid = prepare_block_inputs(
-                        source.read_ranges(ranges), grid)
+                    splats, valid = load_bucket(source, info, b)
                 if not _put((seq, b, nbytes, splats, valid)):
                     return
                 seq += 1
@@ -465,19 +502,22 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         except BaseException as e:  # raised by the generator
             fail(e)
 
-    procs: List[workers_mod.WorkerProcess] = []
+    owned: List[workers_mod.WorkerProcess] = []
     threads = [threading.Thread(target=loader, name="loader", daemon=True)]
     wait_plot = timeplot.Worker("readback")
     yielded = 0
     try:
         threads[0].start()   # loading runs ahead while the workers start
         if workers_mod.uses_processes(len(workers)):
-            procs = workers_mod.start_workers(workers, step, step_args,
-                                              read_images)
+            procs = group
+            if procs is None:
+                procs = owned = workers_mod.start_workers(
+                    workers, step, step_args, read_images)
             # all start together; none pulls a block before the slowest is
             # ready, so a late start leaves no worker without blocks
-            for proc in procs:
-                proc.wait_ready(cancel)
+            with stats.timer("workers.readyWait"):
+                for proc in procs:
+                    proc.wait_ready(cancel)
             runs = [(pos, q, proc.name, functools.partial(run_in, proc))
                     for (_, pos, q), proc in zip(workers, procs)]
         else:
@@ -520,4 +560,4 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         for t in threads:
             if t.ident is not None:
                 t.join()
-        workers_mod.stop_workers(procs)
+        workers_mod.stop_workers(owned)

@@ -330,9 +330,9 @@ def start_workers(workers, step: Callable, step_args: Dict,
     return procs
 
 
-def stop_workers(procs: List[WorkerProcess]) -> None:
-    """Stop every process of a group from start_workers (an empty list: no
-    group, nothing to do)."""
+def stop_workers(procs: Optional[List[WorkerProcess]]) -> None:
+    """Stop every process of a group from start_workers (None or an empty
+    list: no group, nothing to do)."""
     if procs:
         for p in procs:
             p.stop()

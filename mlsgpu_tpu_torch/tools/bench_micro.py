@@ -5,7 +5,11 @@ bucket of the bench cloud (port of mlsgpu_tpu/tools/bench_micro.py):
   gather, and the whole of `bin_splats`;
 - the canonical face pass by rows per chunk (`ops/mls.py` runs 32 rows at a
   time, with one host synchronisation per chunk for the width of its
-  candidate lists), with the number of chunks each size makes;
+  candidate lists), with the number of chunks each size makes; and at
+  ROW_TREE_CHUNKS rows the pass as it summed before its per-corner sort
+  (one pairwise tree over each row's whole candidate list,
+  `row_tree_moments`: a plain reference for timing only, since its sums
+  depend on the block);
 - classification's parts: the candidate-tile reduction and 9^3 gather of
   the tiled form, the tiled form whole, the dense form's signs and codes
   alone, the dense form whole, and codes-mode marching whole.
@@ -32,6 +36,7 @@ import time
 import numpy as np
 
 FACE_CHUNKS = (16, 32, 64, 128, 256)
+ROW_TREE_CHUNKS = (32, 256)
 
 
 def add_arguments(p: argparse.ArgumentParser) -> None:
@@ -52,6 +57,7 @@ class BenchBlock:
 
         from mlsgpu_tpu_torch.device import resolve_device
         from mlsgpu_tpu_torch.io.splat_set import SequenceSource
+        from mlsgpu_tpu_torch.pipeline.streamer import load_bucket
         from mlsgpu_tpu_torch.tools import cloud
 
         self.dev = resolve_device(device)
@@ -59,7 +65,7 @@ class BenchBlock:
         self.cfg = cfg = cloud.bench_config(sr, levels=levels)
         src = SequenceSource(cloud_splats)
         info, _, b = cloud.densest_bucket(src, cfg)
-        grid_form, valid = cloud.bucket_inputs(src, info, b)
+        grid_form, valid = load_bucket(src, info, b)
         self.region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
         self.origin = tuple(int(v) for v in b.cell_lo)
         self.min_shift = cfg.subsampling
@@ -109,6 +115,22 @@ class BenchBlock:
         return binned, starts, lens, field
 
 
+def row_tree_moments(entry_data, cols_idx, sval, frame, corners,
+                     fit_shape, boundary_factor):
+    """ops/mls.py's `_canonical_moments` without its per-corner sort: each
+    corner sums its row's whole candidate list, zero weights included, as
+    the JAX package's face pass does, so its sums depend on the block. For
+    timing only."""
+    from mlsgpu_tpu_torch.ops import mls
+    cols = entry_data[cols_idx]
+    x = cols[..., 0:3] - frame[:, None, :]
+    feats = mls._features(x, cols[..., 4:7])
+    w, hits = mls._weights(corners, x, feats, cols[..., 3], cols[..., 7],
+                           sval)
+    m = mls._tree_sum(w[..., None] * feats[:, None, :, :], dim=2)
+    return mls._fit(m, corners, hits, fit_shape, boundary_factor)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_arguments(p)
@@ -145,6 +167,19 @@ def main(argv=None) -> int:
                 lens, org, blk.region, blk.tpa, blk.cfg.fit_shape, blk.bf,
                 row_chunk=c),
             args.reps, row_chunk=chunk)
+    per_corner = mls._canonical_moments
+    try:
+        mls._canonical_moments = row_tree_moments
+        for chunk in ROW_TREE_CHUNKS:
+            blk.timeit(
+                f"faces per-row tree chunk={chunk}",
+                lambda c=chunk: mls.canonical_face_field(
+                    field.clone(), binned.entry_data, binned.entry_vals,
+                    starts, lens, org, blk.region, blk.tpa,
+                    blk.cfg.fit_shape, blk.bf, row_chunk=c),
+                args.reps, row_chunk=chunk)
+    finally:
+        mls._canonical_moments = per_corner
 
     # ---- classification internals -----------------------------------------
     tile = marching.TILE

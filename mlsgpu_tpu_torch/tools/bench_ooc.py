@@ -129,8 +129,9 @@ def peak_rss_bytes() -> int:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
+def parser(description: str = __doc__) -> argparse.ArgumentParser:
+    """The options of a run (tools/twin_sites takes the same)."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--splats", type=int, default=100_000_000)
     p.add_argument("--out", default=None,
                    help="output PLY (chunk files and the mesher's spill go "
@@ -169,11 +170,13 @@ def main(argv=None):
                         "(tools/verify_chunks); 0 = skip")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda or cpu [%(default)s]")
-    args = p.parse_args(argv)
+    return p
 
+
+def scan_config(args):
+    """(the procedural scan, the reconstruction configuration) of a run
+    with these parsed options."""
     from mlsgpu_tpu_torch.config import ReconstructConfig, parse_capacity
-    from mlsgpu_tpu_torch.pipeline.reconstruct import reconstruct
-    from mlsgpu_tpu_torch.utils.statistics import get_registry
 
     splat_scale = (args.splat_scale if args.splat_scale is not None
                    else max(1.0, 0.8 * args.grid_scale))
@@ -181,6 +184,32 @@ def main(argv=None):
     # spacing derives from the UNSCALED sample spacing so --grid-scale
     # alone sets the grid; splat_scale then sets the support/spacing ratio
     spacing = (src.splat_radius / splat_scale) / 3.0 * args.grid_scale
+    return src, ReconstructConfig(
+        fit_grid=float(spacing), fit_smooth=1.0, fit_prune=0.02,
+        levels=args.levels, subsampling=3,
+        **({"device_block_shift": args.device_shift}
+           if args.device_shift else {}),
+        max_device_splats=4 << 20,
+        tile_candidates=1 << 10,
+        mem_blobs=parse_capacity(args.mem_blobs),
+        mem_load_splats=parse_capacity(args.mem_load_splats),
+        mem_host_splats=parse_capacity(args.mem_host_splats),
+        mem_mesh=parse_capacity(args.mem_mesh),
+        mem_reorder=parse_capacity(args.mem_reorder),
+        output_split_size=parse_capacity(args.split_size),
+        checkpoint=args.checkpoint,
+        progress=True,
+    )
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+
+    from mlsgpu_tpu_torch.config import parse_capacity
+    from mlsgpu_tpu_torch.pipeline.reconstruct import reconstruct
+    from mlsgpu_tpu_torch.utils.statistics import get_registry
+
+    src, cfg = scan_config(args)
 
     # Localize RSS spikes per phase (the budgets bound the tracked
     # containers, but ru_maxrss is process-wide).
@@ -199,22 +228,6 @@ def main(argv=None):
                       file=sys.stderr, flush=True)
     t_start = time.monotonic()
     threading.Thread(target=_rss_watch, daemon=True).start()
-    cfg = ReconstructConfig(
-        fit_grid=float(spacing), fit_smooth=1.0, fit_prune=0.02,
-        levels=args.levels, subsampling=3,
-        **({"device_block_shift": args.device_shift}
-           if args.device_shift else {}),
-        max_device_splats=4 << 20,
-        tile_candidates=1 << 10,
-        mem_blobs=parse_capacity(args.mem_blobs),
-        mem_load_splats=parse_capacity(args.mem_load_splats),
-        mem_host_splats=parse_capacity(args.mem_host_splats),
-        mem_mesh=parse_capacity(args.mem_mesh),
-        mem_reorder=parse_capacity(args.mem_reorder),
-        output_split_size=parse_capacity(args.split_size),
-        checkpoint=args.checkpoint,
-        progress=True,
-    )
     if args.out is None:
         args.out = os.path.join(tempfile.mkdtemp(prefix="mlsgpu_ooc."),
                                 "out.ply")

@@ -67,6 +67,7 @@ def main(argv=None):
     from mlsgpu_tpu_torch.device import resolve_device
     from mlsgpu_tpu_torch.io.splat_set import SequenceSource
     from mlsgpu_tpu_torch.ops import block, marching
+    from mlsgpu_tpu_torch.pipeline.streamer import load_bucket
     from mlsgpu_tpu_torch.tools import cloud
 
     dev = resolve_device(args.device)
@@ -76,7 +77,7 @@ def main(argv=None):
     rb = block.resolve_readback("auto", cfg.device_levels, cfg.subsampling)
     src = SequenceSource(splats)
     info, _, b = cloud.densest_bucket(src, cfg)
-    grid_form, valid = cloud.bucket_inputs(src, info, b)
+    grid_form, valid = load_bucket(src, info, b)
     region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
     origin = tuple(int(v) for v in b.cell_lo)
     has_pts = b.skeleton is not None and len(b.skeleton) > 0

@@ -73,14 +73,3 @@ def densest_bucket(source, cfg):
         info, cfg.device_block_cells, cfg.micro_cells,
         max_splats=min(cfg.max_device_splats, cfg.mem_bucket_splats // 32))
     return info, buckets, max(buckets, key=lambda b: b.num_splats)
-
-
-def bucket_inputs(source, info, bucket):
-    """One bucket's block inputs as the loader makes them: (grid-frame
-    splats (N, 8) f32, valid (N,) bool)."""
-    from mlsgpu_tpu_torch.io.splat_set import merge_ranges
-    from mlsgpu_tpu_torch.pipeline.streamer import prepare_block_inputs
-    start, count = info.blobs.start, info.blobs.count
-    ranges = merge_ranges((int(start[i]), int(start[i] + count[i]))
-                          for i in bucket.blob_ids)
-    return prepare_block_inputs(source.read_ranges(ranges), info.grid)

@@ -136,12 +136,15 @@ def _triple_set(verts: np.ndarray) -> np.ndarray:
 
 
 def check_continuity(chunks: Dict[Tuple[int, int, int], str], geom: dict,
-                     log=lambda s: None) -> dict:
+                     log=lambda s: None, on_crack=None) -> dict:
     """Compare on-plane vertex sets across every adjacent chunk pair.
 
     One pass per file: extracts the six near-face slabs, then compares
     pairs. Returns {"pairs", "checked", "mismatched_pairs", "missing",
-    "examples"}."""
+    "examples"}. on_crack(pair, axis, side, vertex, twin), when given, is
+    called for every near-twin crack vertex: the chunk pair, the cut axis,
+    "A" or "B" for the file that alone holds `vertex`, and the other
+    file's vertex nearest it (world coordinates)."""
     spacing = geom["spacing"]
 
     # Pass 1: per-file axis extents (one cheap scan per file). The cut
@@ -222,16 +225,19 @@ def check_continuity(chunks: Dict[Tuple[int, int, int], str], geom: dict,
             # geometry sits 0.02-2 CELLS away (~100+ ulps), while a
             # spacing-scaled threshold misread them as cracks.
             cracks = 0
-            for rec, other in ((only_a, b), (only_b, a)):
+            for rec, other, side in ((only_a, b, "A"), (only_b, a, "B")):
                 for r in rec:
                     v = np.array([r["x"], r["y"], r["z"]],
                                  np.uint32).view(np.float32)
                     crack_eps = (4.0 * np.finfo(np.float32).eps
                                  * max(1.0, float(np.abs(v).max())))
                     if len(other):
-                        dmin = np.abs(other - v[None, :]).max(axis=1).min()
-                        if dmin < crack_eps:
+                        d = np.abs(other - v[None, :]).max(axis=1)
+                        if d.min() < crack_eps:
                             cracks += 1
+                            if on_crack is not None:
+                                on_crack((coords, nb), axis, side, v,
+                                         other[int(d.argmin())])
             boundary_verts += len(only_a) + len(only_b) - cracks
             if cracks:
                 mismatched += 1

@@ -70,6 +70,8 @@ def test_bench_micro_prints_its_variants():
         ["bin keys only (no sort)", "bin keys+sort (no gather)",
          "bin full (sort+gather)"]
         + [f"faces chunk={c}" for c in bench_micro.FACE_CHUNKS]
+        + [f"faces per-row tree chunk={c}"
+           for c in bench_micro.ROW_TREE_CHUNKS]
         + ["classify cand+gather only", "classify tiled full",
            "classify dense signs only", "classify dense full",
            "march codes full"])

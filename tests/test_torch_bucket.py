@@ -5,6 +5,8 @@ skeletons, chunks) on the dense path and, with MAX_MICRO_GRID lowered in
 both packages, on the sparse one, and one end-to-end run over an extent of
 more than 512 microblocks per axis."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -118,3 +120,32 @@ def test_sparse_extent_end_to_end(tmp_path):
         r = np.linalg.norm(verts - center, axis=1)
         near = r < 3.0
         assert near.sum() > 500 and abs(np.median(r[near]) - 2.0) < 0.08
+
+
+def test_buckets_stream_their_common_splats_in_one_order():
+    """The stream order is part of the seam contract: the face and skeleton
+    passes sum each corner's splats in the order of the block's stream
+    (ops/mls.py), so two buckets must list the splats they share in the
+    same relative order. The loader's streams (streamer.load_bucket) list
+    every bucket's splats in ascending splat id."""
+    from mlsgpu_tpu_torch.pipeline.streamer import load_bucket
+    splats = two_spheres(6.0)
+    info = blobs_mod.compute_blobs(SequenceSource(splats), 0.1, 8)
+    buckets = bucket.make_buckets(info, 31, 8, max_splats=400)
+    source = SequenceSource(splats)
+    every, _ = load_bucket(source, info, dataclasses.replace(
+        buckets[0], blob_ids=np.arange(len(info.blobs.start))))
+    ids = {row.tobytes(): i for i, row in enumerate(every)}
+    assert len(ids) == len(every) == len(splats)   # rows tell splats apart
+    streams = [[ids[row.tobytes()] for row in load_bucket(source, info, b)[0]]
+               for b in buckets]
+    for s in streams:
+        assert s == sorted(set(s))
+    shared = 0
+    for i, a in enumerate(streams):
+        for b in streams[i + 1:]:
+            common = set(a) & set(b)
+            shared += bool(common)
+            assert ([x for x in a if x in common]
+                    == [x for x in b if x in common])
+    assert shared >= 10

@@ -120,6 +120,18 @@ def jax_face_blocks():
 
 
 @pytest.fixture(scope="module")
+def jax_straddling_face_blocks():
+    """The same plane x = 28 between blocks whose in-plane origin y = 3 is
+    not a multiple of 8: the face patches straddle the blocks' edges, where
+    the port's per-corner sums and the JAX package's per-row ones differ in
+    ulps."""
+    return _jax_fields(_cloud([28.0, 14.0, 14.0], 6000, 42),
+                       [_bucket((0, 3, 0), (28, 34, 31)),
+                        _bucket((28, 3, 0), (59, 34, 31))],
+                       [("sphere", 0.0), ("plane", 0.75)])
+
+
+@pytest.fixture(scope="module")
 def jax_tjunction_blocks():
     """Unequal-extent neighbours whose junction line the surface crosses."""
     return _jax_fields(_cloud([12.0, 12.0, 16.0], 9000, 3, radius=7.0),
@@ -143,10 +155,12 @@ def _port_passes(bk, jb, s, ln, f0, fit, bf, skeleton):
     return faces, f.numpy()
 
 
+@pytest.mark.parametrize("blocks", ["jax_face_blocks",
+                                    "jax_straddling_face_blocks"])
 @pytest.mark.parametrize("side", [0, 1])
 @pytest.mark.parametrize("fit,bf", [("sphere", 0.0), ("plane", 0.75)])
-def test_face_field_matches_jax(jax_face_blocks, side, fit, bf):
-    bk, jb, s, ln, fields = jax_face_blocks[side]
+def test_face_field_matches_jax(request, blocks, side, fit, bf):
+    bk, jb, s, ln, fields = request.getfixturevalue(blocks)[side]
     f0, jfaces, _ = fields[fit]
     faces, _ = _port_passes(bk, jb, s, ln, f0, fit, bf, skeleton=False)
     changed = jfaces.view(np.uint32) != f0.view(np.uint32)
@@ -180,16 +194,45 @@ def test_shared_face_plane_bitwise_equal(region_a):
     assert_bitwise(fa[:, :, region_a], fb[:, :, 0], 100)
 
 
-def test_shared_face_bitwise_equal_across_chunking():
+@pytest.mark.parametrize("y0", [0, 3])   # 3: patches straddle the edges
+def test_shared_face_bitwise_equal_across_chunking(y0):
     """The port's analogue of the JAX cap-growth case: blocks whose passes
     run with different tile and row chunkings (so different slot widths and
     chunk compositions) still agree bitwise on the shared plane."""
-    splats = _cloud([24.0, 14.0, 14.0], 6000, 42)
-    fa = port_field(splats, (0, 0, 0), (24, B - 1, B - 1),
+    splats = _cloud([24.0, 14.0 + y0, 14.0], 6000, 42)
+    fa = port_field(splats, (0, y0, 0), (24, y0 + B - 1, B - 1),
                     tile_chunk=32, row_chunk=32)
-    fb = port_field(splats, (24, 0, 0), (24 + B - 1, B - 1, B - 1),
+    fb = port_field(splats, (24, y0, 0), (24 + B - 1, y0 + B - 1, B - 1),
                     tile_chunk=5, row_chunk=7)
     assert_bitwise(fa[:, :, 24], fb[:, :, 0], 100)
+
+
+def test_straddling_patch_keeps_the_shared_face_bitwise():
+    """Blocks A = [0, 28) and B = [28, 59) in x share the plane x = 28; their
+    in-plane origin y = 3 is not a multiple of 8, so the face patch y in
+    [0, 7] reaches outside both. One splat, put in the middle of the stream,
+    reaches that patch only at y < 3 and reaches A's tiles but not B's: A's
+    candidate list for the patch holds it and B's does not. It weighs 0 at
+    every corner the blocks share, so the shared plane must not move."""
+    cloud = _cloud([28.0, 14.0, 12.0], 6000, 42)
+    extra = cloud[0].copy()
+    extra[0:4] = [25.1, 0.8, 12.0, 3.0]
+    mid = len(cloud) // 2
+    splats = np.concatenate([cloud[:mid], extra[None], cloud[mid:]])
+    lo_a, hi_a = (0, 3, 0), (28, 3 + B - 1, B - 1)
+    lo_b, hi_b = (28, 3, 0), (28 + B - 1, 3 + B - 1, B - 1)
+    for lo, hi, listed in ((lo_a, hi_a, True), (lo_b, hi_b, False)):
+        args = block_inputs_from_numpy(splats, np.ones(len(splats), bool),
+                                       np.subtract(hi, lo), lo)
+        b = block.binning.bin_splats(args["splats"], args["valid"], lo, SUB,
+                                     LEVELS + SUB - 1)
+        binned = b.entry_keys != block.binning.INVALID_KEY
+        assert bool(((b.entry_vals == mid) & binned).any()) == listed
+    fa = port_field(splats, lo_a, hi_a)
+    fb = port_field(splats, lo_b, hi_b)
+    near = ~np.isnan(fa[8:16, 0:5, 28])     # the patch's corners in both
+    assert near.sum() >= 10
+    assert_bitwise(fa[:, :, 28], fb[:, :, 0], 100)
 
 
 def test_face_pass_preserves_interior_consistency():

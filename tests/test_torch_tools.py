@@ -31,7 +31,8 @@ from mlsgpu_tpu_torch.pipeline import reconstruct as trec
 from mlsgpu_tpu_torch.tools import (analyze_stats, analyze_timeplot,
                                     bench_ooc, bench_split, bench_stage,
                                     cloud, draw_timeplot, plyio, plymanifold,
-                                    plypntcat, simulate, verify_chunks)
+                                    plypntcat, simulate, twin_sites,
+                                    verify_chunks)
 
 from tests import oracle
 from tests.test_torch_reconstruct import RADIUS, small_config
@@ -307,9 +308,10 @@ def test_bench_ooc_default_output_honours_tmpdir(tmp_path, monkeypatch):
 
 
 def _twins(verify, base):
-    """(near-twin crack vertices, on-plane vertices compared, continuity)
-    from one package's verify of the chunk files of `base`; every mismatched
-    pair must be a pair of near-twin cracks and nothing else."""
+    """(near-twin crack vertices, on-plane vertices compared, continuity,
+    verify's ok) from one package's verify of the chunk files of `base`;
+    every mismatched pair must be a pair of near-twin cracks and nothing
+    else."""
     import re
     pat = re.compile(r"^pair .*: (\d+) on-plane verts, .*?(OK|(\d+) CRACKS)$")
     lines = []
@@ -320,42 +322,111 @@ def _twins(verify, base):
     assert cont["missing"] == 0
     assert cont["mismatched_pairs"] == sum(1 for m in hits if m.group(3))
     return (sum(int(m.group(3) or 0) for m in hits),
-            sum(int(m.group(1)) for m in hits), cont)
+            sum(int(m.group(1)) for m in hits), cont, res["ok"])
 
 
-def test_near_twin_cracks_are_the_jax_packages_too(tmp_path, monkeypatch):
-    """The known seam defect (the two copies of one cut-plane vertex a few
-    ulps apart) on its cheap reproducer, 200k splats in one block per
-    chunk: the JAX package shows it on the same input, and the port no
-    more than twice as often (seen: 18 vertices in the port, 12 in the JAX
-    package, of 14,512 on-plane vertices). Both packages' verify reject
-    both outputs for it.
+def _readback(monkeypatch, mode, *modules):
+    """Every ReconstructConfig of these config modules takes readback
+    `mode`."""
+    for mod in modules:
+        monkeypatch.setattr(mod, "ReconstructConfig", functools.partial(
+            mod.ReconstructConfig, readback=mode))
 
-    Both tools run readback "packed", named: the twins depend on the mode
-    (codes gives 12 and 16), and with "auto" each package resolves it from
-    its own native library. Packed decodes with or without either."""
+
+TWIN_ARGS = ["--splats", "200000", "--levels", "4", "--split-size", "2M",
+             "--verify", "0"]
+
+
+def _port_chunks_verified(tmp_path):
+    """The port's bench_ooc run of the twin reproducer on the CPU: (its
+    output base, its near-twin vertices, on-plane vertices, continuity),
+    with verify's ok and checked pairs asserted."""
+    port_out = str(tmp_path / "port" / "out.ply")
+    assert printed(bench_ooc.main,
+                   [*TWIN_ARGS, "--device", "cpu", "--out", port_out])[0] == 0
+    twins, on_plane, cont, ok = _twins(verify_chunks.verify, port_out)
+    assert ok and cont["checked"] > 0
+    return port_out, twins, on_plane, cont
+
+
+def test_the_port_is_free_of_the_jax_packages_near_twin_cracks(
+        tmp_path, monkeypatch):
+    """The JAX package's seam defect (the two copies of one cut-plane
+    vertex a few ulps apart) on its cheap reproducer, 200k splats in one
+    block per chunk: the JAX package still shows it (12 twin vertices of
+    14,512 on-plane ones with readback packed), the port shows none, since
+    its face pass sums each corner over exactly the splats that reach it.
+    Each package's verify says the same of the other's files.
+
+    Both tools run readback "packed", named: with "auto" each package
+    resolves it from its own native library, and the JAX package's codes
+    decode needs that library. Packed decodes with or without either."""
     from mlsgpu_tpu import config as jconfig
     from mlsgpu_tpu_torch import config as pconfig
-    for mod in (jconfig, pconfig):
-        monkeypatch.setattr(mod, "ReconstructConfig", functools.partial(
-            mod.ReconstructConfig, readback="packed"))
-    args = ["--splats", "200000", "--levels", "4", "--split-size", "2M",
-            "--verify", "0"]
-    port_out = str(tmp_path / "port" / "out.ply")
+    _readback(monkeypatch, "packed", jconfig, pconfig)
+    port_out, port_twins, port_on_plane, port_cont = \
+        _port_chunks_verified(tmp_path)
     jax_out = str(tmp_path / "jax" / "out.ply")
-    assert printed(bench_ooc.main,
-                   [*args, "--device", "cpu", "--out", port_out])[0] == 0
-    assert printed(j_bench_ooc.main, [*args, "--out", jax_out])[0] == 0
-    port_twins, port_on_plane, port_cont = _twins(verify_chunks.verify,
-                                                  port_out)
-    jax_twins, jax_on_plane, jax_cont = _twins(j_verify.verify, jax_out)
+    assert printed(j_bench_ooc.main, [*TWIN_ARGS, "--out", jax_out])[0] == 0
+    jax_twins, jax_on_plane, jax_cont, _ = _twins(j_verify.verify, jax_out)
     assert port_cont["pairs"] == jax_cont["pairs"]
     assert port_on_plane == jax_on_plane
     assert jax_twins > 0
-    assert port_twins <= 2 * jax_twins
+    assert port_twins == 0
     # each package's verify says the same of the other's files
     assert _twins(j_verify.verify, port_out)[0] == port_twins
     assert _twins(verify_chunks.verify, jax_out)[0] == jax_twins
+    # tools/twin_sites lists the JAX package's twins, each a few ulps from
+    # the other file's nearest vertex
+    cracks, _ = twin_sites.crack_vertices(jax_out)
+    assert len(cracks) == jax_twins
+    for _, _, side, v, twin in cracks:
+        assert side in ("A", "B")
+        assert 0 < np.abs(v - twin).max() < (4 * np.finfo(np.float32).eps
+                                             * np.abs(v).max())
+
+
+def test_the_port_is_free_of_near_twin_cracks_with_readback_codes(
+        tmp_path, monkeypatch):
+    """The same reproducer through the port alone with readback "codes"
+    (the JAX package gave 16 twin vertices there, the port 12 before its
+    face pass summed per corner): no twin, verify ok."""
+    from mlsgpu_tpu_torch import config as pconfig
+    _readback(monkeypatch, "codes", pconfig)
+    out, twins, on_plane, _ = _port_chunks_verified(tmp_path)
+    assert twins == 0 and on_plane > 0
+    _assert_a_shared_corner_agrees(out)
+
+
+def _assert_a_shared_corner_agrees(out):
+    """tools/twin_sites on the reproducer's output: no crack vertex, and the
+    blocks that hold a corner of a shared block face near a vertex of the
+    mesh give it the same bits (a face whose corners the surface reaches)."""
+    args = bench_ooc.parser().parse_args([*TWIN_ARGS, "--device", "cpu",
+                                          "--out", out])
+    rc, text, _ = printed(twin_sites.main, [*TWIN_ARGS, "--device", "cpu",
+                                            "--out", out])
+    assert rc == 0 and json.loads(text.splitlines()[-1])["cracks"] == 0
+    cracks, geom = twin_sites.crack_vertices(out)
+    assert cracks == []
+    src, info, buckets, cfg = twin_sites.scan_buckets(args)
+    verts = np.concatenate([ply.read_mesh(p)[0] for p in
+                            verify_chunks.discover_chunks(out).values()])
+    g = twin_sites.grid_coords(verts, geom)
+    faces = {(a, int(b.cell_lo[a])) for b in buckets for a in range(3)}
+    rounded = np.round(g).astype(np.int64)
+    values = {}
+    for k in np.nonzero((np.abs(g - rounded) < 1e-4).any(axis=1))[0]:
+        a = int(np.argmin(np.abs(g[k] - rounded[k])))
+        if (a, int(rounded[k, a])) not in faces:
+            continue
+        values = twin_sites.blocks_around(src, info, buckets, cfg,
+                                          rounded[k], torch.device("cpu"))
+        if len(values) >= 2:
+            break
+    assert len(values) >= 2
+    assert twin_sites.disagreeing(values) == []
+    assert any(np.isfinite(v[held]).sum() >= 4 for v, held in values.values())
 
 
 def test_bench_stage_prints_its_prefixes():

@@ -23,6 +23,7 @@ import torch
 
 from mlsgpu_tpu_torch import cli
 from mlsgpu_tpu_torch.io import ply
+from mlsgpu_tpu_torch.io.splat_set import SequenceSource
 from mlsgpu_tpu_torch.ops import mls_cuda
 from mlsgpu_tpu_torch.ops.block import block_step, block_step_staged
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
@@ -37,9 +38,9 @@ from mlsgpu_tpu_torch.utils.errors import InvalidOption
 from mlsgpu_tpu_torch.utils.statistics import Registry, get_registry
 
 from tests import oracle
-from tests.test_torch_multidevice import (CPU, HANG_S, OPTIONS, _bounded,
-                                          _no_streamer_threads, _setup,
-                                          _worker_blocks)
+from tests.test_torch_multidevice import (CPU, HANG_S, OPTIONS, SR,
+                                          _bounded, _no_streamer_threads,
+                                          _setup, _worker_blocks, make_cloud)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "mlsgpu_tpu")
@@ -363,6 +364,97 @@ def test_module_cli_with_two_device_threads(tmp_path):
         np.testing.assert_array_equal(a, b)
     assert "device.blocks.0.1:" in proc.stdout
     assert "workers.spawned: 2" in proc.stdout
+    assert "workers.readyWait:" in proc.stdout
+
+
+def _early_start_run(tmp_path, monkeypatch, threads, fail_in=None):
+    """reconstruct() of the multidevice tests' cloud on the CPU with
+    `threads` device threads, the blob pass wrapped to note (workers
+    spawned, child processes alive) when it starts; `fail_in` names a
+    pipeline module function ("blobs_mod.compute_blobs" or
+    "bucket_mod.make_buckets") that raises instead. Returns (the notes,
+    the run's exception). No process started by the run is left."""
+    cfg = ReconstructConfig(**{**OPTIONS, "device_threads": threads})
+    source = SequenceSource(make_cloud(n=8000, seed=7, sr=SR))
+    notes = []
+    real = trec.blobs_mod.compute_blobs
+
+    def note():
+        notes.append((get_registry().counter("workers.spawned").get(),
+                      len(multiprocessing.active_children())))
+
+    def blob_pass(*a, **kw):
+        note()
+        return real(*a, **kw)
+
+    def boom(*a, **kw):
+        note()
+        raise RuntimeError("failed before the stream")
+
+    monkeypatch.setattr(trec.blobs_mod, "compute_blobs", blob_pass)
+    if fail_in is not None:
+        mod, fn = fail_in.split(".")
+        monkeypatch.setattr(getattr(trec, mod), fn, boom)
+    get_registry().clear()
+    before = misc.child_pids()
+    _, err = _bounded(lambda: trec.reconstruct(
+        source, cfg, str(tmp_path / "out.ply"), device="cpu"))
+    assert misc.child_pids() <= before
+    return notes, err
+
+
+@pytest.mark.parametrize("threads", [1, 2])
+def test_worker_processes_start_before_the_blob_pass(tmp_path, monkeypatch,
+                                                     threads):
+    """Two device threads: reconstruct starts both worker processes before
+    the blob pass, so their start runs beside it and bucketing, and
+    stream_blocks records how long it then waited for them
+    (workers.readyWait). One: nothing starts early, nothing waits."""
+    notes, err = _early_start_run(tmp_path, monkeypatch, threads)
+    assert err is None, err
+    stats = get_registry().to_dict()
+    if threads == 1:
+        assert notes == [(0, 0)]
+        assert "workers.readyWait" not in stats
+    else:
+        assert notes == [(2, 2)]
+        assert stats["workers.readyWait"]["n"] == 1
+        assert sum(stats[f"device.blocks.0.{q}"]["total"]
+                   for q in range(2)) > 0
+
+
+@pytest.mark.parametrize("fail_in", ["blobs_mod.compute_blobs",
+                                     "bucket_mod.make_buckets"])
+def test_a_failure_before_the_stream_stops_the_early_workers(
+        tmp_path, monkeypatch, fail_in):
+    """The blob pass or bucketing raises after the worker processes have
+    started: the run raises that error and leaves no child process."""
+    notes, err = _early_start_run(tmp_path, monkeypatch, 2, fail_in)
+    assert isinstance(err, RuntimeError), err
+    assert "failed before the stream" in str(err)
+    assert notes[0] == (2, 2)
+
+
+def test_a_rank_starts_its_workers_before_its_blob_pass(monkeypatch):
+    """A distributed rank (parallel/multihost.py) with two device threads
+    starts its worker processes before its blob pass and stops them when
+    that pass raises: no child process is left."""
+    from mlsgpu_tpu_torch.parallel import multihost
+    cfg = ReconstructConfig(**{**OPTIONS, "device_threads": 2})
+    source = SequenceSource(make_cloud(n=8000, seed=7, sr=SR))
+    notes = []
+
+    def boom(*a, **kw):
+        notes.append(len(multiprocessing.active_children()))
+        raise RuntimeError("failed before the stream")
+
+    monkeypatch.setattr(multihost, "distributed_blobs", boom)
+    transport, = multihost.LocalTransport.make(1)
+    before = misc.child_pids()
+    _, err = _bounded(lambda: multihost.reconstruct_distributed(
+        source, cfg, "unused.ply", transport, device="cpu"))
+    assert isinstance(err, RuntimeError) and notes == [2], (err, notes)
+    assert misc.child_pids() <= before
 
 
 def test_exceptions_cross_the_process_boundary():
