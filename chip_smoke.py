@@ -145,8 +145,8 @@ from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
 from mlsgpu_tpu_torch.pipeline.streamer import load_bucket  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
-                                    bench_micro2, bench_ooc, cloud,
-                                    verify_chunks)
+                                    bench_micro2, bench_ooc, bench_queues,
+                                    cloud, verify_chunks)
 from mlsgpu_tpu_torch.utils import misc  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
 from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
@@ -1051,65 +1051,37 @@ def worker_context(n: int = 2) -> dict:
 
 
 def _queue_runs(cloud, runs, digest=None) -> dict:
-    """`runs` = [(name, CLI options, workers)] through cli_run on `cloud`:
-    each mesh's digest is `digest` (the first run's when None), launches
-    equal blocks, every worker ran a block, and more than one worker are as
-    many processes. Returns each run's numbers by name."""
+    """`runs` = [(name, CLI options, workers)], each as users run it: a
+    `python -m mlsgpu_tpu_torch --statistics` process of its own on
+    `cloud` (tools/bench_queues.run_cli), its statistics read back from its
+    output. Each mesh's digest is `digest` (the first run's when None),
+    launches equal blocks, every worker ran a block, more than one worker
+    are as many processes, and no process of the run outlives it. Returns
+    each run's numbers by name."""
     out = {}
     for name, extra, workers in runs:
-        # no second manifold check (~2 min at 2M): the digest is of the
-        # vertex and triangle arrays, and phase 5 checked those at 2M
-        res = cli_run(cloud, "queues", extra, manifold=False)
-        stats = res.pop("stats")
-        per_worker = _worker_stats(stats)
+        res = bench_queues.run_cli(ROOT, cloud[0], cloud[1], extra)
         digest = digest or res["digest"]
         if res["digest"] != digest:
             raise AssertionError(f"{name}: the mesh differs from the "
                                  "reference run's")
-        if res["kernel_launches"] != res["blocks"]:
-            raise AssertionError(f"{name}: {res['kernel_launches']} launches,"
-                                 f" {res['blocks']} blocks")
+        if res["launches"] != res["blocks"]:
+            raise AssertionError(f"{name}: {res['launches']} launches, "
+                                 f"{res['blocks']} blocks")
+        per_worker = res["workers"]
         if len(per_worker) != workers or \
-                not all(n > 0 for n, _ in per_worker.values()) or \
-                sum(n for n, _ in per_worker.values()) != res["blocks"]:
+                not all(n > 0 for n in per_worker.values()) or \
+                sum(per_worker.values()) != res["blocks"]:
             raise AssertionError(f"{name}: blocks per worker {per_worker}")
-        spawned = stats.get("workers.spawned", {}).get("total", 0)
-        if spawned != (workers if workers > 1 else 0):
-            raise AssertionError(f"{name}: {spawned} worker processes for "
-                                 f"{workers} worker(s)")
-
-        def total(key):
-            return stats.get(key, {}).get("sum", 0.0)
-
-        def mean(key):
-            return total(key) / stats[key]["n"] if key in stats else None
-
-        out[name] = {
-            "seconds": res["seconds"], "launches": res["kernel_launches"],
-            "blocks": res["blocks"],
-            "pass1_s": stats["pass1.time"]["sum"],
-            "device_s": stats["device.time"]["sum"],
-            "dispatch_h2d_s": total("dispatch.h2d"),
-            "readback_copy_s": total("readback.copy"),
-            "readback_wait_s": total("readback.wait"),
-            "mesher_s": stats["mesher.time"]["sum"],
-            "decode_s": stats["readback.decode"]["sum"],
-            "loader_s": total("loader.time"),
-            "processes": spawned,
-            # mean seconds from a process's spawn to its being ready, and
-            # to its modules being imported; the processes start before the
-            # blob pass, and the stream waits for them (readyWait) after
-            # that pass and bucketing
-            "worker_start_s": mean("workers.startTime"),
-            "worker_import_s": mean("workers.importTime"),
-            "pass0_s": total("pass0.time"),
-            "bucket_s": total("bucket.time") + total("bucket.skeletonTime"),
-            "ready_wait_s": (total("workers.readyWait")
-                             if "workers.readyWait" in stats else None),
-            "workers": {w: {"blocks": n, "device_s": t}
-                        for w, (n, t) in per_worker.items()},
-            "mesh_window_peak": stats["mem.meshWindow"]["peak"],
-            "digest_is_reference": True}
+        if res["spawned"] != (workers if workers > 1 else 0):
+            raise AssertionError(f"{name}: {res['spawned']} worker "
+                                 f"processes for {workers} worker(s)")
+        if res["left_running"]:
+            raise AssertionError(f"{name}: processes of the run left "
+                                 f"running: {res['left_running']}")
+        out[name] = dict(res, seconds=res["wall_s"],
+                         digest_is_reference=True)
+        del out[name]["digest"]
         phase(14, f"{name} ({' '.join(extra)}): {json.dumps(out[name])}")
     return out
 
@@ -1156,14 +1128,19 @@ def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
         "cards_visible": cards,
         "kernel_launches": sum(v["launches"] for v in
                                [*out.values(), *big.values()]),
+        "start": {k: v["start"] for k, v in out.items()},
+        f"start_{BIG_SPLATS}": {k: v["start"] for k, v in big.items()},
+        "per_block": {k: v["per_block"] for k, v in out.items()},
+        f"per_block_{BIG_SPLATS}": {k: v["per_block"]
+                                    for k, v in big.items()},
         "phase5_seconds": codes["seconds"], "phase5_pass1_s": codes["pass1_s"],
         "phase5_device_s": codes["device_s"],
         "wall_ratio_to_1_queue": _ratios(out, "seconds"),
         "pass1_ratio_to_1_queue": _ratios(out, "pass1_s"),
+        "run_ratio_to_1_queue": _ratios(out, "run_s"),
         f"{BIG_SPLATS}_wall_ratio_to_1_queue": _ratios(big, "seconds"),
         f"{BIG_SPLATS}_pass1_ratio_to_1_queue": _ratios(big, "pass1_s"),
-        "processes_spawned": {k: v["processes"] for k, v in out.items()},
-        "worker_start_s": {k: v["worker_start_s"] for k, v in out.items()},
+        "processes_spawned": {k: v["spawned"] for k, v in out.items()},
         "ready_wait_s": {k: v["ready_wait_s"] for k, v in out.items()},
         "worker_context": context,
         "two_processes_wall_ratio": (

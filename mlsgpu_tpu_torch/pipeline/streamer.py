@@ -144,10 +144,14 @@ def load_bucket(source: SplatSource, info, b):
     ranges. The ranges are merged in ascending splat id, so two buckets
     list the splats they share in the same relative order: the stream order
     that the face and skeleton passes sum in (ops/mls.py)."""
+    stats = get_registry()
     start, count = info.blobs.start, info.blobs.count
-    ranges = merge_ranges((int(start[i]), int(start[i] + count[i]))
-                          for i in b.blob_ids)
-    return prepare_block_inputs(source.read_ranges(ranges), info.grid)
+    with stats.timer("loader.read"):
+        ranges = merge_ranges((int(start[i]), int(start[i] + count[i]))
+                              for i in b.blob_ids)
+        splats = source.read_ranges(ranges)
+    with stats.timer("loader.convert"):
+        return prepare_block_inputs(splats, info.grid)
 
 
 def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
@@ -375,6 +379,9 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
     host_budget = ByteBudget(cfg.mem_host_splats,
                              stats.peak("mem.hostSplats"), cancel)
     window = MeshWindow(cfg.mem_mesh, stats.peak("mem.meshWindow"), cancel)
+    # a worker's wait for a loaded block, and a proxy's for its process
+    block_wait = stats.timer("workers.blockWait")
+    proxy_wait = stats.timer("workers.proxyWait")
 
     def fail(e: BaseException) -> None:
         error.append(e)
@@ -451,7 +458,8 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         t0 = time.monotonic()
         proc.send_block(splats, valid, b.skeleton, *region_of(b))
         del splats, valid
-        msg = proc.recv(cancel)
+        with proxy_wait:
+            msg = proc.recv(cancel)
         if msg is None:
             return None
         _, counts, mode, fmt, image_bytes = msg
@@ -459,7 +467,8 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         if not window.admit(seq, image_bytes):
             return None
         proc.send("read")
-        msg = proc.recv(cancel)
+        with proxy_wait:
+            msg = proc.recv(cancel)
         if msg is None:
             return None
         _, hosts, delta, c0, c1, launches = msg
@@ -480,12 +489,13 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                     if cancel.is_set():
                         return
                 item = _SENTINEL
-                while not cancel.is_set():
-                    try:
-                        item = load_q.get(timeout=0.2)
-                        break
-                    except queue.Empty:
-                        continue
+                with block_wait:
+                    while not cancel.is_set():
+                        try:
+                            item = load_q.get(timeout=0.2)
+                            break
+                        except queue.Empty:
+                            continue
                 if item is _SENTINEL:
                     _put(_SENTINEL)   # for the next worker
                     return
@@ -503,6 +513,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
             fail(e)
 
     owned: List[workers_mod.WorkerProcess] = []
+    launched = mls_cuda.launches
     threads = [threading.Thread(target=loader, name="loader", daemon=True)]
     wait_plot = timeplot.Worker("readback")
     yielded = 0
@@ -561,3 +572,6 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
             if t.ident is not None:
                 t.join()
         workers_mod.stop_workers(owned)
+        # the kernel's launches in this process and its worker processes
+        # while the stream ran, for a caller that reads the statistics
+        stats.counter("mls.launches").add(mls_cuda.launches - launched)

@@ -55,6 +55,7 @@ import torch.multiprocessing
 from mlsgpu_tpu_torch.device import set_precision
 from mlsgpu_tpu_torch.ops import mls_cuda
 from mlsgpu_tpu_torch.ops.block import readback_tensors
+from mlsgpu_tpu_torch.pipeline import worker_start
 from mlsgpu_tpu_torch.utils import misc
 from mlsgpu_tpu_torch.utils.errors import MlsError
 from mlsgpu_tpu_torch.utils.statistics import (Registry, TimerStat, Variable,
@@ -143,20 +144,43 @@ def _portable(e: BaseException) -> BaseException:
         return RuntimeError(f"{type(e).__name__}: {e}")
 
 
-def _worker_main(conn, name: str, device: torch.device, step: Callable,
-                 step_args: Dict, threads: int, read_images: bool) -> None:
-    """A worker process: set up, report ready, then run blocks until told
-    to stop or until the parent's end of the pipe closes."""
-    entered = time.monotonic()  # the interpreter is up, the modules imported
+def record_start(started: float, marks: Dict) -> None:
+    """Record a worker process's start from its clock marks
+    (worker_start.boot, _worker_main) and `started`, when it was asked
+    for (module docstring)."""
+    stats = get_registry()
+    stats.variable("workers.upTime").add(marks["up"] - started)
+    stats.variable("workers.torchTime").add(marks["torch"] - marks["up"])
+    stats.variable("workers.moduleTime").add(marks["entered"]
+                                             - marks["torch"])
+    if "cuda" in marks:
+        stats.variable("workers.cudaTime").add(marks["cuda"]
+                                               - marks["entered"])
+        stats.variable("workers.kernelTime").add(marks["kernel"]
+                                                 - marks["cuda"])
+    stats.counter("workers.mainImported").add(int(marks["main"]))
+    stats.variable("workers.importTime").add(marks["entered"] - started)
+    stats.variable("workers.startTime").add(marks["ready"] - started)
+
+
+def _worker_main(conn, marks: Dict, name: str, device: torch.device,
+                 step: Callable, step_args: Dict, threads: int,
+                 read_images: bool) -> None:
+    """A worker process (entered from worker_start.boot, whose clock marks
+    `marks` are): set up, report ready, then run blocks until told to stop
+    or until the parent's end of the pipe closes."""
     signal.signal(signal.SIGINT, signal.SIG_IGN)  # the parent stops us
     try:
         torch.set_num_threads(threads)
         misc.bound_mmap_threshold()
         if device.type == "cuda":
-            torch.cuda.set_device(device)
+            torch.cuda.set_device(device)   # creates the CUDA context
+            marks["cuda"] = time.monotonic()
             mls_cuda.load()
+            marks["kernel"] = time.monotonic()
         set_precision()
-        conn.send(("ready", entered, time.monotonic()))
+        marks["ready"] = time.monotonic()
+        conn.send(("ready", marks))
         done = 0
         while True:
             msg = conn.recv()
@@ -209,9 +233,9 @@ class WorkerProcess:
         self.name = name
         self.conn, child = ctx.Pipe()
         self.proc = ctx.Process(
-            target=_worker_main, name=name, daemon=True,
-            args=(child, name, device, step, step_args, threads,
-                  read_images))
+            target=worker_start.boot, name=name, daemon=True,
+            args=(child, pickle.dumps((name, device, step, step_args,
+                                       threads, read_images))))
         self.started = time.monotonic()
         try:
             self.proc.start()
@@ -220,17 +244,13 @@ class WorkerProcess:
         get_registry().counter("workers.spawned").add(1)
 
     def wait_ready(self, cancel) -> bool:
-        """Wait for the process to report ready; records the seconds from
-        its spawn to ready as workers.startTime, of which those until its
-        interpreter had imported the worker's modules as
-        workers.importTime. False when the run was cancelled."""
+        """Wait for the process to report ready and record its start
+        (module docstring: the start's statistics). False when the run was
+        cancelled."""
         msg = self.recv(cancel)
         if msg is None:
             return False
-        _, entered, ready = msg
-        stats = get_registry()
-        stats.variable("workers.importTime").add(entered - self.started)
-        stats.variable("workers.startTime").add(ready - self.started)
+        record_start(self.started, msg[1])
         return True
 
     def send(self, *msg) -> None:
@@ -238,10 +258,11 @@ class WorkerProcess:
 
     def send_block(self, splats, valid, points, region: Sequence[int],
                    origin: Sequence[int]) -> None:
-        self.send("block", _shared(splats), _shared(valid),
-                  None if points is None or not len(points)
-                  else _shared(points),
-                  tuple(int(v) for v in region),
+        with get_registry().timer("workers.sendCopy"):
+            shared = (_shared(splats), _shared(valid),
+                      None if points is None or not len(points)
+                      else _shared(points))
+        self.send("block", *shared, tuple(int(v) for v in region),
                   tuple(int(v) for v in origin))
 
     def recv(self, cancel) -> Optional[tuple]:
