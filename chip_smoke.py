@@ -57,25 +57,28 @@ raises, exits non-zero and prints no result line:
      spill: return code and RSS, the spill counters non-zero, the mem.*
      peaks within their budgets, its chunks verified as in phase 11;
      Msplats/s and peak RSS;
- 14. queues and cards through the CLI on the 2M cloud: on `--device cuda:0`
-     `--device-threads 1` (phase 5's run on a one-card machine, for a wall
-     time from the same moment; no worker process), then `--device-threads
-     2` and `4` (that many worker processes on the one card,
-     pipeline/workers.py) and, with more than one card visible, `--device
-     cuda --num-devices 0` (every card, a worker process each): each mesh's
-     digest is phase 5's (the vertex and triangle arrays phase 5 checked
-     manifold), 50 kernel launches (counted in the worker processes and
-     carried to this one), every worker's block counter above 0, one
-     process spawned per worker; wall, pass1.time, summed and per-worker
-     device.time, dispatch.h2d, readback.copy and readback.wait,
-     mesher.time and readback.decode of each, the worker processes' start
-     seconds (they start before the blob pass) beside pass0.time,
-     bucketing's seconds and workers.readyWait (what the stream then waited
-     for them), beside phase 12's two-process ratio; then one and two queues
-     (and every card) on a BIG_SPLATS cloud, each mesh the one-queue run's;
-     the device memory of an
-     idle worker process (its CUDA context and the kernel library), from
-     torch.cuda.mem_get_info and nvidia-smi, against
+ 14. queues and cards through the CLI on the 2M cloud, each run as users
+     run it: `python -m mlsgpu_tpu_torch --statistics` as a process of its
+     own (tools/bench_queues.run_cli), its statistics read back from its
+     output: on `--device cuda:0` `--device-threads 1` (no worker
+     process), then `2` and `4` (that many worker processes on the one
+     card, forked from one worker server: pipeline/worker_start.py) and,
+     with more than one card visible, `--device cuda --num-devices 0`
+     (every card, a worker process each): each mesh's digest is phase 5's
+     (the vertex and triangle arrays phase 5 checked manifold), 50 kernel
+     launches (counted in the worker processes and carried to the run's
+     `mls.launches`), every worker's block counter above 0, one process
+     per worker, and no process of the run's session alive once it has
+     exited; for each, the wall and the run's phases, the worker start
+     split into its stages (the server's interpreter, torch and the step's
+     modules, each worker's fork, CUDA context and kernel library) beside
+     workers.readyWait, and the parent's host time per block by stage
+     (loader read and conversion, shared-memory copy, proxy wait, a
+     worker's wait for a block, decode, mesher), beside phase 12's
+     two-process ratio; then one and two queues (and every card) on a
+     BIG_SPLATS cloud, each mesh the one-queue run's; the device memory of
+     an idle worker process (its CUDA context and the kernel library),
+     from torch.cuda.mem_get_info and nvidia-smi, against
      workers.WORKER_CONTEXT_BYTES; and `--num-devices` of one more card
      than is visible exits non-zero with the option error;
  15. parallel/sharded.py on the card: two seam-adjacent blocks through
@@ -147,6 +150,7 @@ from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, bench_queues,
                                     cloud, verify_chunks)
+from mlsgpu_tpu_torch.tools.bench_queues import bench_args  # noqa: E402
 from mlsgpu_tpu_torch.utils import misc  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
 from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
@@ -740,12 +744,6 @@ def chunk_digests(base: str) -> dict:
         out[coords] = hashlib.sha256(verts.tobytes()
                                      + tris.tobytes()).hexdigest()
     return out
-
-
-def bench_args(spacing) -> list:
-    return ["--fit-grid", repr(spacing), "--fit-smooth", "1", "--levels",
-            str(LEVELS), "--subsampling", str(SUB), "--max-device-splats",
-            "4194304", "--tile-candidates", "384", "--no-progress"]
 
 
 def phase11_chunked(cloud_ply, workdir) -> dict:

@@ -276,15 +276,22 @@ def uf_merge_pairs(parent: np.ndarray, size: np.ndarray, metas,
 
 
 def decode_splats(buf: bytes, n: int, stride: int, offsets: np.ndarray,
-                  smooth: float, max_radius: float, nthreads: int = 0):
-    """Decode n raw PLY records; nthreads > 1 splits rows across native
-    threads (the reference's OpenMP decode, src/splat_set.cpp:213).
-    nthreads=0 uses the hardware core count."""
+                  smooth: float, max_radius: float, nthreads: int = 0,
+                  out: Optional[np.ndarray] = None):
+    """Decode n raw PLY records into `out` ((n, 8) f32, C-contiguous; a new
+    array when None); nthreads > 1 splits rows across native threads (the
+    reference's OpenMP decode, src/splat_set.cpp:213). nthreads=0 uses the
+    hardware core count."""
     lib = get_lib()
     if lib is None:
         return None
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
-    out = np.empty((n, 8), np.float32)
+    if out is None:
+        out = np.empty((n, 8), np.float32)
+    elif (out.shape != (n, 8) or out.dtype != np.float32
+          or not out.flags.c_contiguous):
+        raise ValueError("decode_splats: out must be a C-contiguous "
+                         f"({n}, 8) float32 array")
     if nthreads == 0:
         nthreads = os.cpu_count() or 1
     if nthreads > 1:

@@ -29,6 +29,7 @@ from typing import List, Optional
 
 from mlsgpu_tpu_torch import __version__
 from mlsgpu_tpu_torch.config import ReconstructConfig, parse_capacity
+from mlsgpu_tpu_torch.pipeline import worker_start
 from mlsgpu_tpu_torch.utils import logging as log
 from mlsgpu_tpu_torch.utils import misc, timeplot
 from mlsgpu_tpu_torch.utils.errors import MlsError
@@ -246,12 +247,33 @@ def _leave_failed_job(code: int) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    entered = time.monotonic()
     args = build_parser().parse_args(argv)
     if args.quiet:
         log.set_log_level("quiet")
     elif args.debug:
         log.set_log_level("debug")
     cfg = config_from_args(args)
+    server = not args.resume and worker_start.several_workers(cfg,
+                                                              args.device)
+    if server:
+        # worker processes fork from a server that imports torch and the
+        # block step's modules beside this process's own imports (next)
+        try:
+            worker_start.hold_server()
+        except MlsError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    try:
+        return _run(args, cfg, entered)
+    finally:
+        if server:
+            worker_start.release_server()
+
+
+def _run(args, cfg: ReconstructConfig, entered: float) -> int:
+    """main() after the options are parsed and the worker server, if the
+    run needs one, is held; `entered` is when main() was."""
     from mlsgpu_tpu_torch.pipeline.reconstruct import (check_supported,
                                                        reconstruct, resume)
     try:
@@ -277,6 +299,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     start = time.monotonic()
     stats = get_registry()
+    # what main() took before the run: its imports (torch among them)
+    stats.variable("cli.importTime").add(start - entered)
     transport = None
     try:
         if not args.resume:

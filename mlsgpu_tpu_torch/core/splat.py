@@ -84,6 +84,20 @@ class SplatArray:
         return out
 
 
+def block_inputs(splats: np.ndarray, grid):
+    """World-frame splats -> a block step's inputs: (grid-frame (N, 8) f32
+    with col 3 = radius in cells, valid (N,) bool). Splats stay in the
+    global grid frame: block-dependent f32 rounding would break
+    cross-block determinism. The streamer's loader runs this for a worker
+    thread, a worker process for itself (pipeline/workers.py): the same
+    numpy code on the same bytes, so the same bits."""
+    arr = SplatArray(splats)
+    grid_form = arr.to_grid_frame(grid)
+    # to_grid_frame put 1/r^2 in col 3; binning wants the radius.
+    grid_form[:, 3] = splats[:, 3] / np.float32(grid.spacing)
+    return grid_form, arr.is_finite()
+
+
 def decode_raw_splats(raw: np.ndarray, smooth: float, max_radius: float) -> np.ndarray:
     """Decode (N, 7) raw PLY fields [x y z nx ny nz radius] into the (N, 8)
     splat layout, applying the radius clamp + smoothing scale and computing

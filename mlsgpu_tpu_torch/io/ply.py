@@ -144,10 +144,12 @@ class PlyReader:
         return self._reader.read(h.header_size + first * h.vertex_size,
                                  (last - first) * h.vertex_size)
 
-    def decode(self, raw: bytes) -> np.ndarray:
+    def decode(self, raw: bytes, out: Optional[np.ndarray] = None
+               ) -> np.ndarray:
         """Decode raw records -> (N, 8) splats (vectorized FastPly decode +
-        radius clamp/smooth + quality, src/fast_ply.cpp:334-350). Uses the
-        native decoder when built; numpy strided-view fallback otherwise."""
+        radius clamp/smooth + quality, src/fast_ply.cpp:334-350), into
+        `out` when given (C-contiguous (N, 8) f32). Uses the native decoder
+        when built; numpy strided-view fallback otherwise."""
         h = self.header
         n = len(raw) // h.vertex_size
         try:
@@ -155,12 +157,15 @@ class PlyReader:
             offsets = np.array(
                 [h.offsets[k] for k in ("x", "y", "z", "nx", "ny", "nz",
                                         "radius")], dtype=np.int64)
-            out = nat.decode_splats(raw, n, h.vertex_size, offsets,
-                                    self.smooth, self.max_radius)
-            if out is not None:
-                return out
+            got = nat.decode_splats(raw, n, h.vertex_size, offsets,
+                                    self.smooth, self.max_radius, out=out)
+            if got is not None:
+                return got
         except Exception:
             pass
+        if out is not None:
+            out[...] = self.decode(raw)
+            return out
         buf = np.frombuffer(raw, dtype=np.uint8).reshape(-1, h.vertex_size)
         fields = np.empty((buf.shape[0], 7), dtype=np.float32)
         for i, name in enumerate(("x", "y", "z", "nx", "ny", "nz", "radius")):

@@ -33,6 +33,13 @@ class SplatSource:
         """Concatenate splats for [first, last) global-id ranges."""
         raise NotImplementedError
 
+    def read_ranges_into(self, ranges: Sequence[Tuple[int, int]],
+                         out: np.ndarray) -> None:
+        """read_ranges into `out`, an (N, 8) f32 array of the ranges' total
+        length (a shared-memory buffer: the streamer's loader). Sources
+        that can write there directly do; this default copies."""
+        out[...] = self.read_ranges(ranges)
+
     def close(self) -> None:
         pass
 
@@ -54,6 +61,10 @@ class SequenceSource(SplatSource):
         if not len(ranges):
             return np.empty((0, 8), np.float32)
         return np.concatenate([self._data[a:b] for a, b in ranges])
+
+    def read_ranges_into(self, ranges, out):
+        if len(ranges):
+            np.concatenate([self._data[a:b] for a, b in ranges], out=out)
 
 
 class FileSource(SplatSource):
@@ -83,18 +94,35 @@ class FileSource(SplatSource):
                 yield base + first, reader.read(first, last)
 
     def read_ranges(self, ranges):
-        out = []
+        out = np.empty((sum(b - a for a, b in ranges), 8), np.float32)
+        self.read_ranges_into(ranges, out)
+        return out
+
+    def read_ranges_into(self, ranges, out):
+        """One read per range, but one decode per run of ranges in one
+        file, straight into `out` (a bucket lists hundreds of ranges)."""
+        row = 0
+        for fi, pieces in self._by_file(ranges):
+            reader = self._readers[fi]
+            raw = b"".join(reader.read_raw(a, b) for a, b in pieces)
+            n = sum(b - a for a, b in pieces)
+            reader.decode(raw, out=out[row:row + n])
+            row += n
+
+    def _by_file(self, ranges):
+        """`ranges` cut at file ends, file-local, as (file index, ranges)
+        runs in the order given."""
+        runs: List[Tuple[int, List[Tuple[int, int]]]] = []
         for a, b in ranges:
             while a < b:
                 fi = int(np.searchsorted(self._starts, a, side="right") - 1)
                 base = int(self._starts[fi])
-                fend = int(self._starts[fi + 1])
-                stop = min(b, fend)
-                out.append(self._readers[fi].read(a - base, stop - base))
+                stop = min(b, int(self._starts[fi + 1]))
+                if not runs or runs[-1][0] != fi:
+                    runs.append((fi, []))
+                runs[-1][1].append((a - base, stop - base))
                 a = stop
-        if not out:
-            return np.empty((0, 8), np.float32)
-        return np.concatenate(out)
+        return runs
 
     def close(self) -> None:
         for r in self._readers:

@@ -1,6 +1,8 @@
 """Streaming block executor (port of mlsgpu_tpu/pipeline/streamer.py):
 a loader thread reads each bucket's blob ranges and converts them to block
-inputs behind a bounded queue, device workers run the block step and start
+inputs behind a bounded queue (for worker processes it reads them straight
+into shared memory and each process converts its own: the parent's one
+interpreter feeds N workers), device workers run the block step and start
 each block's readback, the generator hands the finished blocks out in the
 loader's order, and `consume_threaded` passes them to the mesher on its own
 thread.
@@ -28,7 +30,7 @@ really held: --mem-load-splats bounds the splats loaded and not yet taken
 by a worker, --mem-host-splats the splats held on the host from loading
 until their block is launched, and --mem-mesh the readback images of all
 workers together from the start of the copy until the block is yielded
-(with worker processes these bytes are the shared copies that carry a
+(with worker processes these bytes are the shared buffers that carry a
 block's splats to its worker and its images back).
 Each budget always admits one block; --mem-mesh always admits the oldest
 block not yet yielded, or a full budget would wait on a block that waits
@@ -54,7 +56,7 @@ from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple,
 import numpy as np
 import torch
 
-from mlsgpu_tpu_torch.core.splat import SplatArray
+from mlsgpu_tpu_torch.core.splat import block_inputs
 from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
 from mlsgpu_tpu_torch.utils import misc, timeplot
 from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
@@ -128,30 +130,35 @@ class ByteBudget:
             self._cond.notify_all()
 
 
-def prepare_block_inputs(splats: np.ndarray, grid):
-    """World-frame splats -> (grid-frame (N, 8) f32 with col 3 = radius in
-    cells, valid (N,) bool). Splats stay in the global grid frame: block-
-    dependent f32 rounding would break cross-block determinism."""
-    arr = SplatArray(splats)
-    grid_form = arr.to_grid_frame(grid)
-    # to_grid_frame put 1/r^2 in col 3; binning wants the radius.
-    grid_form[:, 3] = splats[:, 3] / np.float32(grid.spacing)
-    return grid_form, arr.is_finite()
+def bucket_ranges(info, b) -> List[Tuple[int, int]]:
+    """A bucket's blobs' splat ranges, merged in ascending splat id, so
+    two buckets list the splats they share in the same relative order: the
+    stream order that the face and skeleton passes sum in (ops/mls.py)."""
+    start, count = info.blobs.start, info.blobs.count
+    return merge_ranges((int(start[i]), int(start[i] + count[i]))
+                        for i in b.blob_ids)
 
 
 def load_bucket(source: SplatSource, info, b):
-    """A bucket's block inputs (prepare_block_inputs) from its blobs' splat
-    ranges. The ranges are merged in ascending splat id, so two buckets
-    list the splats they share in the same relative order: the stream order
-    that the face and skeleton passes sum in (ops/mls.py)."""
+    """A bucket's block inputs (core.splat.block_inputs) from its splat
+    ranges (bucket_ranges): what a worker thread takes."""
     stats = get_registry()
-    start, count = info.blobs.start, info.blobs.count
     with stats.timer("loader.read"):
-        ranges = merge_ranges((int(start[i]), int(start[i] + count[i]))
-                              for i in b.blob_ids)
-        splats = source.read_ranges(ranges)
+        splats = source.read_ranges(bucket_ranges(info, b))
     with stats.timer("loader.convert"):
-        return prepare_block_inputs(splats, info.grid)
+        return block_inputs(splats, info.grid)
+
+
+def load_bucket_shared(source: SplatSource, info, b) -> torch.Tensor:
+    """A bucket's world-frame splats from its ranges (bucket_ranges), read
+    once, straight into a new shared-memory tensor: what a worker process
+    takes, and converts itself (pipeline/workers.py)."""
+    with get_registry().timer("loader.read"):
+        ranges = bucket_ranges(info, b)
+        out = torch.empty((sum(hi - lo for lo, hi in ranges), 8),
+                          dtype=torch.float32).share_memory_()
+        source.read_ranges_into(ranges, out.numpy())
+    return out
 
 
 def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
@@ -314,8 +321,9 @@ def start_stream_workers(cfg, devices: Sequence[torch.device], readback: str,
                          step: Optional[Callable] = None
                          ) -> Optional[List[workers_mod.WorkerProcess]]:
     """Start the worker processes of a run on `devices` before its blob
-    pass, so that their start (spawn, torch's import, a CUDA context, the
-    kernel library) runs beside that pass and bucketing; None when the run
+    pass, so that their start (the worker server's imports, a fork, a CUDA
+    context, the kernel library: pipeline/worker_start.py) runs beside that
+    pass and bucketing, without waiting for it; None when the run
     has one worker, which stream_blocks runs in a thread. The arguments are
     stream_blocks' own. The caller hands the group to
     stream_blocks(group=) and ends it with workers.stop_workers however
@@ -371,6 +379,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
     if group is not None and len(group) != len(workers):
         raise ValueError(f"{len(group)} worker processes for "
                          f"{len(workers)} workers")
+    processes = workers_mod.uses_processes(len(workers))
     load_q: "queue.Queue" = queue.Queue(maxsize=max(2, len(workers)) + 1)
     error: List[BaseException] = []
     cancel = threading.Event()
@@ -408,7 +417,11 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                     return
                 with timeplot.Action("load", worker,
                                      stats.variable("loader.time")):
-                    splats, valid = load_bucket(source, info, b)
+                    if processes:   # a worker process converts its own
+                        splats, valid = load_bucket_shared(source, info,
+                                                           b), None
+                    else:
+                        splats, valid = load_bucket(source, info, b)
                 if not _put((seq, b, nbytes, splats, valid)):
                     return
                 seq += 1
@@ -456,7 +469,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         seq, b, nbytes, splats, valid = taken.pop()
         load_budget.release(nbytes)
         t0 = time.monotonic()
-        proc.send_block(splats, valid, b.skeleton, *region_of(b))
+        proc.send_block(splats, info.grid, b.skeleton, *region_of(b))
         del splats, valid
         with proxy_wait:
             msg = proc.recv(cancel)
@@ -519,7 +532,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
     yielded = 0
     try:
         threads[0].start()   # loading runs ahead while the workers start
-        if workers_mod.uses_processes(len(workers)):
+        if processes:
             procs = group
             if procs is None:
                 procs = owned = workers_mod.start_workers(

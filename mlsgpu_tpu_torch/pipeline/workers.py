@@ -15,27 +15,43 @@ there that pulls a block, hands it to its process and deposits the result.
 
 A block's round trip over the worker's pipe:
 
-    parent -> ("block", splats, valid, skeleton points, region, origin)
+    parent -> ("block", world-frame splats, grid, skeleton points,
+               region, origin)
     child  -> ("counts", counts, readback mode, fmt, image bytes)
     parent -> ("read",)       once --mem-mesh admits the image
     child  -> ("done", host images, statistics, start, end, launches)
 
 Tensors in these messages travel through shared memory (torch's file
-descriptor sharing), not through the pipe. The child copies its readback
-images from the device into fresh shared tensors, which the parent hands
-to the mesher as they are. ("stop",) ends a process at any point; a child
-that fails sends ("error", exception, traceback) and exits.
+descriptor sharing), not through the pipe. The parent's loader reads a
+bucket once, straight into a shared tensor, which goes as it is; the
+child converts it to the grid frame itself (core.splat.block_inputs: the
+same numpy code on the same bytes as the loader's for a worker thread, so
+the same bits), which leaves the parent's one interpreter the read alone.
+The child copies its readback images from the device into fresh shared
+tensors, which the parent hands to the mesher as they are. ("stop",) ends
+a process at any point; a child that fails sends ("error", exception,
+traceback) and exits.
 
-A process is started with the spawn method (the parent has touched CUDA),
-sets its card, FP32 precision and a small intra-op thread count, and
-loads the MLS kernel library before it reports ready. A process that
-cannot do so, or that raises or dies later, ends the run: no block is ever
-run in the parent or on the CPU in its place.
+A process is forked from the worker server (pipeline/worker_start.py),
+which imported torch and the block step's modules once for all of them
+and never touched CUDA. Each process sets its card (creating its CUDA
+context), FP32 precision and a small intra-op thread count, and loads the
+MLS kernel library before it reports ready. A process that cannot start,
+or that raises or dies later, ends the run: no block is ever run in the
+parent or on the CPU in its place. `start_workers` asks the server for a
+group's processes from a thread of its own, so that a run goes on with
+its blob pass while the server imports; `stop_workers` ends them and lets
+go of the server, which stops, with Python's resource tracker, when no
+group or run holds it, so that no process of a run outlives it.
 
-Spawning also starts Python's resource tracker, a process that would live
-as long as this one. When the last group of workers has stopped, the
-tracker is stopped too if it was their start that launched it, so that no
-process of a run outlives it.
+A start is recorded as: workers.upTime, workers.torchTime and
+workers.moduleTime, the server's own start (launch to interpreter up,
+torch's import, the block step's modules), once per server; per process
+workers.importTime (from the request to the process running with those
+modules: any wait for the server's imports, the fork, and the re-import
+of a script's main module, which workers.mainImported counts),
+workers.cudaTime (the CUDA context), workers.kernelTime (the kernel
+library) and workers.startTime (request to ready).
 """
 
 from __future__ import annotations
@@ -45,13 +61,14 @@ import signal
 import threading
 import time
 import traceback
-from multiprocessing import connection, resource_tracker
+from multiprocessing import connection
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.multiprocessing
+import torch.multiprocessing  # noqa: F401 (tensors through shared memory)
 
+from mlsgpu_tpu_torch.core.splat import block_inputs
 from mlsgpu_tpu_torch.device import set_precision
 from mlsgpu_tpu_torch.ops import mls_cuda
 from mlsgpu_tpu_torch.ops.block import readback_tensors
@@ -74,11 +91,9 @@ STOP_S = 5.0
 # Return glibc-freed heap spans to the OS every N blocks (utils.misc).
 _TRIM_EVERY = 8
 
-# Groups of workers alive in this process, and whether the first of them
-# launched the resource tracker (module docstring).
-_groups_lock = threading.Lock()
-_groups = 0
-_own_tracker = False
+# The server launch whose own start record_start has recorded.
+_recorded_lock = threading.Lock()
+_server_recorded: Optional[float] = None
 
 
 class WorkerDied(MlsError):
@@ -145,20 +160,29 @@ def _portable(e: BaseException) -> BaseException:
 
 
 def record_start(started: float, marks: Dict) -> None:
-    """Record a worker process's start from its clock marks
-    (worker_start.boot, _worker_main) and `started`, when it was asked
-    for (module docstring)."""
+    """Record a worker process's start (module docstring) from its clock
+    marks (worker_start.boot, _worker_main) and `started`, when this
+    process asked the server for it. The server's own start, which every
+    worker of one server shares, is recorded once per server."""
+    global _server_recorded
     stats = get_registry()
-    stats.variable("workers.upTime").add(marks["up"] - started)
-    stats.variable("workers.torchTime").add(marks["torch"] - marks["up"])
-    stats.variable("workers.moduleTime").add(marks["entered"]
-                                             - marks["torch"])
+    launched = worker_start.launched
+    with _recorded_lock:
+        first = launched is not None and _server_recorded != launched
+        if first:
+            _server_recorded = launched
+    if first:
+        stats.variable("workers.upTime").add(marks["up"] - launched)
+        stats.variable("workers.torchTime").add(marks["torch"]
+                                                - marks["up"])
+        stats.variable("workers.moduleTime").add(marks["modules"]
+                                                 - marks["torch"])
+    stats.counter("workers.mainImported").add(int(marks["main"]))
     if "cuda" in marks:
         stats.variable("workers.cudaTime").add(marks["cuda"]
                                                - marks["entered"])
         stats.variable("workers.kernelTime").add(marks["kernel"]
                                                  - marks["cuda"])
-    stats.counter("workers.mainImported").add(int(marks["main"]))
     stats.variable("workers.importTime").add(marks["entered"] - started)
     stats.variable("workers.startTime").add(marks["ready"] - started)
 
@@ -186,11 +210,14 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
             msg = conn.recv()
             if msg[0] == "stop":
                 return
-            _, splats, valid, points, region, origin = msg
+            _, raw, grid, points, region, origin = msg
             del msg
             reg = Registry()
             set_registry(reg)
             launched = mls_cuda.launches
+            with reg.timer("workers.convert"):
+                splats, valid = block_inputs(raw.numpy(), grid)
+            del raw
             t0 = time.monotonic()
             sp, va, pts = to_device(device, splats, valid, points)
             del splats, valid, points
@@ -229,24 +256,47 @@ class WorkerProcess:
 
     def __init__(self, name: str, device: torch.device, step: Callable,
                  step_args: Dict, threads: int, read_images: bool):
-        ctx = torch.multiprocessing.get_context("spawn")
+        ctx = worker_start.context()
         self.name = name
-        self.conn, child = ctx.Pipe()
+        self.conn, self._child = ctx.Pipe()
         self.proc = ctx.Process(
             target=worker_start.boot, name=name, daemon=True,
-            args=(child, pickle.dumps((name, device, step, step_args,
-                                       threads, read_images))))
+            args=(self._child, pickle.dumps((name, device, step, step_args,
+                                             threads, read_images))))
+        self.started: Optional[float] = None
+        self.start_error: Optional[BaseException] = None
+        self._starting: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        """Ask the server for the process. Waits while the server is still
+        importing; an error is kept for wait_ready to raise."""
         self.started = time.monotonic()
         try:
             self.proc.start()
+            get_registry().counter("workers.spawned").add(1)
+        except Exception as e:
+            self.start_error = e
         finally:
-            child.close()
-        get_registry().counter("workers.spawned").add(1)
+            self._child.close()
+
+    def _started(self, cancel=None) -> bool:
+        """Wait until start() has returned (False once `cancel` is set);
+        raise its error, naming the process."""
+        while self._starting is not None and self._starting.is_alive():
+            self._starting.join(0.2)
+            if cancel is not None and cancel.is_set():
+                return False
+        if self.start_error is not None:
+            raise MlsError(f"worker process {self.name} could not start: "
+                           f"{type(self.start_error).__name__}: "
+                           f"{self.start_error}") from self.start_error
+        return True
 
     def wait_ready(self, cancel) -> bool:
         """Wait for the process to report ready and record its start
-        (module docstring: the start's statistics). False when the run was
-        cancelled."""
+        (module docstring). False when the run was cancelled."""
+        if not self._started(cancel):
+            return False
         msg = self.recv(cancel)
         if msg is None:
             return False
@@ -256,13 +306,18 @@ class WorkerProcess:
     def send(self, *msg) -> None:
         self.conn.send(msg)
 
-    def send_block(self, splats, valid, points, region: Sequence[int],
+    def send_block(self, splats, grid, points, region: Sequence[int],
                    origin: Sequence[int]) -> None:
+        """Hand a block to the process: its world-frame splats (a shared
+        tensor goes as it is, anything else is copied into one), the grid
+        that frames them, its skeleton points."""
         with get_registry().timer("workers.sendCopy"):
-            shared = (_shared(splats), _shared(valid),
-                      None if points is None or not len(points)
+            if not (isinstance(splats, torch.Tensor) and splats.is_shared()):
+                splats = _shared(splats)
+            points = (None if points is None or not len(points)
                       else _shared(points))
-        self.send("block", *shared, tuple(int(v) for v in region),
+        self.send("block", splats, grid, points,
+                  tuple(int(v) for v in region),
                   tuple(int(v) for v in origin))
 
     def recv(self, cancel) -> Optional[tuple]:
@@ -299,6 +354,12 @@ class WorkerProcess:
     def stop(self) -> None:
         """Ask the process to exit; terminate, then kill it if it does
         not. Returns once it has ended."""
+        if self._starting is not None:
+            self._starting.join()
+        if self.proc.pid is None:     # never started
+            self._child.close()
+            self.conn.close()
+            return
         try:
             self.conn.send(("stop",))
         except (OSError, ValueError):
@@ -312,33 +373,16 @@ class WorkerProcess:
         self.conn.close()
 
 
-def _enter_group() -> None:
-    global _groups, _own_tracker
-    with _groups_lock:
-        if _groups == 0:
-            _own_tracker = resource_tracker._resource_tracker._fd is None
-        _groups += 1
-
-
-def _leave_group(procs: List[WorkerProcess]) -> None:
-    """Stop the resource tracker when the last group has left, if the
-    groups launched it and none of their processes still holds it open."""
-    global _groups
-    with _groups_lock:
-        _groups -= 1
-        if _groups == 0 and _own_tracker and \
-                not any(p.proc.is_alive() for p in procs):
-            resource_tracker._resource_tracker._stop()
-
-
 def start_workers(workers, step: Callable, step_args: Dict,
                   read_images: bool) -> List[WorkerProcess]:
     """One WorkerProcess per (device, position, queue) of `workers`, each
-    with an equal share of this process's intra-op threads. The caller
-    ends them with stop_workers."""
+    with an equal share of this process's intra-op threads, forked from
+    the server (worker_start) by a thread of their own, so that this
+    returns without waiting for the server's imports. The caller waits
+    for each with wait_ready and ends them with stop_workers."""
     threads = max(1, torch.get_num_threads() // max(1, len(workers)))
+    worker_start.hold_server()
     procs: List[WorkerProcess] = []
-    _enter_group()
     try:
         for dev, pos, q in workers:
             procs.append(WorkerProcess(f"device.{pos}.{q}", dev, step,
@@ -346,15 +390,22 @@ def start_workers(workers, step: Callable, step_args: Dict,
     except BaseException:
         for p in procs:
             p.stop()
-        _leave_group(procs)
+        worker_start.release_server()
         raise
+    starting = threading.Thread(target=lambda: [p.start() for p in procs],
+                                name="worker-start", daemon=True)
+    for p in procs:
+        p._starting = starting
+    starting.start()
     return procs
 
 
 def stop_workers(procs: Optional[List[WorkerProcess]]) -> None:
     """Stop every process of a group from start_workers (None or an empty
-    list: no group, nothing to do)."""
+    list: no group, nothing to do), and let go of the server."""
     if procs:
         for p in procs:
             p.stop()
-        _leave_group(procs)
+        worker_start.release_server(
+            workers_alive=any(p.proc.is_alive() for p in procs
+                              if p.proc.pid is not None))

@@ -10,7 +10,8 @@ once per root in the order given, so `--roots parent=P change=. change=.
 parent=P` compares two trees in turns on the same clouds.
 
 For every run it prints one line `RUN {json}`: the wall time of the
-subprocess and its own phases; the worker processes' start split into
+subprocess, its imports before the run (`cli.importTime`) and its own
+phases; the worker processes' start split into
 its stages (worker_start / worker_preload's clock marks: interpreter up,
 torch, the step's modules, the CUDA context, the kernel library) and
 `workers.readyWait`; the parent's host time per block by stage (loader
@@ -19,12 +20,12 @@ process, a worker's wait for a loaded block, decode, mesher); the blocks
 per worker; the kernel launches; a digest of the mesh; and any process of
 the run's session still alive once it has exited (which is then killed).
 A statistic a tree does not record is null. The last line is `SUMMARY
-{json}` with each run's wall time against the one-queue run of its root
-and cloud.
+{json}` with each run's wall time against the one-queue runs of its root
+and cloud on the first `--device`.
 
 Usage:
     python -m mlsgpu_tpu_torch.tools.bench_queues [--splats 2000000 6000000]
-        [--queues 1 2 4] [--big-queues 1 2] [--device cuda:0]
+        [--queues 1 2 4] [--big-queues 1 2] [--device cuda:0 [cuda]]
         [--roots label=path ...] [--workdir DIR] [--warmup-splats N]
 
 `--big-queues` are the queue counts of every cloud after the first.
@@ -143,7 +144,8 @@ def run_cli(root: str, ply_path: str, spacing: float,
     per_worker = {k[len("device.blocks."):]: v["total"]
                   for k, v in sorted(stats.items())
                   if k.startswith("device.blocks.")}
-    res = {"wall_s": wall, "run_s": _sum(stats, "run.time"),
+    res = {"wall_s": wall, "import_s": _sum(stats, "cli.importTime"),
+           "run_s": _sum(stats, "run.time"),
            "pass0_s": _sum(stats, "pass0.time"),
            "bucket_s": (_sum(stats, "bucket.time") or 0.0)
            + (_sum(stats, "bucket.skeletonTime") or 0.0),
@@ -185,7 +187,10 @@ def main(argv=None) -> int:
                    default=[2_000_000, 6_000_000])
     p.add_argument("--queues", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--big-queues", type=int, nargs="+", default=[1, 2])
-    p.add_argument("--device", default="cuda:0")
+    p.add_argument("--device", nargs="+", default=["cuda:0"],
+                   help="--device of the runs; several: each queue count "
+                        "on each, e.g. cuda:0 cuda for one card against "
+                        "every card [%(default)s]")
     p.add_argument("--roots", nargs="+", default=[f"this={ROOT}"],
                    metavar="LABEL=PATH")
     p.add_argument("--workdir", default=None)
@@ -201,26 +206,28 @@ def main(argv=None) -> int:
         path, spacing = write_cloud(args.warmup_splats, work)
         for label, root in dict(roots).items():
             res = run_cli(os.path.abspath(root), path, spacing,
-                          ["--device", args.device])
+                          ["--device", args.device[0]])
             print(f"WARMUP {label} {res['wall_s']:.3f} s", flush=True)
         os.remove(path)
     runs = []
     for i, n in enumerate(args.splats):
         path, spacing = write_cloud(n, work)
-        for q in (args.queues if i == 0 else args.big_queues):
-            for label, root in roots:
-                res = run_cli(os.path.abspath(root), path, spacing,
-                              ["--device", args.device, "--device-threads",
-                               str(q)])
-                res.update(root=label, splats=n, queues=q)
-                print("RUN " + json.dumps(res), flush=True)
-                runs.append(res)
+        for dev in args.device:
+            for q in (args.queues if i == 0 else args.big_queues):
+                for label, root in roots:
+                    res = run_cli(os.path.abspath(root), path, spacing,
+                                  ["--device", dev, "--device-threads",
+                                   str(q)])
+                    res.update(root=label, splats=n, device=dev, queues=q)
+                    print("RUN " + json.dumps(res), flush=True)
+                    runs.append(res)
         os.remove(path)
     ratios = {}
     for r in runs:
         ref = [o for o in runs if o["root"] == r["root"]
-               and o["splats"] == r["splats"] and o["queues"] == 1]
-        key = f"{r['root']} {r['splats']} {r['queues']}"
+               and o["splats"] == r["splats"] and o["queues"] == 1
+               and o["device"] == args.device[0]]
+        key = f"{r['root']} {r['splats']} {r['device']} {r['queues']}"
         ratios.setdefault(key, []).append(
             r["wall_s"] / (sum(o["wall_s"] for o in ref) / len(ref))
             if ref else None)

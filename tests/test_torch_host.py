@@ -286,3 +286,37 @@ def test_native_rebuild_equals_jax_mesh(name):
     np.testing.assert_array_equal(k, (((hi & 0x7FFFFFFF) << 32) | lo)[
         perm[fe:] - fe])
     np.testing.assert_allclose(v, rv[perm], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_read_ranges_equal_jax(tmp_path, monkeypatch, native):
+    """The port's FileSource, which decodes each run of ranges in one file
+    with one call straight into the caller's buffer (read_ranges_into: the
+    streamer's shared-memory read), gives the JAX package's FileSource's
+    bytes: ranges that cross file ends, out of order, empty, one splat."""
+    from mlsgpu_tpu.io import ply as jply
+    from mlsgpu_tpu_torch.io.splat_set import FileSource
+    rng = np.random.default_rng(11)
+    paths = []
+    for i, n in enumerate((700, 5, 1300)):
+        s = rng.normal(size=(n, 8)).astype(np.float32)
+        s[:, 3] = rng.uniform(0.05, 0.5, n)
+        p = str(tmp_path / f"part{i}.ply")
+        jply.write_splats_ply(p, s)
+        paths.append(p)
+    if not native:
+        monkeypatch.setattr(nat, "decode_splats", lambda *a, **kw: None)
+    ranges = [(650, 1500), (0, 3), (704, 706), (10, 10), (1999, 2005),
+              (100, 101)]
+    port = FileSource(paths, smooth=1.5, max_radius=0.4)
+    ref = jsplat_set.FileSource(paths, smooth=1.5, max_radius=0.4)
+    want = ref.read_ranges(ranges)
+    assert port.read_ranges(ranges).tobytes() == want.tobytes()
+    out = torch.empty(want.shape, dtype=torch.float32).share_memory_()
+    port.read_ranges_into(ranges, out.numpy())
+    assert out.numpy().tobytes() == want.tobytes()
+    seq = SequenceSource(want)
+    again = np.empty_like(want)
+    seq.read_ranges_into([(0, 900), (900, len(want))], again)
+    assert again.tobytes() == want.tobytes()
+    assert port.read_ranges([]).shape == (0, 8)

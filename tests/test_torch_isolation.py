@@ -8,8 +8,10 @@ either, then imports every module of the port and runs
 `python -m mlsgpu_tpu_torch --help` and every tool as
 `python -m mlsgpu_tpu_torch.tools.<name>`; `chip_smoke.py` is checked with
 `ast` (it needs a card to run). A worker process of the streamer starts
-from `pipeline/workers.py` alone; tests/test_torch_workers.py checks what
-such a process has imported while it runs blocks."""
+from `pipeline/worker_start.py`, forked from a server that has imported
+`pipeline/worker_preload.py`; tests/test_torch_workers.py checks what such
+a process has imported while it runs blocks. The command line and
+`worker_start` import no torch, so that the server starts first."""
 
 import ast
 import os
@@ -53,9 +55,11 @@ for sub in ("tools.verify_chunks", "tools.bench_ooc", "tools.cloud",
 print(len(names))
 """
 
-# What a spawned worker process imports before its first block: the
-# module of its main function and those of the pickled block step.
+# What a worker process imports before its first block: the module of its
+# target, the worker server's preload and those of the pickled block step.
 _IMPORT_WORKER = _GUARD + """
+import mlsgpu_tpu_torch.pipeline.worker_start
+import mlsgpu_tpu_torch.pipeline.worker_preload
 import mlsgpu_tpu_torch.pipeline.workers as w
 from mlsgpu_tpu_torch.ops.block import block_step, block_step_staged
 from mlsgpu_tpu_torch.pipeline.mesh_filter import DeviceFilterChain
@@ -89,6 +93,24 @@ def test_worker_process_imports_without_jax_package():
     assert proc.stdout.split()[-1] == "mlsgpu_tpu_torch.pipeline.workers"
 
 
+_NO_TORCH = """
+import sys
+import mlsgpu_tpu_torch.cli as cli
+import mlsgpu_tpu_torch.pipeline.worker_start
+cli.config_from_args(cli.build_parser().parse_args(["-o", "x", "y"]))
+print(sorted(m for m in sys.modules if m.split(".")[0] == "torch")[:3])
+"""
+
+
+def test_cli_and_worker_start_import_no_torch():
+    """The command line reaches its worker server's start (worker_start,
+    from its parsed options) before anything imports torch, so that the
+    server's import of torch runs beside the command line's own."""
+    proc = _run(_NO_TORCH)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[-2] == "[]"
+
+
 def test_cli_help_without_jax_package():
     proc = _run(_RUN_HELP)
     assert proc.returncode == 0, proc.stderr
@@ -110,7 +132,7 @@ TOOLS = [("plymanifold", []), ("plypntcat", ["--help"]),
          ("verify_chunks", ["--help"]), ("bench_ooc", ["--help"]),
          ("bench_stage", ["--help"]), ("bench_split", ["--help"]),
          ("bench_d2h", ["--help"]), ("bench_micro", ["--help"]),
-         ("bench_micro2", ["--help"])]
+         ("bench_micro2", ["--help"]), ("bench_queues", ["--help"])]
 
 
 @pytest.mark.parametrize("name,args", TOOLS, ids=[t[0] for t in TOOLS])

@@ -393,3 +393,21 @@ def test_watchdog_default_abort_exit_code_and_env_timeout(monkeypatch):
         assert tmh.PeerWatchdog.EXIT_CODE == jmh.PeerWatchdog.EXIT_CODE == 13
     finally:
         dog.stop()
+
+
+def test_ranks_with_worker_processes_match_one_queue(tmp_path, direct_files):
+    """Two ranks, each with two device threads (worker processes forked
+    from the one worker server that both ranks of this process hold),
+    write bit for bit the files of two ranks with one queue each; no
+    process of the run is left."""
+    from mlsgpu_tpu_torch.utils import misc
+    before = misc.child_pids()
+    files = distributed(tmp_path, "queues.ply", device_threads=2)
+    assert misc.child_pids() <= before
+    assert [os.path.basename(f) for f in files] == \
+        [os.path.basename(f).replace("direct", "queues")
+         for f in direct_files]
+    for f, g in zip(files, direct_files):
+        for a, b in zip(ply.read_mesh(f), ply.read_mesh(g)):
+            np.testing.assert_array_equal(a, b)
+    assert get_registry().counter("workers.spawned").get() >= 4

@@ -12,6 +12,7 @@ import dataclasses
 import multiprocessing
 import os
 import pickle
+import re
 import signal
 import subprocess
 import sys
@@ -29,7 +30,7 @@ from mlsgpu_tpu_torch.ops.block import block_step, block_step_staged
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
 from mlsgpu_tpu_torch.pipeline import resources
 from mlsgpu_tpu_torch.pipeline import streamer as streamer_mod
-from mlsgpu_tpu_torch.pipeline import workers
+from mlsgpu_tpu_torch.pipeline import worker_start, workers
 from mlsgpu_tpu_torch.pipeline.mesh_filter import (DeviceFilterChain,
                                                    DeviceScaleBias)
 from mlsgpu_tpu_torch.config import ReconstructConfig
@@ -53,6 +54,41 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+#: The ids of the worker processes started in this module's tests: they
+#: are the worker server's children, not this process's, so a check that
+#: none outlives its run looks for them by id (_alive).
+STARTED = []
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _note_worker_pids():
+    start = workers.WorkerProcess.start
+
+    def noted(self):
+        start(self)
+        if self.proc.pid is not None:
+            STARTED.append(self.proc.pid)
+
+    workers.WorkerProcess.start = noted
+    yield
+    workers.WorkerProcess.start = start
+
+
+def _alive(pids):
+    """Those of `pids` that are running processes (not ended, not
+    zombies)."""
+    out = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state not in ("Z", "X"):
+            out.append(pid)
+    return out
 
 
 class CheckedStep:
@@ -95,12 +131,13 @@ def _run(cfg, source, info, buckets, devices, seconds=HANG_S, **kw):
     resource tracker included, is left when it ends, however it ends."""
     _, readback = trec.prepare_run(cfg, "cpu", kw.get("device_filter"))
     get_registry().clear()
-    before = misc.child_pids()
+    before, n0 = misc.child_pids(), len(STARTED)
     t0 = time.monotonic()
     got, err = _bounded(lambda: list(streamer_mod.stream_blocks(
         source, info, buckets, cfg, devices, readback, **kw)), seconds)
     dt = time.monotonic() - t0
     assert misc.child_pids() <= before
+    assert not _alive(STARTED[n0:])
     return got, err, dt
 
 
@@ -306,7 +343,7 @@ def test_a_worker_that_cannot_start_is_an_error_not_the_cpu(small):
 def test_closing_the_generator_ends_every_worker_process(small):
     cfg, source, info, buckets = small
     _, readback = trec.prepare_run(cfg, "cpu")
-    before = misc.child_pids()
+    before, n0 = misc.child_pids(), len(STARTED)
     gen = streamer_mod.stream_blocks(source, info, buckets, cfg, [CPU] * 2,
                                      readback)
     first, err = _bounded(lambda: [next(gen), next(gen)])
@@ -316,6 +353,7 @@ def test_closing_the_generator_ends_every_worker_process(small):
     assert err is None
     _no_streamer_threads()
     assert misc.child_pids() <= before
+    assert len(STARTED) - n0 == 2 and not _alive(STARTED[n0:])
 
 
 def test_tight_budgets_hold_with_four_processes(small, one):
@@ -342,9 +380,9 @@ def test_tight_budgets_hold_with_four_processes(small, one):
 
 
 def test_module_cli_with_two_device_threads(tmp_path):
-    """`python -m mlsgpu_tpu_torch --device-threads 2` (a `-m` main that a
-    spawned worker does not re-run) writes the mesh of `--device-threads
-    1`, and its statistics show both workers."""
+    """`python -m mlsgpu_tpu_torch --device-threads 2` (a `-m` main that no
+    worker process re-runs) writes the mesh of `--device-threads 1`, and
+    its statistics show both workers and one import of torch for both."""
     path = str(tmp_path / "in.ply")
     ply.write_splats_ply(path, oracle.sphere_cloud(   # 8 blocks
         [0.7, -0.3, 0.2], 1.0, 1500, 0.3, np.random.default_rng(5)))
@@ -365,12 +403,18 @@ def test_module_cli_with_two_device_threads(tmp_path):
     assert "device.blocks.0.1:" in proc.stdout
     assert "workers.spawned: 2" in proc.stdout
     assert "workers.readyWait:" in proc.stdout
+    # torch was imported once, by the worker server, and no process
+    # re-imported the main module (a package's __main__)
+    assert re.search(r"^workers\.torchTime: .* \[1\]$", proc.stdout, re.M)
+    assert re.search(r"^workers\.cudaTime", proc.stdout, re.M) is None
+    assert "workers.mainImported: 0" in proc.stdout
 
 
 def _early_start_run(tmp_path, monkeypatch, threads, fail_in=None):
     """reconstruct() of the multidevice tests' cloud on the CPU with
-    `threads` device threads, the blob pass wrapped to note (workers
-    spawned, child processes alive) when it starts; `fail_in` names a
+    `threads` device threads, the blob pass wrapped to note (whether the
+    worker server was launched, whether this process has a child process
+    it did not have before the run) when it starts; `fail_in` names a
     pipeline module function ("blobs_mod.compute_blobs" or
     "bucket_mod.make_buckets") that raises instead. Returns (the notes,
     the run's exception). No process started by the run is left."""
@@ -378,10 +422,11 @@ def _early_start_run(tmp_path, monkeypatch, threads, fail_in=None):
     source = SequenceSource(make_cloud(n=8000, seed=7, sr=SR))
     notes = []
     real = trec.blobs_mod.compute_blobs
+    before, n0 = misc.child_pids(), len(STARTED)
 
     def note():
-        notes.append((get_registry().counter("workers.spawned").get(),
-                      len(multiprocessing.active_children())))
+        notes.append((worker_start.launched is not None,
+                      bool(misc.child_pids() - before)))
 
     def blob_pass(*a, **kw):
         note()
@@ -396,28 +441,30 @@ def _early_start_run(tmp_path, monkeypatch, threads, fail_in=None):
         mod, fn = fail_in.split(".")
         monkeypatch.setattr(getattr(trec, mod), fn, boom)
     get_registry().clear()
-    before = misc.child_pids()
     _, err = _bounded(lambda: trec.reconstruct(
         source, cfg, str(tmp_path / "out.ply"), device="cpu"))
     assert misc.child_pids() <= before
+    assert not _alive(STARTED[n0:])
     return notes, err
 
 
 @pytest.mark.parametrize("threads", [1, 2])
 def test_worker_processes_start_before_the_blob_pass(tmp_path, monkeypatch,
                                                      threads):
-    """Two device threads: reconstruct starts both worker processes before
-    the blob pass, so their start runs beside it and bucketing, and
-    stream_blocks records how long it then waited for them
-    (workers.readyWait). One: nothing starts early, nothing waits."""
+    """Two device threads: reconstruct starts the worker server and asks
+    it for both worker processes before the blob pass, so their start runs
+    beside it and bucketing, and stream_blocks records how long it then
+    waited for them (workers.readyWait). One: nothing starts early,
+    nothing waits."""
     notes, err = _early_start_run(tmp_path, monkeypatch, threads)
     assert err is None, err
     stats = get_registry().to_dict()
     if threads == 1:
-        assert notes == [(0, 0)]
+        assert notes == [(False, False)]
         assert "workers.readyWait" not in stats
     else:
-        assert notes == [(2, 2)]
+        assert notes == [(True, True)]
+        assert stats["workers.spawned"]["total"] == 2
         assert stats["workers.readyWait"]["n"] == 1
         assert sum(stats[f"device.blocks.0.{q}"]["total"]
                    for q in range(2)) > 0
@@ -432,7 +479,7 @@ def test_a_failure_before_the_stream_stops_the_early_workers(
     notes, err = _early_start_run(tmp_path, monkeypatch, 2, fail_in)
     assert isinstance(err, RuntimeError), err
     assert "failed before the stream" in str(err)
-    assert notes[0] == (2, 2)
+    assert notes[0] == (True, True)
 
 
 def test_a_rank_starts_its_workers_before_its_blob_pass(monkeypatch):
@@ -445,16 +492,17 @@ def test_a_rank_starts_its_workers_before_its_blob_pass(monkeypatch):
     notes = []
 
     def boom(*a, **kw):
-        notes.append(len(multiprocessing.active_children()))
+        notes.append(worker_start.launched is not None)
         raise RuntimeError("failed before the stream")
 
     monkeypatch.setattr(multihost, "distributed_blobs", boom)
     transport, = multihost.LocalTransport.make(1)
-    before = misc.child_pids()
+    before, n0 = misc.child_pids(), len(STARTED)
     _, err = _bounded(lambda: multihost.reconstruct_distributed(
         source, cfg, "unused.ply", transport, device="cpu"))
-    assert isinstance(err, RuntimeError) and notes == [2], (err, notes)
+    assert isinstance(err, RuntimeError) and notes == [True], (err, notes)
     assert misc.child_pids() <= before
+    assert not _alive(STARTED[n0:])
 
 
 def test_exceptions_cross_the_process_boundary():
@@ -526,3 +574,144 @@ def test_child_pids_sees_a_child_until_it_is_waited_for():
     finally:
         proc.communicate(timeout=30)
     assert proc.pid not in misc.child_pids()
+
+
+def _convert_in_worker(conn, raw, grid):
+    """A forked worker process's frame conversion of `raw`, sent back as
+    bytes."""
+    from mlsgpu_tpu_torch.core.splat import block_inputs
+    splats, valid = block_inputs(raw.numpy(), grid)
+    conn.send((splats.tobytes(), valid.tobytes()))
+
+
+def test_worker_frame_conversion_is_bitwise_the_parents(small):
+    """A worker process forked from the worker server converts a bucket's
+    world-frame splats, read once into shared memory by the loader
+    (streamer.load_bucket_shared), to exactly the bytes of the loader's
+    own conversion (streamer.load_bucket) for a worker thread."""
+    cfg, source, info, buckets = small
+    b = max(buckets, key=lambda b: b.num_splats)
+    raw = streamer_mod.load_bucket_shared(source, info, b)
+    assert raw.is_shared() and len(raw) == b.num_splats
+    splats, valid = streamer_mod.load_bucket(source, info, b)
+    ctx = worker_start.context()
+    before = misc.child_pids()
+    worker_start.hold_server()
+    try:
+        mine, theirs = ctx.Pipe()
+        proc = ctx.Process(target=_convert_in_worker, daemon=True,
+                           args=(theirs, raw, info.grid))
+        proc.start()
+        theirs.close()
+        got = mine.recv()
+        proc.join(30)
+    finally:
+        worker_start.release_server()
+    assert got == (splats.tobytes(), valid.tobytes())
+    assert misc.child_pids() <= before
+
+
+def test_the_server_and_tracker_stop_with_the_last_holder():
+    """The worker server and Python's resource tracker, which its start
+    launches, run while any holder holds them and stop with the last."""
+    before = misc.child_pids()
+    worker_start.hold_server()
+    worker_start.hold_server()
+    try:
+        assert worker_start.launched is not None
+        assert len(misc.child_pids() - before) >= 1
+        worker_start.release_server()
+        assert worker_start.launched is not None
+        assert len(misc.child_pids() - before) >= 1
+    finally:
+        worker_start.release_server()
+    assert worker_start.launched is None
+    assert misc.child_pids() <= before
+
+
+def test_a_server_that_cannot_start_is_an_error(small, monkeypatch):
+    """The worker server fails to start: the run raises an error that
+    names it, starts no worker and runs no block anywhere."""
+    from multiprocessing import forkserver
+
+    def refuse():
+        raise OSError("no server here")
+
+    monkeypatch.setattr(forkserver, "ensure_running", refuse)
+    cfg, source, info, buckets = small
+    got, err, _ = _run(cfg, source, info, buckets, [CPU] * 2, seconds=30)
+    assert got is None and "the worker server could not start" in str(err)
+    assert "device.time" not in get_registry().to_dict()
+    _no_streamer_threads()
+
+
+def test_a_worker_the_server_cannot_fork_is_an_error(small, monkeypatch):
+    """The server cannot start a worker process: the run raises an error
+    that names the worker, and runs no block anywhere."""
+    cfg, source, info, buckets = small
+    real = workers.WorkerProcess.start
+
+    def refuse(self):
+        if self.name == "device.1.0":
+            self.proc.start = lambda: (_ for _ in ()).throw(
+                EOFError("the server closed the connection"))
+        real(self)
+
+    monkeypatch.setattr(workers.WorkerProcess, "start", refuse)
+    got, err, _ = _run(cfg, source, info, buckets, [CPU] * 2, seconds=60)
+    assert got is None
+    assert "worker process device.1.0 could not start" in str(err)
+    assert not _worker_blocks() or sum(_worker_blocks().values()) == 0
+    _no_streamer_threads()
+
+
+def _shm_fds():
+    """This process's open file descriptors of shared memory."""
+    out = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            if "/dev/shm/" in os.readlink(f"/proc/self/fd/{fd}"):
+                out.add(fd)
+        except OSError:
+            pass
+    return out
+
+
+def test_a_cancelled_run_releases_the_loaders_shared_buffers(small):
+    """The loader reads buckets straight into shared memory for the worker
+    processes; closing the run after one block leaves none of those
+    buffers open here."""
+    import gc
+    cfg, source, info, buckets = small
+    _, readback = trec.prepare_run(cfg, "cpu")
+    gc.collect()
+    before = _shm_fds()
+    gen = streamer_mod.stream_blocks(source, info, buckets, cfg, [CPU] * 2,
+                                     readback)
+    first, err = _bounded(lambda: next(gen))
+    assert err is None
+    del first
+    _, err = _bounded(gen.close, seconds=30)
+    assert err is None
+    gc.collect()
+    assert _shm_fds() <= before
+    _no_streamer_threads()
+
+
+@pytest.mark.parametrize("device,threads,cards,visible,want", [
+    ("cuda", 1, 0, "0,1", True),      # every card, two seen
+    ("cuda", 1, 0, "1", False),       # every card, one seen
+    ("cuda", 1, 1, "0,1,2", False),   # --num-devices 1
+    ("cuda:0", 1, 0, "0,1", False),   # one indexed card
+    ("cuda", 1, 0, "", False),        # no card seen
+    ("cpu", 2, 0, "", True),          # two queues
+    ("cuda:1", 1, 3, "0", True),      # --num-devices 3: the run errs later
+])
+def test_several_workers_from_the_options_and_the_cards_seen(
+        monkeypatch, device, threads, cards, visible, want):
+    """What the command line knows before torch is imported: whether to
+    start the worker server at once (worker_start.several_workers)."""
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    cfg = ReconstructConfig(**{**OPTIONS, "device_threads": threads,
+                               "num_devices": cards})
+    assert worker_start.several_workers(cfg, device) is want
