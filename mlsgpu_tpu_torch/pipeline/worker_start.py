@@ -58,24 +58,31 @@ def several_workers(cfg, device: str) -> bool:
     one worker, as far as its options and the machine tell before torch
     is imported: --device-threads or --num-devices above 1, or `cuda`
     (every card) with more than one card to see (cards_seen). A wrong
-    guess costs time, not correctness: the run starts the server when it
-    needs one (workers.start_workers)."""
+    guess costs time, not correctness: a needless server imports torch
+    beside the run's own import, and a missed one starts when the run
+    needs it (workers.start_workers)."""
     if int(cfg.device_threads) > 1 or int(cfg.num_devices) > 1:
         return True
     return device == "cuda" and not cfg.num_devices and cards_seen() > 1
 
 
 def cards_seen() -> int:
-    """The cards this process will see, without CUDA: the entries of
-    CUDA_VISIBLE_DEVICES when it is set, else the /dev/nvidia<N> files."""
-    env = os.environ.get("CUDA_VISIBLE_DEVICES")
-    if env is not None:
-        return len([d for d in env.split(",") if d.strip()])
-    try:
-        return sum(1 for n in os.listdir("/dev")
-                   if re.fullmatch(r"nvidia\d+", n))
-    except OSError:
-        return 0
+    """The cards this process will see, as far as the environment tells
+    without CUDA: the entries of CUDA_VISIBLE_DEVICES when it is set, else
+    of the container runtime's NVIDIA_VISIBLE_DEVICES when that lists
+    cards; 0 when neither tells ("all", or unset). Not the /dev/nvidia<N>
+    files: a container of one card may hold several."""
+    for var in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES"):
+        env = os.environ.get(var)
+        if env is None:
+            continue
+        cards = [d for d in env.split(",") if d.strip()]
+        if var == "NVIDIA_VISIBLE_DEVICES" and \
+                not all(re.fullmatch(r"\d+|GPU-[-0-9a-fA-F]+", d.strip())
+                        for d in cards):
+            return 0              # all, none, void: no count
+        return len(cards)
+    return 0
 
 
 def hold_server() -> None:

@@ -698,20 +698,29 @@ def test_a_cancelled_run_releases_the_loaders_shared_buffers(small):
     _no_streamer_threads()
 
 
-@pytest.mark.parametrize("device,threads,cards,visible,want", [
-    ("cuda", 1, 0, "0,1", True),      # every card, two seen
-    ("cuda", 1, 0, "1", False),       # every card, one seen
-    ("cuda", 1, 1, "0,1,2", False),   # --num-devices 1
-    ("cuda:0", 1, 0, "0,1", False),   # one indexed card
-    ("cuda", 1, 0, "", False),        # no card seen
-    ("cpu", 2, 0, "", True),          # two queues
-    ("cuda:1", 1, 3, "0", True),      # --num-devices 3: the run errs later
+@pytest.mark.parametrize("device,threads,cards,cuda,nvidia,want", [
+    ("cuda", 1, 0, "0,1", None, True),      # every card, two seen
+    ("cuda", 1, 0, "1", "0,1,2", False),    # CUDA_VISIBLE_DEVICES rules
+    ("cuda", 1, 1, "0,1,2", None, False),   # --num-devices 1
+    ("cuda:0", 1, 0, "0,1", None, False),   # one indexed card
+    ("cuda", 1, 0, "", None, False),        # no card seen
+    ("cuda", 1, 0, None, "7", False),       # a container of one card
+    ("cuda", 1, 0, None, "4,5,6,7", True),  # a container of four
+    ("cuda", 1, 0, None, "all", False),     # no count given
+    ("cuda", 1, 0, None, None, False),      # nothing tells
+    ("cpu", 2, 0, "", None, True),          # two queues
+    ("cuda:1", 1, 3, "0", None, True),      # --num-devices 3: errs later
 ])
 def test_several_workers_from_the_options_and_the_cards_seen(
-        monkeypatch, device, threads, cards, visible, want):
+        monkeypatch, device, threads, cards, cuda, nvidia, want):
     """What the command line knows before torch is imported: whether to
     start the worker server at once (worker_start.several_workers)."""
-    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    for var, value in (("CUDA_VISIBLE_DEVICES", cuda),
+                       ("NVIDIA_VISIBLE_DEVICES", nvidia)):
+        if value is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, value)
     cfg = ReconstructConfig(**{**OPTIONS, "device_threads": threads,
                                "num_devices": cards})
     assert worker_start.several_workers(cfg, device) is want
