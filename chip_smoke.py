@@ -74,7 +74,10 @@ raises, exits non-zero and prints no result line:
      modules, each worker's fork, CUDA context and kernel library) beside
      workers.readyWait, and the parent's host time per block by stage
      (loader read and conversion, shared-memory copy, proxy wait, a
-     worker's wait for a block, decode, mesher), beside phase 12's
+     worker's wait for a slot and for a block, decode, mesher), what paces
+     pass 1 (the mesher thread's busy share, the producer's wait share,
+     the workers' slot wait) and the decode stage's threads (one per
+     worker, at most half the cores: checked), beside phase 12's
      two-process ratio; then one and two queues (and every card) on a
      BIG_SPLATS cloud, each mesh the one-queue run's; the device memory of
      an idle worker process (its CUDA context and the kernel library),
@@ -145,6 +148,7 @@ from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import streamer  # noqa: E402
 from mlsgpu_tpu_torch.pipeline.streamer import load_bucket  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
@@ -1077,6 +1081,9 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
         if res["left_running"]:
             raise AssertionError(f"{name}: processes of the run left "
                                  f"running: {res['left_running']}")
+        if res["pace"]["decode_threads"] != streamer.decode_threads(workers):
+            raise AssertionError(f"{name}: {res['pace']['decode_threads']} "
+                                 f"decode threads for {workers} worker(s)")
         out[name] = dict(res, seconds=res["wall_s"],
                          digest_is_reference=True)
         del out[name]["digest"]
@@ -1129,6 +1136,10 @@ def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
         "start": {k: v["start"] for k, v in out.items()},
         f"start_{BIG_SPLATS}": {k: v["start"] for k, v in big.items()},
         "per_block": {k: v["per_block"] for k, v in out.items()},
+        # what paces pass 1: the mesher thread's busy and the producer's
+        # wait shares, the workers' slot wait, the decode stage's threads
+        "pace": {k: v["pace"] for k, v in out.items()},
+        f"pace_{BIG_SPLATS}": {k: v["pace"] for k, v in big.items()},
         f"per_block_{BIG_SPLATS}": {k: v["per_block"]
                                     for k, v in big.items()},
         "phase5_seconds": codes["seconds"], "phase5_pass1_s": codes["pass1_s"],

@@ -147,7 +147,13 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler trace of the run into DIR "
                         "(DIR/trace.json, Chrome trace format; the "
-                        "reference's --statistics-cl event timing analogue)")
+                        "reference's --statistics-cl event timing analogue). "
+                        "To trace the block steps of each device worker, "
+                        "worker processes included, set the environment "
+                        "variable MLSGPU_PROFILE_STEPS=DIR instead: each "
+                        "worker writes a trace of its steps 3-6 and their "
+                        "split into dispatch, sync wait and card busy time "
+                        "to DIR/<worker>.<pid>.json (utils/step_profile.py)")
     o.add_argument("--statistics-file", help="write statistics to file")
     o.add_argument("--statistics-device", action="store_true",
                    help="time each device stage (binning/MLS/marching/weld) "

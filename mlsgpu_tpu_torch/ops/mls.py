@@ -320,11 +320,15 @@ def canonical_face_field(field: torch.Tensor, entry_data: torch.Tensor,
                            device=dev)
     row_tot = totals[tid4].max(dim=1).values
     occ = torch.nonzero(row_tot > 0).squeeze(1)
-    occ_rows = occ.cpu().numpy()
     tile_tot = row_tot[occ].cpu()
 
-    def on_dev(a, dtype=torch.int64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    # The rows' axes and anchors on the device in one copy: a copy from
+    # pageable host memory waits for the card, and one per array and chunk
+    # made 81-143 such waits a block (PERF.md §5, the step's trace).
+    aa_all, bb_all, cc_all, plane_all, base_a_all, base_b_all, base_c_all = \
+        torch.as_tensor(np.stack([axis_a, axis_b, axis_c, plane_g, base_a,
+                                  base_b, base_c]).astype(np.int64),
+                        device=dev)
 
     g8 = torch.arange(TILE, device=dev)
     fb = g8.repeat_interleave(TILE).to(torch.float32)          # (64,)
@@ -333,10 +337,9 @@ def canonical_face_field(field: torch.Tensor, entry_data: torch.Tensor,
                      device=dev)
     cut = float(np.float32(RADIUS_CUTOFF))
 
-    for s in range(0, len(occ_rows), row_chunk):
-        rsel = occ_rows[s:s + row_chunk]
+    for s in range(0, len(occ), row_chunk):
         ridx = occ[s:s + row_chunk]
-        c = len(rsel)
+        c = len(ridx)
         kt = int(tile_tot[s:s + row_chunk].max())
         idx, ok = _slot_entries(tabs, tid4[ridx].reshape(-1), kt, num_entries)
         idx = idx.reshape(c, 4 * kt)
@@ -345,15 +348,15 @@ def canonical_face_field(field: torch.Tensor, entry_data: torch.Tensor,
         ids = entry_vals[idx]
 
         # Exact splat-to-patch-rectangle filter in global f32 coords.
-        aa, bb, cc = on_dev(axis_a[rsel]), on_dev(axis_b[rsel]), on_dev(axis_c[rsel])
+        aa, bb, cc = aa_all[ridx], bb_all[ridx], cc_all[ridx]
 
         def coord(ax):
             return torch.gather(pre[..., 0:3], 2,
                                 ax[:, None, None].expand(c, pre.shape[1], 1))[..., 0]
 
-        da = coord(aa) - on_dev(plane_g[rsel], torch.float32)[:, None]
-        b0 = on_dev(base_b[rsel], torch.float32)[:, None]
-        c0 = on_dev(base_c[rsel], torch.float32)[:, None]
+        da = coord(aa) - plane_all[ridx].to(torch.float32)[:, None]
+        b0 = base_b_all[ridx].to(torch.float32)[:, None]
+        c0 = base_c_all[ridx].to(torch.float32)[:, None]
         pb, pc = coord(bb), coord(cc)
         db = torch.clamp(torch.maximum(b0 - pb, pb - (b0 + 7.0)), min=0.0)
         dc = torch.clamp(torch.maximum(c0 - pc, pc - (c0 + 7.0)), min=0.0)
@@ -384,9 +387,9 @@ def canonical_face_field(field: torch.Tensor, entry_data: torch.Tensor,
         oh_a = (ar3 == aa[:, None]).to(torch.float32)          # (C, 3)
         oh_b = (ar3 == bb[:, None]).to(torch.float32)
         oh_c = (ar3 == cc[:, None]).to(torch.float32)
-        frame = (on_dev(base_a[rsel], torch.float32)[:, None] * oh_a
+        frame = (base_a_all[ridx].to(torch.float32)[:, None] * oh_a
                  + b0 * oh_b + c0 * oh_c)
-        pa = on_dev(plane_g[rsel] - base_a[rsel], torch.float32)
+        pa = (plane_all[ridx] - base_a_all[ridx]).to(torch.float32)
         corners = (pa[:, None, None] * oh_a[:, None, :]
                    + fb[None, :, None] * oh_b[:, None, :]
                    + fc[None, :, None] * oh_c[:, None, :])     # (C, 64, 3)

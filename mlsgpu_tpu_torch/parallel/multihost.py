@@ -715,16 +715,16 @@ def _rank_passes(source: SplatSource, cfg: ReconstructConfig,
                                    show=cfg.progress)
     local_splats = 0
 
-    def consume(bucket, result):
+    def consume(bucket, block):
         nonlocal local_splats
-        mesher.add(block_result_to_input(result, bucket))
+        mesher.add(block)
         progress.add(bucket.num_splats)
         local_splats += bucket.num_splats
 
     try:
         consume_threaded(
             stream_blocks(source, info, mine_iter, cfg, devices, readback,
-                          group=group),
+                          group=group, decode=block_result_to_input),
             consume)
     finally:
         progress.close()

@@ -3,10 +3,12 @@
 
 blob pass -> bucketing -> per-bucket device block step (streamer) -> host
 decode of each block's readback (codes: native rebuild + weld; packed:
-native unpack; raw: the welded arrays) -> optional host filters ->
-out-of-core mesher -> write. The host layer (blobs, bucketing, mesher,
-native helpers, host mesh filters) is the port's copy of the JAX package's
-(pipeline/blobs.py, bucket.py, mesher.py, mesh_filter.py, _native/).
+native unpack; raw: the welded arrays) on the streamer's decode stage, a
+thread per worker -> optional host filters -> out-of-core mesher, on a
+thread of its own, in the loader's order -> write. The host layer (blobs,
+bucketing, mesher, native helpers, host mesh filters) is the port's copy
+of the JAX package's (pipeline/blobs.py, bucket.py, mesher.py,
+mesh_filter.py, _native/).
 """
 
 from __future__ import annotations
@@ -112,7 +114,8 @@ def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
     """One block's readback -> the mesher's BlockInput in global grid
     coordinates (mlsgpu_tpu/pipeline/reconstruct.py:240-309): codes are
     rebuilt and welded natively, a packed image is unpacked natively, raw
-    arrays get the block origin added and their 63-bit weld keys joined."""
+    arrays get the block origin added and their 63-bit weld keys joined.
+    A run calls it on the streamer's decode stage (stream_blocks(decode=))."""
     stats = get_registry()
     origin = bucket.cell_lo.astype(np.int64)
     t_cpu = time.thread_time()
@@ -192,8 +195,7 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
         with stats.timer("pass1.time"):
             mesher_worker = timeplot.Worker("mesher")
 
-            def consume(bucket, result):
-                block = block_result_to_input(result, bucket)
+            def consume(bucket, block):
                 with timeplot.Action("mesher", mesher_worker,
                                      stats.variable("mesher.time")):
                     if filters is not None:
@@ -208,7 +210,8 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
             consume_threaded(stream_blocks(source, info, buckets, cfg,
                                            devices, readback,
                                            device_filter=device_filter,
-                                           group=group),
+                                           group=group,
+                                           decode=block_result_to_input),
                              consume)
     finally:
         stop_workers(group)

@@ -3,9 +3,13 @@ a loader thread reads each bucket's blob ranges and converts them to block
 inputs behind a bounded queue (for worker processes it reads them straight
 into shared memory and each process converts its own: the parent's one
 interpreter feeds N workers), device workers run the block step and start
-each block's readback, the generator hands the finished blocks out in the
-loader's order, and `consume_threaded` passes them to the mesher on its own
-thread.
+each block's readback, a decode stage (a thread per worker) decodes each
+finished block as soon as its images are on the host, the generator hands
+the blocks out in the loader's order, and `consume_threaded` passes them to
+the mesher on its own thread, which does nothing else: it is one thread,
+as in the reference (src/mesher.cpp), and its input is order-dependent.
+The native decodes release the interpreter lock, so the stage's threads
+decode side by side.
 
 Workers. A run has D devices x T queues (--num-devices, --device-threads).
 One worker runs its block steps on a thread of this process, under
@@ -31,11 +35,14 @@ by a worker, --mem-host-splats the splats held on the host from loading
 until their block is launched, and --mem-mesh the readback images of all
 workers together from the start of the copy until the block is yielded
 (with worker processes these bytes are the shared buffers that carry a
-block's splats to its worker and its images back).
+block's splats to its worker and its images back), and with a decode
+stage each block's decoded mesh too, admitted with its image from an upper
+bound of its size (decoded_bytes), before it exists.
 Each budget always admits one block; --mem-mesh always admits the oldest
 block not yet yielded, or a full budget would wait on a block that waits
 on the budget. The peaks are recorded as mem.loadQueue, mem.hostSplats and
-mem.meshWindow.
+mem.meshWindow, and the most --mem-mesh held for one block as the peak of
+mem.meshBlock (so mem.meshWindow stays within --mem-mesh plus that).
 
 What the JAX streamer needed only for XLA's static shapes is gone: no pow2
 padding of splat batches, no sizing probe, no caps and no overflow retry
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import queue
 import threading
 import time
@@ -58,7 +66,7 @@ import torch
 
 from mlsgpu_tpu_torch.core.splat import block_inputs
 from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
-from mlsgpu_tpu_torch.utils import misc, timeplot
+from mlsgpu_tpu_torch.utils import misc, step_profile, timeplot
 from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
 
 from mlsgpu_tpu_torch.ops import mls_cuda
@@ -139,6 +147,24 @@ def bucket_ranges(info, b) -> List[Tuple[int, int]]:
                         for i in b.blob_ids)
 
 
+def decoded_bytes(counts: np.ndarray) -> int:
+    """An upper bound of the host bytes of a block's decoded mesh (the
+    mesher's input: f32 vertices, i64 weld keys, i32 triangle indices)
+    from its counts (ops.block.COUNTS_FIELDS): what a decode allocates in
+    any readback mode (the codes rebuild sizes its outputs from the
+    unwelded vertices and the indices)."""
+    vertices = max(int(counts[0]), int(counts[5]), 1)
+    return (3 * 4 + 8) * vertices + 4 * max(int(counts[2]), 3)
+
+
+def decode_threads(workers: int) -> int:
+    """Threads of a run's decode stage (stream_blocks): one per worker, at
+    most half of the cores this process may run on."""
+    cores = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+             else os.cpu_count() or 2)
+    return max(1, min(workers, cores // 2))
+
+
 def load_bucket(source: SplatSource, info, b):
     """A bucket's block inputs (core.splat.block_inputs) from its splat
     ranges (bucket_ranges): what a worker thread takes."""
@@ -164,7 +190,13 @@ def load_bucket_shared(source: SplatSource, info, b) -> torch.Tensor:
 def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
     """Run `fn(bucket, result)` on a consumer thread while the producer
     iterator keeps the device fed. `depth` bounds queued results.
-    Exceptions on either side cancel the other and re-raise."""
+    Exceptions on either side cancel the other and re-raise. Records
+    consumer.busy, the consumer's seconds in `fn` per item, and
+    consumer.wait, the producer's wait for room in the queue per item:
+    while it waits, the producer (stream_blocks) yields nothing and frees
+    no worker's slot."""
+    stats = get_registry()
+    busy, wait = stats.variable("consumer.busy"), stats.timer("consumer.wait")
     out_q: "queue.Queue" = queue.Queue(maxsize=depth)
     err: List[BaseException] = []
 
@@ -174,7 +206,9 @@ def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
             if item is _SENTINEL:
                 return
             try:
+                t0 = time.monotonic()
                 fn(*item)
+                busy.add(time.monotonic() - t0)
             except BaseException as e:  # re-raised on the producer side
                 err.append(e)
                 return
@@ -183,12 +217,13 @@ def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
     t.start()
     try:
         for pair in pairs:
-            while not err:
-                try:
-                    out_q.put(pair, timeout=0.2)
-                    break
-                except queue.Full:
-                    continue
+            with wait:
+                while not err:
+                    try:
+                        out_q.put(pair, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
             if err:
                 break
     finally:
@@ -340,13 +375,22 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                   readback: str, device_filter=None,
                   read_images: bool = True,
                   step: Optional[Callable] = None,
-                  group: Optional[List[workers_mod.WorkerProcess]] = None
-                  ) -> Iterator[Tuple[object, HostBlock]]:
+                  group: Optional[List[workers_mod.WorkerProcess]] = None,
+                  decode: Optional[Callable] = None) -> Iterator[tuple]:
     """Yield (bucket, HostBlock) for every bucket in the loader's order,
     pipelined: loading runs ahead on a thread, every device of `devices`
     has max(1, --device-threads) workers (module docstring), and every
     worker has up to WORKER_WINDOW blocks between the start of their step
     and their yield, fewer when the images would exceed --mem-mesh.
+
+    `decode(HostBlock, bucket)`, when given, runs on a stage of
+    decode_threads(workers) threads of its own, on each block as soon as
+    its images are on the host, whichever block comes first; the generator
+    then yields (bucket, what `decode` returned), still in the loader's
+    order. --mem-mesh then also counts each block's decoded bytes
+    (decoded_bytes, an upper bound from its counts), admitted with its
+    image, so that a block whose decode finished early waits in the
+    budget. An exception in a decode ends the run as one in a worker does.
 
     `devices` is one device or a sequence; a sequence may name a device
     more than once (each entry gets its own workers). `buckets` is any
@@ -388,7 +432,12 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
     host_budget = ByteBudget(cfg.mem_host_splats,
                              stats.peak("mem.hostSplats"), cancel)
     window = MeshWindow(cfg.mem_mesh, stats.peak("mem.meshWindow"), cancel)
-    # a worker's wait for a loaded block, and a proxy's for its process
+    largest = stats.peak("mem.meshBlock")
+    decode_q: "queue.Queue" = queue.Queue()   # bounded by the slots
+    # a worker's wait for a free slot of its window (one per block it
+    # pulls: its blocks not yet yielded hold them), for a loaded block,
+    # and a proxy's for its process
+    slot_wait = stats.timer("workers.slotWait")
     block_wait = stats.timer("workers.blockWait")
     proxy_wait = stats.timer("workers.proxyWait")
 
@@ -435,7 +484,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         return (tuple(int(v) for v in b.cell_hi - b.cell_lo),
                 tuple(int(v) for v in b.cell_lo))
 
-    def run_here(device, plot, taken: list):
+    def run_here(device, plot, profiler, taken: list):
         """One block on this thread: h2d, the step and the start of its
         readback; the entry for the generator. `taken` holds the loader's
         item and is emptied, so the host copy of the splats goes as soon
@@ -449,19 +498,23 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
             sp, va, pts = workers_mod.to_device(device, splats, valid,
                                                 b.skeleton)
             del splats, valid
-            result = step(sp, va, *region_of(b), points=pts, **step_args)
+            with profiler.step():
+                result = step(sp, va, *region_of(b), points=pts,
+                              **step_args)
             del sp, va, pts
         host_budget.release(nbytes)
         tensors = readback_tensors(result) if read_images else []
         image_bytes = sum(t.numel() * t.element_size() for t in tensors)
-        if not window.admit(seq, image_bytes):
+        held = window_bytes(image_bytes, result.counts)
+        if not window.admit(seq, held):
             return None
         hosts, event = _start_readback(tensors, device)
         stats.variable("device.occTiles").add(result.num_occ_tiles)
         stats.counter(f"readback.mode.{result.readback}").add(1)
         # the device tensors stay referenced until their copy is done
         return seq, (b, result.readback, result.fmt, result.counts, hosts,
-                     event, tensors, image_bytes), time.monotonic() - t0
+                     event, tensors, image_bytes, held), \
+            time.monotonic() - t0
 
     def run_in(proc, taken: list):
         """One block in worker process `proc` (pipeline/workers.py's round
@@ -477,7 +530,8 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
             return None
         _, counts, mode, fmt, image_bytes = msg
         host_budget.release(nbytes)
-        if not window.admit(seq, image_bytes):
+        held = window_bytes(image_bytes, counts)
+        if not window.admit(seq, held):
             return None
         proc.send("read")
         with proxy_wait:
@@ -488,19 +542,67 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         workers_mod.merge_stat_delta(delta)
         timeplot.record(proc.name, "compute", c0, c1)
         mls_cuda.add_launches(launches)
-        return seq, (b, mode, fmt, counts, hosts, None, None, image_bytes), \
-            time.monotonic() - t0
+        return seq, (b, mode, fmt, counts, hosts, None, None, image_bytes,
+                     held), time.monotonic() - t0
 
-    def worker(pos, q, run, slots):
+    def window_bytes(image_bytes: int, counts) -> int:
+        """What --mem-mesh holds for a block from the start of its copy
+        to its yield: its images, and with a decode stage its decoded
+        mesh."""
+        held = image_bytes + (0 if decode is None
+                              else decoded_bytes(counts))
+        largest.set(held)
+        return held
+
+    def to_host(entry, plot):
+        """A deposited entry once its images are on the host: (bucket,
+        HostBlock, the bytes --mem-mesh holds for it, its worker's
+        slots)."""
+        b, mode, fmt, counts, hosts, event, _, image_bytes, held, slots = \
+            entry
+        with timeplot.Action("readback", plot,
+                             stats.variable("readback.wait")):
+            if event is not None:
+                event.synchronize()
+        stats.counter("readback.bytes").add(image_bytes)
+        return b, HostBlock(readback=mode, fmt=fmt, counts=counts,
+                            arrays=(_host_arrays(mode, hosts)
+                                    if read_images else ())), held, slots
+
+    def decoder(plot):
+        """A thread of the decode stage: the finished blocks of every
+        worker, in the order they finish; each result goes to the window,
+        which hands them out in the loader's order."""
+        try:
+            while not cancel.is_set():
+                try:
+                    seq, entry = decode_q.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+                b, block, held, slots = to_host(entry, plot)
+                del entry
+                with timeplot.Action("decode", plot):
+                    out = decode(block, b)
+                del block
+                window.deposit(seq, (b, out, held, slots))
+                del out
+        except BaseException as e:  # raised by the generator
+            fail(e)
+
+    finished = (window.deposit if decode is None
+                else lambda seq, entry: decode_q.put((seq, entry)))
+
+    def worker(pos, q, run, slots, profiler):
         blocks = stats.counter(f"device.blocks.{pos}.{q}")
         seconds = stats.variable(f"device.workerTime.{pos}.{q}")
         try:
             while True:
                 # a slot first: a worker whose window is full leaves the
                 # next block to a free one
-                while not slots.acquire(timeout=0.2):
-                    if cancel.is_set():
-                        return
+                with slot_wait:
+                    while not slots.acquire(timeout=0.2):
+                        if cancel.is_set():
+                            return
                 item = _SENTINEL
                 with block_wait:
                     while not cancel.is_set():
@@ -520,10 +622,13 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                 seq, entry, dt = done
                 blocks.add(1)
                 seconds.add(dt)
-                window.deposit(seq, entry + (slots,))
+                finished(seq, entry + (slots,))
                 del done, entry
         except BaseException as e:  # raised by the generator
             fail(e)
+        finally:
+            if profiler is not None:
+                profiler.close()
 
     owned: List[workers_mod.WorkerProcess] = []
     launched = mls_cuda.launches
@@ -542,35 +647,41 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
             with stats.timer("workers.readyWait"):
                 for proc in procs:
                     proc.wait_ready(cancel)
-            runs = [(pos, q, proc.name, functools.partial(run_in, proc))
-                    for (_, pos, q), proc in zip(workers, procs)]
+            # a worker process traces its own steps (step_profile)
+            runs = [(pos, q, proc.name, functools.partial(run_in, proc),
+                     None) for (_, pos, q), proc in zip(workers, procs)]
         else:
             (dev, pos, q), = workers
             plot = timeplot.Worker(f"device.{pos}.{q}")
+            profiler = step_profile.StepProfiler(plot.name)
             runs = [(pos, q, plot.name,
-                     functools.partial(run_here, dev, plot))]
-        for pos, q, name, run in runs:
+                     functools.partial(run_here, dev, plot, profiler),
+                     profiler)]
+        for pos, q, name, run, profiler in runs:
             threads.append(threading.Thread(
                 target=worker, name=name, daemon=True,
-                args=(pos, q, run, threading.Semaphore(WORKER_WINDOW))))
+                args=(pos, q, run, threading.Semaphore(WORKER_WINDOW),
+                      profiler)))
             threads[-1].start()
+        if decode is not None:
+            n = decode_threads(len(workers))
+            stats.counter("readback.decodeThreads").add(n)
+            for i in range(n):
+                plot = timeplot.Worker("decode", i)
+                threads.append(threading.Thread(
+                    target=decoder, name=plot.name, daemon=True,
+                    args=(plot,)))
+                threads[-1].start()
         while True:
             entry = None if error else window.next_entry()
             if error:
                 raise error[0]
             if entry is None:
                 break
-            b, mode, fmt, counts, hosts, event, _, nbytes, slots = entry
-            with timeplot.Action("readback", wait_plot,
-                                 stats.variable("readback.wait")):
-                if event is not None:
-                    event.synchronize()
-            stats.counter("readback.bytes").add(nbytes)
-            block = HostBlock(readback=mode, fmt=fmt, counts=counts,
-                              arrays=(_host_arrays(mode, hosts)
-                                      if read_images else ()))
-            del entry, hosts, event
-            window.release(nbytes)
+            b, block, held, slots = (entry if decode is not None
+                                     else to_host(entry, wait_plot))
+            del entry
+            window.release(held)
             slots.release()
             yield b, block
             del block

@@ -73,7 +73,7 @@ from mlsgpu_tpu_torch.device import set_precision
 from mlsgpu_tpu_torch.ops import mls_cuda
 from mlsgpu_tpu_torch.ops.block import readback_tensors
 from mlsgpu_tpu_torch.pipeline import worker_start
-from mlsgpu_tpu_torch.utils import misc
+from mlsgpu_tpu_torch.utils import misc, step_profile
 from mlsgpu_tpu_torch.utils.errors import MlsError
 from mlsgpu_tpu_torch.utils.statistics import (Registry, TimerStat, Variable,
                                                get_registry, set_registry)
@@ -194,6 +194,7 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
     `marks` are): set up, report ready, then run blocks until told to stop
     or until the parent's end of the pipe closes."""
     signal.signal(signal.SIGINT, signal.SIG_IGN)  # the parent stops us
+    profiler = step_profile.StepProfiler(name)
     try:
         torch.set_num_threads(threads)
         misc.bound_mmap_threshold()
@@ -221,7 +222,9 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
             t0 = time.monotonic()
             sp, va, pts = to_device(device, splats, valid, points)
             del splats, valid, points
-            result = step(sp, va, region, origin, points=pts, **step_args)
+            with profiler.step():
+                result = step(sp, va, region, origin, points=pts,
+                              **step_args)
             del sp, va, pts
             t1 = time.monotonic()
             reg.variable("device.time").add(t1 - t0)
@@ -249,6 +252,8 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
             conn.send(("error", _portable(e), traceback.format_exc()))
         except (OSError, ValueError):
             pass
+    finally:
+        profiler.close()
 
 
 class WorkerProcess:

@@ -16,17 +16,30 @@ its stages (worker_start / worker_preload's clock marks: interpreter up,
 torch, the step's modules, the CUDA context, the kernel library) and
 `workers.readyWait`; the parent's host time per block by stage (loader
 read and frame conversion, the shared-memory copy, a proxy's wait for its
-process, a worker's wait for a loaded block, decode, mesher); the blocks
-per worker; the kernel launches; a digest of the mesh; and any process of
-the run's session still alive once it has exited (which is then killed).
-A statistic a tree does not record is null. The last line is `SUMMARY
-{json}` with each run's wall time against the one-queue runs of its root
-and cloud on the first `--device`.
+process, a worker's wait for a free slot of its window and for a loaded
+block, decode, mesher, the consumer's busy time and the producer's wait for
+it); what sets pass 1's pace: the consumer thread's busy share of
+`pass1.time` (its `consumer.busy`; in a tree that does not record it, decode
+and mesher, which its consumer ran), the producer's wait share, and the
+workers' slot wait summed; the blocks per worker; the kernel launches; a
+digest of the mesh; and any process of the run's session still alive once
+it has exited (which is then killed). A statistic a tree does not record
+is null. The last line is `SUMMARY {json}` with each run's wall time
+against the one-queue runs of its root and cloud on the first `--device`.
+
+With `--profile DIR`, after the timed runs, each root of `--profile-roots`
+(by default `--roots`) runs the first cloud once more on the first
+`--device` for each of `--profile-queues`, with
+MLSGPU_PROFILE_STEPS set (utils/step_profile.py): every worker traces its
+block steps 3-6 with torch.profiler, and a line `PROFILE {json}` gives each
+worker's split of a step into dispatch, sync wait and card busy time (the
+traces stay in DIR).
 
 Usage:
     python -m mlsgpu_tpu_torch.tools.bench_queues [--splats 2000000 6000000]
         [--queues 1 2 4] [--big-queues 1 2] [--device cuda:0 [cuda]]
         [--roots label=path ...] [--workdir DIR] [--warmup-splats N]
+        [--profile DIR [--profile-queues 1 2] [--profile-roots ...]]
 
 `--big-queues` are the queue counts of every cloud after the first.
 """
@@ -60,8 +73,11 @@ PER_BLOCK = [("load_s", "loader.time"), ("read_s", "loader.read"),
              ("convert_s", "loader.convert"),
              ("send_copy_s", "workers.sendCopy"),
              ("proxy_wait_s", "workers.proxyWait"),
+             ("slot_wait_s", "workers.slotWait"),
              ("block_wait_s", "workers.blockWait"),
              ("decode_s", "readback.decode"), ("mesher_s", "mesher.time"),
+             ("consumer_busy_s", "consumer.busy"),
+             ("consumer_wait_s", "consumer.wait"),
              ("readback_wait_s", "readback.wait"),
              ("worker_convert_s", "workers.convert"),
              ("h2d_s", "dispatch.h2d"), ("device_s", "device.time"),
@@ -106,18 +122,39 @@ def _count(stats: Dict, name: str) -> Optional[int]:
     return None if d is None else int(d["total"])
 
 
+def pace(stats: Dict) -> Dict:
+    """What sets pass 1's pace (module docstring), as shares of
+    `pass1.time` and seconds."""
+    pass1 = _sum(stats, "pass1.time")
+    busy = _sum(stats, "consumer.busy")
+    if busy is None:     # a tree whose consumer decoded and meshed
+        parts = [_sum(stats, n) for n in ("readback.decode", "mesher.time")]
+        busy = None if None in parts else sum(parts)
+    wait = _sum(stats, "consumer.wait")
+    return {"consumer_busy_share": (None if busy is None or not pass1
+                                    else busy / pass1),
+            "consumer_wait_share": (None if wait is None or not pass1
+                                    else wait / pass1),
+            "consumer_busy_s": busy, "consumer_wait_s": wait,
+            "slot_wait_s": _sum(stats, "workers.slotWait"),
+            "block_wait_s": _sum(stats, "workers.blockWait"),
+            "decode_threads": _count(stats, "readback.decodeThreads")}
+
+
 def run_cli(root: str, ply_path: str, spacing: float,
-            extra: Sequence[str], timeout: float = 900.0) -> Dict:
+            extra: Sequence[str], timeout: float = 900.0,
+            env: Optional[Dict[str, str]] = None) -> Dict:
     """One run of the command line of the checkout at `root` on `ply_path`
-    in a session of its own; the run's numbers (module docstring). Raises
-    when it exits non-zero."""
+    in a session of its own, with `env` added to this process's
+    environment; the run's numbers (module docstring). Raises when it
+    exits non-zero."""
     from mlsgpu_tpu_torch.io import ply
     from mlsgpu_tpu_torch.tools.analyze_stats import parse
 
     out = ply_path[:-4] + ".out.ply"
     cmd = [sys.executable, "-m", "mlsgpu_tpu_torch", *bench_args(spacing),
            *extra, "--statistics", "-o", out, ply_path]
-    env = dict(os.environ, PYTHONPATH=root)
+    env = dict(os.environ, **(env or {}), PYTHONPATH=root)
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
@@ -161,12 +198,43 @@ def run_cli(root: str, ply_path: str, spacing: float,
            "per_block": {k: (None if _sum(stats, n) is None or not blocks
                              else _sum(stats, n) / blocks)
                          for k, n in PER_BLOCK},
+           "pace": pace(stats),
            "workers": per_worker,
            "vertices": len(verts), "triangles": len(tris),
            "digest": hashlib.sha256(verts.tobytes() + tris.tobytes())
            .hexdigest(),
            "left_running": left}
     return res
+
+
+def read_profiles(trace_dir: str) -> Dict[str, Dict]:
+    """The step summaries (utils/step_profile.summarize) in `trace_dir`,
+    by worker."""
+    out = {}
+    for name in sorted(os.listdir(trace_dir)):
+        if name.endswith(".json") and not name.endswith(".trace.json"):
+            with open(os.path.join(trace_dir, name)) as f:
+                summary = json.load(f)
+            out[summary["worker"]] = summary
+    return out
+
+
+def profile_runs(args, roots, n: int, path: str, spacing: float) -> None:
+    """The traced runs of --profile: one line PROFILE {json} each."""
+    dev = args.device[0]
+    for q in args.profile_queues:
+        for label, root in dict(roots).items():
+            trace_dir = os.path.abspath(os.path.join(
+                args.profile, f"{label}_{n}_{dev.replace(':', '')}_{q}"))
+            os.makedirs(trace_dir, exist_ok=True)
+            res = run_cli(os.path.abspath(root), path, spacing,
+                          ["--device", dev, "--device-threads", str(q)],
+                          env={"MLSGPU_PROFILE_STEPS": trace_dir})
+            print("PROFILE " + json.dumps({
+                "root": label, "splats": n, "device": dev, "queues": q,
+                "wall_s": res["wall_s"], "pass1_s": res["pass1_s"],
+                "digest": res["digest"], "trace_dir": trace_dir,
+                "workers": read_profiles(trace_dir)}), flush=True)
 
 
 def write_cloud(n: int, workdir: str):
@@ -198,6 +266,12 @@ def main(argv=None) -> int:
                    help="a one-queue run of this many splats per root "
                         "first, so that no measured run builds a library "
                         "(0: none) [%(default)s]")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="then trace the block steps of a run per root and "
+                        "--profile-queues count into DIR (module docstring)")
+    p.add_argument("--profile-queues", type=int, nargs="+", default=[1, 2])
+    p.add_argument("--profile-roots", nargs="+", default=None,
+                   metavar="LABEL=PATH")
     args = p.parse_args(argv)
     roots = [r.split("=", 1) for r in args.roots]
     work = args.workdir or tempfile.mkdtemp(prefix="bench_queues.")
@@ -221,6 +295,9 @@ def main(argv=None) -> int:
                     res.update(root=label, splats=n, device=dev, queues=q)
                     print("RUN " + json.dumps(res), flush=True)
                     runs.append(res)
+        if i == 0 and args.profile:
+            profile_runs(args, [r.split("=", 1) for r in args.profile_roots]
+                         if args.profile_roots else roots, n, path, spacing)
         os.remove(path)
     ratios = {}
     for r in runs:

@@ -67,13 +67,16 @@ def test_tight_memory_budgets_end_to_end(tmp_path):
     maxn = max(b.num_splats for b in bucket.make_buckets(
         info, cfg.device_block_cells, cfg.micro_cells, max_splats=max_splats))
     block = max(maxn * SPLAT_BYTES, 32 * max_splats)
-    # A mesh budget of exactly the largest image: every single image fits
-    # it and no two of the largest do. (An image is held from the start of
-    # its copy until its block is yielded, so how many the roomy run holds
-    # at its peak depends on how fast the mesher takes them: one at least.)
-    from mlsgpu_tpu_torch.pipeline.streamer import stream_blocks
+    # A mesh budget of exactly the largest block's bytes, its image and
+    # its decoded mesh: every single block fits it and no two of the
+    # largest do. (A block is held from the start of its copy until it is
+    # yielded to the mesher, so how many the roomy run holds at its peak
+    # depends on how fast the mesher takes them: one at least.)
+    from mlsgpu_tpu_torch.pipeline.streamer import (decoded_bytes,
+                                                    stream_blocks)
     devices, readback = trec.prepare_run(cfg, "cpu")
-    mesh = max(r.packed.nbytes for _, r in stream_blocks(
+    mesh = max(r.packed.nbytes + decoded_bytes(r.counts)
+               for _, r in stream_blocks(
         SequenceSource(splats), info, bucket.make_buckets(
             info, cfg.device_block_cells, cfg.micro_cells,
             max_splats=max_splats), cfg, devices, readback))

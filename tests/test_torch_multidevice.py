@@ -118,9 +118,11 @@ def _worker_blocks():
 
 
 def _no_streamer_threads():
-    """No loader or worker thread, and no worker process, is left."""
+    """No loader, worker or decode thread, and no worker process, is
+    left."""
     names = [t.name for t in threading.enumerate()
-             if t.name == "loader" or t.name.startswith("device.")]
+             if t.name == "loader" or t.name.startswith(("device.",
+                                                         "decode."))]
     assert not names, names
     assert not multiprocessing.active_children()
 
@@ -272,9 +274,12 @@ def test_cli_device_threads_output_bytes_identical(small_ply, tmp_path,
     with open(trace) as f:
         events = [ln.split() for ln in f if ln.startswith("EVENT ")]
     workers = {e[1] for e in events}
-    assert {"loader", "mesher", "readback", "device.0.0", "device.0.1",
+    # the readback wait and the decode of each block are the decode
+    # stage's (streamer.stream_blocks(decode=)), a thread per queue
+    assert {"loader", "mesher", "decode.0", "device.0.0", "device.0.1",
             "device.0.2"} <= workers
     assert sum(e[2] == "compute" for e in events) == sum(blocks)
+    assert sum(e[2] == "decode" for e in events) == sum(blocks)
     capsys.readouterr()
     assert draw_timeplot.main([trace, "-o", str(tmp_path / "t.svg")]) == 0
     assert f"{len(workers)} workers" in capsys.readouterr().out

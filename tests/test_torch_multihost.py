@@ -395,6 +395,30 @@ def test_watchdog_default_abort_exit_code_and_env_timeout(monkeypatch):
         dog.stop()
 
 
+def test_a_rank_decodes_on_its_decode_stage(tmp_path, direct_files,
+                                            monkeypatch):
+    """Each rank of a run with two device threads decodes every block on
+    its streamer's decode stage (pipeline/streamer.py), never on its
+    mesher thread, and writes the files of one-queue ranks bit for bit."""
+    import threading
+    names = []
+    real = trec.block_result_to_input
+
+    def noted(result, bucket):
+        names.append(threading.current_thread().name)
+        return real(result, bucket)
+
+    monkeypatch.setattr(trec, "block_result_to_input", noted)
+    get_registry().clear()
+    files = distributed(tmp_path, "staged.ply", device_threads=2)
+    for f, g in zip(files, direct_files):
+        for a, b in zip(ply.read_mesh(f), ply.read_mesh(g)):
+            np.testing.assert_array_equal(a, b)
+    assert len(files) == len(direct_files)
+    assert names
+    assert all(n.startswith("decode.") for n in names), set(names)
+
+
 def test_ranks_with_worker_processes_match_one_queue(tmp_path, direct_files):
     """Two ranks, each with two device threads (worker processes forked
     from the one worker server that both ranks of this process hold),

@@ -275,7 +275,10 @@ def test_bench_ooc_spills_and_verifies(tmp_path):
     stats = get_registry()
     assert stats.counter("blobs.spilled").get() == 1
     assert stats.counter("spill.flushBytes").get() > 0
-    assert 0 < stats.peak("mem.meshWindow").peak <= 2 << 20
+    # within --mem-mesh plus the one block it always admits (a block's
+    # image and its decoded mesh)
+    assert 0 < stats.peak("mem.meshWindow").peak <= \
+        (1 << 20) + stats.peak("mem.meshBlock").peak
 
 
 def test_bench_ooc_fails_over_the_rss_budget(tmp_path):

@@ -356,23 +356,38 @@ def test_closing_the_generator_ends_every_worker_process(small):
     assert len(STARTED) - n0 == 2 and not _alive(STARTED[n0:])
 
 
-def test_tight_budgets_hold_with_four_processes(small, one):
-    """Budgets of one block's splats and one image with four worker
-    processes: the same blocks, and each peak within its budget plus one
-    block's bytes (the one item a budget always admits)."""
+def _decoded(block, bucket):
+    """The decode stage's work in these tests: the mesher's input, beside
+    the HostBlock it came from."""
+    return block, trec.block_result_to_input(block, bucket)
+
+
+@pytest.mark.parametrize("decode", [None, _decoded],
+                         ids=["images", "decoded"])
+def test_tight_budgets_hold_with_four_processes(small, one, decode):
+    """Budgets of one block's splats and one block's held bytes with four
+    worker processes: the same blocks, and each peak within its budget
+    plus one block's bytes (the one item a budget always admits). With a
+    decode stage --mem-mesh holds each block's image and its decoded mesh
+    (streamer.decoded_bytes) from the start of its copy to its yield."""
     cfg, source, info, buckets = small
     # the bucket budget may not exceed the load budget (config.validate)
     block = max(max(b.num_splats for b in buckets) * streamer_mod.SPLAT_BYTES,
                 32 * cfg.max_device_splats)
-    image = max(r.arrays[0].nbytes for _, r in one)
+    image = max(r.arrays[0].nbytes
+                + (0 if decode is None else streamer_mod.decoded_bytes(
+                    r.counts)) for _, r in one)
     tight = dataclasses.replace(cfg, mem_bucket_splats=32 *
                                 cfg.max_device_splats, mem_load_splats=block,
                                 mem_host_splats=block, mem_mesh=image)
-    got, err, _ = _run(tight, source, info, buckets, [CPU] * 4)
+    got, err, _ = _run(tight, source, info, buckets, [CPU] * 4,
+                       decode=decode)
     assert err is None, err
+    if decode is not None:
+        got = [(b, r) for b, (r, _) in got]
     _assert_bitwise(got, one, buckets)
     stats = get_registry()
-    assert 0 < stats.peak("mem.meshWindow").get_max() <= 2 * image
+    assert image <= stats.peak("mem.meshWindow").get_max() <= 2 * image
     for name in ("mem.loadQueue", "mem.hostSplats"):
         assert 0 < stats.peak(name).get_max() <= 2 * block, name
         assert stats.peak(name).get() == 0, name
@@ -724,3 +739,233 @@ def test_several_workers_from_the_options_and_the_cards_seen(
     cfg = ReconstructConfig(**{**OPTIONS, "device_threads": threads,
                                "num_devices": cards})
     assert worker_start.several_workers(cfg, device) is want
+
+
+#: The readback modes of the end-to-end runs below: the CLI's options and
+#: whether a device filter (which makes the readback raw) is given.
+MODES = {"codes": ("codes", False), "packed": ("packed", False),
+         "raw": ("auto", True)}
+
+
+@pytest.fixture(scope="module")
+def end_to_end(tmp_path_factory):
+    """reconstruct() of a small sphere (8 blocks) on the CPU in every
+    readback mode with 1, 2 and 4 workers, the threads that decoded each
+    block noted: {(mode, workers): (mesh arrays, statistics, the decoding
+    threads' names)}."""
+    import threading
+    splats = oracle.sphere_cloud([0.7, -0.3, 0.2], 1.0, 1500, 0.3,
+                                 np.random.default_rng(5))
+    real = trec.block_result_to_input
+    names = []
+
+    def noted(result, bucket):
+        names.append(threading.current_thread().name)
+        return real(result, bucket)
+
+    out = {}
+    tmp = tmp_path_factory.mktemp("end_to_end")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trec, "block_result_to_input", noted)
+        for mode, (readback, filtered) in MODES.items():
+            for n in (1, 2, 4):
+                cfg = ReconstructConfig(fit_grid=0.1, fit_smooth=1.0,
+                                        levels=3, leaf_cells=8,
+                                        progress=False, device_threads=n,
+                                        readback=readback)
+                filt = (DeviceFilterChain([DeviceScaleBias(
+                    2.0, (0.5, -1.0, 0.25))]) if filtered else None)
+                path = str(tmp / f"{mode}_{n}.ply")
+                get_registry().clear()
+                names.clear()
+                before, n0 = misc.child_pids(), len(STARTED)
+                _, err = _bounded(lambda: trec.reconstruct(
+                    SequenceSource(splats), cfg, path, device="cpu",
+                    device_filter=filt))
+                assert err is None, err
+                assert misc.child_pids() <= before
+                assert not _alive(STARTED[n0:])
+                out[mode, n] = (ply.read_mesh(path),
+                                get_registry().to_dict(), list(names))
+    return out
+
+
+@pytest.mark.parametrize("workers", [2, 4])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_every_worker_count_writes_the_one_queue_mesh(end_to_end, mode,
+                                                      workers):
+    """The whole run through the decode stage with 2 and 4 worker
+    processes writes the one-queue run's mesh bit for bit, in the codes,
+    packed and raw (device filter) readbacks."""
+    one, stats, _ = end_to_end[mode, 1]
+    got, got_stats, _ = end_to_end[mode, workers]
+    assert len(one[0]) > 0
+    for a, b in zip(one, got):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert got_stats["workers.spawned"]["total"] == workers
+    assert f"readback.mode.{'raw' if mode == 'raw' else mode}" in got_stats
+    assert "workers.spawned" not in stats
+
+
+def test_no_decode_runs_on_the_mesher_thread(end_to_end):
+    """Every block is decoded once, on a thread of the decode stage (one
+    per worker, at most half the cores), never on the mesher's."""
+    for (mode, n), (_, stats, names) in end_to_end.items():
+        blocks = stats["bucket.count"]["total"]
+        threads = streamer_mod.decode_threads(n)
+        assert stats["readback.decodeThreads"]["total"] == threads
+        assert len(names) == blocks > 0, (mode, n)
+        assert set(names) <= {f"decode.{i}" for i in range(threads)}, names
+
+
+def test_pace_statistics_reach_the_parent(end_to_end):
+    """What sets pass 1's pace is recorded per block: each worker's wait
+    for a slot of its window (workers.slotWait: one sample per block it
+    pulls and one when it finds none left), the producer's wait for room
+    on the mesher's queue (consumer.wait), the mesher's busy time
+    (consumer.busy); readback.decode, readback.decodeCpu and mesher.time
+    keep one sample per block wherever they now run."""
+    for (mode, n), (_, stats, _) in end_to_end.items():
+        blocks = stats["bucket.count"]["total"]
+        assert blocks <= stats["workers.slotWait"]["n"] <= blocks + n
+        for name in ("consumer.wait", "consumer.busy", "readback.decode",
+                     "readback.decodeCpu", "mesher.time"):
+            assert stats[name]["n"] == blocks, (mode, n, name)
+        assert stats["consumer.busy"]["sum"] >= stats["mesher.time"]["sum"]
+
+
+def test_the_mesher_gets_blocks_in_the_loaders_order(small):
+    """Two workers and a decode that is slow on the first block: the
+    second block's decode finishes first, and the generator still yields
+    every block in the loader's order, each with its own decode."""
+    import threading
+    cfg, source, info, buckets = small
+    done = []
+    lock = threading.Lock()
+
+    def slow_first(block, bucket):
+        seq = next(i for i, b in enumerate(buckets) if b is bucket)
+        if seq == 0:
+            time.sleep(2.0)
+        with lock:
+            done.append(seq)
+        return bucket, block
+
+    got, err, _ = _run(cfg, source, info, buckets, [CPU] * 2,
+                       decode=slow_first)
+    assert err is None, err
+    assert done.index(1) < done.index(0)
+    assert [b for b, _ in got] == list(buckets)
+    assert all(b is d for b, (d, _) in got)
+    _no_streamer_threads()
+
+
+class DecodeFailed(Exception):
+    pass
+
+
+def test_a_decode_that_raises_ends_the_run(small):
+    """A decode that raises ends the run with its exception; no worker
+    process, decode thread or other streamer thread is left, and no block
+    is decoded on the consumer in its place."""
+    cfg, source, info, buckets = small
+    calls = []
+
+    def bad(block, bucket):
+        calls.append(bucket)
+        if bucket is buckets[2]:
+            raise DecodeFailed("bad block")
+        return block
+
+    got, err, dt = _run(cfg, source, info, buckets, [CPU] * 2, seconds=60,
+                        decode=bad)
+    assert got is None and isinstance(err, DecodeFailed), err
+    assert dt < 60 and len(calls) < 2 * len(buckets)
+    _no_streamer_threads()
+
+
+def test_closing_the_generator_joins_the_decode_threads(small):
+    """Closing the generator while decodes are in flight joins every
+    decode thread and ends every worker process."""
+    cfg, source, info, buckets = small
+    _, readback = trec.prepare_run(cfg, "cpu")
+    before, n0 = misc.child_pids(), len(STARTED)
+
+    def slow(block, bucket):
+        time.sleep(0.5)
+        return block
+
+    gen = streamer_mod.stream_blocks(source, info, buckets, cfg, [CPU] * 2,
+                                     readback, decode=slow)
+    first, err = _bounded(lambda: next(gen))
+    assert err is None and first[0] is buckets[0]
+    _, err = _bounded(gen.close, seconds=30)
+    assert err is None
+    _no_streamer_threads()
+    assert misc.child_pids() <= before
+    assert not _alive(STARTED[n0:])
+
+
+def test_step_profile_summarize():
+    """utils/step_profile.summarize on a made-up trace of two steps: the
+    wall, the sync wait on the step's thread, dispatch as the rest, the
+    card's busy time as the union of its intervals, the syncs by the
+    operator that made them."""
+    from mlsgpu_tpu_torch.utils import step_profile
+
+    def ev(cat, name, ts, dur, tid=1):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "tid": tid}
+
+    trace = {"traceEvents": [
+        ev("user_annotation", "block_step", 0, 1000),
+        ev("user_annotation", "block_step", 2000, 1000),
+        ev("cuda_runtime", "cudaLaunchKernel", 10, 5),
+        ev("cuda_runtime", "cudaStreamSynchronize", 100, 300),
+        ev("cuda_runtime", "cudaStreamSynchronize", 2100, 100),
+        ev("cuda_runtime", "cudaEventSynchronize", 1500, 400),  # between
+        ev("cuda_runtime", "cudaStreamSynchronize", 2500, 50, tid=2),
+        ev("kernel", "k", 20, 100), ev("kernel", "k", 60, 100),
+        ev("gpu_memcpy", "m", 2100, 200),
+        ev("cpu_op", "aten::item", 90, 320),
+        ev("cpu_op", "aten::_local_scalar_dense", 95, 310),
+        ev("cpu_op", "aten::to", 2050, 200)]}
+    s = step_profile.summarize(trace)
+    assert s["steps"] == 2 and s["wall_ms"] == 1.0
+    assert s["sync_ms"] == 0.2 and s["dispatch_ms"] == 0.8
+    assert s["device_busy_ms"] == (140 + 200) / 2 / 1000
+    assert s["launches"] == 0.5 and s["sync_calls"] == 1.0
+    # each sync by the outermost operator that encloses it
+    assert s["syncs_by_op"] == {"aten::item": [0.5, 0.15],
+                                "aten::to": [0.5, 0.05]}
+    assert step_profile.summarize({"traceEvents": []}) == {"steps": 0}
+
+
+@pytest.mark.parametrize("entries", [1, 2])
+def test_step_profiles_of_a_thread_and_of_processes(small, tmp_path,
+                                                    monkeypatch, entries):
+    """MLSGPU_PROFILE_STEPS: the one worker's thread, or each worker
+    process, traces its steps from its third and writes the trace and its
+    summary; the blocks are the run's without it."""
+    import glob
+    import json
+    from mlsgpu_tpu_torch.utils import step_profile
+    monkeypatch.setenv(step_profile.ENV, str(tmp_path))
+    cfg, source, info, buckets = small
+    got, err, _ = _run(cfg, source, info, buckets, [CPU] * entries)
+    assert err is None, err
+    assert [b for b, _ in got] == list(buckets)
+    summaries = []
+    for path in glob.glob(str(tmp_path / "*.json")):
+        with open(path) as f:
+            summaries.append(json.load(f))
+        assert os.path.exists(path[:-5] + ".trace.json.gz")
+    blocks = _worker_blocks()
+    want = {f"device.{k}": min(step_profile.COUNT,
+                               max(0, n - step_profile.FIRST))
+            for k, n in blocks.items()}
+    assert {s["worker"]: s["steps"] for s in summaries} == \
+        {k: v for k, v in want.items() if v}
+    for s in summaries:
+        assert s["wall_ms"] >= s["dispatch_ms"] > 0
+        assert (s["pid"] == os.getpid()) == (entries == 1)
