@@ -17,9 +17,20 @@ raises, exits non-zero and prints no result line:
      on the device alone, of the order kernels alone and of their plain
      version, and of the field kernel alone from a profiler trace; the
      bound on these inputs (kernel_bound) and the call's share of it;
-  4. the seam contract on the card: shared-face and T-junction corners of
-     adjacent blocks bitwise equal, also where a face patch straddles the
-     blocks' in-plane edge;
+     then on the same bucket the seam kernels (csrc/seam_moments.cu: the
+     face kernel, and the skeleton kernel at the bucket's skeleton points)
+     against their plain versions, sphere and plane fits (seam_vs_plain):
+     moments and hits value for value and the pass's field equal, with
+     the default candidate buffer and with SMALL_BUFFER (many rounds a
+     row); the pass host-paced and on the device alone, the kernel alone
+     (profiler) at both buffers, the plain pass at 32 rows (64 points) a
+     chunk, the bound (seam_bound), and the launches and host syncs of a
+     pass and of the plain one (a traced pass summarized by
+     utils/step_profile);
+  4. the seam contract on the card, through the seam kernels: shared-face
+     and T-junction corners of adjacent blocks bitwise equal, also where a
+     face patch straddles the blocks' in-plane edge; both seam kernels
+     against their plain versions on the three T-junction blocks;
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
      cloud (tools/cloud.py make_cloud) written as a PLY: manifold output,
      kernel launches >= blocks;
@@ -30,7 +41,8 @@ raises, exits non-zero and prints no result line:
      bitwise phase 7's, and every `device.<stage>.time`;
   9. on the densest 512^3-corner dispatch (`--levels 7`, 64^3 tiles, 7
      levels): the kernel against its plain version as in phase 3 (sphere
-     fit, the run's boundary factor), then tiled against dense
+     fit, the run's boundary factor), the seam kernels as in phase 3, the
+     block's field (one launch of each kernel), then tiled against dense
      classification of the block's field: the codes images bitwise equal;
      all four times;
  10. `DeviceScaleBias(scale=2, bias)` through `reconstruct(device_filter=)`
@@ -101,13 +113,16 @@ raises, exits non-zero and prints no result line:
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
-Kernel launches are counted per main-path run (the counter set to 0 just
-before it and read just after; the comparisons of phases 3 and 9
-excluded); each run must launch the kernel, and the kernel record's
+Kernel launches (the field, face and skeleton kernels') are counted per
+main-path run (every counter set to 0 just before it and read just after;
+the comparisons of phases 3, 4 and 9 excluded); each run must launch the
+field and face kernels once a block and the skeleton kernel where its
+blocks have skeleton points (check_launches), and a kernel record's
 `launches` is the sum over the runs in this process (phase 12's ranks
-count their own and print them); its `max_abs_err` is the largest of phases 3
-and 9; its `ms` is the call's host-paced time, as in earlier versions of
-this script, and `device_ms` the call's time on the device alone.
+count their own and print them); its `max_abs_err` is the largest of
+phases 3 (and 4) and 9; its `ms` is the call's (for a seam kernel, the
+pass's) host-paced time at the densest 256^3 bucket, `device_ms` on the
+device alone (and `kernel_ms` a seam kernel alone).
 The second-last lines are the kernel JSON record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -143,7 +158,7 @@ from mlsgpu_tpu_torch.device import set_precision  # noqa: E402
 from mlsgpu_tpu_torch.io import ply  # noqa: E402
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource  # noqa: E402
 from mlsgpu_tpu_torch.ops import (binning, block, kernel_gate,  # noqa: E402
-                                  marching, mls, mls_cuda)
+                                  marching, mls, mls_cuda, seam_cuda)
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
@@ -155,7 +170,7 @@ from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, bench_queues,
                                     cloud, verify_chunks)
 from mlsgpu_tpu_torch.tools.bench_queues import bench_args  # noqa: E402
-from mlsgpu_tpu_torch.utils import misc  # noqa: E402
+from mlsgpu_tpu_torch.utils import misc, step_profile  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
 from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
 
@@ -189,7 +204,43 @@ REPS = 7
 FP32_PEAK = 67e12      # FLOP/s
 HBM_RATE = 3.35e12     # bytes/s
 SLEEP_CYCLES = 4_000_000  # ~2 ms of the card's clock: longer than any
-#                           host enqueue of one timed call
+#                           host enqueue of one timed kernel call
+PASS_SLEEP_CYCLES = 40_000_000  # ~20 ms: longer than the host enqueue of
+#                                 a seam pass (~170 launches)
+# The seam kernels' shrunken candidate buffer (their default is
+# seam_cuda.max_buffer()), which also caps the terms a corner holds at
+# once: most occupied face rows of the densest buckets then run several
+# rounds and their densest corners several residue classes, so both paths
+# run at main-path shapes.
+SMALL_BUFFER = 16
+# The kernels of the main path, in the order of the kernel record and of
+# seam_cuda.launch_counts().
+KERNELS = ("mls_field", "seam_face", "seam_skeleton")
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a main-path run."""
+    mls_cuda.launches = 0
+    seam_cuda.face_launches = 0
+    seam_cuda.skeleton_launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launches since reset_launches, by KERNELS name."""
+    return dict(zip(KERNELS, seam_cuda.launch_counts()))
+
+
+def check_launches(name: str, got: dict, blocks: int,
+                   skeleton_blocks: int) -> dict:
+    """A main-path run of `blocks` blocks, `skeleton_blocks` of them with
+    skeleton points, went through its kernels: the field and face kernels
+    at least once per block (and at all), the skeleton kernel at least
+    once per block with skeleton points."""
+    need = {"mls_field": max(blocks, 1), "seam_face": max(blocks, 1),
+            "seam_skeleton": skeleton_blocks}
+    if any(got[k] < need[k] for k in KERNELS):
+        raise AssertionError(f"{name}: launches {got} for {blocks} blocks")
+    return got
 
 
 def sphere_cloud(center, radius, n, splat_radius, rng) -> np.ndarray:
@@ -238,12 +289,13 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
+def cuda_ms(fn, reps: int = REPS, device_only: bool = False,
+            sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Median CUDA-event time of fn() after one warm-up call. By default
     the events also see the host: work the card finishes faster than the
     host can queue it is timed at the host's pace. device_only: the card
-    first sleeps while the host queues fn's work, so the events time the
-    device's work alone."""
+    first sleeps `sleep_cycles` while the host queues fn's work, so the
+    events time the device's work alone."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -251,7 +303,7 @@ def cuda_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -386,6 +438,147 @@ def kernel_vs_plain(n, binned, starts, lens, origin, tpa, fit, bf,
                 plain_ms=p_ms, share_of_bound=share, bound=bound, **summary)
 
 
+def pass_profile(fn, reps: int = 3) -> dict:
+    """Kernel launches and host syncs of one call of fn (means over
+    `reps`), and its wall and device-busy ms, from a torch.profiler trace
+    of the calls, each summarized as a block step (utils/step_profile.py:
+    a sync is a cuda*Synchronize or a synchronous cudaMemcpy)."""
+    import torch.profiler as tp
+    fn()
+    torch.cuda.synchronize()
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            with tp.record_function(step_profile.STEP):
+                fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.trace.") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            summary = step_profile.summarize(json.load(f))
+    return {k: summary.get(k) for k in ("launches", "sync_calls", "wall_ms",
+                                        "device_busy_ms")}
+
+
+def _equal_values(got, ref, label) -> None:
+    """got == ref value for value (signed zeros equal) or both NaN."""
+    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+    if got.shape != ref.shape or not bool(same.all()):
+        raise AssertionError(f"{label}: {int((~same).sum())} of "
+                             f"{same.numel()} values differ")
+
+
+def seam_bound(work, per_listed: int, corners: int, items: int) -> dict:
+    """The least time the card could take for a seam pass's moments (the
+    face or skeleton kernel) on these inputs: the larger of its FP32
+    operations over the FP32 peak and its bytes over the memory rate.
+    `work` = (listed, kept) from mls.face_work / skeleton_work; bytes:
+    each listed candidate's filter columns and identity (24) read once,
+    each kept candidate's row (32) read once, the moments and hits (40 a
+    corner) of `items` rows of `corners` written once; operations:
+    `per_listed` for each listed candidate's filter (18 for a face row's
+    rectangle test, 10 for a point's), 13 for each kept candidate's frame
+    and features, 45 for each (corner, kept candidate) pair (distance 9,
+    weight 5, terms 8, the tree's adds 9 amortised, the rest the hit count
+    and selects)."""
+    listed, kept = work
+    flops = per_listed * listed + 13 * kept + 45 * corners * kept
+    nbytes = 24 * listed + 32 * kept + 40 * corners * items
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"listed": listed, "kept": kept, "flops": flops, "bytes": nbytes,
+            "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
+                  bf, field, reps=REPS, timed=True) -> list:
+    """The face kernel, and the skeleton kernel where `points` (the block's
+    skeleton points) are given, against their plain versions on one
+    block's binned entries, `field` the field kernel's: moments and hits
+    equal value for value (== or both NaN) with the default buffer and
+    with SMALL_BUFFER, and the pass's field equal to the plain pass's.
+    With `timed`: the pass (its preparation, the kernel, the plain fit and
+    write) host-paced and on the device alone, the kernel alone (profiler)
+    at both buffers, the plain pass at 32 rows (64 points) a chunk, the
+    bound on these inputs, and the launches and host syncs of a pass and
+    of the plain one. Its launches are comparisons: not counted by
+    callers, who reset the counters after it. Returns a row per kernel."""
+    e, v, dev = binned.entry_data, binned.entry_vals, field.device
+    rows_np = mls.face_rows(origin, region, tpa)
+    rows = torch.as_tensor(rows_np, device=dev)
+    plain_args = (e, v, starts, lens)
+    passes = [("seam_face", "face", rows_np.shape[0], 64,
+               lambda f, buf: seam_cuda.canonical_face_field(
+                   f, e, v, starts, lens, origin, region, tpa, fit, bf,
+                   buffer=buf),
+               lambda f: mls.canonical_face_field(
+                   f, e, v, starts, lens, origin, region, tpa, fit, bf),
+               lambda buf: seam_cuda.face_moments(
+                   *plain_args, rows.to(torch.int32), buf),
+               lambda: mls.face_moments(*plain_args, rows),
+               lambda: mls.face_work(*plain_args, rows), 18)]
+    if points is not None and points.shape[0]:
+        pts, _, tid, inside = mls.skeleton_points(points, origin, tpa,
+                                                  field.shape[0])
+        passes.append(
+            ("seam_skeleton", "skeleton", pts.shape[0], 1,
+             lambda f, buf: seam_cuda.skeleton_point_field(
+                 f, e, v, starts, lens, origin, points, tpa, fit, bf,
+                 buffer=buf),
+             lambda f: mls.skeleton_point_field(
+                 f, e, v, starts, lens, origin, points, tpa, fit, bf),
+             lambda buf: seam_cuda.skeleton_moments(
+                 *plain_args, pts, tid, inside, buf),
+             lambda: mls.skeleton_moments(*plain_args, pts, tid, inside),
+             lambda: mls.skeleton_work(*plain_args, pts, tid, inside), 10))
+    out = []
+    for name, kind, items, corners, run, plain, kmom, pmom, work, per in \
+            passes:
+        ref_m, ref_h = pmom()
+        ref_f = plain(field.clone())
+        for buf in (None, SMALL_BUFFER):
+            m, h = kmom(buf)
+            _equal_values(m, ref_m, f"{kind} moments, buffer {buf}")
+            if not torch.equal(h, ref_h):
+                raise AssertionError(f"{kind} hits differ, buffer {buf}")
+            got = run(field.clone(), buf)
+            _equal_values(got, ref_f, f"{kind} pass field, buffer {buf}")
+        summary = kernel_gate.compare_fields(ref_f, got)
+        del m, h, got
+        row = {"name": name, "fit": fit, "boundary_factor": bf,
+               "items": items, "defined": summary["defined_corners"],
+               "max_abs_err": summary["max_abs_err"],
+               "equal_value_for_value": True}
+        if timed:
+            scratch = field.clone()
+            call = lambda: run(scratch, None)  # noqa: E731
+            row["host_paced_ms"] = cuda_ms(call, reps)
+            row["device_ms"] = cuda_ms(call, reps, device_only=True,
+                                       sleep_cycles=PASS_SLEEP_CYCLES)
+            row["kernel_ms"] = kernel_device_ms(call, f"seam_{kind}_kernel",
+                                                reps)
+            row["kernel_small_buffer_ms"] = kernel_device_ms(
+                lambda: run(scratch, SMALL_BUFFER), f"seam_{kind}_kernel",
+                reps)
+            row["plain_ms"] = cuda_ms(lambda: plain(scratch), reps)
+            row["pass"] = pass_profile(call)
+            row["plain_pass"] = pass_profile(lambda: plain(scratch), 1)
+            row["bound"] = seam_bound(work(), per, corners, items)
+            del scratch
+            k_ms = row["kernel_ms"]
+            row["share_of_bound"] = (None if k_ms is None else
+                                     row["bound"]["bound_ms"] / k_ms)
+        phase(n, f"{kind} kernel vs plain, {fit} bf={bf:g}, {items} "
+                 f"{'rows' if corners > 1 else 'points'}: moments, hits and "
+                 f"the pass's field equal value for value at buffers "
+                 f"{seam_cuda.max_buffer()} and {SMALL_BUFFER}; "
+                 f"{json.dumps(row)}")
+        out.append(row)
+    return out
+
+
 def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     """`b`: the densest of the buckets the main path streams."""
     grid_form, valid = load_bucket(src, info, b)
@@ -405,10 +598,19 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
             rows.append(kernel_vs_plain(3, binned, starts, lens, origin, tpa,
                                         fit, 1.0 - gamma * gamma,
                                         bound=bound))
+    field = mls_cuda.launch(binned.entry_data, starts, lens, origin, tpa,
+                            "sphere", 0.0)
+    region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
+    points = torch.as_tensor(b.skeleton, device=dev)
+    seams = seam_vs_plain(3, binned, starts, lens, origin, region, points,
+                          tpa, "sphere", 0.0, field)
+    seams += seam_vs_plain(3, binned, starts, lens, origin, region, points,
+                           tpa, "plane", 1.0 - GAMMAS[1] ** 2, field,
+                           timed=False)
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
-             f"{max_tile}: OK")
-    return rows
+             f"{max_tile}, {len(b.skeleton)} skeleton points: OK")
+    return rows, seams
 
 
 def _seam_block(splats, lo, hi, dev, points=None):
@@ -432,7 +634,7 @@ def _bitwise_equal(pa, pb, min_defined, label):
     return int((~na).sum())
 
 
-def phase4_seams(dev) -> None:
+def phase4_seams(dev) -> list:
     b = 1 << (3 + 3 - 1)  # 32-corner blocks
     checked = []
     for plane in (28, 24):  # 28 % 8 != 0: misaligned origin
@@ -463,13 +665,28 @@ def phase4_seams(dev) -> None:
           for lo, hi in (((0, 0, 0), (16, 16, 31)), ((16, 0, 0), (31, 16, 31)),
                          ((0, 16, 0), (31, 31, 31)))]
     bucket_mod.skeleton_points(mk)
+    rows = []
+    for k in mk:  # both seam kernels against their plain versions
+        origin = tuple(int(v) for v in k.cell_lo)
+        region = tuple(int(v) for v in k.cell_hi - k.cell_lo)
+        binned = binning.bin_splats(torch.as_tensor(splats, device=dev),
+                                    torch.ones(len(splats), dtype=torch.bool,
+                                               device=dev), origin, 3, 5)
+        starts, lens = binning.tile_segments(binned.entry_keys, 3, 5, 4)
+        field = mls_cuda.launch(binned.entry_data, starts, lens, origin, 4,
+                                "sphere", 0.0)
+        rows += seam_vs_plain(4, binned, starts, lens, origin, region,
+                              torch.as_tensor(k.skeleton, device=dev), 4,
+                              "sphere", 0.0, field, timed=False)
     fa, fc, fb = (_seam_block(splats, k.cell_lo, k.cell_hi, dev, k.skeleton)
                   for k in mk)
     checked.append(_bitwise_equal(fa[:, 16, 0:17], fb[:, 0, 0:17], 20, "A|B"))
     checked.append(_bitwise_equal(fc[:, 16, 0:16], fb[:, 0, 16:32], 20, "C|B"))
     checked.append(_bitwise_equal(fa[:, 0:17, 16], fc[:, 0:17, 0], 20, "A|C"))
-    phase(4, f"seam contract on the card: {sum(checked)} shared corners "
-             f"bitwise equal over {len(checked)} planes: OK")
+    phase(4, f"seam contract on the card (through the seam kernels): "
+             f"{sum(checked)} shared corners bitwise equal over "
+             f"{len(checked)} planes: OK")
+    return rows
 
 
 def cli_run(cloud, name, extra=(), manifold=True) -> dict:
@@ -481,19 +698,18 @@ def cli_run(cloud, name, extra=(), manifold=True) -> dict:
     out = os.path.join(os.path.dirname(inp), f"{name}.ply")
     reg = get_registry()
     reg.clear()
-    mls_cuda.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     rc = cli.main([*bench_args(spacing), *extra, "-o", out, inp])
     elapsed = time.monotonic() - t0
-    launches = mls_cuda.launches
+    launches = read_launches()
     if rc != 0:
         raise RuntimeError(f"cli.main {' '.join(extra)} returned {rc}")
     verts, tris = ply.read_mesh(out)
     os.remove(out)
     blocks = reg.counter("bucket.count").get()
-    if launches < blocks:
-        raise AssertionError(f"{name}: {launches} kernel launches < "
-                             f"{blocks} blocks")
+    check_launches(name, launches, blocks,
+                   reg.counter("bucket.skeletonBlocks").get())
     res = {"seconds": elapsed, "vertices": len(verts),
            "triangles": len(tris), "blocks": blocks,
            "kernel_launches": launches, "stats": reg.to_dict(),
@@ -607,14 +823,20 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
     row = kernel_vs_plain(9, binned, starts, lens, origin, tpa,
                           cfg.fit_shape, bf, reps=3)
-    del binned, starts, lens
-    mls_cuda.launches = 0
-    field, _ = block.block_field(
-        sp, va, region, origin, bf,
-        torch.as_tensor(b.skeleton, device=dev) if len(b.skeleton) else None,
-        levels=cfg.device_levels, subsampling=SUB)
-    launches = mls_cuda.launches
-    if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or launches != 1:
+    points = (torch.as_tensor(b.skeleton, device=dev) if len(b.skeleton)
+              else None)
+    field0 = mls_cuda.launch(binned.entry_data, starts, lens, origin, tpa,
+                             cfg.fit_shape, bf)
+    seams = seam_vs_plain(9, binned, starts, lens, origin, region, points,
+                          tpa, cfg.fit_shape, bf, field0, reps=3)
+    del binned, starts, lens, field0
+    reset_launches()
+    field, _ = block.block_field(sp, va, region, origin, bf, points,
+                                 levels=cfg.device_levels, subsampling=SUB)
+    launches = read_launches()
+    if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or \
+            launches != dict(mls_field=1, seam_face=1,
+                             seam_skeleton=int(points is not None)):
         raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
                              "launches")
     images = {}
@@ -635,6 +857,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
            "kernel_launches": launches, "kernel_row": row}
     phase(9, f"tiled vs dense classification, densest 512^3 dispatch: "
              f"codes images bitwise equal; {json.dumps(res)}")
+    res["seam_rows"] = seams
     return res
 
 
@@ -658,16 +881,18 @@ def phase10_device_filter(workdir) -> dict:
     scale, bias = 2.0, (1.5, -2.0, 0.25)
     chain = mesh_filter.DeviceFilterChain(
         [mesh_filter.DeviceScaleBias(scale=scale, bias=bias)])
-    out, launches = {}, 0
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
     for name, dfilter in (("plain", None), ("filtered", chain)):
         rec = _Recorder()
         path = os.path.join(workdir, f"{name}.ply")
-        mls_cuda.launches = 0
+        reg = get_registry()
+        reg.clear()
+        reset_launches()
         port_rec.reconstruct(SequenceSource(splats), cfg, path, device="cuda",
                              filters=rec, device_filter=dfilter)
-        if mls_cuda.launches < len(rec.blocks):
-            raise AssertionError(f"{name}: {mls_cuda.launches} launches")
-        launches += mls_cuda.launches
+        got = check_launches(name, read_launches(), len(rec.blocks),
+                             reg.counter("bucket.skeletonBlocks").get())
+        launches = {k: launches[k] + got[k] for k in KERNELS}
         verts, tris = ply.read_mesh(path)
         out[name] = (verts, tris, rec.blocks)
     (v1, t1, b1), (v2, t2, b2) = out["plain"], out["filtered"]
@@ -755,16 +980,17 @@ def phase11_chunked(cloud_ply, workdir) -> dict:
     base = os.path.join(workdir, "chunked.ply")
     reg = get_registry()
     reg.clear()
-    mls_cuda.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     rc = cli.main([*bench_args(spacing), "--split-size", SPLIT_SIZE, "-o",
                    base, inp])
     seconds = time.monotonic() - t0
-    launches = mls_cuda.launches
+    launches = read_launches()
     blocks = reg.counter("bucket.count").get()
-    if rc != 0 or launches < blocks:
-        raise AssertionError(f"chunked run: rc {rc}, {launches} launches, "
-                             f"{blocks} blocks")
+    if rc != 0:
+        raise AssertionError(f"chunked run: rc {rc}")
+    check_launches("chunked run", launches, blocks,
+                   reg.counter("bucket.skeletonBlocks").get())
     counts = chunk_counts(base)
     if len(counts) < 2:
         raise AssertionError(f"--split-size {SPLIT_SIZE}: {len(counts)} file")
@@ -791,7 +1017,7 @@ def phase11_chunked(cloud_ply, workdir) -> dict:
 _RANK = """
 import json, sys
 from mlsgpu_tpu_torch import cli
-from mlsgpu_tpu_torch.ops import mls_cuda
+from mlsgpu_tpu_torch.ops import seam_cuda
 from mlsgpu_tpu_torch.parallel import multihost
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 own = {}
@@ -806,7 +1032,7 @@ multihost._merge_stats = snapshot
 rc = cli.main(sys.argv[1:])
 reg = get_registry().to_dict()
 imb = reg.get("distributed.imbalance")
-own.update(rc=rc, launches=mls_cuda.launches,
+own.update(rc=rc, launches=list(seam_cuda.launch_counts()),
            run_s=reg.get("run.time", {}).get("sum"),
            imbalance=imb["sum"] / imb["n"] if imb else None,
            forbidden=sorted(m for m in sys.modules if m.split(".")[0]
@@ -890,9 +1116,9 @@ def phase12_two_ranks(cloud_ply, small_ply, workdir, single) -> dict:
             raise AssertionError(f"rank {r}: rc {rc}: {err}")
         if rec["forbidden"]:
             raise AssertionError(f"rank {r} imported {rec['forbidden']}")
-        if rec["launches"] < max(rec["blocks"], 1):
-            raise AssertionError(f"rank {r}: {rec['launches']} launches, "
-                                 f"{rec['blocks']} blocks")
+        # every bucket of the 2M cloud has skeleton points
+        check_launches(f"rank {r}", dict(zip(KERNELS, rec["launches"])),
+                       rec["blocks"], rec["blocks"])
     if sum(rec["blocks"] for _, rec, _ in ranks) != single["blocks"]:
         raise AssertionError(f"ranks ran {[r[1]['blocks'] for r in ranks]} "
                              f"blocks of {single['blocks']}")
@@ -952,7 +1178,7 @@ def phase13_out_of_core(workdir) -> dict:
     base = os.path.join(workdir, "ooc", "out.ply")
     reg = get_registry()
     reg.clear()
-    mls_cuda.launches = 0
+    reset_launches()
     captured = io.StringIO()
     rss_before = bench_ooc.peak_rss_bytes()
     rss_reset = reset_peak_rss()
@@ -963,13 +1189,14 @@ def phase13_out_of_core(workdir) -> dict:
              "--split-size", "64M", "--rss-budget", "24G", "--verify", "0",
              *[x for kv in budgets.items() for x in kv]])
     seconds = time.monotonic() - t0
-    launches = mls_cuda.launches
+    launches = read_launches()
     res = json.loads(captured.getvalue().splitlines()[-1])
     stats = reg.to_dict()
     blocks = reg.counter("bucket.count").get()
-    if rc != 0 or not res["rss_ok"] or launches < blocks:
-        raise AssertionError(f"bench_ooc: rc {rc}, {launches} launches, "
-                             f"{blocks} blocks: {res}")
+    if rc != 0 or not res["rss_ok"]:
+        raise AssertionError(f"bench_ooc: rc {rc}: {res}")
+    check_launches("bench_ooc", launches, blocks,
+                   reg.counter("bucket.skeletonBlocks").get())
     spilled = {k: reg.counter(k).get()
                for k in ("blobs.spilled", "spill.flushBytes")}
     if not all(spilled.values()):
@@ -1067,9 +1294,13 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
         if res["digest"] != digest:
             raise AssertionError(f"{name}: the mesh differs from the "
                                  "reference run's")
-        if res["launches"] != res["blocks"]:
-            raise AssertionError(f"{name}: {res['launches']} launches, "
-                                 f"{res['blocks']} blocks")
+        if res["launches"] != res["blocks"] or \
+                res["face_launches"] != res["blocks"] or \
+                res["skeleton_launches"] != res["skeleton_blocks"]:
+            raise AssertionError(
+                f"{name}: {res['launches']} field, {res['face_launches']} "
+                f"face, {res['skeleton_launches']} skeleton launches, "
+                f"{res['blocks']} blocks")
         per_worker = res["workers"]
         if len(per_worker) != workers or \
                 not all(n > 0 for n in per_worker.values()) or \
@@ -1131,8 +1362,10 @@ def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
                              f"rc {rc}: {err.getvalue()[-500:]}")
     summary = {
         "cards_visible": cards,
-        "kernel_launches": sum(v["launches"] for v in
-                               [*out.values(), *big.values()]),
+        "kernel_launches": {
+            k: sum(v[key] for v in [*out.values(), *big.values()])
+            for k, key in zip(KERNELS, ("launches", "face_launches",
+                                        "skeleton_launches"))},
         "start": {k: v["start"] for k, v in out.items()},
         f"start_{BIG_SPLATS}": {k: v["start"] for k, v in big.items()},
         "per_block": {k: v["per_block"] for k, v in out.items()},
@@ -1187,15 +1420,16 @@ def phase15_sharded(pts, src, info, densest, dev) -> dict:
     fields_alone = [_seam_block(splats, origins[i],
                                 np.add(origins[i], regions[i]), dev)
                     for i in range(2)]
-    launches, corners = 0, 0
+    launches, corners = dict.fromkeys(KERNELS, 0), 0
     for mesh in meshes:
-        mls_cuda.launches = 0
+        reset_launches()
         got = sharded.data_parallel_block_step(
             mesh, stacked, valid, regions, origins, 0.0, readback="codes",
             **kw)
-        launches += mls_cuda.launches
-        if mls_cuda.launches != 2:
-            raise AssertionError(f"sharded step: {mls_cuda.launches} launches")
+        step = read_launches()
+        if step != dict(mls_field=2, seam_face=2, seam_skeleton=0):
+            raise AssertionError(f"sharded step: {step} launches")
+        launches = {k: launches[k] + step[k] for k in KERNELS}
         for i, (res, ref) in enumerate(zip(got, alone)):
             if res.packed.device != mesh[i] or res.num_cells < 100 or \
                     not np.array_equal(res.counts, ref.counts) or \
@@ -1324,12 +1558,12 @@ def main(argv=None) -> int:
     splats, spacing, cfg = bench_setup()
     src = SequenceSource(splats)
     info, _, densest = cloud.densest_bucket(src, cfg)
-    launches, rows = [], []
+    launches, rows, seams = [], [], []
     if want(3):
-        rows = phase3_kernel_vs_plain(src, info, densest, dev)
+        rows, seams = phase3_kernel_vs_plain(src, info, densest, dev)
         check_isolated("phase 3")
     if want(4):
-        phase4_seams(dev)
+        seams += phase4_seams(dev)
         check_isolated("phase 4")
     with tempfile.TemporaryDirectory(prefix="chip_smoke.") as workdir:
         if want(13):
@@ -1364,6 +1598,7 @@ def main(argv=None) -> int:
             check_isolated("phase 9")
             launches.append(tiled["kernel_launches"])
             rows.append(tiled["kernel_row"])
+            seams += tiled["seam_rows"]
         if want(10):
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
             check_isolated("phase 10")
@@ -1395,7 +1630,7 @@ def main(argv=None) -> int:
     phase(6, "no process started by this one is left: OK")
 
     if rows:  # no kernel record from --only without phase 3
-        print_kernel_record(rows, launches)
+        print_kernel_record(rows, seams, launches)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1403,13 +1638,18 @@ def main(argv=None) -> int:
     return 0
 
 
-def print_kernel_record(rows, launches) -> None:
-    main_row = rows[0]  # sphere, boundary factor 0: the default path
-    print(json.dumps({"kernels": [{
+def print_kernel_record(rows, seams, launches) -> None:
+    """The kernel record: each kernel's launches summed over the main-path
+    runs of this process, its largest error against its plain version, and
+    its times and bound at the densest 256^3 bucket (phase 3) on the
+    default path (sphere fit, boundary factor 0)."""
+    main_row = rows[0]
+    total = {k: sum(run[k] for run in launches) for k in KERNELS}
+    record = [{
         "name": "mls_field", "route": "cuda",
         "source": "mlsgpu_tpu_torch/csrc/mls_field.cu",
         "replaces": "mlsgpu_tpu/ops/mls_pallas.py:43",
-        "launches": sum(launches),
+        "launches": total["mls_field"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["host_paced_ms"],
         "device_ms": main_row["device_ms"],
@@ -1417,7 +1657,28 @@ def print_kernel_record(rows, launches) -> None:
         "bound_ms": main_row["bound"]["bound_ms"],
         "bound_by": main_row["bound"]["bound_by"],
         # no single PyTorch call computes the field
-        "library_ms": None}]}))
+        "library_ms": None}]
+    for name, replaces in (("seam_face", "mlsgpu_tpu/ops/mls.py:188"),
+                           ("seam_skeleton", "mlsgpu_tpu/ops/mls.py:492")):
+        mine = [r for r in seams if r["name"] == name]
+        if not mine:
+            continue
+        timed = next(r for r in mine if "host_paced_ms" in r)
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "mlsgpu_tpu_torch/csrc/seam_moments.cu",
+            "replaces": replaces, "launches": total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            # the pass (preparation, kernel, fit, write) host-paced, on
+            # the device alone, and the kernel alone
+            "ms": timed["host_paced_ms"], "device_ms": timed["device_ms"],
+            "kernel_ms": timed["kernel_ms"],
+            "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound"]["bound_ms"],
+            "bound_by": timed["bound"]["bound_by"],
+            # no single PyTorch call computes the pass
+            "library_ms": None})
+    print(json.dumps({"kernels": record}))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """The per-block device step: binning -> MLS field (kernel) -> canonical
-faces and skeleton points -> marching -> one readback (port of
+faces and skeleton points (kernels) -> marching -> one readback (port of
 mlsgpu_tpu/ops/block.py: `block_step_body`, `block_step_staged`, the
 packed and codes layouts and their host decoders).
 
@@ -27,7 +27,8 @@ import torch
 
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 
-from mlsgpu_tpu_torch.ops import binning, marching, mls, mls_cuda, weld
+from mlsgpu_tpu_torch.ops import (binning, marching, mls, mls_cuda, seam_cuda,
+                                  weld)
 
 
 #: Order of the scalars inside BlockResult.counts (the JAX package's order).
@@ -292,15 +293,16 @@ def block_field(splats: torch.Tensor, valid: torch.Tensor,
             binned.entry_data, starts, lens, cell_origin, tpa, fit_shape,
             boundary_factor)
     with stage("faces"):
-        mls.canonical_face_field(field, binned.entry_data, binned.entry_vals,
-                                 starts, lens, cell_origin, region_cells, tpa,
-                                 fit_shape, boundary_factor)
+        seam_cuda.canonical_face_field(field, binned.entry_data,
+                                       binned.entry_vals, starts, lens,
+                                       cell_origin, region_cells, tpa,
+                                       fit_shape, boundary_factor)
     if points is not None and points.shape[0] > 0:
         with stage("skeleton"):
-            mls.skeleton_point_field(field, binned.entry_data,
-                                     binned.entry_vals, starts, lens,
-                                     cell_origin, points, tpa, fit_shape,
-                                     boundary_factor)
+            seam_cuda.skeleton_point_field(field, binned.entry_data,
+                                           binned.entry_vals, starts, lens,
+                                           cell_origin, points, tpa,
+                                           fit_shape, boundary_factor)
     return field, n_occ
 
 

@@ -5,10 +5,13 @@ step calls for the field: `eval_field`.
 plain PyTorch version (ops/mls.py::eval_field) for tensors on the CPU; a
 CUDA tensor either launches the kernel or raises — nothing falls back.
 
-The kernel is compiled on first use with nvcc for sm_90a into
-`mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when the source is newer)
-and called through its plain C entry point with ctypes, on PyTorch's current
-stream, without synchronising.
+The kernel library holds the port's hand-written kernels: the field kernel
+(csrc/mls_field.cu) and the seam passes' face and skeleton kernels
+(csrc/seam_moments.cu, called from ops/seam_cuda.py). One nvcc call
+compiles both sources for sm_90a on first use into
+`mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source is newer);
+the kernels are called through their plain C entry points with ctypes, on
+PyTorch's current stream, without synchronising.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from mlsgpu_tpu_torch.ops import mls
 from mlsgpu_tpu_torch.utils import native_build
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "mls_field.cu")
+SOURCES = [os.path.join(_PKG, "csrc", name)
+           for name in ("mls_field.cu", "seam_moments.cu")]
 LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,18 +66,24 @@ def library_path() -> str:
     return os.path.join(native_build.build_dir(), LIBRARY_NAME)
 
 
+def build_command(compiler: Sequence[str], out: str) -> list:
+    """The one compiler call that builds the library into `out` from every
+    source: `compiler`, the flags, `-o out`, the sources."""
+    return [*compiler, *NVCC_FLAGS, "-o", out, *SOURCES]
+
+
 def build(force: bool = False,
           compiler: Optional[Sequence[str]] = None) -> str:
-    """Compile the kernel library if it is missing or older than its
-    source; returns its path. The build is locked against other processes
-    and lands through a temporary file (utils/native_build.py). `compiler`
-    replaces the nvcc command (the flags and `-o <file> <source>` follow
-    it). Raises KernelBuildError on failure."""
+    """Compile the kernel library if it is missing or older than a source;
+    returns its path. The build is locked against other processes and
+    lands through a temporary file (utils/native_build.py). `compiler`
+    replaces the nvcc command (build_command). Raises KernelBuildError on
+    failure."""
     target = library_path()
 
     def compile_into(tmp: str) -> None:
         global build_log, build_seconds
-        cmd = [*(compiler or [find_nvcc()]), *NVCC_FLAGS, "-o", tmp, SOURCE]
+        cmd = build_command(compiler or [find_nvcc()], tmp)
         t0 = time.monotonic()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds = time.monotonic() - t0
@@ -82,7 +92,7 @@ def build(force: bool = False,
             raise KernelBuildError(f"nvcc failed ({proc.returncode}): "
                                    f"{' '.join(cmd)}\n{build_log}")
 
-    native_build.build_locked(target, [SOURCE], compile_into, force=force)
+    native_build.build_locked(target, SOURCES, compile_into, force=force)
     return target
 
 
@@ -102,6 +112,15 @@ def load():
                            + [ctypes.c_void_p] * 4)
             lib.mls_tile_order_scratch.restype = ctypes.c_int
             lib.mls_tile_order_scratch.argtypes = []
+            for fn in (lib.seam_face_launch, lib.seam_skeleton_launch):
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * 4
+                               + [ctypes.c_int, ctypes.c_void_p]
+                               + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+            for fn in (lib.seam_max_buffer, lib.seam_max_terms,
+                       lib.seam_max_terms_factor):
+                fn.restype = ctypes.c_int
+                fn.argtypes = []
             _lib = lib
         return _lib
 

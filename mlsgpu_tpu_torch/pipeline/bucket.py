@@ -498,6 +498,9 @@ def make_buckets(info: BlobInfo, block_cells: int, micro_cells: int,
     with stats.timer("bucket.skeletonTime"):
         skeleton_points(buckets)
     stats.counter("bucket.count").add(len(buckets))
+    # the blocks that run the skeleton pass
+    stats.counter("bucket.skeletonBlocks").add(
+        sum(len(b.skeleton) > 0 for b in buckets))
     log.info(f"bucketing: {len(buckets)} buckets (max splats/bucket: "
              f"{max((b.num_splats for b in buckets), default=0)})")
     return buckets

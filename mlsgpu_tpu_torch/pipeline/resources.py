@@ -31,27 +31,51 @@ SURFACE_CELL_SHARE = 1 / 32
 CANDIDATE_TILE_SHARE = 1 / 4
 
 
-def estimate_block_usage(cfg: ReconstructConfig,
-                         readback: str = "codes") -> Dict[str, int]:
+#: f32 temporaries per corner of the fit over every face patch corner
+#: (ops/mls.py::_fit and the sphere fit: the re-centred moments, the fit's
+#: intermediates and the dot products' partial sums live at its peak).
+FIT_TEMPS = 24
+
+#: Device memory the seam kernels' per-thread local memory takes (a corner
+#: thread's list of term entries and its stacks of partial sums,
+#: csrc/seam_moments.cu: a 1,648-byte stack frame by nvcc's -Xptxas -v for
+#: sm_90a): the driver reserves it for every thread a card can hold, 2048
+#: on each of an H100's 132 multiprocessors, in each process that
+#: launches them.
+SEAM_STACK_BYTES = 1648 * 2048 * 132
+
+
+def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
+                         device_type: str = "cuda") -> Dict[str, int]:
     """Approximate peak device bytes of one block step in a readback mode
-    ("codes", "packed" or "raw")."""
+    ("codes", "packed" or "raw") on a device of `device_type` ("cuda": the
+    kernels' path; "cpu": the plain versions')."""
     b = 1 << cfg.device_shift  # corners of one device dispatch
     cells = (b - 1) ** 3
     n = cfg.max_device_splats
     entries = 8 * n
+    rows = 6 * (b // TILE + 1) ** 2  # face patch rows of 64 corners
     usage = {
         "splats": n * (8 * F32 + 1),
         # keys + vals (+ the sort's copies) and the gathered entry rows
         "binning": entries * (2 * I64 * 2 + 8 * F32),
         "field": b ** 3 * F32,
+    }
+    if device_type == "cuda":
+        # the face kernel's moments (9 f32) and hits (i32) of every patch
+        # corner, the corners (3 f32) and the fit's temporaries, and the
+        # kernels' stacks
+        usage["faces"] = (rows * 64 * ((9 + 3 + FIT_TEMPS) * F32 + 4)
+                          + SEAM_STACK_BYTES)
+    else:
         # per-chunk tensors of the face pass over 32 rows x 64 corners x K
         # slots, K ~ the per-tile candidate guess: the weighted moments
-        # (9 f32) and the first level of their pairwise tree, the per-corner
-        # sort's order (i64) and key (u8), the weights, their sorted copy
-        # and the distance temporaries (4 f32), the reach mask (u8)
-        "faces": 32 * 64 * cfg.tile_candidates * (2 * 9 * F32 + I64
-                                                  + 4 * F32 + 2),
-    }
+        # (9 f32) and the first level of their pairwise tree, the
+        # per-corner sort's order (i64) and key (u8), the weights, their
+        # sorted copy and the distance temporaries (4 f32), the reach mask
+        # (u8)
+        usage["faces"] = 32 * 64 * cfg.tile_candidates * (
+            2 * 9 * F32 + I64 + 4 * F32 + 2)
     if b > TILED_ABOVE:
         # tiled classification: the NaN-padded field copy, the candidate
         # tiles' (tiles, 9, 9, 9) halo gather, and per candidate cell a
@@ -103,15 +127,17 @@ def validate_device(cfg: ReconstructConfig,
     worker, each is a process (pipeline/workers.py) and also holds its own
     CUDA context on its card (WORKER_CONTEXT_BYTES). Raises InvalidOption
     when a card cannot hold its workers."""
-    usage = estimate_block_usage(cfg, readback)
-    log.info("device block-step memory estimate: "
-             + ", ".join(f"{k}={v / 1e6:.0f}M" for k, v in usage.items()))
     devices = list(devices)
     queues = max(1, int(queues))
     processes = uses_processes(len(devices) * queues)
+    usage = {}
     for dev in sorted(set(devices), key=str):
+        if dev.type not in usage:
+            usage[dev.type] = estimate_block_usage(cfg, readback, dev.type)
+            log.info(f"{dev.type} block-step memory estimate: " + ", ".join(
+                f"{k}={v / 1e6:.0f}M" for k, v in usage[dev.type].items()))
         workers = devices.count(dev) * queues
-        per_worker = usage["total"] + (
+        per_worker = usage[dev.type]["total"] + (
             WORKER_CONTEXT_BYTES if processes and dev.type == "cuda" else 0)
         limit = device_memory_bytes(dev)
         if limit is not None and per_worker * workers > limit * 0.9:
@@ -120,4 +146,4 @@ def validate_device(cfg: ReconstructConfig,
                 f"{workers} queue(s) exceeds the memory of {dev}, "
                 f"{limit / 1e9:.2f} GB; reduce --device-threads, --levels, "
                 "--max-device-splats or --device-block-shift")
-    return usage
+    return usage[devices[0].type] if devices else {}

@@ -19,7 +19,8 @@ A block's round trip over the worker's pipe:
                region, origin)
     child  -> ("counts", counts, readback mode, fmt, image bytes)
     parent -> ("read",)       once --mem-mesh admits the image
-    child  -> ("done", host images, statistics, start, end, launches)
+    child  -> ("done", host images, statistics, start, end, launches of
+               the field, face and skeleton kernels)
 
 Tensors in these messages travel through shared memory (torch's file
 descriptor sharing), not through the pipe. The parent's loader reads a
@@ -70,7 +71,7 @@ import torch.multiprocessing  # noqa: F401 (tensors through shared memory)
 
 from mlsgpu_tpu_torch.core.splat import block_inputs
 from mlsgpu_tpu_torch.device import set_precision
-from mlsgpu_tpu_torch.ops import mls_cuda
+from mlsgpu_tpu_torch.ops import mls_cuda, seam_cuda
 from mlsgpu_tpu_torch.ops.block import readback_tensors
 from mlsgpu_tpu_torch.pipeline import worker_start
 from mlsgpu_tpu_torch.utils import misc, step_profile
@@ -215,7 +216,7 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
             del msg
             reg = Registry()
             set_registry(reg)
-            launched = mls_cuda.launches
+            launched = seam_cuda.launch_counts()
             with reg.timer("workers.convert"):
                 splats, valid = block_inputs(raw.numpy(), grid)
             del raw
@@ -240,7 +241,8 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
                 hosts = [_shared(t) for t in tensors]
             del tensors
             conn.send(("done", hosts, _stat_delta(reg), t0, t1,
-                       mls_cuda.launches - launched))
+                       [b - a for a, b in zip(launched,
+                                              seam_cuda.launch_counts())]))
             del hosts
             done += 1
             if done % _TRIM_EVERY == 0:

@@ -3,13 +3,15 @@ bucket of the bench cloud (port of mlsgpu_tpu/tools/bench_micro.py):
 
 - binning split three ways: the key pass alone, keys and sort without the
   gather, and the whole of `bin_splats`;
-- the canonical face pass by rows per chunk (`ops/mls.py` runs 32 rows at a
-  time, with one host synchronisation per chunk for the width of its
-  candidate lists), with the number of chunks each size makes; and at
-  ROW_TREE_CHUNKS rows the pass as it summed before its per-corner sort
-  (one pairwise tree over each row's whole candidate list,
-  `row_tree_moments`: a plain reference for timing only, since its sums
-  depend on the block);
+- the canonical face pass: on a card its kernel path (ops/seam_cuda.py,
+  one launch for the block), then its plain version by rows per chunk
+  (`ops/mls.py` runs 32 rows at a time, with host synchronisations per
+  chunk for the width of its candidate lists); and at ROW_TREE_CHUNKS rows
+  the plain pass as it summed before its per-corner sort (one pairwise
+  tree over each row's whole candidate list, `row_tree_sums`: a plain
+  reference for timing only, since its sums depend on the block); then
+  the skeleton pass at the block's skeleton points, the kernel path on a
+  card and the plain version;
 - classification's parts: the candidate-tile reduction and 9^3 gather of
   the tiled form, the tiled form whole, the dense form's signs and codes
   alone, the dense form whole, and codes-mode marching whole.
@@ -67,6 +69,7 @@ class BenchBlock:
         info, _, b = cloud.densest_bucket(src, cfg)
         grid_form, valid = load_bucket(src, info, b)
         self.region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
+        self.points = torch.as_tensor(b.skeleton, device=self.dev)
         self.origin = tuple(int(v) for v in b.cell_lo)
         self.min_shift = cfg.subsampling
         self.max_shift = cfg.device_shift
@@ -115,20 +118,21 @@ class BenchBlock:
         return binned, starts, lens, field
 
 
-def row_tree_moments(entry_data, cols_idx, sval, frame, corners,
-                     fit_shape, boundary_factor):
-    """ops/mls.py's `_canonical_moments` without its per-corner sort: each
+def row_tree_sums(entry_data, cols_idx, sval, frame, corners):
+    """ops/mls.py's `_canonical_sums` without its per-corner sort: each
     corner sums its row's whole candidate list, zero weights included, as
     the JAX package's face pass does, so its sums depend on the block. For
     timing only."""
+    import torch
+
     from mlsgpu_tpu_torch.ops import mls
     cols = entry_data[cols_idx]
     x = cols[..., 0:3] - frame[:, None, :]
     feats = mls._features(x, cols[..., 4:7])
     w, hits = mls._weights(corners, x, feats, cols[..., 3], cols[..., 7],
                            sval)
-    m = mls._tree_sum(w[..., None] * feats[:, None, :, :], dim=2)
-    return mls._fit(m, corners, hits, fit_shape, boundary_factor)
+    return (mls._tree_sum(w[..., None] * feats[:, None, :, :], dim=2),
+            hits.to(torch.int32))
 
 
 def main(argv=None) -> int:
@@ -138,7 +142,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from mlsgpu_tpu_torch.ops import binning, marching, mls
+    from mlsgpu_tpu_torch.ops import binning, marching, mls, seam_cuda
 
     blk = BenchBlock(args.splats, args.levels, args.device)
     sp, va, org = blk.splats, blk.valid, blk.origin
@@ -159,6 +163,15 @@ def main(argv=None) -> int:
     totals = lens.sum(dim=1)
     print(json.dumps({"name": "tiles", "nonzero": int((totals > 0).sum()),
                       "total": int(totals.shape[0])}), flush=True)
+    face_args = (binned.entry_data, binned.entry_vals, starts, lens, org,
+                 blk.region, blk.tpa, blk.cfg.fit_shape, blk.bf)
+    skeleton_args = (binned.entry_data, binned.entry_vals, starts, lens, org,
+                     blk.points, blk.tpa, blk.cfg.fit_shape, blk.bf)
+    if blk.dev.type == "cuda":
+        blk.timeit("faces kernel",
+                   lambda: seam_cuda.canonical_face_field(field.clone(),
+                                                          *face_args),
+                   args.reps)
     for chunk in FACE_CHUNKS:
         blk.timeit(
             f"faces chunk={chunk}",
@@ -167,9 +180,9 @@ def main(argv=None) -> int:
                 lens, org, blk.region, blk.tpa, blk.cfg.fit_shape, blk.bf,
                 row_chunk=c),
             args.reps, row_chunk=chunk)
-    per_corner = mls._canonical_moments
+    per_corner = mls._canonical_sums
     try:
-        mls._canonical_moments = row_tree_moments
+        mls._canonical_sums = row_tree_sums
         for chunk in ROW_TREE_CHUNKS:
             blk.timeit(
                 f"faces per-row tree chunk={chunk}",
@@ -179,7 +192,16 @@ def main(argv=None) -> int:
                     blk.cfg.fit_shape, blk.bf, row_chunk=c),
                 args.reps, row_chunk=chunk)
     finally:
-        mls._canonical_moments = per_corner
+        mls._canonical_sums = per_corner
+    if blk.dev.type == "cuda":
+        blk.timeit("skeleton kernel",
+                   lambda: seam_cuda.skeleton_point_field(field.clone(),
+                                                          *skeleton_args),
+                   args.reps, points=int(blk.points.shape[0]))
+    blk.timeit("skeleton plain",
+               lambda: mls.skeleton_point_field(field.clone(),
+                                                *skeleton_args),
+               args.reps, points=int(blk.points.shape[0]))
 
     # ---- classification internals -----------------------------------------
     tile = marching.TILE

@@ -5,7 +5,8 @@ mlsgpu_tpu/tools/bench_micro2.py):
   interleave, no sphere/slab test, one fixed level), to see which part of
   the pass costs what;
 - the face pass: how many of its patch rows are occupied and how many
-  distinct tiles a row draws from, then its time at 32 and 128 rows per
+  distinct tiles a row draws from, then on a card its kernel path (one
+  launch, ops/seam_cuda.py) and its plain version at 32 and 256 rows per
   chunk;
 - the MLS field call by candidates per tile: the block's splats thinned to
   every k-th, so the same tiles hold fewer candidates each (the field
@@ -92,35 +93,15 @@ def keys_variant(splats, valid, origin, min_shift, max_shift, *,
 
 
 def face_row_occupancy(lens, origin, region, tpa) -> dict:
-    """The patch rows of `ops.mls.canonical_face_field` for this block: how
-    many there are, how many have candidates in any of their four covering
-    tiles, and the mean number of distinct covering tiles per row."""
+    """The patch rows of `ops.mls.canonical_face_field` for this block
+    (ops.mls.face_rows): how many there are, how many have candidates in
+    any of their four covering tiles, and the mean number of distinct
+    covering tiles per row."""
+    from mlsgpu_tpu_torch.ops import mls
     totals = lens.sum(dim=1).cpu().numpy()
-    n_p = tpa + 1
-    f2 = n_p * n_p
-    rows = np.arange(6 * f2)
-    face = rows // f2
-    axis_a, side = face // 2, face % 2
-    axis_b, axis_c = (axis_a + 1) % 3, (axis_a + 2) % 3
-    org = np.asarray(origin, np.int64)
-    rc = np.asarray(region, np.int64)
-    lo_b = (org[axis_b] // 8 + (rows % f2) // n_p) * 8 - org[axis_b]
-    lo_c = (org[axis_c] // 8 + rows % n_p) * 8 - org[axis_c]
-    layer_a = np.where(side == 1, rc[axis_a] // 8, 0)
-    tb = [np.clip(lo_b // 8, 0, tpa - 1), np.clip((lo_b + 7) // 8, 0, tpa - 1)]
-    tc = [np.clip(lo_c // 8, 0, tpa - 1), np.clip((lo_c + 7) // 8, 0, tpa - 1)]
-
-    def tile_id(tbv, tcv):
-        t = np.zeros((len(rows), 3), np.int64)
-        t[rows, axis_a] = layer_a
-        t[rows, axis_b] = tbv
-        t[rows, axis_c] = tcv
-        return (t[:, 2] * tpa + t[:, 1]) * tpa + t[:, 0]
-
-    tid4 = np.stack([tile_id(tb[i], tc[j]) for i in (0, 1) for j in (0, 1)],
-                    axis=1)
+    tid4 = mls.face_rows(origin, region, tpa)[:, mls.ROW_TILES:]
     occupied = totals[tid4].max(axis=1) > 0
-    return {"face_rows": int(len(rows)),
+    return {"face_rows": int(len(tid4)),
             "occupied_rows": int(occupied.sum()),
             "distinct_tiles_per_row": float(np.mean(
                 [len(set(r)) for r in tid4]))}
@@ -133,7 +114,7 @@ def main(argv=None) -> int:
     add_arguments(p)
     args = p.parse_args(argv)
 
-    from mlsgpu_tpu_torch.ops import binning, mls, mls_cuda
+    from mlsgpu_tpu_torch.ops import binning, mls, mls_cuda, seam_cuda
 
     blk = BenchBlock(args.splats, args.levels, args.device)
     sp, va, org = blk.splats, blk.valid, blk.origin
@@ -149,7 +130,14 @@ def main(argv=None) -> int:
     binned, starts, lens, field = blk.binned_field()
     occupancy = face_row_occupancy(lens, org, blk.region, blk.tpa)
     print(json.dumps({"name": "face rows", **occupancy}), flush=True)
-    for chunk in (32, 128):
+    if blk.dev.type == "cuda":
+        blk.timeit(
+            "faces kernel",
+            lambda: seam_cuda.canonical_face_field(
+                field.clone(), binned.entry_data, binned.entry_vals, starts,
+                lens, org, blk.region, blk.tpa, blk.cfg.fit_shape, blk.bf),
+            args.reps)
+    for chunk in (32, 256):
         blk.timeit(
             f"faces chunk={chunk}",
             lambda c=chunk: mls.canonical_face_field(

@@ -72,6 +72,7 @@ def test_bench_micro_prints_its_variants():
         + [f"faces chunk={c}" for c in bench_micro.FACE_CHUNKS]
         + [f"faces per-row tree chunk={c}"
            for c in bench_micro.ROW_TREE_CHUNKS]
+        + ["skeleton plain"]     # the kernels' lines need a card
         + ["classify cand+gather only", "classify tiled full",
            "classify dense signs only", "classify dense full",
            "march codes full"])
@@ -85,7 +86,7 @@ def test_bench_micro2_prints_its_variants():
     lines, timed = _timed_lines(text)
     assert list(timed) == (
         [f"bin {name}" for name, _ in bench_micro2.KEY_VARIANTS]
-        + ["faces chunk=32", "faces chunk=128"]
+        + ["faces chunk=32", "faces chunk=256"]
         + [f"mls 1/{k} of the splats" for k in bench_micro2.THINNING])
     rows = next(ln for ln in lines if ln["name"] == "face rows")
     assert 0 < rows["occupied_rows"] <= rows["face_rows"] == 6 * 9 * 9

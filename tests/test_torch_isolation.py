@@ -50,7 +50,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 for sub in ("tools.verify_chunks", "tools.bench_ooc", "tools.cloud",
             "tools.bench_d2h", "tools.bench_micro", "tools.bench_micro2",
-            "parallel.multihost", "parallel.sharded", "pipeline.workers"):
+            "parallel.multihost", "parallel.sharded", "pipeline.workers",
+            "ops.seam_cuda"):
     assert "mlsgpu_tpu_torch." + sub in names, sub
 print(len(names))
 """

@@ -456,7 +456,7 @@ def test_no_card_is_an_error_not_the_cpu():
 def test_validate_device_counts_every_queue_of_a_card(monkeypatch):
     """The estimate is held against a card once per queue on it."""
     cfg = ReconstructConfig(**OPTIONS)
-    one = resources.estimate_block_usage(cfg, "codes")["total"]
+    one = resources.estimate_block_usage(cfg, "codes", "cpu")["total"]
     monkeypatch.setattr(resources, "device_memory_bytes",
                         lambda dev: int(one * 3.5 / 0.9))
     resources.validate_device(cfg, [CPU], "codes", queues=3)

@@ -6,8 +6,8 @@ MLSGPU_TORCH_BUILD_DIR, never the package's own `_build/`):
   readback image natively: all six load it and agree with the numpy decoder
   bit for bit;
 - each asks `mls_cuda.build` for the kernel library through a stub compiler
-  that writes its output slowly in two halves: the stub runs once, and
-  every process finds the whole file.
+  that writes its output slowly in two halves: the stub runs once, on both
+  kernel sources, and every process finds the whole file.
 """
 
 import os
@@ -54,7 +54,8 @@ _STUB = """
 import sys, time
 out = sys.argv[sys.argv.index("-o") + 1]
 with open(LOG, "a") as log:
-    log.write(out + "\\n")
+    log.write(" ".join([out] + [a for a in sys.argv if a.endswith(".cu")])
+              + "\\n")
 with open(out, "wb") as f:
     f.write(b"x" * 50000)
     f.flush()
@@ -133,5 +134,8 @@ def test_kernel_build_lock_six_processes_at_once(tmp_path):
     for rc, out, err in results:
         assert rc == 0, err
         assert int(out.split()[-1]) == 100000     # never a partial file
-    assert len(log.read_text().splitlines()) == 1  # built once, under lock
+    lines = log.read_text().splitlines()
+    assert len(lines) == 1                         # built once, under lock
+    assert [os.path.basename(a) for a in lines[0].split()[1:]] == [
+        "mls_field.cu", "seam_moments.cu"]         # one call, both sources
     assert (tmp_path / "build" / "libmls_field.so").stat().st_size == 100000

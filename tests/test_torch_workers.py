@@ -564,7 +564,7 @@ def test_validate_device_counts_a_context_per_worker_process(
     """On a card, each worker process adds WORKER_CONTEXT_BYTES to its
     block step's estimate; a one-worker run adds none."""
     cfg = ReconstructConfig(**OPTIONS)
-    one = resources.estimate_block_usage(cfg, "codes")["total"]
+    one = resources.estimate_block_usage(cfg, "codes", "cuda")["total"]
     limit = (3 * one + 2 * workers.WORKER_CONTEXT_BYTES) / 0.9
     monkeypatch.setattr(resources, "device_memory_bytes",
                         lambda dev: int(limit))
