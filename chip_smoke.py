@@ -8,7 +8,9 @@
 Phases, each printing one line of findings (phase 6 runs last); any failure
 raises, exits non-zero and prints no result line:
   1. toolchain and card (torch, CUDA, nvcc, triton, nvidia-smi);
-  2. build the MLS field kernel from mlsgpu_tpu_torch/csrc with nvcc (sm_90a);
+  2. build the kernels from mlsgpu_tpu_torch/csrc with nvcc (sm_90a): ptxas'
+     registers and spills, the seam kernels' attributes (local memory,
+     registers) and the local memory reserve they cost a process;
   3. kernel vs its plain PyTorch version on the card at main-path shapes
      (the densest 256^3-corner bucket of the 2M-splat bench cloud), sphere
      and plane fits, two boundary factors; NaN-pattern agreement > 0.9995 and
@@ -17,20 +19,25 @@ raises, exits non-zero and prints no result line:
      on the device alone, of the order kernels alone and of their plain
      version, and of the field kernel alone from a profiler trace; the
      bound on these inputs (kernel_bound) and the call's share of it;
-     then on the same bucket the seam kernels (csrc/seam_moments.cu: the
-     face kernel, and the skeleton kernel at the bucket's skeleton points)
+     then torch's CUDA division, reciprocal, square root and scalar
+     products against IEEE float32 (numpy), which the seam kernels' fit
+     relies on (rounding_probe), and on the same bucket the seam passes
+     (csrc/seam_moments.cu: the face kernel, and the skeleton kernel at
+     the bucket's skeleton points, each the whole pass in one launch)
      against their plain versions, sphere and plane fits (seam_vs_plain):
-     moments and hits value for value and the pass's field equal, with
-     the default candidate buffer and with SMALL_BUFFER (many rounds a
-     row); the pass host-paced and on the device alone, the kernel alone
-     (profiler) at both buffers, the plain pass at 32 rows (64 points) a
-     chunk, the bound (seam_bound), and the launches and host syncs of a
-     pass and of the plain one (a traced pass summarized by
-     utils/step_profile);
+     the moments mode's moments and hits value for value and the pass's
+     field bit for bit, with the default candidate buffer and with
+     SMALL_BUFFER (several windows a row); the pass host-paced and on the
+     device alone, the kernel alone (profiler) at both buffers, the plain
+     pass at 32 rows (64 points) a chunk, the pass's bound (seam_bound),
+     and the launches and host syncs of a pass (at most
+     SEAM_PASS_LAUNCHES and none: checked) and of the plain one (a traced
+     pass summarized by utils/step_profile);
   4. the seam contract on the card, through the seam kernels: shared-face
      and T-junction corners of adjacent blocks bitwise equal, also where a
-     face patch straddles the blocks' in-plane edge; both seam kernels
-     against their plain versions on the three T-junction blocks;
+     face patch straddles the blocks' in-plane edge; both seam passes
+     against their plain versions on the three T-junction blocks, the
+     fields bit for bit;
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
      cloud (tools/cloud.py make_cloud) written as a PLY: manifold output,
      kernel launches >= blocks;
@@ -163,6 +170,7 @@ from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import reconstruct as port_rec  # noqa: E402
+from mlsgpu_tpu_torch.pipeline import resources  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import streamer  # noqa: E402
 from mlsgpu_tpu_torch.pipeline.streamer import load_bucket  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
@@ -205,14 +213,17 @@ FP32_PEAK = 67e12      # FLOP/s
 HBM_RATE = 3.35e12     # bytes/s
 SLEEP_CYCLES = 4_000_000  # ~2 ms of the card's clock: longer than any
 #                           host enqueue of one timed kernel call
-PASS_SLEEP_CYCLES = 40_000_000  # ~20 ms: longer than the host enqueue of
-#                                 a seam pass (~170 launches)
 # The seam kernels' shrunken candidate buffer (their default is
-# seam_cuda.max_buffer()), which also caps the terms a corner holds at
-# once: most occupied face rows of the densest buckets then run several
-# rounds and their densest corners several residue classes, so both paths
-# run at main-path shapes.
+# seam_cuda.max_buffer()): most occupied face rows of the densest buckets
+# then take several identity windows, so the kernels' path for rows that
+# overflow the buffer runs at main-path shapes too.
 SMALL_BUFFER = 16
+# The most launches a traced seam pass may issue (the kernel and, for the
+# skeleton pass, its points' conversion), and it may not synchronise.
+SEAM_PASS_LAUNCHES = 3
+# FP32 operations of the seam kernels' fit a corner (csrc/seam_moments.cu
+# fit: the re-centring 26 with |c|^2; sphere_fit 85; plane_fit 45).
+FIT_OPS = {"sphere": 111, "plane": 71}
 # The kernels of the main path, in the order of the kernel record and of
 # seam_cuda.launch_counts().
 KERNELS = ("mls_field", "seam_face", "seam_skeleton")
@@ -358,9 +369,48 @@ def phase2_build() -> None:
     mls_cuda.load()
     ptxas = [ln.strip() for ln in mls_cuda.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
+    dev = torch.device("cuda", 0)
+    attrs = seam_cuda.kernel_attributes(dev)
     phase(2, f"built {os.path.relpath(mls_cuda.library_path(), ROOT)} in "
              f"{time.monotonic() - t0:.2f}s (nvcc {mls_cuda.build_seconds:.2f}s); "
-             f"ptxas: {' | '.join(ptxas)}")
+             f"ptxas: {' | '.join(ptxas)}; seam kernels {json.dumps(attrs)}, "
+             f"local memory reserve {resources.seam_local_reserve(dev)} "
+             f"bytes a process")
+
+
+def rounding_probe(dev) -> dict:
+    """torch's CUDA ops that the plain fit uses, against IEEE float32
+    (numpy on the host): 1.0 / x (reciprocal), x / y, sqrt, the sphere
+    fit's (4 * FLT_EPSILON) * hits * |x| and a float scalar times a
+    tensor. The seam kernels' fit is written with correctly rounded
+    operations (__fdiv_rn, __fsqrt_rn, ...); it equals the plain fit only
+    if these agree. Returns the mismatches of each (all 0, or it raises)."""
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+    n = 1 << 20
+    x = (rng.normal(size=n) * np.exp2(rng.integers(-30, 30, n))).astype(f32)
+    y = (rng.normal(size=n) * np.exp2(rng.integers(-30, 30, n))).astype(f32)
+    h = rng.integers(0, 200, n).astype(np.int32)
+    tx, ty, th = (torch.as_tensor(v, device=dev) for v in (x, y, h))
+    with np.errstate(all="ignore"):
+        pairs = {
+            "reciprocal": (1.0 / tx, f32(1.0) / x),
+            "div": (tx / ty, x / y),
+            "sqrt": (torch.sqrt(torch.abs(tx)), np.sqrt(np.abs(x))),
+            "guard": ((4 * 1.1920929e-07) * th * torch.abs(ty),
+                      (f32(4 * 1.1920929e-07) * h.astype(f32)) * np.abs(y)),
+            "scalar_mul": (0.75 * tx, f32(0.75) * x)}
+    out = {}
+    for name, (got, ref) in pairs.items():
+        got = got.cpu().numpy()
+        same = (got.view(np.uint32) == ref.view(np.uint32)) | (
+            np.isnan(got) & np.isnan(ref))
+        out[name] = int((~same).sum())
+    phase(3, f"torch's CUDA rounding against IEEE float32 on {n} values "
+             f"each (mismatches): {json.dumps(out)}")
+    if any(out.values()):
+        raise AssertionError(f"torch's CUDA ops are not IEEE-rounded: {out}")
+    return out
 
 
 def bench_setup():
@@ -469,24 +519,39 @@ def _equal_values(got, ref, label) -> None:
                              f"{same.numel()} values differ")
 
 
-def seam_bound(work, per_listed: int, corners: int, items: int) -> dict:
-    """The least time the card could take for a seam pass's moments (the
-    face or skeleton kernel) on these inputs: the larger of its FP32
-    operations over the FP32 peak and its bytes over the memory rate.
-    `work` = (listed, kept) from mls.face_work / skeleton_work; bytes:
-    each listed candidate's filter columns and identity (24) read once,
-    each kept candidate's row (32) read once, the moments and hits (40 a
-    corner) of `items` rows of `corners` written once; operations:
-    `per_listed` for each listed candidate's filter (18 for a face row's
-    rectangle test, 10 for a point's), 13 for each kept candidate's frame
-    and features, 45 for each (corner, kept candidate) pair (distance 9,
-    weight 5, terms 8, the tree's adds 9 amortised, the rest the hit count
-    and selects)."""
-    listed, kept = work
-    flops = per_listed * listed + 13 * kept + 45 * corners * kept
-    nbytes = 24 * listed + 32 * kept + 40 * corners * items
+def _same_bits(got, ref, label) -> None:
+    """NaN where ref is NaN, every other value the same bits (the sign of
+    a zero too)."""
+    nan = torch.isnan(ref)
+    same = torch.where(nan, torch.isnan(got),
+                       got.view(torch.int32) == ref.view(torch.int32))
+    if got.shape != ref.shape or not bool(same.all()):
+        raise AssertionError(f"{label}: {int((~same).sum())} of "
+                             f"{same.numel()} values differ in their bits")
+
+
+def seam_bound(work, per_listed: int, corners: int, fit: str) -> dict:
+    """The least time the card could take for a seam pass (the face or
+    skeleton kernel: moments, fit and write) on these inputs: the larger
+    of its FP32 operations over the FP32 peak and its bytes over the
+    memory rate. `work` = (listed, kept, written, fitted) from
+    mls.face_work / skeleton_work; bytes: each listed candidate's filter
+    columns and identity (24) read once, each kept candidate's row (32)
+    read once, each field corner the pass writes (4) written once;
+    operations: `per_listed` for each listed candidate's filter (18 for a
+    face row's rectangle test, 10 for a point's), 13 for each kept
+    candidate's frame and features, 45 for each (corner, kept candidate)
+    pair of `corners` a row (distance 9, weight 5, terms 8, the tree's
+    adds 9 amortised, the rest the hit count and selects), and FIT_OPS
+    for each written corner with enough hits to fit (the rest are NaN
+    without a fit)."""
+    listed, kept, written, fitted = work
+    flops = (per_listed * listed + 13 * kept + 45 * corners * kept
+             + FIT_OPS[fit] * fitted)
+    nbytes = 24 * listed + 32 * kept + 4 * written
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    return {"listed": listed, "kept": kept, "flops": flops, "bytes": nbytes,
+    return {"listed": listed, "kept": kept, "written": written,
+            "fitted": fitted, "flops": flops, "bytes": nbytes,
             "ops_ms": t_ops, "bytes_ms": t_bytes,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -494,17 +559,18 @@ def seam_bound(work, per_listed: int, corners: int, items: int) -> dict:
 
 def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
                   bf, field, reps=REPS, timed=True) -> list:
-    """The face kernel, and the skeleton kernel where `points` (the block's
-    skeleton points) are given, against their plain versions on one
-    block's binned entries, `field` the field kernel's: moments and hits
-    equal value for value (== or both NaN) with the default buffer and
-    with SMALL_BUFFER, and the pass's field equal to the plain pass's.
-    With `timed`: the pass (its preparation, the kernel, the plain fit and
-    write) host-paced and on the device alone, the kernel alone (profiler)
-    at both buffers, the plain pass at 32 rows (64 points) a chunk, the
-    bound on these inputs, and the launches and host syncs of a pass and
-    of the plain one. Its launches are comparisons: not counted by
-    callers, who reset the counters after it. Returns a row per kernel."""
+    """The face pass, and the skeleton pass where `points` (the block's
+    skeleton points) are given, through their kernels against their plain
+    versions on one block's binned entries, `field` the field kernel's:
+    the moments mode's moments and hits equal value for value and the
+    pass's field bit for bit, with the default buffer and with
+    SMALL_BUFFER. With `timed`: the pass (one kernel launch) host-paced and
+    on the device alone, the kernel alone (profiler) at both buffers, the
+    plain pass at 32 rows (64 points) a chunk, the pass's bound on these
+    inputs, and the launches and host syncs of a pass (checked: at most
+    SEAM_PASS_LAUNCHES, none) and of the plain one. Its launches are
+    comparisons: not counted by callers, who reset the counters after it.
+    Returns a row per kernel."""
     e, v, dev = binned.entry_data, binned.entry_vals, field.device
     rows_np = mls.face_rows(origin, region, tpa)
     rows = torch.as_tensor(rows_np, device=dev)
@@ -516,9 +582,10 @@ def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
                lambda f: mls.canonical_face_field(
                    f, e, v, starts, lens, origin, region, tpa, fit, bf),
                lambda buf: seam_cuda.face_moments(
-                   *plain_args, rows.to(torch.int32), buf),
+                   *plain_args, origin, region, tpa, buf),
                lambda: mls.face_moments(*plain_args, rows),
-               lambda: mls.face_work(*plain_args, rows), 18)]
+               lambda: mls.face_work(*plain_args, rows, origin, region,
+                                     tpa), 18)]
     if points is not None and points.shape[0]:
         pts, _, tid, inside = mls.skeleton_points(points, origin, tpa,
                                                   field.shape[0])
@@ -530,7 +597,7 @@ def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
              lambda f: mls.skeleton_point_field(
                  f, e, v, starts, lens, origin, points, tpa, fit, bf),
              lambda buf: seam_cuda.skeleton_moments(
-                 *plain_args, pts, tid, inside, buf),
+                 *plain_args, origin, points, tpa, buf),
              lambda: mls.skeleton_moments(*plain_args, pts, tid, inside),
              lambda: mls.skeleton_work(*plain_args, pts, tid, inside), 10))
     out = []
@@ -544,19 +611,18 @@ def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
             if not torch.equal(h, ref_h):
                 raise AssertionError(f"{kind} hits differ, buffer {buf}")
             got = run(field.clone(), buf)
-            _equal_values(got, ref_f, f"{kind} pass field, buffer {buf}")
+            _same_bits(got, ref_f, f"{kind} pass field, buffer {buf}")
         summary = kernel_gate.compare_fields(ref_f, got)
         del m, h, got
         row = {"name": name, "fit": fit, "boundary_factor": bf,
                "items": items, "defined": summary["defined_corners"],
                "max_abs_err": summary["max_abs_err"],
-               "equal_value_for_value": True}
+               "bitwise_the_plain_pass": True}
         if timed:
             scratch = field.clone()
             call = lambda: run(scratch, None)  # noqa: E731
             row["host_paced_ms"] = cuda_ms(call, reps)
-            row["device_ms"] = cuda_ms(call, reps, device_only=True,
-                                       sleep_cycles=PASS_SLEEP_CYCLES)
+            row["device_ms"] = cuda_ms(call, reps, device_only=True)
             row["kernel_ms"] = kernel_device_ms(call, f"seam_{kind}_kernel",
                                                 reps)
             row["kernel_small_buffer_ms"] = kernel_device_ms(
@@ -565,15 +631,21 @@ def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
             row["plain_ms"] = cuda_ms(lambda: plain(scratch), reps)
             row["pass"] = pass_profile(call)
             row["plain_pass"] = pass_profile(lambda: plain(scratch), 1)
-            row["bound"] = seam_bound(work(), per, corners, items)
+            row["bound"] = seam_bound(work(), per, corners, fit)
             del scratch
             k_ms = row["kernel_ms"]
             row["share_of_bound"] = (None if k_ms is None else
                                      row["bound"]["bound_ms"] / k_ms)
-        phase(n, f"{kind} kernel vs plain, {fit} bf={bf:g}, {items} "
-                 f"{'rows' if corners > 1 else 'points'}: moments, hits and "
-                 f"the pass's field equal value for value at buffers "
-                 f"{seam_cuda.max_buffer()} and {SMALL_BUFFER}; "
+            traced = row["pass"]
+            if (traced["launches"] > SEAM_PASS_LAUNCHES
+                    or traced["sync_calls"] != 0):
+                raise AssertionError(f"{kind} pass: {traced['launches']} "
+                                     f"launches, {traced['sync_calls']} "
+                                     "syncs a pass")
+        phase(n, f"{kind} pass vs plain, {fit} bf={bf:g}, {items} "
+                 f"{'rows' if corners > 1 else 'points'}: moments and hits "
+                 f"equal value for value, the pass's field bit for bit, at "
+                 f"buffers {seam_cuda.max_buffer()} and {SMALL_BUFFER}; "
                  f"{json.dumps(row)}")
         out.append(row)
     return out
@@ -602,6 +674,7 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
                             "sphere", 0.0)
     region = tuple(int(v) for v in b.cell_hi - b.cell_lo)
     points = torch.as_tensor(b.skeleton, device=dev)
+    rounding_probe(dev)
     seams = seam_vs_plain(3, binned, starts, lens, origin, region, points,
                           tpa, "sphere", 0.0, field)
     seams += seam_vs_plain(3, binned, starts, lens, origin, region, points,

@@ -12,10 +12,11 @@ mlsgpu_tpu/ops/mls.py).
   face planes and decomposition-edge points so that adjacent blocks agree
   bit for bit (the seam contract; see the JAX module's docstrings). Each
   is three steps: the rows' or points' preparation (`face_rows`,
-  `skeleton_points`), the moments (`face_moments`, `skeleton_moments`:
-  the plain versions of the seam kernels, csrc/seam_moments.cu, which
-  ops/seam_cuda.py launches on the card), and the fit and write
-  (`fit_faces`, `fit_points`), which both paths share.
+  `skeleton_points`), the moments (`face_moments`, `skeleton_moments`),
+  and the fit and write (`fit_faces`, `fit_points`). Together they are
+  the plain versions of the seam kernels (csrc/seam_moments.cu), which
+  ops/seam_cuda.py launches on the card, one launch a pass, and which
+  equal them bit for bit.
 
 Seam arithmetic. A face or skeleton corner's value depends only on the set
 of splats with positive weight at that corner (those within reach, d <
@@ -37,8 +38,9 @@ each sum is a pairwise tree over a power-of-two slot axis (`_tree_sum`),
 which zero slots appended at the end leave unchanged: the sums depend
 neither on the list's width nor on chunk composition nor on the library's
 reduction strategy, and two blocks round identically on the CPU and on the
-card alike. The kernels build the same tree from each corner's terms in
-bit-reversed order, so they equal these versions value for value. Stream
+card alike. The kernels build the same tree on a warp (its residue classes
+of rank a lane each, shuffles, a stack of the classes), so they equal
+these versions value for value. Stream
 order is the block's splat order, which the streamer keeps the same for
 the splats two blocks share (streamer.load_bucket).
 """
@@ -51,7 +53,7 @@ import numpy as np
 import torch
 
 from mlsgpu_tpu_torch.models import FIT_MODELS
-from mlsgpu_tpu_torch.models.common import RADIUS_CUTOFF, dot3
+from mlsgpu_tpu_torch.models.common import HITS_CUTOFF, RADIUS_CUTOFF, dot3
 
 TILE = 8            # corners per tile axis (the reference's WGS, src/mls.cpp:53)
 TILE_CORNERS = TILE ** 3
@@ -77,9 +79,10 @@ def _pow2(n: int) -> int:
 
 def _tree_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Pairwise sum over `dim`, whose size must be a power of two: slot i
-    with slot i + size/2 first, then the halves again. It is the tree of
-    neighbouring slots over the slots in bit-reversed order, which is how
-    the seam kernels build it (csrc/seam_moments.cu)."""
+    with slot i + size/2 first, then the halves again. With G = size / 32
+    it is the halves tree over the G residue classes of slot mod G, each
+    class the halves tree of its 32 slots in order, which is how the seam
+    kernels build it on a warp (csrc/seam_moments.cu)."""
     while t.shape[dim] > 1:
         h = t.shape[dim] // 2
         t = t.narrow(dim, 0, h) + t.narrow(dim, h, h)
@@ -427,11 +430,15 @@ def face_moments(entry_data: torch.Tensor, entry_vals: torch.Tensor,
 
 def face_work(entry_data: torch.Tensor, entry_vals: torch.Tensor,
               seg_starts: torch.Tensor, seg_lens: torch.Tensor,
-              rows: torch.Tensor) -> Tuple[int, int]:
+              rows: torch.Tensor, cell_origin: Sequence[int],
+              region_cells: Sequence[int], tiles_per_axis: int
+              ) -> Tuple[int, int, int, int]:
     """What the face pass of these inputs has to compute, the work measure
     of the face kernel's bound: (candidate slots listed, summed over the
     rows' distinct covering tiles; candidates kept, after the filter and
-    the deduplication, each summed at all 64 corners of its row)."""
+    the deduplication, each summed at all 64 corners of its row; field
+    corners written, those of the six planes; of those, the corners with
+    HITS_CUTOFF hits or more, which need the fit)."""
     totals = seg_lens.to(torch.int64).sum(dim=1)
     tid4 = rows[:, ROW_TILES:ROW_TILES + 4]
     distinct = torch.ones_like(tid4, dtype=torch.bool)
@@ -440,7 +447,18 @@ def face_work(entry_data: torch.Tensor, entry_vals: torch.Tensor,
     listed = int((totals[tid4] * distinct).sum())
     kept = sum(int(v2.sum()) for _, _, v2 in _face_chunks(
         entry_data, entry_vals, seg_starts, seg_lens, rows, 32))
-    return listed, kept
+    # which patch corner each field corner of the planes takes
+    b = TILE * int(tiles_per_axis)
+    at = torch.full((b, b, b), -1.0, dtype=torch.float32,
+                    device=entry_data.device)
+    index = torch.arange(rows.shape[0] * 64, device=entry_data.device)
+    write_faces(at, index.reshape(-1, 64).to(torch.float32), cell_origin,
+                region_cells, tiles_per_axis)
+    taken = at[at >= 0].to(torch.int64)
+    _, hits = face_moments(entry_data, entry_vals, seg_starts, seg_lens,
+                           rows)
+    fitted = int((hits.reshape(-1)[taken] >= HITS_CUTOFF).sum())
+    return listed, kept, int(taken.numel()), fitted
 
 
 def write_faces(field: torch.Tensor, out: torch.Tensor,
@@ -504,9 +522,8 @@ def canonical_face_field(field: torch.Tensor, entry_data: torch.Tensor,
 def fit_faces(field, m, hits, rows, cell_origin, region_cells,
               tiles_per_axis, fit_shape, boundary_factor) -> torch.Tensor:
     """The fit of every patch corner from its moments, then write_faces:
-    the face pass's last step, shared by the plain version and the face
-    kernel's path (ops/seam_cuda.py). Rows without candidates fit to NaN
-    (no hits)."""
+    the plain face pass's last step (the face kernel fits and writes in
+    its own epilogue). Rows without candidates fit to NaN (no hits)."""
     _, corners = face_frames(rows)
     out = _fit(m, corners, hits, fit_shape, boundary_factor)
     return write_faces(field, out, cell_origin, region_cells, tiles_per_axis)
@@ -591,12 +608,17 @@ def skeleton_work(entry_data: torch.Tensor, entry_vals: torch.Tensor,
                   pts: torch.Tensor, tid: torch.Tensor,
                   inside: torch.Tensor) -> Tuple[int, int]:
     """The skeleton pass's work measure, as face_work: (candidate slots
-    listed, over the inside points' tiles; candidates kept)."""
+    listed, over the inside points' tiles; candidates kept; corners
+    written, one an inside point; of those, the corners with HITS_CUTOFF
+    hits or more)."""
     totals = seg_lens.to(torch.int64).sum(dim=1)
     listed = int((totals[tid] * inside).sum())
     kept = sum(int(v.sum()) for _, _, v in _skeleton_chunks(
         entry_data, entry_vals, seg_starts, seg_lens, pts, tid, inside, 64))
-    return listed, kept
+    _, hits = skeleton_moments(entry_data, entry_vals, seg_starts, seg_lens,
+                               pts, tid, inside)
+    fitted = int(((hits[:, 0] >= HITS_CUTOFF) & inside).sum())
+    return listed, kept, int(inside.sum()), fitted
 
 
 def _point_frames(pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -611,9 +633,9 @@ def fit_points(field: torch.Tensor, m: torch.Tensor, hits: torch.Tensor,
                pts: torch.Tensor, lp: torch.Tensor, inside: torch.Tensor,
                fit_shape: str, boundary_factor: float) -> torch.Tensor:
     """The fit at every skeleton point from its moments, written into
-    `field` at the points inside the block: the skeleton pass's last step,
-    shared by the plain version and the skeleton kernel's path. A point
-    whose tile is empty fits to NaN (no hits). No host sync: a point
+    `field` at the points inside the block: the plain skeleton pass's last
+    step (the skeleton kernel writes each inside point's own corner). A
+    point whose tile is empty fits to NaN (no hits). No host sync: a point
     outside the block rewrites the first inside point's location with the
     value that location gets (or, with none inside, corner 0 with its own
     value), so the scatter needs no mask."""

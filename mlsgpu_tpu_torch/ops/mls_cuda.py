@@ -112,15 +112,24 @@ def load():
                            + [ctypes.c_void_p] * 4)
             lib.mls_tile_order_scratch.restype = ctypes.c_int
             lib.mls_tile_order_scratch.argtypes = []
-            for fn in (lib.seam_face_launch, lib.seam_skeleton_launch):
-                fn.restype = ctypes.c_int
-                fn.argtypes = ([ctypes.c_void_p] * 4
-                               + [ctypes.c_int, ctypes.c_void_p]
-                               + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
-            for fn in (lib.seam_max_buffer, lib.seam_max_terms,
-                       lib.seam_max_terms_factor):
-                fn.restype = ctypes.c_int
-                fn.argtypes = []
+            fn = lib.seam_face_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_int]
+                           + [ctypes.c_void_p] * 5)
+            fn = lib.seam_skeleton_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_int]
+                           + [ctypes.c_void_p] * 4)
+            lib.seam_max_buffer.restype = ctypes.c_int
+            lib.seam_max_buffer.argtypes = []
+            lib.seam_face_queue_ints.restype = ctypes.c_int
+            lib.seam_face_queue_ints.argtypes = [ctypes.c_int]
+            fn = lib.seam_kernel_attributes
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             _lib = lib
         return _lib
 

@@ -2,21 +2,24 @@
 block step calls for them: `canonical_face_field` and
 `skeleton_point_field`, with ops/mls.py's signatures.
 
-Tensors on a CUDA device take the kernel path: the pass's preparation
-(mls.face_rows / mls.skeleton_points), one kernel launch for the moments
-and hit counts of every row or point, then the plain fit and write
-(mls.fit_faces / mls.fit_points), with no host synchronisation. Tensors on
-the CPU take the plain version (ops/mls.py). A CUDA tensor launches the
-kernel or raises; nothing falls back. The kernels live in the library
+Tensors on a CUDA device take the kernel path: each pass is one kernel
+launch per block, which derives its rows or points, sums the moments,
+fits and writes the field in place, with no host synchronisation (the
+skeleton pass may first convert its points to int64 on the card). Tensors
+on the CPU take the plain version (ops/mls.py). A CUDA tensor launches the
+kernel or raises; nothing falls back. `face_moments` and
+`skeleton_moments` run the kernels' moments mode, which writes the moments
+and hits in place of the field, for holding the kernels to
+mls.face_moments / skeleton_moments. The kernels live in the library
 ops/mls_cuda.py builds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from mlsgpu_tpu_torch.ops import mls, mls_cuda
@@ -28,6 +31,11 @@ face_launches = 0
 skeleton_launches = 0
 
 _count_lock = threading.Lock()
+#: The face kernel's queues of occupied rows, one a (device, stream): zero
+#: between launches (each launch empties its own), so launches on one
+#: stream share one and launches that may overlap never do.
+_queues: Dict[Tuple[int, int], torch.Tensor] = {}
+_queue_lock = threading.Lock()
 
 
 def count_launch(kind: str) -> None:
@@ -62,17 +70,36 @@ def add_launch_counts(counts: Sequence[int]) -> None:
 
 
 def max_buffer() -> int:
-    """The kernels' largest (and default) candidate buffer a round."""
+    """The kernels' largest (and default) candidate buffer of a window."""
     return int(mls_cuda.load().seam_max_buffer())
 
 
-def max_terms(buffer: int) -> int:
-    """The most nonzero-weight terms a corner may have in a launch with
-    this buffer: the terms it holds at once, min(buffer, the kernels'
-    list), times the number of residue classes the kernels combine."""
-    lib = mls_cuda.load()
-    return (min(int(buffer), int(lib.seam_max_terms()))
-            * int(lib.seam_max_terms_factor()))
+def kernel_attributes(device: torch.device) -> Dict[str, int]:
+    """What the seam kernels make the driver reserve on a card, read from
+    the built library and the card: the larger of their local memory bytes
+    a thread (`local_bytes`, cudaFuncGetAttributes), the card's
+    `multiprocessors` and `threads_per_multiprocessor`, and each kernel's
+    registers a thread."""
+    out = (ctypes.c_int * 5)()
+    err = mls_cuda.load().seam_kernel_attributes(int(device.index or 0), out)
+    if err != 0:
+        raise RuntimeError(f"seam_kernel_attributes failed: cudaError_t {err}")
+    return {"local_bytes": out[0], "multiprocessors": out[1],
+            "threads_per_multiprocessor": out[2], "face_registers": out[3],
+            "skeleton_registers": out[4]}
+
+
+def _face_queue(lib, dev: torch.device, tpa: int) -> torch.Tensor:
+    """The face kernel's queue for the current stream of `dev`, zeroed on
+    that stream when first made (or grown)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    need = int(lib.seam_face_queue_ints(int(tpa)))
+    with _queue_lock:
+        q = _queues.get(key)
+        if q is None or q.numel() < need:
+            q = torch.zeros(need, dtype=torch.int32, device=dev)
+            _queues[key] = q
+    return q
 
 
 def _check_inputs(entry_data, entry_vals, seg_starts, seg_lens) -> None:
@@ -91,76 +118,126 @@ def _check_inputs(entry_data, entry_vals, seg_starts, seg_lens) -> None:
             raise ValueError(f"{name} on {t.device}, entry_data on {dev}")
     if entry_data.data_ptr() % 16:
         raise ValueError("entry_data must be 16-byte aligned")
+    if entry_data.shape[0] >= 1 << 31:
+        # ranks, entry indices and identities are 32-bit in the kernels
+        raise ValueError(f"{entry_data.shape[0]} entries: at most 2^31 - 1")
 
 
-#: Columns of the skeleton kernel's points: x, y, z global, and the tile
-#: holding the point (-1 for a point outside the block).
-POINT_COLS = 4
-
-
-def _launch(kind: str, entry_data, entry_vals, seg_starts, seg_lens,
-            items: torch.Tensor, buffer: Optional[int]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the face (`items` the (R, ROW_COLS) rows) or skeleton
-    (the (P, POINT_COLS) points) kernel; returns (moments (N, corners, 9),
-    hits (N, corners) int32), 64 corners a row, one a point. `buffer`
-    shrinks the candidate buffer of a round and the terms a corner holds
-    at once (a power of two >= 4), which only adds rounds and streams."""
-    dev = entry_data.device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
-    _check_inputs(entry_data, entry_vals, seg_starts, seg_lens)
-    face = kind == "face"
-    n = items.shape[0]
-    mls_cuda._check("items", items, torch.int32,
-                    (n, mls.ROW_COLS if face else POINT_COLS))
-    if items.device != dev:
-        raise ValueError(f"items on {items.device}, entry_data on {dev}")
-    lib = mls_cuda.load()
+def _cap(lib, buffer: Optional[int]) -> int:
     most = int(lib.seam_max_buffer())
     cap = most if buffer is None else int(buffer)
     if not 4 <= cap <= most or cap & (cap - 1):
         raise ValueError(f"buffer {cap}: not a power of two in [4, {most}]")
-    if entry_data.shape[0] > max_terms(cap):
-        # a corner's terms are distinct entries of the block
-        raise ValueError(f"{entry_data.shape[0]} entries: a corner could "
-                         f"have more terms than the kernels combine "
-                         f"({max_terms(cap)} with buffer {cap})")
-    corners = 64 if face else 1
-    moments = torch.empty((n, corners, 9), dtype=torch.float32, device=dev)
-    hits = torch.empty((n, corners), dtype=torch.int32, device=dev)
-    fn = lib.seam_face_launch if face else lib.seam_skeleton_launch
+    return cap
+
+
+def _fit_args(fit_shape: str, boundary_factor: float) -> Tuple[int, float]:
+    if fit_shape not in ("sphere", "plane"):
+        raise ValueError(f"unknown fit_shape {fit_shape!r}")
+    return int(fit_shape == "plane"), float(boundary_factor)
+
+
+def _launch(kind: str, entry_data, entry_vals, seg_starts, seg_lens,
+            cell_origin, tiles_per_axis, shape_args: Sequence[int],
+            fit: Tuple[int, float], buffer: Optional[int],
+            field: Optional[torch.Tensor], moments: Optional[torch.Tensor],
+            hits: Optional[torch.Tensor]) -> None:
+    """One launch of the face or skeleton kernel: into `field` (field
+    mode) or, with `field` None, into `moments` and `hits` (moments mode).
+    `shape_args`: the face kernel's region cells, or the skeleton kernel's
+    (points pointer, number of points). `buffer` shrinks the candidate
+    window (a power of two >= 4), which only adds windows."""
+    dev = entry_data.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
+    _check_inputs(entry_data, entry_vals, seg_starts, seg_lens)
+    lib = mls_cuda.load()
+    cap = _cap(lib, buffer)
+    tpa = int(tiles_per_axis)
+    if seg_starts.shape[0] != tpa ** 3:
+        raise ValueError(f"seg_starts: {seg_starts.shape[0]} tiles, "
+                         f"expected {tpa ** 3}")
+    ox, oy, oz = mls.host_ints(cell_origin)
+    outs = (field, None, None) if field is not None else (None, moments, hits)
+    for t in outs:
+        if t is not None and t.device != dev:
+            raise ValueError(f"output on {t.device}, entry_data on {dev}")
+    ptrs = [0 if t is None else t.data_ptr() for t in outs]
     with torch.cuda.device(dev):
+        if kind == "face":
+            fn = lib.seam_face_launch
+            ptrs.append(_face_queue(lib, dev, tpa).data_ptr())
+        else:
+            fn = lib.seam_skeleton_launch
         err = fn(entry_data.data_ptr(), entry_vals.data_ptr(),
                  seg_starts.data_ptr(), seg_lens.data_ptr(),
-                 seg_starts.shape[1], items.data_ptr(), n, cap,
-                 moments.data_ptr(), hits.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 seg_starts.shape[1], tpa, ox, oy, oz, *shape_args, *fit,
+                 cap, *ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seam_{kind}_launch failed: cudaError_t {err}")
     count_launch(kind)
-    return moments, hits
+
+
+def _check_field(field: torch.Tensor, dev, tpa: int) -> None:
+    b = 8 * int(tpa)
+    mls_cuda._check("field", field, torch.float32, (b, b, b))
+    if field.device != dev:
+        raise ValueError(f"field on {field.device}, entry_data on {dev}")
+
+
+def _region(region_cells: Sequence[int], tpa: int) -> list:
+    rc = mls.host_ints(region_cells)
+    if not all(0 <= r < 8 * int(tpa) for r in rc):
+        raise ValueError(f"region cells {rc} outside a block of "
+                         f"{8 * int(tpa)} corners")
+    return rc
+
+
+def _points(points: torch.Tensor, dev) -> torch.Tensor:
+    """The points as the skeleton kernel reads them: (P, 3) int64,
+    contiguous, on `dev` (a copy only where they are not)."""
+    pts = points.to(device=dev, dtype=torch.int64).contiguous()
+    if pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"points: expected (P, 3), got {tuple(pts.shape)}")
+    if pts.shape[0] >= 1 << 31:
+        raise ValueError(f"{pts.shape[0]} points: at most 2^31 - 1")
+    return pts
 
 
 def face_moments(entry_data, entry_vals, seg_starts, seg_lens,
-                 rows: torch.Tensor, buffer: Optional[int] = None
+                 cell_origin: Sequence[int], region_cells: Sequence[int],
+                 tiles_per_axis: int, buffer: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The face kernel on CUDA tensors: mls.face_moments of the rows
-    (mls.face_rows, int32 on the card) in one launch."""
-    return _launch("face", entry_data, entry_vals, seg_starts, seg_lens,
-                   rows, buffer)
+    """The face kernel's moments mode on CUDA tensors, in one launch:
+    mls.face_moments of the rows mls.face_rows gives, (R, 64, 9) f32 and
+    (R, 64) int32."""
+    dev = entry_data.device
+    tpa = int(tiles_per_axis)
+    n = 6 * (tpa + 1) ** 2
+    moments = torch.empty((n, 64, 9), dtype=torch.float32, device=dev)
+    hits = torch.empty((n, 64), dtype=torch.int32, device=dev)
+    _launch("face", entry_data, entry_vals, seg_starts, seg_lens,
+            cell_origin, tpa, _region(region_cells, tpa), (0, 0.0), buffer,
+            None, moments, hits)
+    return moments, hits
 
 
 def skeleton_moments(entry_data, entry_vals, seg_starts, seg_lens,
-                     pts: torch.Tensor, tid: torch.Tensor,
-                     inside: torch.Tensor, buffer: Optional[int] = None
+                     cell_origin: Sequence[int], points: torch.Tensor,
+                     tiles_per_axis: int, buffer: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The skeleton kernel on CUDA tensors: mls.skeleton_moments of the
-    points (mls.skeleton_points) in one launch."""
-    items = torch.cat([pts, torch.where(inside, tid, -1)[:, None]],
-                      dim=1).to(torch.int32)
-    return _launch("skeleton", entry_data, entry_vals, seg_starts, seg_lens,
-                   items, buffer)
+    """The skeleton kernel's moments mode on CUDA tensors, in one launch:
+    mls.skeleton_moments of the points (mls.skeleton_points), (P, 1, 9)
+    f32 and (P, 1) int32."""
+    dev = entry_data.device
+    pts = _points(points, dev)
+    n = pts.shape[0]
+    moments = torch.empty((n, 1, 9), dtype=torch.float32, device=dev)
+    hits = torch.empty((n, 1), dtype=torch.int32, device=dev)
+    _launch("skeleton", entry_data, entry_vals, seg_starts, seg_lens,
+            cell_origin, tiles_per_axis, (pts.data_ptr(), n), (0, 0.0),
+            buffer, None, moments, hits)
+    return moments, hits
 
 
 def _path(t: torch.Tensor) -> bool:
@@ -188,13 +265,12 @@ def canonical_face_field(field: torch.Tensor, entry_data: torch.Tensor,
             field, entry_data, entry_vals, seg_starts, seg_lens, cell_origin,
             region_cells, tiles_per_axis, fit_shape, boundary_factor,
             row_chunk)
-    rows = mls.rows_on(mls.face_rows(cell_origin, region_cells,
-                                     tiles_per_axis).astype(np.int32),
-                       entry_data.device)
-    m, hits = face_moments(entry_data, entry_vals, seg_starts, seg_lens,
-                           rows, buffer)
-    return mls.fit_faces(field, m, hits, rows, cell_origin, region_cells,
-                         tiles_per_axis, fit_shape, boundary_factor)
+    _check_field(field, entry_data.device, tiles_per_axis)
+    _launch("face", entry_data, entry_vals, seg_starts, seg_lens,
+            cell_origin, tiles_per_axis,
+            _region(region_cells, tiles_per_axis),
+            _fit_args(fit_shape, boundary_factor), buffer, field, None, None)
+    return field
 
 
 def skeleton_point_field(field: torch.Tensor, entry_data: torch.Tensor,
@@ -213,9 +289,10 @@ def skeleton_point_field(field: torch.Tensor, entry_data: torch.Tensor,
             points, tiles_per_axis, fit_shape, boundary_factor, point_chunk)
     if points is None or points.shape[0] == 0:
         return field
-    pts, lp, tid, inside = mls.skeleton_points(
-        points.to(field.device), cell_origin, tiles_per_axis, field.shape[0])
-    m, hits = skeleton_moments(entry_data, entry_vals, seg_starts, seg_lens,
-                               pts, tid, inside, buffer)
-    return mls.fit_points(field, m, hits, pts, lp, inside, fit_shape,
-                          boundary_factor)
+    dev = entry_data.device
+    _check_field(field, dev, tiles_per_axis)
+    pts = _points(points, dev)
+    _launch("skeleton", entry_data, entry_vals, seg_starts, seg_lens,
+            cell_origin, tiles_per_axis, (pts.data_ptr(), pts.shape[0]),
+            _fit_args(fit_shape, boundary_factor), buffer, field, None, None)
+    return field

@@ -14,6 +14,7 @@ from mlsgpu_tpu_torch.config import ReconstructConfig
 from mlsgpu_tpu_torch.utils import logging as log
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
 
+from mlsgpu_tpu_torch.ops import seam_cuda
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
 from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
                                                uses_processes)
@@ -31,30 +32,28 @@ SURFACE_CELL_SHARE = 1 / 32
 CANDIDATE_TILE_SHARE = 1 / 4
 
 
-#: f32 temporaries per corner of the fit over every face patch corner
-#: (ops/mls.py::_fit and the sphere fit: the re-centred moments, the fit's
-#: intermediates and the dot products' partial sums live at its peak).
-FIT_TEMPS = 24
-
-#: Device memory the seam kernels' per-thread local memory takes (a corner
-#: thread's list of term entries and its stacks of partial sums,
-#: csrc/seam_moments.cu: a 1,648-byte stack frame by nvcc's -Xptxas -v for
-#: sm_90a): the driver reserves it for every thread a card can hold, 2048
-#: on each of an H100's 132 multiprocessors, in each process that
-#: launches them.
-SEAM_STACK_BYTES = 1648 * 2048 * 132
+def seam_local_reserve(device: torch.device, attributes=None) -> int:
+    """Device memory the driver reserves for the seam kernels' local
+    memory in each process that launches them: their larger local size a
+    thread times every thread the card can hold, from
+    `attributes(device)` (seam_cuda.kernel_attributes: read from the built
+    library and the card at run time)."""
+    a = (attributes or seam_cuda.kernel_attributes)(device)
+    return (int(a["local_bytes"]) * int(a["threads_per_multiprocessor"])
+            * int(a["multiprocessors"]))
 
 
 def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
-                         device_type: str = "cuda") -> Dict[str, int]:
+                         device_type: str = "cuda",
+                         seam_reserve: int = 0) -> Dict[str, int]:
     """Approximate peak device bytes of one block step in a readback mode
     ("codes", "packed" or "raw") on a device of `device_type` ("cuda": the
-    kernels' path; "cpu": the plain versions')."""
+    kernels' path; "cpu": the plain versions'). `seam_reserve`: the seam
+    kernels' local memory reserve on the card (seam_local_reserve)."""
     b = 1 << cfg.device_shift  # corners of one device dispatch
     cells = (b - 1) ** 3
     n = cfg.max_device_splats
     entries = 8 * n
-    rows = 6 * (b // TILE + 1) ** 2  # face patch rows of 64 corners
     usage = {
         "splats": n * (8 * F32 + 1),
         # keys + vals (+ the sort's copies) and the gathered entry rows
@@ -62,11 +61,9 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
         "field": b ** 3 * F32,
     }
     if device_type == "cuda":
-        # the face kernel's moments (9 f32) and hits (i32) of every patch
-        # corner, the corners (3 f32) and the fit's temporaries, and the
-        # kernels' stacks
-        usage["faces"] = (rows * 64 * ((9 + 3 + FIT_TEMPS) * F32 + 4)
-                          + SEAM_STACK_BYTES)
+        # the seam kernels write the field in place and allocate nothing:
+        # only the driver's reserve for their local memory
+        usage["faces"] = int(seam_reserve)
     else:
         # per-chunk tensors of the face pass over 32 rows x 64 corners x K
         # slots, K ~ the per-tile candidate guess: the weighted moments
@@ -132,12 +129,14 @@ def validate_device(cfg: ReconstructConfig,
     processes = uses_processes(len(devices) * queues)
     usage = {}
     for dev in sorted(set(devices), key=str):
-        if dev.type not in usage:
-            usage[dev.type] = estimate_block_usage(cfg, readback, dev.type)
-            log.info(f"{dev.type} block-step memory estimate: " + ", ".join(
-                f"{k}={v / 1e6:.0f}M" for k, v in usage[dev.type].items()))
+        if str(dev) not in usage:
+            reserve = seam_local_reserve(dev) if dev.type == "cuda" else 0
+            usage[str(dev)] = estimate_block_usage(cfg, readback, dev.type,
+                                                   reserve)
+            log.info(f"{dev} block-step memory estimate: " + ", ".join(
+                f"{k}={v / 1e6:.0f}M" for k, v in usage[str(dev)].items()))
         workers = devices.count(dev) * queues
-        per_worker = usage[dev.type]["total"] + (
+        per_worker = usage[str(dev)]["total"] + (
             WORKER_CONTEXT_BYTES if processes and dev.type == "cuda" else 0)
         limit = device_memory_bytes(dev)
         if limit is not None and per_worker * workers > limit * 0.9:
@@ -146,4 +145,4 @@ def validate_device(cfg: ReconstructConfig,
                 f"{workers} queue(s) exceeds the memory of {dev}, "
                 f"{limit / 1e9:.2f} GB; reduce --device-threads, --levels, "
                 "--max-device-splats or --device-block-shift")
-    return usage[devices[0].type] if devices else {}
+    return usage[str(devices[0])] if devices else {}

@@ -5,12 +5,14 @@ On the CPU: the wrappers take the plain passes for CPU tensors (bitwise
 the same field, no launch counted) and raise for any other device; one
 nvcc call builds both kernel sources for sm_90a.
 
-On the card (`cuda` marker; skipped where there is none): each kernel
-against its plain version, moments and hits value for value at the
-default buffer and at buffers small enough to run many rounds, the passes'
-fields equal, one launch counted per call, and the seam contract through
-the kernels. The GPU hosts have no jax: run them there with
-`python -m pytest --noconftest -m cuda tests/test_torch_seam_*.py`.
+On the card (`cuda` marker; skipped where there is none): torch's CUDA
+division, reciprocal, square root and scalar products round as IEEE
+float32 does (the kernels' fit relies on it); each kernel's moments mode
+against the plain moments, value for value, at the default buffer and at
+buffers small enough to run many windows; each pass's field bit for bit
+the plain pass's, for both fits and both buffers, in one launch; and the
+seam contract through the kernels. The GPU hosts have no jax: run them
+there with `python -m pytest --noconftest -m cuda tests/test_torch_seam_*.py`.
 """
 
 import os
@@ -24,8 +26,9 @@ from mlsgpu_tpu_torch.pipeline.bucket import skeleton_points
 
 # pytest puts tests/ on the path (no package: on the GPU hosts an installed
 # `tests` package shadows the repo's)
-from test_torch_seam_moments import (TPA, assert_equal_values, binned_block,
-                                     bucket, sphere_cloud)
+from test_torch_seam_epilogue import assert_same_bits
+from test_torch_seam_moments import (FACE_BLOCKS, TPA, assert_equal_values,
+                                     binned_block, bucket, sphere_cloud)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -129,7 +132,34 @@ def _on(dev, b, s, ln, points):
     return (b._replace(entry_data=b.entry_data.to(dev),
                        entry_keys=b.entry_keys.to(dev),
                        entry_vals=b.entry_vals.to(dev)),
-            s.to(dev), ln.to(dev), points.to(dev))
+            s.to(dev), ln.to(dev), None if points is None else points.to(dev))
+
+
+@pytest.mark.cuda
+def test_torch_rounds_as_the_kernel_fit_does_on_card(cuda_device):
+    """What the plain fit's torch ops do on the card: 1.0 / x, x / y,
+    sqrt, (4 * FLT_EPSILON) * hits * |x| and a float scalar times a tensor
+    are IEEE float32, correctly rounded (numpy's on the CPU)."""
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+    with np.errstate(all="ignore"):
+        x = (rng.normal(size=100_000) * np.exp2(rng.integers(-30, 30, 100_000))
+             ).astype(f32)
+        y = (rng.normal(size=100_000) * np.exp2(rng.integers(-30, 30, 100_000))
+             ).astype(f32)
+        h = rng.integers(0, 200, 100_000).astype(np.int32)
+        tx, ty, th = (torch.as_tensor(v, device=cuda_device) for v in (x, y, h))
+        pairs = [
+            (1.0 / tx, f32(1.0) / x),
+            (tx / ty, x / y),
+            (torch.sqrt(torch.abs(tx)), np.sqrt(np.abs(x))),
+            ((4 * 1.1920929e-07) * th * torch.abs(ty),
+             (f32(4 * 1.1920929e-07) * h.astype(f32)) * np.abs(y)),
+            (0.75 * tx, f32(0.75) * x),
+            (tx - 2.0 * ty + tx * ty, (x - f32(2.0) * y) + x * y),
+        ]
+    for got, ref in pairs:
+        assert_same_bits(got.cpu().numpy(), ref)
 
 
 @pytest.mark.cuda
@@ -145,7 +175,7 @@ def test_face_kernel_matches_plain_on_card(cuda_device, tjunction, buffer):
                                         rows)
         before = seam_cuda.face_launches
         m, h = seam_cuda.face_moments(b.entry_data, b.entry_vals, s, ln,
-                                      rows.to(torch.int32), buffer)
+                                      r[3], r[4], TPA, buffer)
         torch.cuda.synchronize()
         assert seam_cuda.face_launches == before + 1
         assert_equal_values(m.cpu().numpy(), ref_m.cpu().numpy())
@@ -166,7 +196,7 @@ def test_skeleton_kernel_matches_plain_on_card(cuda_device, tjunction,
                                             pts, tid, inside)
         before = seam_cuda.skeleton_launches
         m, h = seam_cuda.skeleton_moments(b.entry_data, b.entry_vals, s, ln,
-                                          pts, tid, inside, buffer)
+                                          origin, points, TPA, buffer)
         torch.cuda.synchronize()
         assert seam_cuda.skeleton_launches == before + 1
         assert_equal_values(m.cpu().numpy(), ref_m.cpu().numpy())
@@ -174,19 +204,30 @@ def test_skeleton_kernel_matches_plain_on_card(cuda_device, tjunction,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("buffer", [None, 4])
 @pytest.mark.parametrize("fit,bf", [("sphere", 0.0), ("plane", 0.75)])
 def test_kernel_passes_equal_the_plain_passes_on_card(cuda_device, tjunction,
-                                                      fit, bf):
+                                                      fit, bf, buffer):
+    """The T-junction blocks (with their skeleton points) and the face test
+    blocks (aligned, and straddling the in-plane edge): each pass one
+    launch, its field the plain pass's bit for bit."""
     splats, bks = tjunction
-    for bk in bks:
-        r = binned_block(splats, bk.cell_lo, bk.cell_hi, bk.skeleton)
-        b, s, ln, points = _on(cuda_device, r[0], r[1], r[2], r[5])
+    cloud = sphere_cloud([28.0, 14.0, 14.0], 9.0, 6000, 42)
+    blocks = [(splats, bk.cell_lo, bk.cell_hi, bk.skeleton) for bk in bks]
+    blocks += [(cloud, lo, hi, None) for lo, hi in FACE_BLOCKS.values()]
+    for cl, lo, hi, skel in blocks:
+        r = binned_block(cl, lo, hi, skel)
+        b, s, ln = _on(cuda_device, r[0], r[1], r[2], r[5])[:3]
         origin, region = r[3], r[4]
+        points = None if skel is None else r[5].to(cuda_device)
         field = mls_cuda.launch(b.entry_data, s, ln, origin, TPA, fit, bf)
+        before = seam_cuda.launch_counts()
         got = _passes(b, s, ln, origin, region, points, field, seam_cuda,
-                      fit, bf)
+                      fit, bf, buffer=buffer)
+        assert [y - x for x, y in zip(before, seam_cuda.launch_counts())] == \
+            [0, 1, int(points is not None)]
         ref = _passes(b, s, ln, origin, region, points, field, mls, fit, bf)
-        assert_equal_values(got.cpu().numpy(), ref.cpu().numpy())
+        assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
 
 
 @pytest.mark.cuda

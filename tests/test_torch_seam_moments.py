@@ -1,24 +1,31 @@
 """The seam kernels' arithmetic, held on the CPU (csrc/seam_moments.cu has
 no CPU mode): what the face and skeleton kernels compute, written out in
 numpy in the kernels' own order, against the plain versions
-(ops/mls.py::face_moments, ::skeleton_moments), value for value.
+(ops/mls.py::face_moments, ::skeleton_moments and the plain passes), value
+for value.
 
-- The sum each corner thread builds (a binary-counter stack of partial
-  sums over its terms in bit-reversed order; with more terms than it
-  holds, over residue classes of ranks, then over the classes) equals
-  `mls._tree_sum` over the terms padded with zeros to a power of two, bit
-  for bit, for every count of nonzero f32 terms from 1 to 300, at two
-  widths, holding 4 or 128 terms.
-- An emulation of a kernel row (the covering tiles' segments, the filter,
-  the candidates sorted by splat identity with repeats skipped, each
-  corner's sum of its nonzero-weight terms as above) gives the plain
-  version's moments and hits value for value, and through the shared fit
-  the plain pass's field, on the face test blocks (aligned and
-  straddling) for both fits and on the T-junction skeleton case.
-- The property the kernels' rounds rest on: a splat sits at most once in
-  a tile's chain of level segments (so at most 4 times in a face row's
+- The sum each corner's warp builds (its P leaves, the terms in stream
+  order padded with +0.0 to a power of two, in G = max(1, P / 32)
+  residue classes of rank; lane l holds rank p + G l of class p; a class
+  reduced by shuffles with offsets 16 ... 1, or P/2 ... 1 below 32 leaves;
+  the classes in bit-reversed order on a binary-counter stack of partial
+  sums, one level a lane) equals `mls._tree_sum` over the terms padded
+  with zeros to a power of two (and to twice that), bit for bit, for
+  every count of f32 terms from 0 to 300 and for counts above 1,024 and
+  around powers of two, with magnitudes spread over 2^+-20.
+- An emulation of a kernel item (the covering tiles' segments, the
+  filter, the identity windows of at most `buffer` candidates, each
+  window's candidates sorted by splat identity with repeats dropped, each
+  corner's nonzero-weight terms summed as above, then the fit and the
+  write of tests/test_torch_seam_epilogue.py) gives the plain version's
+  moments and hits value for value and the plain pass's field bit for
+  bit, on the face test blocks (aligned and straddling) for both fits and
+  on the T-junction skeleton case, at the kernels' default buffer and at
+  buffers small enough that the rows take several windows.
+- The property the kernels' windows rest on: a splat sits at most once
+  in a tile's chain of level segments (so at most 4 times in a face row's
   candidates), while a segment does not list its splats in stream order
-  (so the kernel sorts each round's candidates rather than merging the
+  (so the kernel sorts each window's candidates rather than merging the
   segments).
 
 Fixtures are built inline (no jax, no tests.oracle), as in
@@ -33,6 +40,11 @@ from mlsgpu_tpu_torch.convert import block_inputs_from_numpy
 from mlsgpu_tpu_torch.models.common import RADIUS_CUTOFF
 from mlsgpu_tpu_torch.ops import binning, mls
 from mlsgpu_tpu_torch.pipeline.bucket import Bucket, skeleton_points
+
+# pytest puts tests/ on the path (no package: on the GPU hosts an installed
+# `tests` package shadows the repo's)
+from test_torch_seam_epilogue import (assert_same_bits, fit_np,  # noqa: F401
+                                      ieee_sqrt, kernel_write_faces)
 
 LEVELS, SUB = 3, 3
 B = 1 << (LEVELS + SUB - 1)   # 32 corners per axis
@@ -84,57 +96,44 @@ def _reverse(i, bits):
     return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
 
 
-def stack_sum(leaves):
-    """A binary-counter stack of partial sums over `leaves` (9-vectors,
-    a power of two of them): left + right while the two top blocks have
-    equal size, folded from the top at the end (csrc/seam_moments.cu
-    TreeSum)."""
-    stk, count = [], 0
-    for leaf in leaves:
-        t, c = leaf.astype(F32), count
-        while c & 1:
-            t = stk.pop() + t
-            c >>= 1
-        stk.append(t)
-        count += 1
-    acc = stk[-1]
-    for part in reversed(stk[:-1]):
-        acc = part + acc
-    return acc
-
-
-def halves(terms, bits):
-    """The stack over 2^bits leaves in bit-reversed order: leaf j holds
-    term rev(j) (zero beyond the terms)."""
-    zero = np.zeros(9, F32)
-    return stack_sum([terms[_reverse(j, bits)]
-                      if _reverse(j, bits) < len(terms) else zero
-                      for j in range(1 << bits)])
-
-
-def kernel_sum(terms, held):
-    """A corner's sum of its terms (in stream order) as the kernels build
-    it, holding `held` (a power of two) terms at once: one list in
-    bit-reversed order, or 2^c residue classes of ranks, each summed so,
-    then the class sums over the classes in bit-reversed order."""
+def warp_sum(terms):
+    """A corner's sum of its terms ((n, 9) f32, in stream order) as its
+    warp builds it (csrc/seam_moments.cu: class_scan, class_reduce,
+    push)."""
     n = len(terms)
-    bits = (n - 1).bit_length() if n > 1 else 0
-    if n <= held:
-        return halves(terms, bits)
-    cbits = bits - (held.bit_length() - 1)
-    return stack_sum([halves(terms[_reverse(p, cbits)::1 << cbits],
-                             held.bit_length() - 1)
-                      for p in range(1 << cbits)])
+    P = mls._pow2(n)
+    G = P // 32 if P > 32 else 1
+    lg = G.bit_length() - 1
+    zero = np.zeros(9, F32)
+    stack = [zero] * 32                    # level d on lane d
+    for s in range(G):
+        p = _reverse(s, lg)
+        lanes = [terms[p + G * l] if p + G * l < n else zero
+                 for l in range(32)]
+        off = 16 if P >= 32 else P // 2
+        while off:
+            lanes = [lanes[l] + lanes[l + off] for l in range(off)]
+            off //= 2
+        v, c, d = lanes[0], s, 0
+        while c & 1:
+            v = stack[d] + v
+            c >>= 1
+            d += 1
+        stack[d] = v
+    return stack[lg] if G > 1 else v
 
 
-@pytest.mark.parametrize("held", [4, 128])
-def test_kernel_sum_is_the_padded_pairwise_tree(held):
+@pytest.mark.parametrize("counts", [
+    range(0, 301),
+    [1023, 1024, 1025, 2047, 2049, 4095, 4096, 4097, 5000]],
+    ids=["0-300", "above-1024"])
+def test_kernel_sum_is_the_padded_pairwise_tree(counts):
     rng = np.random.default_rng(0)
-    for n in range(1, 301):
+    for n in counts:
         mags = np.exp2(rng.integers(-20, 20, size=(n, 9))).astype(F32)
         terms = (rng.uniform(0.5, 1.0, size=(n, 9)).astype(F32) * mags
                  * rng.choice([-1, 1], size=(n, 9)).astype(F32))
-        got = kernel_sum(terms, held)
+        got = warp_sum(terms)
         width = mls._pow2(n)
         for w in (width, 2 * width):
             padded = np.zeros((w, 9), F32)
@@ -150,17 +149,34 @@ def _dot3(a0, a1, a2, b0, b1, b2):
     return (a0 * b0 + a1 * b1) + a2 * b2
 
 
-def _row_sums(data, ids, frame, corners, held):
-    """The kernel's consumption of one row's candidates (`data` (K, 8),
+def identity_windows(ids, buffer):
+    """The kernel's windows over an item's filtered candidates (`ids`, with
+    repeats): runs of ascending identities, each the longest that holds at
+    most `buffer` candidates with their repeats (all of them when they
+    fit). Returns each window's identities."""
+    uniq, reps = np.unique(ids, return_counts=True)
+    out, cur, held = [], [], 0
+    for u, r in zip(uniq, reps):
+        if held + r > buffer:
+            out.append(cur)
+            cur, held = [], 0
+        cur.append(u)
+        held += r
+    return out + [cur]
+
+
+def _row_sums(data, ids, frame, corners, buffer):
+    """The kernel's consumption of one item's candidates (`data` (K, 8),
     `ids` (K,) the filtered candidates in any order, repeats allowed),
-    corners (C, 3) in the row's frame (3,): sort by identity, skip
-    repeats, each corner's nonzero-weight terms summed by kernel_sum.
-    Returns (moments (C, 9), hits (C,))."""
-    order = np.argsort(ids, kind="stable")
-    ids, data = ids[order], data[order]
-    keep = np.ones(len(ids), bool)
-    keep[1:] = ids[1:] != ids[:-1]
-    data = data[keep]
+    corners (C, 3) in the item's frame (3,): window by window, sorted by
+    identity with repeats dropped; each corner's nonzero-weight terms,
+    their ranks running on over the windows, summed by warp_sum. Returns
+    (moments (C, 9), hits (C,), number of windows)."""
+    wins = identity_windows(ids, buffer)
+    first = {}
+    for i, v in enumerate(ids):
+        first.setdefault(v, i)
+    data = data[[first[v] for win in wins for v in win]]
     x0, x1, x2 = (data[:, a] - frame[a] for a in range(3))
     n0, n1, n2 = data[:, 4], data[:, 5], data[:, 6]
     feat = np.stack([x0, x1, x2, _dot3(x0, x1, x2, x0, x1, x2), n0, n1, n2,
@@ -175,12 +191,12 @@ def _row_sums(data, ids, frame, corners, held):
     w = w * w
     w = np.where(hit, w * data[None, :, 7], F32(0.0))
     moments = np.zeros((len(corners), 9), F32)
-    for c in np.nonzero((w != 0).any(axis=1))[0]:
+    for c in range(len(corners)):
         pos = ~(w[c] == 0)
         terms = np.concatenate([w[c, pos][:, None],
                                 feat[pos] * w[c, pos][:, None]], axis=1)
-        moments[c] = kernel_sum(terms, held)
-    return moments, hit.sum(axis=1).astype(np.int32)
+        moments[c] = warp_sum(terms)
+    return moments, hit.sum(axis=1).astype(np.int32), len(wins)
 
 
 def _segments(starts, lens, tiles):
@@ -195,11 +211,13 @@ def _segments(starts, lens, tiles):
     return np.concatenate(out) if out else np.zeros(0, np.int64)
 
 
-def emulate_face(entry_data, entry_vals, starts, lens, rows, held):
-    """The face kernel over every patch row, in numpy."""
+def emulate_face(entry_data, entry_vals, starts, lens, rows, buffer):
+    """The face kernel's moments mode over every patch row, in numpy;
+    also the most windows a row took."""
     frames, corners = (t.numpy() for t in mls.face_frames(torch.as_tensor(rows)))
     moments = np.zeros((len(rows), 64, 9), F32)
     hits = np.zeros((len(rows), 64), np.int32)
+    most = 0
     for r, row in enumerate(rows):
         cand = _segments(starts, lens, list(row[mls.ROW_TILES:]))
         if not len(cand):
@@ -214,15 +232,16 @@ def emulate_face(entry_data, entry_vals, starts, lens, rows, held):
         dc = np.maximum(np.maximum(c0 - pc, pc - (c0 + F32(7.0))), F32(0.0))
         rect2 = (da * da + db * db) + dc * dc
         ok = rect2 * p[:, 3] < CUT
-        if ok.any():
-            moments[r], hits[r] = _row_sums(p[ok], entry_vals[cand][ok],
-                                            frames[r], corners[r], held)
-    return moments, hits
+        moments[r], hits[r], wins = _row_sums(
+            p[ok], entry_vals[cand][ok], frames[r], corners[r], buffer)
+        most = max(most, wins)
+    return moments, hits, most
 
 
 def emulate_skeleton(entry_data, entry_vals, starts, lens, pts, tid, inside,
-                     held):
-    """The skeleton kernel over every point, in numpy."""
+                     buffer):
+    """The skeleton kernel's moments mode over every point, in numpy (a
+    point's window holds min(buffer, 128) candidates)."""
     moments = np.zeros((len(pts), 1, 9), F32)
     hits = np.zeros((len(pts), 1), np.int32)
     for i, (p3, t, ins) in enumerate(zip(pts, tid, inside)):
@@ -232,11 +251,10 @@ def emulate_skeleton(entry_data, entry_vals, starts, lens, pts, tid, inside,
         p = entry_data[cand]
         dx, dy, dz = (p[:, a] - F32(p3[a]) for a in range(3))
         ok = _dot3(dx, dy, dz, dx, dy, dz) * p[:, 3] < CUT
-        if ok.any():
-            base = (p3 // 8) * 8
-            moments[i], hits[i] = _row_sums(
-                p[ok], entry_vals[cand][ok], base.astype(F32),
-                (p3 - base).astype(F32)[None, :], held)
+        base = (p3 // 8) * 8
+        moments[i], hits[i], _ = _row_sums(
+            p[ok], entry_vals[cand][ok], base.astype(F32),
+            (p3 - base).astype(F32)[None, :], min(buffer, 128))
     return moments, hits
 
 
@@ -257,35 +275,35 @@ def face_cloud():
     return sphere_cloud([28.0, 14.0, 14.0], 9.0, 6000, 42)
 
 
-# `held`: the kernels' list (128), and 4, as a small buffer makes it, so
-# that corners with more terms than that run the residue classes
+# `buffer`: a small one (128, and 4, the least) makes rows take several
+# windows
 @pytest.mark.parametrize("block_name", sorted(FACE_BLOCKS))
-@pytest.mark.parametrize("fit,bf,held", [("sphere", 0.0, 128),
-                                         ("plane", 0.75, 4)])
+@pytest.mark.parametrize("fit,bf,buffer", [("sphere", 0.0, 128),
+                                           ("plane", 0.75, 4)])
 def test_face_kernel_emulation_matches_plain(face_cloud, block_name, fit,
-                                             bf, held):
+                                             bf, buffer, ieee_sqrt):
     lo, hi = FACE_BLOCKS[block_name]
     b, s, ln, origin, region, _ = binned_block(face_cloud, lo, hi)
     rows = mls.face_rows(origin, region, TPA)
     rows_t = torch.as_tensor(rows)
     ref_m, ref_h = mls.face_moments(b.entry_data, b.entry_vals, s, ln, rows_t)
-    m, h = emulate_face(b.entry_data.numpy(), b.entry_vals.numpy(),
-                        s.numpy(), ln.numpy(), rows, held)
+    m, h, windows = emulate_face(b.entry_data.numpy(), b.entry_vals.numpy(),
+                                 s.numpy(), ln.numpy(), rows, buffer)
     assert (h > 0).sum() > 100           # the planes really have candidates
+    assert windows > 1 if buffer == 4 else windows >= 1
     assert_equal_values(m, ref_m.numpy())
     np.testing.assert_array_equal(h, ref_h.numpy())
-    # through the shared fit and write: the plain pass's field
+    # the kernel's fit and write: the plain pass's field, bit for bit
     field = mls.eval_field(b.entry_data, s, ln, origin, TPA, fit, bf)
     ref = mls.canonical_face_field(field.clone(), b.entry_data, b.entry_vals,
                                    s, ln, origin, region, TPA, fit, bf)
-    got = mls.fit_faces(field.clone(), torch.as_tensor(m),
-                        torch.as_tensor(h), rows_t, origin, region, TPA, fit,
-                        bf)
-    assert_equal_values(got.numpy(), ref.numpy())
+    out = fit_np(m, mls.face_frames(rows_t)[1].numpy(), h, fit, bf)
+    got = kernel_write_faces(field.numpy().copy(), out, origin, region, TPA)
+    assert_same_bits(got, ref.numpy())
 
 
-@pytest.mark.parametrize("held", [4, 128])
-def test_skeleton_kernel_emulation_matches_plain(held):
+@pytest.mark.parametrize("buffer", [4, 128])
+def test_skeleton_kernel_emulation_matches_plain(buffer, ieee_sqrt):
     splats = sphere_cloud([12.0, 12.0, 16.0], 7.0, 9000, 3)
     bks = [bucket((0, 0, 0), (16, 16, 31)), bucket((16, 0, 0), (31, 16, 31)),
            bucket((0, 16, 0), (31, 31, 31))]
@@ -302,21 +320,24 @@ def test_skeleton_kernel_emulation_matches_plain(held):
                                             pts, tid, inside)
         m, h = emulate_skeleton(b.entry_data.numpy(), b.entry_vals.numpy(),
                                 s.numpy(), ln.numpy(), pts.numpy(),
-                                tid.numpy(), inside.numpy(), held)
+                                tid.numpy(), inside.numpy(), buffer)
         assert_equal_values(m, ref_m.numpy())
         np.testing.assert_array_equal(h, ref_h.numpy())
         ref = mls.skeleton_point_field(field.clone(), b.entry_data,
                                        b.entry_vals, s, ln, origin, points,
                                        TPA, "sphere", 0.0)
-        got = mls.fit_points(field.clone(), torch.as_tensor(m),
-                             torch.as_tensor(h), pts, lp, inside, "sphere",
-                             0.0)
-        assert_equal_values(got.numpy(), ref.numpy())
+        # the kernel's fit, written at the points inside
+        vals = fit_np(m[:, 0], mls._point_frames(pts)[1][:, 0].numpy(),
+                      h[:, 0], "sphere", 0.0)
+        got = field.numpy().copy()
+        q = lp.numpy()[inside.numpy()]
+        got[q[:, 2], q[:, 1], q[:, 0]] = vals[inside.numpy()]
+        assert_same_bits(got, ref.numpy())
         checked += int((h >= 4).sum())
     assert checked > 20                  # the surface crosses the skeleton
 
 
-# --- what the kernels' rounds rest on -----------------------------------------
+# --- what the kernels' windows rest on -----------------------------------------
 
 def test_segments_list_each_splat_once_but_not_in_stream_order(face_cloud):
     """A tile's chain of level segments lists a splat at most once (a splat

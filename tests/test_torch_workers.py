@@ -562,9 +562,13 @@ def test_statistics_delta_round_trip():
 def test_validate_device_counts_a_context_per_worker_process(
         monkeypatch, entries, queues, fits):
     """On a card, each worker process adds WORKER_CONTEXT_BYTES to its
-    block step's estimate; a one-worker run adds none."""
+    block step's estimate; a one-worker run adds none. (The seam kernels'
+    reserve, read from the card at run time, is stubbed.)"""
     cfg = ReconstructConfig(**OPTIONS)
-    one = resources.estimate_block_usage(cfg, "codes", "cuda")["total"]
+    reserve = 64 * 2048 * 132
+    monkeypatch.setattr(resources, "seam_local_reserve", lambda dev: reserve)
+    one = resources.estimate_block_usage(cfg, "codes", "cuda",
+                                         reserve)["total"]
     limit = (3 * one + 2 * workers.WORKER_CONTEXT_BYTES) / 0.9
     monkeypatch.setattr(resources, "device_memory_bytes",
                         lambda dev: int(limit))
