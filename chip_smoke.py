@@ -32,7 +32,9 @@ raises, exits non-zero and prints no result line:
      pass at 32 rows (64 points) a chunk, the pass's bound (seam_bound),
      and the launches and host syncs of a pass (at most
      SEAM_PASS_LAUNCHES and none: checked) and of the plain one (a traced
-     pass summarized by utils/step_profile);
+     pass summarized by utils/step_profile); then face passes on two
+     streams of the card at once, each field bit for bit the plain pass's
+     (face_passes_on_two_streams);
   4. the seam contract on the card, through the seam kernels: shared-face
      and T-junction corners of adjacent blocks bitwise equal, also where a
      face patch straddles the blocks' in-plane edge; both seam passes
@@ -651,6 +653,44 @@ def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
     return out
 
 
+def face_passes_on_two_streams(n, binned, starts, lens, origin, region, tpa,
+                               field, rounds=4, timeout=60.0) -> dict:
+    """Face passes on two streams of one card at once, `rounds` each,
+    interleaved: both finish (events polled until `timeout`: no CTA of a
+    pass waits on another, so passes sharing the card in any proportion
+    make progress) and every field is the plain pass's bit for bit. Its
+    launches are comparisons, as seam_vs_plain's."""
+    dev = field.device
+    face = (binned.entry_data, binned.entry_vals, starts, lens, origin,
+            region, tpa, "sphere", 0.0)
+    ref = mls.canonical_face_field(field.clone(), *face)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = [[field.clone() for _ in range(rounds)] for _ in streams]
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    for i in range(rounds):
+        for st, fs in zip(streams, outs):
+            with torch.cuda.stream(st):
+                seam_cuda.canonical_face_field(fs[i], *face)
+    done = [torch.cuda.Event() for _ in streams]
+    for ev, st in zip(done, streams):
+        ev.record(st)
+    while not all(ev.query() for ev in done):
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"face passes on two streams did not "
+                                 f"finish in {timeout} s")
+        time.sleep(0.001)
+    seconds = time.monotonic() - t0
+    for fs in outs:
+        for f in fs:
+            _same_bits(f, ref, "face pass on two streams")
+    out = {"streams": 2, "rounds": rounds, "seconds": seconds,
+           "bitwise_the_plain_pass": True}
+    phase(n, f"face passes on two streams of one card at once, {tpa}^3 "
+             f"tiles: {json.dumps(out)}")
+    return out
+
+
 def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     """`b`: the densest of the buckets the main path streams."""
     grid_form, valid = load_bucket(src, info, b)
@@ -680,6 +720,8 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     seams += seam_vs_plain(3, binned, starts, lens, origin, region, points,
                            tpa, "plane", 1.0 - GAMMAS[1] ** 2, field,
                            timed=False)
+    face_passes_on_two_streams(3, binned, starts, lens, origin, region, tpa,
+                               field)
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
              f"{max_tile}, {len(b.skeleton)} skeleton points: OK")

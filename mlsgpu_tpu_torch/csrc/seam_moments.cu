@@ -40,20 +40,16 @@
 //     for an item without candidates, as the plain versions give).
 //
 // Design:
-//   1. Work items. The face grid is as many CTAs of 8 warps as the card
-//      holds at once. Each CTA first reads the segment lengths of batches
-//      of 8 rows, a row a warp (a batch's rows S = rows / 8 apart); a row
-//      without candidates is written (NaN) by that warp at once, so the
-//      rows that are empty (~92% at the densest 256^3 bucket of the 2M
-//      bench cloud) cost one coalesced read and a write, and an occupied
-//      row goes on a queue in device memory. Then every CTA takes tickets
-//      from the queue, one occupied row a ticket, until all CTAs have
-//      pushed their rows and none is left: the rows' cost varies with
-//      their candidates, and a CTA that holds several behind each other
-//      would set the kernel's time. The queue's counters are left zero by
-//      the launch's last CTA, so a stream keeps one queue and needs no
-//      clearing launch. Skeleton CTAs are 8 warps, a point a warp, a CTA
-//      a batch of 8 points.
+//   1. Work items. A face CTA of 8 warps takes one batch of 8 rows, S =
+//      rows / 8 apart (occupied rows cluster in row order, so the stride
+//      spreads them over CTAs). Each warp reads one row's segment
+//      lengths; a row without candidates is written (NaN) by that warp at
+//      once, so the rows that are empty (~92% at the densest 256^3 bucket
+//      of the 2M bench cloud) cost one coalesced read and a write. Then
+//      the CTA runs the batch's occupied rows one after the other. No CTA
+//      waits on another, so launches on several streams of one card at
+//      once can share it in any proportion. Skeleton CTAs are 8 warps, a
+//      point a warp, a CTA a batch of 8 points.
 //   2. Staging. A group (the CTA for a row, the warp for a point)
 //      gathers the filtered candidates (a warp ballot and one shared
 //      atomic per warp hand out slots; the order of arrival does not
@@ -110,11 +106,8 @@
 // chain of dependent steps (its segment reads, gather, sort and staging,
 // each a round trip to memory or a few CTA barriers, then its corners'
 // streams, a warp running 8 corners one after the other, then the fit),
-// and the kernel lasts about as long as the header pass plus its slowest
-// rows, those with the most candidates (PERF.md section 6). The face
-// kernel's launch bounds hold it to 85 registers, 3 CTAs a
-// multiprocessor, which costs a few bytes of spills a thread and buys
-// more rows in flight at once.
+// and the kernel lasts about as long as its slowest CTA, the one whose
+// batch holds the rows with the most candidates (PERF.md section 6).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -248,7 +241,6 @@ struct Args {
   float* field;                // (B, B, B) [z, y, x], or null: moments mode
   float* moments;              // (N, corners, 9)
   int* hits;                   // (N, corners)
-  int* queue;                  // the face kernel's queue (Q_ROWS + rows)
 };
 
 // The prefix of the item's segment lengths (a scan on the group's first
@@ -902,16 +894,9 @@ struct FaceCorners {
   }
 };
 
-// The face kernel's queue of occupied rows, in device memory (int32):
-// rows counted, tickets taken, CTAs that pushed all their rows, CTAs
-// done, then each row + 1 (0 until pushed). All zero between launches:
-// the last CTA of a launch empties it.
-constexpr int Q_FOUND = 0, Q_TAKEN = 1, Q_PUSHED = 2, Q_DONE = 3, Q_ROWS = 4;
-
 struct FaceShared {
   Item<MAX_SEGS> it;
-  int row;
-  bool last;
+  bool occupied[WARPS];        // the batch's rows that have candidates
   float mom[ROW_CORNERS][MOMENTS];
   int hits[ROW_CORNERS];
   unsigned nterm[ROW_CORNERS];
@@ -967,82 +952,35 @@ __device__ void face_row_pass(FaceShared& sh, unsigned long long* key,
   }
 }
 
-// The next occupied row of the queue (thread 0), or -1 once every CTA has
-// pushed its rows and none is left. A ticket beyond the rows pushed so far
-// waits for the CTAs still reading segments: the grid is no larger than
-// the card holds at once, so each of them runs (or will, once a kernel of
-// another stream frees its place). A pusher stores the row right after
-// counting it.
-__device__ int take_row(int* q) {
-  const int t = atomicAdd(&q[Q_TAKEN], 1);
-  for (;;) {
-    const bool all = atomicAdd(&q[Q_PUSHED], 0) == (int)gridDim.x;
-    __threadfence();
-    if (t < atomicAdd(&q[Q_FOUND], 0)) {
-      int v;
-      while ((v = atomicAdd(&q[Q_ROWS + t], 0)) == 0) {}
-      return v - 1;
-    }
-    if (all) return -1;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 3)
+// A CTA a batch of 8 rows, a batch's rows S apart (row warp * S + batch).
+__global__ void __launch_bounds__(THREADS)
 seam_face_kernel(const Args s) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ FaceShared sh;
   unsigned long long* key = reinterpret_cast<unsigned long long*>(dyn);
   float* feat = reinterpret_cast<float*>(key + s.cap);
-  int* q = s.queue;
   const int warp = threadIdx.x / WARP, lane = lane_id();
   const int np = s.tpa + 1, rows = 6 * np * np;
-  const int stride = (rows + WARPS - 1) / WARPS;   // a batch's rows apart
-  // Each warp reads one row's segments a batch: an empty row is written at
-  // once, an occupied one goes on the queue.
-  for (int j = blockIdx.x; j < stride; j += gridDim.x) {
-    const int r = warp * stride + j;
-    if (r >= rows) continue;
+  const int stride = (rows + WARPS - 1) / WARPS;
+  // Each warp reads its row's segments: an empty row is written at once.
+  const int r = warp * stride + blockIdx.x;
+  bool occupied = false;
+  if (r < rows) {
     const Row w = face_row(r, s);
     int listed = 0;
     for (int t = lane; t < FACE_TILES * s.levels; t += WARP)
       listed += row_segment(s, w, t / s.levels, t % s.levels).y;
     listed = __reduce_add_sync(FULL, listed);
-    if (listed == 0) {
-      write_empty_row(s, w, r);
-    } else if (lane == 0) {
-      const int slot = atomicAdd(&q[Q_FOUND], 1);
-      atomicExch(&q[Q_ROWS + slot], r + 1);
-    }
+    if (listed == 0) write_empty_row(s, w, r);
+    occupied = listed != 0;
   }
-  // Then the CTA runs occupied rows from the queue while it holds any.
+  if (lane == 0) sh.occupied[warp] = occupied;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(&q[Q_PUSHED], 1);
-  }
-  for (;;) {
-    if (threadIdx.x == 0) sh.row = take_row(q);
+  // Then the CTA runs the batch's occupied rows.
+  for (int j = 0; j < WARPS; ++j) {
+    if (!sh.occupied[j]) continue;
+    face_row_pass(sh, key, feat, s, j * stride + blockIdx.x);
     __syncthreads();
-    const int r = sh.row;
-    __syncthreads();
-    if (r < 0) break;
-    face_row_pass(sh, key, feat, s, r);
-  }
-  // The last CTA to finish empties the queue for the next launch.
-  if (threadIdx.x == 0) {
-    __threadfence();
-    sh.last = atomicAdd(&q[Q_DONE], 1) == (int)gridDim.x - 1;
-  }
-  __syncthreads();
-  if (sh.last) {
-    const int found = atomicAdd(&q[Q_FOUND], 0);
-    for (int i = threadIdx.x; i < found; i += THREADS) q[Q_ROWS + i] = 0;
-    if (threadIdx.x == 0) {
-      q[Q_FOUND] = 0;
-      q[Q_TAKEN] = 0;
-      q[Q_PUSHED] = 0;
-      q[Q_DONE] = 0;
-    }
   }
 }
 
@@ -1134,37 +1072,15 @@ int check_args(int levels, int tpa, int cap) {
   return 0;
 }
 
-constexpr int MAX_DEVICES = 64;
-// CTAs of each kernel the device holds at once, at its largest dynamic
-// shared memory (0 until set, once a device; a race sets it twice alike).
-int resident[2][MAX_DEVICES];
-
-// Launch kernel `which` (0 face, 1 skeleton) over `batches` work batches:
-// a CTA a batch, or with `persistent` at most as many CTAs as the card
-// holds at once, each walking batches (the face kernel, whose CTAs then
-// share its queue of occupied rows).
-int launch(void (*kernel)(Args), int which, const Args& a, int batches,
-           size_t smem, size_t most, bool persistent, void* stream) {
+// Launch `kernel` over `batches` work batches, a CTA a batch, allowing it
+// `most` bytes of dynamic shared memory (its largest buffer).
+int launch(void (*kernel)(Args), const Args& a, int batches, size_t smem,
+           size_t most, void* stream) {
   if (batches == 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!resident[which][dev]) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)most)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, THREADS, most)) != cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[which][dev] = sms * per_sm;
-  }
-  const int grid = persistent ? min(batches, resident[which][dev]) : batches;
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<batches, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1205,33 +1121,24 @@ extern "C" int seam_max_buffer() { return MAX_BUFFER; }
 // seam_face_launch: every face patch row of the block with cell origin
 // (ox, oy, oz), region cells (rx, ry, rz) and tpa^3 tiles
 // (mls.py::face_rows, R = 6 (tpa + 1)^2 rows); field (8 tpa)^3 f32
-// [z, y, x], or moments (R, 64, 9) f32 and hits (R, 64) int32. queue: at
-// least seam_face_queue_ints(tpa) int32, zero before the first launch on
-// its stream; each launch leaves it zero. Launches that may run at once
-// (other streams) need queues of their own.
-extern "C" int seam_face_queue_ints(int tpa) {
-  return Q_ROWS + 6 * (tpa + 1) * (tpa + 1);
-}
-
+// [z, y, x], or moments (R, 64, 9) f32 and hits (R, 64) int32.
 extern "C" int seam_face_launch(const float* entry, const long long* vals,
                                 const int* seg_starts, const int* seg_lens,
                                 int levels, int tpa, int ox, int oy, int oz,
                                 int rx, int ry, int rz, int plane, float bf,
                                 int cap, float* field, float* moments,
-                                int* hits, int* queue, void* stream) {
+                                int* hits, void* stream) {
   const int bad = check_args(levels, tpa, cap);
   if (bad) return bad;
-  if (!queue) return (int)cudaErrorInvalidValue;
   Args a = make_args(entry, vals, seg_starts, seg_lens, levels, tpa, ox, oy,
                      oz, plane, bf, cap, field, moments, hits);
   a.rx = rx;
   a.ry = ry;
   a.rz = rz;
-  a.queue = queue;
   const int rows = 6 * (tpa + 1) * (tpa + 1);
   const size_t per = sizeof(unsigned long long) + FEAT * sizeof(float);
-  return launch(seam_face_kernel, 0, a, (rows + WARPS - 1) / WARPS,
-                cap * per, MAX_BUFFER * per, true, stream);
+  return launch(seam_face_kernel, a, (rows + WARPS - 1) / WARPS, cap * per,
+                MAX_BUFFER * per, stream);
 }
 
 // seam_skeleton_launch: every skeleton point, points (P, 3) int64 global
@@ -1253,8 +1160,8 @@ extern "C" int seam_skeleton_launch(const float* entry, const long long* vals,
   a.num_points = num_points;
   const int pcap = cap < POINT_BUFFER ? cap : POINT_BUFFER;
   const size_t per = WARPS * (sizeof(unsigned long long) + FEAT * sizeof(float));
-  return launch(seam_skeleton_kernel, 1, a, (num_points + WARPS - 1) / WARPS,
-                pcap * per, POINT_BUFFER * per, false, stream);
+  return launch(seam_skeleton_kernel, a, (num_points + WARPS - 1) / WARPS,
+                pcap * per, POINT_BUFFER * per, stream);
 }
 
 // seam_kernel_attributes: what device memory the seam kernels make the

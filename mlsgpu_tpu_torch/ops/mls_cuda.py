@@ -116,7 +116,7 @@ def load():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_int]
-                           + [ctypes.c_void_p] * 5)
+                           + [ctypes.c_void_p] * 4)
             fn = lib.seam_skeleton_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -125,8 +125,6 @@ def load():
                            + [ctypes.c_void_p] * 4)
             lib.seam_max_buffer.restype = ctypes.c_int
             lib.seam_max_buffer.argtypes = []
-            lib.seam_face_queue_ints.restype = ctypes.c_int
-            lib.seam_face_queue_ints.argtypes = [ctypes.c_int]
             fn = lib.seam_kernel_attributes
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]

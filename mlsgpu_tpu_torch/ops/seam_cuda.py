@@ -17,6 +17,7 @@ ops/mls_cuda.py builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -31,11 +32,6 @@ face_launches = 0
 skeleton_launches = 0
 
 _count_lock = threading.Lock()
-#: The face kernel's queues of occupied rows, one a (device, stream): zero
-#: between launches (each launch empties its own), so launches on one
-#: stream share one and launches that may overlap never do.
-_queues: Dict[Tuple[int, int], torch.Tensor] = {}
-_queue_lock = threading.Lock()
 
 
 def count_launch(kind: str) -> None:
@@ -76,30 +72,24 @@ def max_buffer() -> int:
 
 def kernel_attributes(device: torch.device) -> Dict[str, int]:
     """What the seam kernels make the driver reserve on a card, read from
-    the built library and the card: the larger of their local memory bytes
-    a thread (`local_bytes`, cudaFuncGetAttributes), the card's
-    `multiprocessors` and `threads_per_multiprocessor`, and each kernel's
-    registers a thread."""
+    the built library (built and loaded here if it is not yet) and the
+    card, once a card: the larger of their local memory bytes a thread
+    (`local_bytes`, cudaFuncGetAttributes), the card's `multiprocessors`
+    and `threads_per_multiprocessor`, and each kernel's registers a
+    thread."""
+    return dict(zip(("local_bytes", "multiprocessors",
+                     "threads_per_multiprocessor", "face_registers",
+                     "skeleton_registers"),
+                    _attributes(int(device.index or 0))))
+
+
+@functools.lru_cache(maxsize=None)
+def _attributes(index: int) -> Tuple[int, ...]:
     out = (ctypes.c_int * 5)()
-    err = mls_cuda.load().seam_kernel_attributes(int(device.index or 0), out)
+    err = mls_cuda.load().seam_kernel_attributes(index, out)
     if err != 0:
         raise RuntimeError(f"seam_kernel_attributes failed: cudaError_t {err}")
-    return {"local_bytes": out[0], "multiprocessors": out[1],
-            "threads_per_multiprocessor": out[2], "face_registers": out[3],
-            "skeleton_registers": out[4]}
-
-
-def _face_queue(lib, dev: torch.device, tpa: int) -> torch.Tensor:
-    """The face kernel's queue for the current stream of `dev`, zeroed on
-    that stream when first made (or grown)."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    need = int(lib.seam_face_queue_ints(int(tpa)))
-    with _queue_lock:
-        q = _queues.get(key)
-        if q is None or q.numel() < need:
-            q = torch.zeros(need, dtype=torch.int32, device=dev)
-            _queues[key] = q
-    return q
+    return tuple(out)
 
 
 def _check_inputs(entry_data, entry_vals, seg_starts, seg_lens) -> None:
@@ -164,11 +154,7 @@ def _launch(kind: str, entry_data, entry_vals, seg_starts, seg_lens,
             raise ValueError(f"output on {t.device}, entry_data on {dev}")
     ptrs = [0 if t is None else t.data_ptr() for t in outs]
     with torch.cuda.device(dev):
-        if kind == "face":
-            fn = lib.seam_face_launch
-            ptrs.append(_face_queue(lib, dev, tpa).data_ptr())
-        else:
-            fn = lib.seam_skeleton_launch
+        fn = lib.seam_face_launch if kind == "face" else lib.seam_skeleton_launch
         err = fn(entry_data.data_ptr(), entry_vals.data_ptr(),
                  seg_starts.data_ptr(), seg_lens.data_ptr(),
                  seg_starts.shape[1], tpa, ox, oy, oz, *shape_args, *fit,

@@ -14,7 +14,6 @@ from mlsgpu_tpu_torch.config import ReconstructConfig
 from mlsgpu_tpu_torch.utils import logging as log
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
 
-from mlsgpu_tpu_torch.ops import seam_cuda
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
 from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
                                                uses_processes)
@@ -36,9 +35,14 @@ def seam_local_reserve(device: torch.device, attributes=None) -> int:
     """Device memory the driver reserves for the seam kernels' local
     memory in each process that launches them: their larger local size a
     thread times every thread the card can hold, from
-    `attributes(device)` (seam_cuda.kernel_attributes: read from the built
-    library and the card at run time)."""
-    a = (attributes or seam_cuda.kernel_attributes)(device)
+    `attributes(device)` (by default seam_cuda.kernel_attributes: read
+    from the kernel library and the card at run time, so the calling
+    process builds and loads that library, also when only its worker
+    processes launch the kernels)."""
+    if attributes is None:
+        from mlsgpu_tpu_torch.ops import seam_cuda
+        attributes = seam_cuda.kernel_attributes
+    a = attributes(device)
     return (int(a["local_bytes"]) * int(a["threads_per_multiprocessor"])
             * int(a["multiprocessors"]))
 

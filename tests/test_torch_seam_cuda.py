@@ -10,18 +10,21 @@ division, reciprocal, square root and scalar products round as IEEE
 float32 does (the kernels' fit relies on it); each kernel's moments mode
 against the plain moments, value for value, at the default buffer and at
 buffers small enough to run many windows; each pass's field bit for bit
-the plain pass's, for both fits and both buffers, in one launch; and the
-seam contract through the kernels. The GPU hosts have no jax: run them
+the plain pass's, for both fits and both buffers, in one launch; face
+passes at full size on two streams at once; and the seam contract through
+the kernels. The GPU hosts have no jax: run them
 there with `python -m pytest --noconftest -m cuda tests/test_torch_seam_*.py`.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from mlsgpu_tpu_torch.ops import block, mls, mls_cuda, seam_cuda
+from mlsgpu_tpu_torch.convert import block_inputs_from_numpy
+from mlsgpu_tpu_torch.ops import binning, block, mls, mls_cuda, seam_cuda
 from mlsgpu_tpu_torch.pipeline.bucket import skeleton_points
 
 # pytest puts tests/ on the path (no package: on the GPU hosts an installed
@@ -259,3 +262,45 @@ def test_t_junction_bitwise_through_the_kernels_on_card(cuda_device,
         assert (~na).sum() >= 20
         np.testing.assert_array_equal(pa[~na].view(np.uint32),
                                       pb[~na].view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_face_passes_on_two_streams_at_full_size_on_card(cuda_device):
+    """Two face passes at the main path's size (256^3 corners, 32 tiles an
+    axis) at once on two streams of one card, four rounds interleaved:
+    both finish (no CTA of a pass waits on another, so passes sharing the
+    card in any proportion make progress) and every field is the plain
+    pass's bit for bit."""
+    dev, levels, sub, tpa = cuda_device, 6, 3, 32
+    splats = sphere_cloud([200.0, 200.0, 200.0], 100.0, 200_000, 11, 2.0)
+    args = block_inputs_from_numpy(splats, np.ones(len(splats), bool),
+                                   (255, 255, 255), (0, 0, 0), device=dev)
+    origin, region = args["cell_origin"], args["region_cells"]
+    b = binning.bin_splats(args["splats"], args["valid"], origin, sub,
+                           levels + sub - 1)
+    s, ln = binning.tile_segments(b.entry_keys, sub, levels + sub - 1, tpa)
+    field = mls_cuda.launch(b.entry_data, s, ln, origin, tpa, "sphere", 0.0)
+    face = (b.entry_data, b.entry_vals, s, ln, origin, region, tpa, "sphere",
+            0.0)
+    ref = mls.canonical_face_field(field.clone(), *face)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = [[field.clone() for _ in range(4)] for _ in streams]
+    torch.cuda.synchronize(dev)
+    for i in range(4):
+        for st, fs in zip(streams, outs):
+            with torch.cuda.stream(st):
+                seam_cuda.canonical_face_field(fs[i], *face)
+    done = [torch.cuda.Event() for _ in streams]
+    for ev, st in zip(done, streams):
+        ev.record(st)
+    deadline = time.monotonic() + 60.0
+    while not all(ev.query() for ev in done):
+        assert time.monotonic() < deadline, "face passes did not finish"
+        time.sleep(0.001)
+    rows = mls.face_rows(origin, region, tpa)
+    _, hits = mls.face_moments(b.entry_data, b.entry_vals, s, ln,
+                               torch.as_tensor(rows, device=dev))
+    assert int((hits.sum(1) > 0).sum()) > 100   # many occupied rows
+    for fs in outs:
+        for f in fs:
+            assert_same_bits(f.cpu().numpy(), ref.cpu().numpy())

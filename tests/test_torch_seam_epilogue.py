@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from mlsgpu_tpu_torch.config import ReconstructConfig
-from mlsgpu_tpu_torch.ops import mls
+from mlsgpu_tpu_torch.ops import mls, seam_cuda
 from mlsgpu_tpu_torch.pipeline import resources
 
 F32 = np.float32
@@ -332,7 +332,7 @@ def test_seam_reserve_follows_the_kernel_attributes(monkeypatch):
         card, lambda d: attributes(d, 0)) == 0
     bare = resources.estimate_block_usage(cfg, "codes", "cuda")
     assert bare["faces"] == 0
-    monkeypatch.setattr(resources.seam_cuda, "kernel_attributes", attributes)
+    monkeypatch.setattr(seam_cuda, "kernel_attributes", attributes)
     monkeypatch.setattr(resources, "device_memory_bytes", lambda dev: 1 << 40)
     usage = resources.validate_device(cfg, [card], "codes")
     assert usage["faces"] == 48 * 114 * 1536
