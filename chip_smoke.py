@@ -11,8 +11,16 @@ raises, exits non-zero and prints no result line:
   2. build the kernels from mlsgpu_tpu_torch/csrc with nvcc (sm_90a): ptxas'
      registers and spills, the seam kernels' attributes (local memory,
      registers) and the local memory reserve they cost a process;
-  3. kernel vs its plain PyTorch version on the card at main-path shapes
-     (the densest 256^3-corner bucket of the 2M-splat bench cloud), sphere
+  3. at main-path shapes (the densest 256^3-corner bucket of the 2M-splat
+     bench cloud), first the binning kernels (csrc/binning.cu: the key
+     pass, the entry gather, the tile segments) against their plain
+     versions, every output bit for bit, each kernel's call host-paced and
+     on the device, the kernel alone, its plain version, the PyTorch call
+     that computes the same where there is one, its bound
+     (binning_bound), the stable sort between them, and the stage's
+     launches and syncs through the kernels and through the plain versions
+     (binning_vs_plain); then the field kernel vs its plain PyTorch
+     version on that bucket, sphere
      and plane fits, two boundary factors; NaN-pattern agreement > 0.9995 and
      |kernel - plain| < 1e-3 where both are defined; CUDA-event times of
      the call (the tile order kernels and the field kernel) host-paced and
@@ -47,9 +55,11 @@ raises, exits non-zero and prints no result line:
      packed and raw give the codes run's vertex, triangle and boundary-edge
      counts, manifold; the seconds of all three modes;
   8. `--statistics-device` on that cloud (codes, then packed): the mesh
-     bitwise phase 7's, and every `device.<stage>.time`;
+     bitwise phase 7's, and every `device.<stage>.time`, its mean and each
+     block's (stage_samples);
   9. on the densest 512^3-corner dispatch (`--levels 7`, 64^3 tiles, 7
-     levels): the kernel against its plain version as in phase 3 (sphere
+     levels): the binning kernels as in phase 3, the kernel against its
+     plain version as in phase 3 (sphere
      fit, the run's boundary factor), the seam kernels as in phase 3, the
      block's field (one launch of each kernel), then tiled against dense
      classification of the block's field: the codes images bitwise equal;
@@ -87,8 +97,10 @@ raises, exits non-zero and prints no result line:
      with more than one card visible, `--device cuda --num-devices 0`
      (every card, a worker process each): each mesh's digest is phase 5's
      (the vertex and triangle arrays phase 5 checked manifold), 50 kernel
-     launches (counted in the worker processes and carried to the run's
-     `mls.launches`), every worker's block counter above 0, one process
+     launches of the field, face and binning kernels (counted in the
+     worker processes and carried to the run's `mls.launches`,
+     `seam.faceLaunches`, `binning.keyLaunches`, ...), every worker's
+     block counter above 0, one process
      per worker, and no process of the run's session alive once it has
      exited; for each, the wall and the run's phases, the worker start
      split into its stages (the server's interpreter, torch and the step's
@@ -122,16 +134,17 @@ raises, exits non-zero and prints no result line:
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
-Kernel launches (the field, face and skeleton kernels') are counted per
-main-path run (every counter set to 0 just before it and read just after;
-the comparisons of phases 3, 4 and 9 excluded); each run must launch the
-field and face kernels once a block and the skeleton kernel where its
-blocks have skeleton points (check_launches), and a kernel record's
+Kernel launches (the field, face, skeleton and three binning kernels')
+are counted per main-path run (every counter set to 0 just before it and
+read just after; the comparisons of phases 3, 4 and 9 excluded); each run
+must launch the field, face and binning kernels once a block and the
+skeleton kernel where its blocks have skeleton points (check_launches),
+and a kernel record's
 `launches` is the sum over the runs in this process (phase 12's ranks
 count their own and print them); its `max_abs_err` is the largest of
 phases 3 (and 4) and 9; its `ms` is the call's (for a seam kernel, the
 pass's) host-paced time at the densest 256^3 bucket, `device_ms` on the
-device alone (and `kernel_ms` a seam kernel alone).
+device alone (and `kernel_ms` a seam or binning kernel alone).
 The second-last lines are the kernel JSON record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -166,8 +179,10 @@ from mlsgpu_tpu_torch.config import (ReconstructConfig,  # noqa: E402
 from mlsgpu_tpu_torch.device import set_precision  # noqa: E402
 from mlsgpu_tpu_torch.io import ply  # noqa: E402
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource  # noqa: E402
-from mlsgpu_tpu_torch.ops import (binning, block, kernel_gate,  # noqa: E402
-                                  marching, mls, mls_cuda, seam_cuda)
+from mlsgpu_tpu_torch.ops import (binning, binning_cuda,  # noqa: E402
+                                  block, kernel_gate, marching, mls,
+                                  mls_cuda, seam_cuda)
+from mlsgpu_tpu_torch.ops import launches as launch_counts  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
 from mlsgpu_tpu_torch.parallel import sharded  # noqa: E402
@@ -182,7 +197,8 @@ from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
 from mlsgpu_tpu_torch.tools.bench_queues import bench_args  # noqa: E402
 from mlsgpu_tpu_torch.utils import misc, step_profile  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
-from mlsgpu_tpu_torch.utils.statistics import get_registry  # noqa: E402
+from mlsgpu_tpu_torch.utils.statistics import (Variable,  # noqa: E402
+                                                get_registry)
 
 N_SPLATS = 2_000_000
 N_SMALL = 250_000    # the cloud of phases 7 and 8 and of the dead-rank pair
@@ -226,31 +242,35 @@ SEAM_PASS_LAUNCHES = 3
 # FP32 operations of the seam kernels' fit a corner (csrc/seam_moments.cu
 # fit: the re-centring 26 with |c|^2; sphere_fit 85; plane_fit 45).
 FIT_OPS = {"sphere": 111, "plane": 71}
-# The kernels of the main path, in the order of the kernel record and of
-# seam_cuda.launch_counts().
-KERNELS = ("mls_field", "seam_face", "seam_skeleton")
+# The kernels of the main path, by the names their wrappers count them
+# under (ops/launches.py), in the order of the kernel record.
+KERNELS = tuple(launch_counts.KERNELS)
+# The binning kernels: (record name, kernel function, what it replaces).
+BINNING_KERNELS = (
+    ("bin_keys", "bin_keys_kernel", "mlsgpu_tpu/ops/binning.py:76"),
+    ("bin_entries", "bin_entries_kernel", "mlsgpu_tpu/ops/binning.py:76"),
+    ("tile_segments", "tile_segments_kernel",
+     "mlsgpu_tpu/ops/binning.py:161"))
 
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a main-path run."""
-    mls_cuda.launches = 0
-    seam_cuda.face_launches = 0
-    seam_cuda.skeleton_launches = 0
+    launch_counts.reset()
 
 
 def read_launches() -> dict:
     """Every kernel's launches since reset_launches, by KERNELS name."""
-    return dict(zip(KERNELS, seam_cuda.launch_counts()))
+    return launch_counts.counts()
 
 
 def check_launches(name: str, got: dict, blocks: int,
                    skeleton_blocks: int) -> dict:
     """A main-path run of `blocks` blocks, `skeleton_blocks` of them with
-    skeleton points, went through its kernels: the field and face kernels
-    at least once per block (and at all), the skeleton kernel at least
-    once per block with skeleton points."""
-    need = {"mls_field": max(blocks, 1), "seam_face": max(blocks, 1),
-            "seam_skeleton": skeleton_blocks}
+    skeleton points, went through its kernels: the field, face and
+    binning kernels at least once per block (and at all), the skeleton
+    kernel at least once per block with skeleton points."""
+    need = dict.fromkeys(KERNELS, max(blocks, 1))
+    need["seam_skeleton"] = skeleton_blocks
     if any(got[k] < need[k] for k in KERNELS):
         raise AssertionError(f"{name}: launches {got} for {blocks} blocks")
     return got
@@ -691,15 +711,176 @@ def face_passes_on_two_streams(n, binned, starts, lens, origin, region, tpa,
     return out
 
 
+def segment_key_sectors(sorted_keys, starts, lens) -> int:
+    """The 32-byte sectors of the sorted keys that tile_segments must read
+    on these inputs: a lower bound at position p is known from the keys at
+    p - 1 and p alone, so for each distinct segment boundary (a start or an
+    end) the sectors of those two keys, counted once however many (tile,
+    level) pairs share them."""
+    m = sorted_keys.numel()
+    if m == 0:
+        return 0
+    ends = torch.cat([starts.reshape(-1), (starts + lens).reshape(-1)])
+    ends = ends.long().unique()
+    pos = torch.cat([ends - 1, ends]).clamp(0, m - 1)
+    return int(torch.unique(pos // 4).numel())   # 4 int64 keys a sector
+
+
+def binning_bound(name: str, n: int, tiles: int, levels: int,
+                  key_sectors: int = 0) -> dict:
+    """The least time the card could take for a binning kernel's work on
+    these inputs: the larger of its bytes over the memory rate (each input
+    read once, each output written once) and its FP32 operations over the
+    FP32 peak. Keys (n splats): x, y, z, r and the valid byte in, 8 int64
+    keys out; 56 FP32 operations (px -+ r 6, r^2 c 2, the 6 slab terms'
+    clamp, difference and square 24, the 8 corners' two adds and compare
+    24). Entries (8n): the permutation in and each splat row once, the row
+    index and the entry row out; one reciprocal and one product an entry.
+    Segments: the `key_sectors` 32-byte sectors of the sorted keys that
+    hold a segment boundary (segment_key_sectors) in, starts and lens out;
+    no FP32 operation (the searches are integer compares, which the table
+    has no rate for). Integer work (the Morton interleave, the shifts) is
+    not counted."""
+    if name == "bin_keys":
+        nbytes, flops = n * (16 + 1 + 64), 56 * n
+    elif name == "bin_entries":
+        nbytes, flops = 8 * n * (8 + 8 + 32) + 32 * n, 2 * 8 * n
+    else:
+        nbytes, flops = 32 * key_sectors + 2 * 4 * tiles * levels, 0
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def _max_abs(got, ref) -> float:
+    """Largest |got - ref| over the values that differ (NaN beside NaN
+    does not)."""
+    same = got == ref
+    if got.is_floating_point():
+        same |= torch.isnan(got) & torch.isnan(ref)
+    d = torch.where(same, 0.0, (got.double() - ref.double()).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
+    """The binning kernels (csrc/binning.cu through ops/binning_cuda.py)
+    against their plain versions (ops/binning.py) on one block's splats:
+    keys, entry_vals, entry_data, segment starts and lens bit for bit
+    (NaN payloads too). Then, for each kernel, its wrapper call host-paced
+    and on the device alone, the kernel alone (profiler), its plain
+    version, the one PyTorch call that computes the same (entries: the row
+    index `mls_form[vals]`; segments: torch.searchsorted on prebuilt
+    queries; keys: none) and its bound (binning_bound); the stable sort
+    between them; and the whole stage (keys, sort, entries, segments)
+    traced through the kernels and through the plain versions: its
+    launches and host syncs (pass_profile). Its launches are comparisons:
+    not counted by callers, who reset the counters after it. Returns a row
+    per kernel."""
+    tpa = 1 << (max_s - 3)
+    levels = max_s - min_s + 1
+    nsp = sp.shape[0]
+    keys = binning_cuda.splat_keys(sp, va, origin, min_s, max_s)
+    ref_keys = binning.splat_keys(sp, va, origin, min_s, max_s)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    data, vals = binning_cuda.entry_rows(sp, perm)
+    ref_data, ref_vals = binning.entry_rows(sp, perm)
+    starts, lens = binning_cuda.tile_segments(sorted_keys, min_s, max_s, tpa)
+    ref_s, ref_l = binning.tile_segments(sorted_keys, min_s, max_s, tpa)
+    torch.cuda.synchronize()
+    errs = {"bin_keys": _max_abs(keys, ref_keys),
+            "bin_entries": max(_max_abs(vals, ref_vals),
+                               _max_abs(data, ref_data)),
+            "tile_segments": max(_max_abs(starts, ref_s),
+                                 _max_abs(lens, ref_l))}
+    for label, got, ref in (("keys", keys, ref_keys),
+                            ("entry_vals", vals, ref_vals),
+                            ("entry_data", data.view(torch.int32),
+                             ref_data.view(torch.int32)),
+                            ("starts", starts, ref_s), ("lens", lens, ref_l)):
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"binning kernels: {label} differ from the "
+                                 "plain version's")
+    # the PyTorch calls that compute the same: the row index of a prebuilt
+    # mls_form, and searchsorted on tile_segments' prebuilt queries
+    mls_form = sp.clone()
+    mls_form[:, 3] = 1.0 / (sp[:, 3] * sp[:, 3])
+    t = torch.arange(tpa, dtype=torch.int64, device=sp.device)
+    tz, ty, tx = torch.meshgrid(t, t, t, indexing="ij")
+    code = binning.morton.encode(tx.reshape(-1), ty.reshape(-1),
+                                 tz.reshape(-1))
+    offs = binning.level_offsets(min_s, max_s)
+    queries = torch.stack([q for li in range(levels) for q in (
+        (code >> (3 * (min_s - 3 + li))) + int(offs[li]),
+        (code >> (3 * (min_s - 3 + li))) + int(offs[li]) + 1)])
+    calls = {
+        "bin_keys": (lambda: binning_cuda.splat_keys(sp, va, origin, min_s,
+                                                     max_s),
+                     lambda: binning.splat_keys(sp, va, origin, min_s, max_s),
+                     None),
+        "bin_entries": (lambda: binning_cuda.entry_rows(sp, perm),
+                        lambda: binning.entry_rows(sp, perm),
+                        lambda: mls_form[vals]),
+        "tile_segments": (lambda: binning_cuda.tile_segments(
+                              sorted_keys, min_s, max_s, tpa),
+                          lambda: binning.tile_segments(sorted_keys, min_s,
+                                                        max_s, tpa),
+                          lambda: torch.searchsorted(sorted_keys, queries))}
+    sectors = segment_key_sectors(sorted_keys, ref_s, ref_l)
+    rows = []
+    for name, kernel, _ in BINNING_KERNELS:
+        call, plain, library = calls[name]
+        row = {"name": name, "splats": nsp, "entries": 8 * nsp,
+               "tiles": tpa ** 3, "levels": levels,
+               "max_abs_err": errs[name], "bitwise_the_plain_version": True,
+               "host_paced_ms": cuda_ms(call, reps),
+               "device_ms": cuda_ms(call, reps, device_only=True),
+               "kernel_ms": kernel_device_ms(call, kernel, reps),
+               "plain_ms": cuda_ms(plain, reps),
+               "library_ms": None if library is None
+               else cuda_ms(library, reps, device_only=True),
+               "key_sectors": sectors,
+               "bound": binning_bound(name, nsp, tpa ** 3, levels,
+                                      sectors)}
+        k_ms = row["kernel_ms"] or row["device_ms"]
+        row["share_of_bound"] = row["bound"]["bound_ms"] / k_ms
+        rows.append(row)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), reps,
+                      device_only=True)
+
+    def stage(path):
+        b = path.bin_splats(sp, va, origin, min_s, max_s)
+        return path.tile_segments(b.entry_keys, min_s, max_s, tpa)
+
+    stage_ms = {"kernels": cuda_ms(lambda: stage(binning_cuda), reps),
+                "plain": cuda_ms(lambda: stage(binning), reps)}
+    traced = {"kernels": pass_profile(lambda: stage(binning_cuda)),
+              "plain": pass_profile(lambda: stage(binning), 1),
+              "sort": pass_profile(lambda: torch.sort(keys, stable=True))}
+    for row in rows:
+        row.update(sort_ms=sort_ms, stage_ms=stage_ms, stage=traced)
+    phase(n, f"binning kernels vs plain at {tpa}^3 tiles, {levels} levels, "
+             f"{nsp} splats: keys, entry_vals, entry_data, starts and lens "
+             f"bit for bit; the sort {sort_ms:.4f} ms on the device; the "
+             f"stage host-paced {json.dumps(stage_ms)}, traced (launches, "
+             f"syncs) {json.dumps(traced)}")
+    for row in rows:
+        phase(n, f"{row['name']}: " + json.dumps(
+            {k: v for k, v in row.items()
+             if k not in ("sort_ms", "stage_ms", "stage")}))
+    return rows
+
+
 def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     """`b`: the densest of the buckets the main path streams."""
     grid_form, valid = load_bucket(src, info, b)
     min_s, max_s = SUB, LEVELS + SUB - 1
     tpa = 1 << (max_s - 3)
     origin = tuple(int(v) for v in b.cell_lo)
-    binned = binning.bin_splats(torch.as_tensor(grid_form, device=dev),
-                                torch.as_tensor(valid, device=dev),
-                                origin, min_s, max_s)
+    sp = torch.as_tensor(grid_form, device=dev)
+    va = torch.as_tensor(valid, device=dev)
+    bins = binning_vs_plain(3, sp, va, origin, min_s, max_s)
+    binned = binning.bin_splats(sp, va, origin, min_s, max_s)
     starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
     n_occ = int((lens.sum(1) > 0).sum())
     max_tile = int(lens.sum(1).max())
@@ -725,7 +906,7 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
              f"{max_tile}, {len(b.skeleton)} skeleton points: OK")
-    return rows, seams
+    return rows, seams, bins
 
 
 def _seam_block(splats, lo, hi, dev, points=None):
@@ -886,15 +1067,41 @@ def phase7_readbacks(cloud) -> dict:
     return runs
 
 
+@contextlib.contextmanager
+def stage_samples():
+    """Every `device.<stage>.time` sample recorded in this process while
+    the context is open, in ms, in the order the blocks recorded them, by
+    stage: a run with one worker runs its block steps here, in the
+    streamer's thread (ops/block.py StageTimer)."""
+    samples = {}
+    add = Variable.add
+
+    def record(self, value):
+        name = self.name
+        if name.startswith("device.") and name.endswith(".time") and \
+                name != "device.time":
+            samples.setdefault(name[len("device."):-len(".time")],
+                               []).append(1e3 * value)
+        return add(self, value)
+
+    Variable.add = record
+    try:
+        yield samples
+    finally:
+        Variable.add = add
+
+
 def phase8_statistics_device(cloud, plain) -> list:
     """--statistics-device in the codes and packed modes: the mesh must be
     bitwise the plain run's of the same mode (whose counts phases 5 and 7
-    checked), so no second manifold check is needed."""
+    checked), so no second manifold check is needed. Each stage's time is
+    printed block by block (stage_samples) beside its mean."""
     runs = []
     for mode in ("codes", "packed"):
-        res = cli_run(cloud, f"stats_{mode}",
-                      ["--statistics-device", "--readback", mode],
-                      manifold=False)
+        with stage_samples() as samples:
+            res = cli_run(cloud, f"stats_{mode}",
+                          ["--statistics-device", "--readback", mode],
+                          manifold=False)
         if res["digest"] != plain[mode]["digest"]:
             raise AssertionError(f"--statistics-device {mode}: the mesh "
                                  "differs from the plain run's")
@@ -909,6 +1116,13 @@ def phase8_statistics_device(cloud, plain) -> list:
         missing = [s for s in want if s not in stages]
         if missing:
             raise AssertionError(f"--statistics-device: no {missing}")
+        for k, v in stages.items():
+            if len(samples.get(k, ())) != v["n"]:
+                raise AssertionError(f"--statistics-device {mode}: {k} has "
+                                     f"{len(samples.get(k, ()))} samples "
+                                     f"here of {v['n']}")
+            v["block_ms"] = samples[k]
+        res["stages"] = stages
         runs.append(res)
         phase(8, f"--statistics-device --readback {mode}: "
                  f"{res['seconds']:.3f} s, mesh bitwise the plain run's "
@@ -934,6 +1148,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     # the face and skeleton passes overwrite the field
     min_s, max_s = SUB, TILED_LEVELS + SUB - 1
     tpa = 1 << (max_s - 3)
+    bins = binning_vs_plain(9, sp, va, origin, min_s, max_s, reps=3)
     binned = binning.bin_splats(sp, va, origin, min_s, max_s)
     starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
     row = kernel_vs_plain(9, binned, starts, lens, origin, tpa,
@@ -950,7 +1165,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
                                  levels=cfg.device_levels, subsampling=SUB)
     launches = read_launches()
     if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or \
-            launches != dict(mls_field=1, seam_face=1,
+            launches != dict(dict.fromkeys(KERNELS, 1),
                              seam_skeleton=int(points is not None)):
         raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
                              "launches")
@@ -973,6 +1188,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     phase(9, f"tiled vs dense classification, densest 512^3 dispatch: "
              f"codes images bitwise equal; {json.dumps(res)}")
     res["seam_rows"] = seams
+    res["binning_rows"] = bins
     return res
 
 
@@ -1132,7 +1348,7 @@ def phase11_chunked(cloud_ply, workdir) -> dict:
 _RANK = """
 import json, sys
 from mlsgpu_tpu_torch import cli
-from mlsgpu_tpu_torch.ops import seam_cuda
+from mlsgpu_tpu_torch.ops import launches
 from mlsgpu_tpu_torch.parallel import multihost
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 own = {}
@@ -1147,7 +1363,7 @@ multihost._merge_stats = snapshot
 rc = cli.main(sys.argv[1:])
 reg = get_registry().to_dict()
 imb = reg.get("distributed.imbalance")
-own.update(rc=rc, launches=list(seam_cuda.launch_counts()),
+own.update(rc=rc, launches=launches.counts(),
            run_s=reg.get("run.time", {}).get("sum"),
            imbalance=imb["sum"] / imb["n"] if imb else None,
            forbidden=sorted(m for m in sys.modules if m.split(".")[0]
@@ -1232,8 +1448,8 @@ def phase12_two_ranks(cloud_ply, small_ply, workdir, single) -> dict:
         if rec["forbidden"]:
             raise AssertionError(f"rank {r} imported {rec['forbidden']}")
         # every bucket of the 2M cloud has skeleton points
-        check_launches(f"rank {r}", dict(zip(KERNELS, rec["launches"])),
-                       rec["blocks"], rec["blocks"])
+        check_launches(f"rank {r}", rec["launches"], rec["blocks"],
+                       rec["blocks"])
     if sum(rec["blocks"] for _, rec, _ in ranks) != single["blocks"]:
         raise AssertionError(f"ranks ran {[r[1]['blocks'] for r in ranks]} "
                              f"blocks of {single['blocks']}")
@@ -1409,13 +1625,12 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
         if res["digest"] != digest:
             raise AssertionError(f"{name}: the mesh differs from the "
                                  "reference run's")
-        if res["launches"] != res["blocks"] or \
-                res["face_launches"] != res["blocks"] or \
-                res["skeleton_launches"] != res["skeleton_blocks"]:
+        need = dict.fromkeys(KERNELS, res["blocks"])
+        need["seam_skeleton"] = res["skeleton_blocks"]
+        if res["launches"] != need:
             raise AssertionError(
-                f"{name}: {res['launches']} field, {res['face_launches']} "
-                f"face, {res['skeleton_launches']} skeleton launches, "
-                f"{res['blocks']} blocks")
+                f"{name}: launches {res['launches']}, {res['blocks']} "
+                f"blocks, {res['skeleton_blocks']} with skeleton points")
         per_worker = res["workers"]
         if len(per_worker) != workers or \
                 not all(n > 0 for n in per_worker.values()) or \
@@ -1477,10 +1692,9 @@ def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
                              f"rc {rc}: {err.getvalue()[-500:]}")
     summary = {
         "cards_visible": cards,
-        "kernel_launches": {
-            k: sum(v[key] for v in [*out.values(), *big.values()])
-            for k, key in zip(KERNELS, ("launches", "face_launches",
-                                        "skeleton_launches"))},
+        "kernel_launches": {k: sum(v["launches"][k] for v in
+                                   [*out.values(), *big.values()])
+                            for k in KERNELS},
         "start": {k: v["start"] for k, v in out.items()},
         f"start_{BIG_SPLATS}": {k: v["start"] for k, v in big.items()},
         "per_block": {k: v["per_block"] for k, v in out.items()},
@@ -1542,7 +1756,7 @@ def phase15_sharded(pts, src, info, densest, dev) -> dict:
             mesh, stacked, valid, regions, origins, 0.0, readback="codes",
             **kw)
         step = read_launches()
-        if step != dict(mls_field=2, seam_face=2, seam_skeleton=0):
+        if step != dict(dict.fromkeys(KERNELS, 2), seam_skeleton=0):
             raise AssertionError(f"sharded step: {step} launches")
         launches = {k: launches[k] + step[k] for k in KERNELS}
         for i, (res, ref) in enumerate(zip(got, alone)):
@@ -1673,9 +1887,9 @@ def main(argv=None) -> int:
     splats, spacing, cfg = bench_setup()
     src = SequenceSource(splats)
     info, _, densest = cloud.densest_bucket(src, cfg)
-    launches, rows, seams = [], [], []
+    launches, rows, seams, bins = [], [], [], []
     if want(3):
-        rows, seams = phase3_kernel_vs_plain(src, info, densest, dev)
+        rows, seams, bins = phase3_kernel_vs_plain(src, info, densest, dev)
         check_isolated("phase 3")
     if want(4):
         seams += phase4_seams(dev)
@@ -1714,6 +1928,7 @@ def main(argv=None) -> int:
             launches.append(tiled["kernel_launches"])
             rows.append(tiled["kernel_row"])
             seams += tiled["seam_rows"]
+            bins += tiled["binning_rows"]
         if want(10):
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
             check_isolated("phase 10")
@@ -1745,7 +1960,7 @@ def main(argv=None) -> int:
     phase(6, "no process started by this one is left: OK")
 
     if rows:  # no kernel record from --only without phase 3
-        print_kernel_record(rows, seams, launches)
+        print_kernel_record(rows, seams, bins, launches)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1753,7 +1968,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def print_kernel_record(rows, seams, launches) -> None:
+def print_kernel_record(rows, seams, bins, launches) -> None:
     """The kernel record: each kernel's launches summed over the main-path
     runs of this process, its largest error against its plain version, and
     its times and bound at the densest 256^3 bucket (phase 3) on the
@@ -1793,6 +2008,24 @@ def print_kernel_record(rows, seams, launches) -> None:
             "bound_by": timed["bound"]["bound_by"],
             # no single PyTorch call computes the pass
             "library_ms": None})
+    for name, _, replaces in BINNING_KERNELS:
+        mine = [r for r in bins if r["name"] == name]
+        if not mine:
+            continue
+        first = mine[0]   # phase 3's: the densest 256^3 bucket
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "mlsgpu_tpu_torch/csrc/binning.cu",
+            "replaces": replaces, "launches": total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            # the wrapper's call host-paced, on the device alone, and the
+            # kernel alone
+            "ms": first["host_paced_ms"], "device_ms": first["device_ms"],
+            "kernel_ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"]["bound_ms"],
+            "bound_by": first["bound"]["bound_by"],
+            # keys: no single PyTorch call computes them
+            "library_ms": first["library_ms"]})
     print(json.dumps({"kernels": record}))
 
 

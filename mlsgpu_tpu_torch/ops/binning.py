@@ -12,6 +12,10 @@ Keys are int64 (the JAX package's uint32 values): INVALID_KEY still sorts
 last. The sort is stable, so tie order inside a node differs from the JAX
 package's unstable `lax.sort` — only the multiset of splats per node is part
 of the contract.
+
+These are the plain versions: on the card the block step runs the key
+pass, the gather and the segments as kernels (ops/binning_cuda.py,
+csrc/binning.cu), bit for bit these functions.
 """
 
 from __future__ import annotations
@@ -110,15 +114,19 @@ def splat_keys(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
     return torch.cat(keys)                                       # (8N,)
 
 
-def sort_entries(all_keys: torch.Tensor, n: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sort of binning: (sorted keys, splat row of every sorted entry)
-    of splat_keys' output for n splats. Stable, so equal keys keep
-    ascending splat rows."""
-    all_vals = torch.arange(n, dtype=torch.int64,
-                            device=all_keys.device).repeat(8)
-    sorted_keys, perm = torch.sort(all_keys, stable=True)
-    return sorted_keys, all_vals[perm]
+def entry_rows(splats: torch.Tensor, perm: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gather of binning: from the stable sort's permutation of
+    splat_keys' output, (entry_data, entry_vals): each sorted entry's
+    splat row (8N, 8) with col 3 = 1/r^2, and its row index (8N,), the
+    entry's splat arange(n).repeat(8)[perm]."""
+    n = splats.shape[0]
+    vals = torch.arange(n, dtype=torch.int64, device=splats.device
+                        ).repeat(8)[perm]
+    r = splats[:, 3]
+    mls_form = splats.clone()
+    mls_form[:, 3] = 1.0 / (r * r)
+    return mls_form[vals], vals
 
 
 def bin_splats(splats: torch.Tensor, valid: torch.Tensor,
@@ -131,12 +139,10 @@ def bin_splats(splats: torch.Tensor, valid: torch.Tensor,
     Positions stay in the global frame so every block sees bitwise-identical
     splat values (the seam contract)."""
     all_keys = splat_keys(splats, valid, cell_origin, min_shift, max_shift)
-    sorted_keys, sorted_vals = sort_entries(all_keys, splats.shape[0])
-    r = splats[:, 3]
-    mls_form = splats.clone()
-    mls_form[:, 3] = 1.0 / (r * r)
-    return BinnedSplats(entry_data=mls_form[sorted_vals],
-                        entry_keys=sorted_keys, entry_vals=sorted_vals)
+    sorted_keys, perm = torch.sort(all_keys, stable=True)
+    entry_data, entry_vals = entry_rows(splats, perm)
+    return BinnedSplats(entry_data=entry_data, entry_keys=sorted_keys,
+                        entry_vals=entry_vals)
 
 
 def tile_segments(entry_keys: torch.Tensor, min_shift: int, max_shift: int,

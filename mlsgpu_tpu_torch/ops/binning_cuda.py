@@ -1,0 +1,150 @@
+"""The binning stage's kernels (csrc/binning.cu) and the functions the block
+step calls for binning: `bin_splats` and `tile_segments`, with
+ops/binning.py's signatures.
+
+Tensors on a CUDA device take the kernel path: the key pass
+(`bin_keys_kernel`), `torch.sort(stable=True)` of the keys, the entry
+gather (`bin_entries_kernel`) and the tile segments
+(`tile_segments_kernel`), each kernel one launch per block with no host
+synchronisation, bit for bit the plain functions. Tensors on the CPU take
+the plain versions (ops/binning.py). A CUDA tensor launches the kernels or
+raises; nothing falls back. The kernels live in the library
+ops/mls_cuda.py builds.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mlsgpu_tpu_torch.ops import binning, launches, mls_cuda
+from mlsgpu_tpu_torch.ops.binning import BinnedSplats
+
+def _path(t: torch.Tensor) -> bool:
+    """True for the kernel path (a CUDA tensor), False for the plain one
+    (a CPU tensor); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no binning path for device {t.device}")
+
+
+def _check_splats(splats: torch.Tensor) -> int:
+    n = splats.shape[0] if splats.dim() == 2 else -1
+    mls_cuda._check("splats", splats, torch.float32, (n, 8))
+    if splats.data_ptr() % 16:
+        raise ValueError("splats must be 16-byte aligned")
+    return n
+
+
+def _check_shifts(min_shift: int, max_shift: int) -> None:
+    if not 3 <= min_shift <= max_shift <= 13:
+        raise ValueError(f"shifts [{min_shift}, {max_shift}]: the kernels "
+                         "take 3 <= min_shift <= max_shift <= 13")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+def splat_keys(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
+               min_shift: int, max_shift: int) -> torch.Tensor:
+    """binning.splat_keys: the key kernel for CUDA tensors (one launch;
+    none for no splats), the plain version for CPU tensors."""
+    if not _path(splats):
+        return binning.splat_keys(splats, valid, cell_origin, min_shift,
+                                  max_shift)
+    dev = splats.device
+    n = _check_splats(splats)
+    mls_cuda._check("valid", valid, torch.bool, (n,))
+    if valid.device != dev:
+        raise ValueError(f"valid on {valid.device}, splats on {dev}")
+    _check_shifts(min_shift, max_shift)
+    ox, oy, oz = (int(v) for v in cell_origin)
+    keys = torch.empty(8 * n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return keys
+    lib = mls_cuda.load()
+    with torch.cuda.device(dev):
+        _raise_on(lib.bin_keys_launch(
+            splats.data_ptr(), valid.data_ptr(), n, min_shift, max_shift,
+            ox, oy, oz, keys.data_ptr(), _stream(dev)), "bin_keys_launch")
+    launches.count("bin_keys")
+    return keys
+
+
+def entry_rows(splats: torch.Tensor, perm: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """binning.entry_rows: the entry kernel for CUDA tensors (one launch;
+    none for no splats), the plain version for CPU tensors."""
+    if not _path(splats):
+        return binning.entry_rows(splats, perm)
+    dev = splats.device
+    n = _check_splats(splats)
+    mls_cuda._check("perm", perm, torch.int64, (8 * n,))
+    if perm.device != dev:
+        raise ValueError(f"perm on {perm.device}, splats on {dev}")
+    data = torch.empty((8 * n, 8), dtype=torch.float32, device=dev)
+    vals = torch.empty(8 * n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return data, vals
+    lib = mls_cuda.load()
+    with torch.cuda.device(dev):
+        _raise_on(lib.bin_entries_launch(
+            splats.data_ptr(), perm.data_ptr(), n, data.data_ptr(),
+            vals.data_ptr(), _stream(dev)), "bin_entries_launch")
+    launches.count("bin_entries")
+    return data, vals
+
+
+def bin_splats(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
+               min_shift: int, max_shift: int) -> BinnedSplats:
+    """binning.bin_splats: on a CUDA device the key kernel, the stable
+    sort and the entry kernel; on the CPU the plain version."""
+    if not _path(splats):
+        return binning.bin_splats(splats, valid, cell_origin, min_shift,
+                                  max_shift)
+    keys = splat_keys(splats, valid, cell_origin, min_shift, max_shift)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    del keys
+    entry_data, entry_vals = entry_rows(splats, perm)
+    return BinnedSplats(entry_data=entry_data, entry_keys=sorted_keys,
+                        entry_vals=entry_vals)
+
+
+def tile_segments(entry_keys: torch.Tensor, min_shift: int, max_shift: int,
+                  tiles_per_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """binning.tile_segments: the segment kernel for CUDA tensors (one
+    launch), the plain version for CPU tensors. Returns (starts, lens),
+    each (T, L) int32."""
+    if not _path(entry_keys):
+        return binning.tile_segments(entry_keys, min_shift, max_shift,
+                                     tiles_per_axis)
+    dev = entry_keys.device
+    mls_cuda._check("entry_keys", entry_keys, torch.int64,
+                    (entry_keys.numel(),))
+    _check_shifts(min_shift, max_shift)
+    tpa = int(tiles_per_axis)
+    if not 1 <= tpa <= 1024:
+        raise ValueError(f"{tpa} tiles an axis: the kernel takes 1-1024")
+    if entry_keys.numel() >= 1 << 31:
+        raise ValueError(f"{entry_keys.numel()} entries: segment starts "
+                         "are int32")
+    shape = (tpa ** 3, max_shift - min_shift + 1)
+    starts = torch.empty(shape, dtype=torch.int32, device=dev)
+    lens = torch.empty(shape, dtype=torch.int32, device=dev)
+    lib = mls_cuda.load()
+    with torch.cuda.device(dev):
+        _raise_on(lib.bin_segments_launch(
+            entry_keys.data_ptr(), entry_keys.numel(), min_shift, max_shift,
+            tpa, starts.data_ptr(), lens.data_ptr(), _stream(dev)),
+            "bin_segments_launch")
+    launches.count("tile_segments")
+    return starts, lens

@@ -1,7 +1,7 @@
-"""The per-block device step: binning -> MLS field (kernel) -> canonical
-faces and skeleton points (kernels) -> marching -> one readback (port of
-mlsgpu_tpu/ops/block.py: `block_step_body`, `block_step_staged`, the
-packed and codes layouts and their host decoders).
+"""The per-block device step: binning (kernels) -> MLS field (kernel) ->
+canonical faces and skeleton points (kernels) -> marching -> one readback
+(port of mlsgpu_tpu/ops/block.py: `block_step_body`, `block_step_staged`,
+the packed and codes layouts and their host decoders).
 
 Three readback modes, as in the JAX package:
 - "codes": marching codes packed into one image; the host rebuilds and
@@ -27,8 +27,8 @@ import torch
 
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 
-from mlsgpu_tpu_torch.ops import (binning, marching, mls, mls_cuda, seam_cuda,
-                                  weld)
+from mlsgpu_tpu_torch.ops import (binning_cuda, marching, mls, mls_cuda,
+                                  seam_cuda, weld)
 
 
 #: Order of the scalars inside BlockResult.counts (the JAX package's order).
@@ -283,11 +283,11 @@ def block_field(splats: torch.Tensor, valid: torch.Tensor,
     max_shift = levels + subsampling - 1
     tpa = 1 << (max_shift - 3)  # block corners / 8
     with stage("binning"):
-        binned = binning.bin_splats(splats, valid, cell_origin, min_shift,
-                                    max_shift)
+        binned = binning_cuda.bin_splats(splats, valid, cell_origin,
+                                         min_shift, max_shift)
     with stage("segments"):
-        starts, lens = binning.tile_segments(binned.entry_keys, min_shift,
-                                             max_shift, tpa)
+        starts, lens = binning_cuda.tile_segments(binned.entry_keys,
+                                                  min_shift, max_shift, tpa)
     with stage("mls"):
         field, _, n_occ = mls_cuda.eval_field(
             binned.entry_data, starts, lens, cell_origin, tpa, fit_shape,

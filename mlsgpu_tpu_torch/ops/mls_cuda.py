@@ -6,9 +6,11 @@ plain PyTorch version (ops/mls.py::eval_field) for tensors on the CPU; a
 CUDA tensor either launches the kernel or raises — nothing falls back.
 
 The kernel library holds the port's hand-written kernels: the field kernel
-(csrc/mls_field.cu) and the seam passes' face and skeleton kernels
-(csrc/seam_moments.cu, called from ops/seam_cuda.py). One nvcc call
-compiles both sources for sm_90a on first use into
+(csrc/mls_field.cu), the seam passes' face and skeleton kernels
+(csrc/seam_moments.cu, called from ops/seam_cuda.py) and the binning
+stage's key, entry and segment kernels (csrc/binning.cu with
+csrc/binning.cuh, called from ops/binning_cuda.py). One nvcc call
+compiles the three sources for sm_90a on first use into
 `mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source is newer);
 the kernels are called through their plain C entry points with ctypes, on
 PyTorch's current stream, without synchronising.
@@ -26,22 +28,18 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from mlsgpu_tpu_torch.ops import mls
+from mlsgpu_tpu_torch.ops import launches, mls
 from mlsgpu_tpu_torch.utils import native_build
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("mls_field.cu", "seam_moments.cu")]
+           for name in ("mls_field.cu", "seam_moments.cu", "binning.cu")]
+#: Headers the sources include: the library is rebuilt when one is newer.
+HEADERS = [os.path.join(_PKG, "csrc", "binning.cuh")]
 LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: Kernel launches made by `eval_field`, counted by `count_launch` under a
-#: lock, plus those of the streamer's worker processes (`add_launches`).
-#: Set it to 0 before a run to count that run's launches.
-launches = 0
-
-_count_lock = threading.Lock()
 _lock = threading.Lock()
 _lib = None
 #: What the last build printed (nvcc's -Xptxas -v register/spill report)
@@ -92,7 +90,8 @@ def build(force: bool = False,
             raise KernelBuildError(f"nvcc failed ({proc.returncode}): "
                                    f"{' '.join(cmd)}\n{build_log}")
 
-    native_build.build_locked(target, SOURCES, compile_into, force=force)
+    native_build.build_locked(target, SOURCES + HEADERS, compile_into,
+                              force=force)
     return target
 
 
@@ -128,24 +127,19 @@ def load():
             fn = lib.seam_kernel_attributes
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            i64, ptr = ctypes.c_longlong, ctypes.c_void_p
+            fn = lib.bin_keys_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ptr, ptr, i64] + [ctypes.c_int] * 2 + [i64] * 3
+                           + [ptr, ptr])
+            fn = lib.bin_entries_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
+            fn = lib.bin_segments_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr, i64] + [ctypes.c_int] * 3 + [ptr] * 3
             _lib = lib
         return _lib
-
-
-def count_launch() -> None:
-    """Add one to `launches`; called where the field kernel was launched
-    and nowhere else."""
-    global launches
-    with _count_lock:
-        launches += 1
-
-
-def add_launches(n: int) -> None:
-    """Add the launches a worker process counted for one block
-    (pipeline/workers.py) to this process's `launches`."""
-    global launches
-    with _count_lock:
-        launches += int(n)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -203,7 +197,7 @@ def _launch(entry_data, seg_starts, seg_lens, cell_origin, tiles_per_axis,
             field.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mls_field_launch failed: cudaError_t {err}")
-    count_launch()
+    launches.count("mls_field")
     return field, n_occ
 
 

@@ -18,52 +18,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from mlsgpu_tpu_torch.ops import mls, mls_cuda
-
-#: Kernel launches made by the wrappers (face, skeleton), counted under a
-#: lock, plus those of the streamer's worker processes (`add_launches`).
-#: Set them to 0 before a run to count that run's launches.
-face_launches = 0
-skeleton_launches = 0
-
-_count_lock = threading.Lock()
-
-
-def count_launch(kind: str) -> None:
-    """Add one to `face_launches` or `skeleton_launches` (`kind` "face" or
-    "skeleton"); called where that kernel was launched and nowhere else."""
-    global face_launches, skeleton_launches
-    with _count_lock:
-        if kind == "face":
-            face_launches += 1
-        else:
-            skeleton_launches += 1
-
-
-def add_launches(face: int, skeleton: int) -> None:
-    """Add the launches a worker process counted for one block
-    (pipeline/workers.py) to this process's counts."""
-    global face_launches, skeleton_launches
-    with _count_lock:
-        face_launches += int(face)
-        skeleton_launches += int(skeleton)
-
-
-def launch_counts() -> Tuple[int, int, int]:
-    """This process's launches of the field, face and skeleton kernels."""
-    return mls_cuda.launches, face_launches, skeleton_launches
-
-
-def add_launch_counts(counts: Sequence[int]) -> None:
-    """Add a worker's launch_counts() difference for one block."""
-    mls_cuda.add_launches(counts[0])
-    add_launches(counts[1], counts[2])
-
+from mlsgpu_tpu_torch.ops import launches, mls, mls_cuda
 
 def max_buffer() -> int:
     """The kernels' largest (and default) candidate buffer of a window."""
@@ -161,7 +120,7 @@ def _launch(kind: str, entry_data, entry_vals, seg_starts, seg_lens,
                  cap, *ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seam_{kind}_launch failed: cudaError_t {err}")
-    count_launch(kind)
+    launches.count(f"seam_{kind}")
 
 
 def _check_field(field: torch.Tensor, dev, tpa: int) -> None:

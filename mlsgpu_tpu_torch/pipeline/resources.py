@@ -60,7 +60,11 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     entries = 8 * n
     usage = {
         "splats": n * (8 * F32 + 1),
-        # keys + vals (+ the sort's copies) and the gathered entry rows
+        # an entry's int64 key, sorted key, sort permutation and row index
+        # and its gathered row (the kernel path, ops/binning_cuda.py: the
+        # keys are freed before the gather); the sort itself holds at most
+        # 6 int64 an entry (keys and indices in, sorted out, its own
+        # alternate buffers)
         "binning": entries * (2 * I64 * 2 + 8 * F32),
         "field": b ** 3 * F32,
     }

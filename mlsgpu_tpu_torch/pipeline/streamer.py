@@ -69,7 +69,7 @@ from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
 from mlsgpu_tpu_torch.utils import misc, step_profile, timeplot
 from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
 
-from mlsgpu_tpu_torch.ops import seam_cuda
+from mlsgpu_tpu_torch.ops import launches
 from mlsgpu_tpu_torch.ops.block import (CountsView, Format, block_step,
                                         block_step_staged, readback_tensors)
 from mlsgpu_tpu_torch.pipeline import workers as workers_mod
@@ -86,12 +86,6 @@ WORKER_WINDOW = 2
 
 #: Host bytes of one splat of a block input: (8,) f32 row + valid byte.
 SPLAT_BYTES = 8 * 4 + 1
-
-#: The statistics counters of the field, face and skeleton kernels'
-#: launches while a stream runs (seam_cuda.launch_counts order).
-LAUNCH_COUNTERS = ("mls.launches", "seam.faceLaunches",
-                   "seam.skeletonLaunches")
-
 
 class _HostBlock(NamedTuple):
     readback: str
@@ -543,10 +537,10 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
             msg = proc.recv(cancel)
         if msg is None:
             return None
-        _, hosts, delta, c0, c1, launches = msg
+        _, hosts, delta, c0, c1, counted = msg
         workers_mod.merge_stat_delta(delta)
         timeplot.record(proc.name, "compute", c0, c1)
-        seam_cuda.add_launch_counts(launches)
+        launches.add(counted)
         return seq, (b, mode, fmt, counts, hosts, None, None, image_bytes,
                      held), time.monotonic() - t0
 
@@ -636,7 +630,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                 profiler.close()
 
     owned: List[workers_mod.WorkerProcess] = []
-    launched = seam_cuda.launch_counts()
+    launched = launches.counts()
     threads = [threading.Thread(target=loader, name="loader", daemon=True)]
     wait_plot = timeplot.Worker("readback")
     yielded = 0
@@ -703,6 +697,5 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         workers_mod.stop_workers(owned)
         # the kernels' launches in this process and its worker processes
         # while the stream ran, for a caller that reads the statistics
-        for name, a, b in zip(LAUNCH_COUNTERS, launched,
-                              seam_cuda.launch_counts()):
-            stats.counter(name).add(b - a)
+        for name, n in launches.since(launched).items():
+            stats.counter(launches.KERNELS[name]).add(n)

@@ -2,7 +2,9 @@
 bucket of the bench cloud (port of mlsgpu_tpu/tools/bench_micro.py):
 
 - binning split three ways: the key pass alone, keys and sort without the
-  gather, and the whole of `bin_splats`;
+  gather, and the whole of `bin_splats` (the plain versions); on a card
+  also the kernel path (ops/binning_cuda.py) split the same way, and the
+  tile segments through their kernel and their plain version;
 - the canonical face pass: on a card its kernel path (ops/seam_cuda.py,
   one launch for the block), then its plain version by rows per chunk
   (`ops/mls.py` runs 32 rows at a time, with host synchronisations per
@@ -106,12 +108,12 @@ class BenchBlock:
     def binned_field(self):
         """(binned entries, segment starts, lens, the MLS field before the
         face and skeleton passes) of the block."""
-        from mlsgpu_tpu_torch.ops import binning, mls_cuda
-        binned = binning.bin_splats(self.splats, self.valid, self.origin,
-                                    self.min_shift, self.max_shift)
-        starts, lens = binning.tile_segments(binned.entry_keys,
-                                             self.min_shift, self.max_shift,
-                                             self.tpa)
+        from mlsgpu_tpu_torch.ops import binning_cuda, mls_cuda
+        binned = binning_cuda.bin_splats(self.splats, self.valid,
+                                         self.origin, self.min_shift,
+                                         self.max_shift)
+        starts, lens = binning_cuda.tile_segments(
+            binned.entry_keys, self.min_shift, self.max_shift, self.tpa)
         field, _, _ = mls_cuda.eval_field(
             binned.entry_data, starts, lens, self.origin, self.tpa,
             self.cfg.fit_shape, self.bf)
@@ -142,21 +144,37 @@ def main(argv=None) -> int:
 
     import torch
 
-    from mlsgpu_tpu_torch.ops import binning, marching, mls, seam_cuda
+    from mlsgpu_tpu_torch.ops import (binning, binning_cuda, marching, mls,
+                                      seam_cuda)
 
     blk = BenchBlock(args.splats, args.levels, args.device)
     sp, va, org = blk.splats, blk.valid, blk.origin
     lo, hi = blk.min_shift, blk.max_shift
 
     # ---- binning internals ------------------------------------------------
-    def keys():
-        return binning.splat_keys(sp, va, org, lo, hi)
+    def keys(path=binning):
+        return path.splat_keys(sp, va, org, lo, hi)
 
     blk.timeit("bin keys only (no sort)", keys, args.reps)
     blk.timeit("bin keys+sort (no gather)",
-               lambda: binning.sort_entries(keys(), sp.shape[0]), args.reps)
+               lambda: torch.sort(keys(), stable=True), args.reps)
     blk.timeit("bin full (sort+gather)",
                lambda: binning.bin_splats(sp, va, org, lo, hi), args.reps)
+    if blk.dev.type == "cuda":
+        blk.timeit("bin keys kernel", lambda: keys(binning_cuda), args.reps)
+        blk.timeit("bin keys kernel+sort",
+                   lambda: torch.sort(keys(binning_cuda), stable=True),
+                   args.reps)
+        blk.timeit("bin full kernels (keys, sort, entries)",
+                   lambda: binning_cuda.bin_splats(sp, va, org, lo, hi),
+                   args.reps)
+        entry_keys = binning_cuda.bin_splats(sp, va, org, lo, hi).entry_keys
+        for name, path in (("kernel", binning_cuda), ("plain", binning)):
+            blk.timeit(f"segments {name}",
+                       lambda p=path: p.tile_segments(entry_keys, lo, hi,
+                                                      blk.tpa),
+                       args.reps)
+        del entry_keys
 
     # ---- face pass by rows per chunk --------------------------------------
     binned, starts, lens, field = blk.binned_field()

@@ -3,7 +3,8 @@ mlsgpu_tpu/tools/bench_micro2.py):
 
 - the binning key pass with parts switched off in turn (no Morton
   interleave, no sphere/slab test, one fixed level), to see which part of
-  the pass costs what;
+  the pass costs what, and on a card the key kernel
+  (ops/binning_cuda.py) beside them;
 - the face pass: how many of its patch rows are occupied and how many
   distinct tiles a row draws from, then on a card its kernel path (one
   launch, ops/seam_cuda.py) and its plain version at 32 and 256 rows per
@@ -114,7 +115,7 @@ def main(argv=None) -> int:
     add_arguments(p)
     args = p.parse_args(argv)
 
-    from mlsgpu_tpu_torch.ops import binning, mls, mls_cuda, seam_cuda
+    from mlsgpu_tpu_torch.ops import binning_cuda, mls, mls_cuda, seam_cuda
 
     blk = BenchBlock(args.splats, args.levels, args.device)
     sp, va, org = blk.splats, blk.valid, blk.origin
@@ -124,6 +125,10 @@ def main(argv=None) -> int:
     for name, kw in KEY_VARIANTS:
         blk.timeit(f"bin {name}",
                    lambda kw=kw: keys_variant(sp, va, org, lo, hi, **kw),
+                   args.reps)
+    if blk.dev.type == "cuda":
+        blk.timeit("bin keys kernel",
+                   lambda: binning_cuda.splat_keys(sp, va, org, lo, hi),
                    args.reps)
 
     # ---- the face pass: row occupancy, then two chunk sizes ---------------
@@ -150,9 +155,9 @@ def main(argv=None) -> int:
 
     # ---- the MLS call by candidates per tile ------------------------------
     for k in THINNING:
-        b = binning.bin_splats(sp[::k].contiguous(), va[::k].contiguous(),
-                               org, lo, hi)
-        st, ln = binning.tile_segments(b.entry_keys, lo, hi, blk.tpa)
+        b = binning_cuda.bin_splats(sp[::k].contiguous(),
+                                    va[::k].contiguous(), org, lo, hi)
+        st, ln = binning_cuda.tile_segments(b.entry_keys, lo, hi, blk.tpa)
         per_tile = ln.sum(dim=1)
         occ = int((per_tile > 0).sum())
         blk.timeit(

@@ -21,8 +21,9 @@ block, decode, mesher, the consumer's busy time and the producer's wait for
 it); what sets pass 1's pace: the consumer thread's busy share of
 `pass1.time` (its `consumer.busy`; in a tree that does not record it, decode
 and mesher, which its consumer ran), the producer's wait share, and the
-workers' slot wait summed; the blocks per worker; the kernels' launches
-(field, face, skeleton) and the blocks with skeleton points; a
+workers' slot wait summed; the blocks per worker; the launches of
+every hand kernel, by name (ops/launches.py), and the blocks with skeleton
+points; a
 digest of the mesh; and any process of the run's session still alive once
 it has exited (which is then killed). A statistic a tree does not record
 is null. The last line is `SUMMARY {json}` with each run's wall time
@@ -150,6 +151,7 @@ def run_cli(root: str, ply_path: str, spacing: float,
     environment; the run's numbers (module docstring). Raises when it
     exits non-zero."""
     from mlsgpu_tpu_torch.io import ply
+    from mlsgpu_tpu_torch.ops import launches
     from mlsgpu_tpu_torch.tools.analyze_stats import parse
 
     out = ply_path[:-4] + ".out.ply"
@@ -189,9 +191,9 @@ def run_cli(root: str, ply_path: str, spacing: float,
            + (_sum(stats, "bucket.skeletonTime") or 0.0),
            "pass1_s": _sum(stats, "pass1.time"),
            "write_s": _sum(stats, "write.time"),
-           "blocks": blocks, "launches": _count(stats, "mls.launches"),
-           "face_launches": _count(stats, "seam.faceLaunches"),
-           "skeleton_launches": _count(stats, "seam.skeletonLaunches"),
+           "blocks": blocks,
+           "launches": {k: _count(stats, name)
+                        for k, name in launches.KERNELS.items()},
            "skeleton_blocks": _count(stats, "bucket.skeletonBlocks"),
            "spawned": _count(stats, "workers.spawned") or 0,
            "main_imported": _count(stats, "workers.mainImported"),

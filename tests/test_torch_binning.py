@@ -1,7 +1,10 @@
 """The port's binning against the JAX package's on the same splats: the clz
 replacement over every edge value, node keys and tile segments bitwise,
 entry splats equal as multisets per key (the JAX sort is not stable, so tie
-order inside a node is not part of the contract)."""
+order inside a node is not part of the contract). Besides the clouds of
+this module, those of tests/test_torch_binning_cuda.py (`edge_cloud`):
+splats on slab boundaries and at the conservative test's margin, off node
+corners, and with giant radii."""
 
 import numpy as np
 import pytest
@@ -14,6 +17,10 @@ from mlsgpu_tpu.ops import binning as jbin
 from mlsgpu_tpu_torch.ops import binning as tbin
 
 from tests import oracle
+from tests.test_torch_binning_cuda import edge_cloud
+
+#: The clouds of edge_cloud this module runs as well as its own.
+EDGE_KINDS = ("boundaries", "corners", "giant")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,24 +52,29 @@ def test_level_shift_matches_jax():
 
 
 def _cloud(kind):
+    """(splats, valid, origin (3,) int32) of a test cloud."""
+    if kind in EDGE_KINDS:
+        splats, valid, origin = edge_cloud(kind)
+        return splats, valid, np.asarray(origin, np.int32)
     rng = np.random.default_rng(12)
     if kind == "varied":
         small = oracle.sphere_cloud([16, 16, 16], 10.0, 800, 1.5, rng)
         large = oracle.sphere_cloud([16, 16, 16], 10.0, 150, 12.0, rng)
-        return np.concatenate([small, large]), np.zeros(3, np.int32)
-    if kind == "offset":
+        s, origin = np.concatenate([small, large]), np.zeros(3, np.int32)
+    elif kind == "offset":
         # block origin away from 0 and splats reaching outside the block
         s = oracle.plane_cloud(40.5, 40.0, 1500, 2.0, rng)
         s[:, 0:2] += 28.0
-        return s, np.array([32, 32, 24], np.int32)
-    s = oracle.sphere_cloud([16.0, 15.0, 17.0], 9.0, 1200, 2.0, rng)
-    s[::97, 0] = np.nan                       # invalid rows sort last
-    return s, np.zeros(3, np.int32)
+        origin = np.array([32, 32, 24], np.int32)
+    else:
+        s = oracle.sphere_cloud([16.0, 15.0, 17.0], 9.0, 1200, 2.0, rng)
+        s[::97, 0] = np.nan                   # invalid rows sort last
+        origin = np.zeros(3, np.int32)
+    return s, np.isfinite(s).all(axis=1), origin
 
 
 def _bin_both(kind, levels, sub):
-    splats, origin = _cloud(kind)
-    valid = np.isfinite(splats).all(axis=1)
+    splats, valid, origin = _cloud(kind)
     min_s, max_s = sub, levels + sub - 1
     jb = jbin.bin_splats(jnp.asarray(splats), jnp.asarray(valid),
                          jnp.asarray(origin), min_s, max_s)
@@ -71,13 +83,17 @@ def _bin_both(kind, levels, sub):
     return jb, tb, (min_s, max_s)
 
 
-@pytest.mark.parametrize("kind", ["sphere", "varied", "offset"])
-def test_entries_match_jax(kind):
-    jb, tb, _ = _bin_both(kind, 3, 3)
+@pytest.mark.parametrize("kind,levels,sub", [
+    *(pytest.param(kind, 3, 3, id=kind)
+      for kind in ("sphere", "varied", "offset", *EDGE_KINDS)),
+    *(pytest.param(kind, 2, 5, id=f"{kind}-2-5") for kind in EDGE_KINDS)])
+def test_entries_match_jax(kind, levels, sub):
+    jb, tb, _ = _bin_both(kind, levels, sub)
     jkeys = np.asarray(jb.entry_keys).astype(np.int64)
     tkeys = tb.entry_keys.numpy()
     np.testing.assert_array_equal(tkeys, jkeys)              # bitwise
-    assert (jkeys != tbin.INVALID_KEY).sum() > 1000
+    assert (jkeys != tbin.INVALID_KEY).sum() > (
+        100 if kind in EDGE_KINDS else 1000)
 
     # splats per key as multisets, and the entry rows per (key, val)
     jvals = np.asarray(jb.entry_vals).astype(np.int64)
@@ -90,10 +106,19 @@ def test_entries_match_jax(kind):
     np.testing.assert_array_equal(jdata.view(np.uint32), tdata.view(np.uint32))
 
 
-@pytest.mark.parametrize("levels,sub", [(3, 3), (4, 3), (3, 4), (2, 5)])
-def test_tile_segments_bitwise(levels, sub):
-    """Includes min_shift > 3, where several tiles share one leaf node."""
-    jb, tb, (min_s, max_s) = _bin_both("varied", levels, sub)
+LEVELS = [(3, 3), (4, 3), (3, 4), (2, 5)]
+
+
+@pytest.mark.parametrize("levels,sub,kind", [
+    *(pytest.param(lv, sub, "varied", id=f"{lv}-{sub}") for lv, sub in LEVELS),
+    *(pytest.param(lv, sub, kind, id=f"{lv}-{sub}-{kind}")
+      for kind in EDGE_KINDS for lv, sub in LEVELS)])
+def test_tile_segments_bitwise(levels, sub, kind):
+    """Includes min_shift > 3, where several tiles share one leaf node;
+    the keys the segments are searched in are bitwise too."""
+    jb, tb, (min_s, max_s) = _bin_both(kind, levels, sub)
+    np.testing.assert_array_equal(tb.entry_keys.numpy(),
+                                  np.asarray(jb.entry_keys).astype(np.int64))
     tpa = 1 << (max_s - 3)
     js, jl = jbin.tile_segments(jb.entry_keys, min_s, max_s, tpa)
     ts, tl = tbin.tile_segments(tb.entry_keys, min_s, max_s, tpa)

@@ -1,0 +1,492 @@
+"""The binning stage's kernel path (ops/binning_cuda.py, csrc/binning.cu).
+
+On the CPU: the wrappers take the plain versions and launch nothing; the
+kernels' arithmetic (csrc/binning.cuh) built for the host with g++
+-ffp-contract=off and held to the plain versions bit for bit on clouds
+with splats on slab boundaries, at the conservative test's margin and with
+giant radii (`edge_cloud`; tests/test_torch_binning.py holds the plain
+versions to the JAX package on the same clouds); the build, the launch
+counters (also carried back from worker processes), no splats, and a
+device the wrappers cannot take. On the card (marker `cuda`): keys,
+entries and segments bit for bit against the plain versions, and one
+launch of each kernel a block.
+
+This module imports no jax: a worker process imports it for its block
+step (CountingStep) and must not pay for jax, and the card's machine has
+none; there an installed package named `tests` also shadows
+`tests.oracle`.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from mlsgpu_tpu_torch.ops import binning, binning_cuda, block, launches, mls_cuda
+from mlsgpu_tpu_torch.ops.block import block_step_staged
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "mlsgpu_tpu_torch", "csrc")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _normals(rng, n):
+    v = rng.normal(size=(n, 3))
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _sphere(center, radius, n, splat_radius, rng):
+    """Splats on an analytic sphere with outward normals (tests/oracle.py's
+    fixture, which the card's machine cannot import as `tests`)."""
+    v = _normals(rng, n)
+    out = np.empty((n, 8), np.float32)
+    out[:, 0:3] = np.asarray(center, np.float64) + radius * v
+    out[:, 3] = splat_radius
+    out[:, 4:7] = v
+    out[:, 7] = 1.0 / splat_radius ** 2
+    return out
+
+
+def edge_cloud(kind):
+    """(splats (N, 8) f32, valid (N,) bool, cell origin) of a test cloud:
+    "sphere" (some rows NaN and invalid), "boundaries" (splats on the
+    lattice, px +- r and slab faces coinciding exactly, and splats at the
+    conservative test's margin: a slab distance of r times 1 - 2^-23 to
+    1.00001), "corners" (splats off a node corner in every axis, at a
+    distance within the margin: the sum of three axis terms decides) or
+    "giant" (radii up to 1e6 beside small ones, centres outside the block,
+    an origin away from 0)."""
+    rng = np.random.default_rng(21)
+    if kind == "sphere":
+        s = _sphere([16.0, 15.0, 17.0], 9.0, 1500, 2.0, rng)
+        s[::97, 0] = np.nan
+        return s, np.isfinite(s).all(axis=1), (0, 0, 0)
+    if kind == "boundaries":
+        n = 1600
+        s = np.empty((n, 8), np.float32)
+        s[:, 0:3] = rng.integers(-4, 36, size=(n, 3))
+        s[1::3, 0:3] += 0.5
+        s[:, 3] = rng.choice([0.5, 1.0, 2.0, 4.0, 8.0], size=n)
+        # a slab face at a multiple of 8, the splat a factor f of r from it
+        f = np.float32([1.0, 1.0 - 2.0 ** -23, 1.0 + 2.0 ** -23,
+                        1.0 + 2.0 ** -22, 1.000005, 1.00001, 1.0000105])
+        m = n // 2
+        face = 8.0 * rng.integers(0, 4, size=m)
+        side = rng.choice([-1.0, 1.0], size=m)
+        s[:m, 0] = (face + side * s[:m, 3] * f[np.arange(m) % len(f)]
+                    ).astype(np.float32)
+        s[:, 4:7] = _normals(rng, n)
+        s[:, 7] = 1.0
+        valid = rng.random(n) < 0.95
+        return s, valid, (0, 0, 0)
+    if kind == "corners":
+        n = 4000
+        s = np.zeros((n, 8), np.float32)
+        s[:, 3] = rng.choice([0.75, 1.5, 3.0], size=n)
+        u = np.abs(_normals(rng, n)) + 0.3
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        f = rng.uniform(0.99999, 1.00002, size=(n, 1))
+        corner = 8.0 * rng.integers(1, 4, size=(n, 3))
+        s[:, 0:3] = corner - s[:, 3:4] * f * u
+        s[:, 4:7] = u
+        s[:, 7] = 1.0
+        return s, np.ones(n, bool), (0, 0, 0)
+    s = _sphere([20.0, 12.0, 30.0], 10.0, 900, 1.0, rng)
+    s[::7, 3] = rng.choice([40.0, 300.0, 5e4, 1e6], size=len(s[::7]))
+    s[::11, 0:3] -= 24.0
+    return s, np.ones(len(s), bool), (8, 0, 16)
+
+
+KINDS = ("sphere", "boundaries", "corners", "giant")
+
+
+#: The binning kernels' names in ops/launches.py.
+BINNING = ("bin_keys", "bin_entries", "tile_segments")
+
+
+def _since(before):
+    """The binning kernels' launches since `before` (launches.counts())."""
+    now = launches.since(before)
+    return [now[k] for k in BINNING]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_wrappers_on_cpu_take_the_plain_path(kind):
+    splats, valid, origin = edge_cloud(kind)
+    sp, va = torch.as_tensor(splats), torch.as_tensor(valid)
+    before = launches.counts()
+    b = binning_cuda.bin_splats(sp, va, origin, 3, 5)
+    s, ln = binning_cuda.tile_segments(b.entry_keys, 3, 5, 4)
+    assert launches.counts() == before
+    ref = binning.bin_splats(sp, va, origin, 3, 5)
+    for name in ("entry_keys", "entry_vals", "entry_data"):
+        _same(getattr(b, name), getattr(ref, name), name)
+    ref_s, ref_l = binning.tile_segments(ref.entry_keys, 3, 5, 4)
+    _same(s, ref_s, "starts")
+    _same(ln, ref_l, "lens")
+    assert int(ln.sum()) > 0
+
+
+# --- the kernels' arithmetic, built for the host ----------------------------
+
+# The kernels' bodies (csrc/binning.cu) as host loops over binning.cuh.
+_HARNESS = """
+#include "binning.cuh"
+
+extern "C" float host_r2_factor() { return BIN_R2_FACTOR; }
+
+extern "C" void host_keys(const float* s, const unsigned char* valid,
+                          long long n, int min_shift, int max_shift,
+                          long long ox, long long oy, long long oz,
+                          long long* keys) {
+  const BinShape shape{min_shift, max_shift, {ox, oy, oz}};
+  for (long long i = 0; i < n; ++i) {
+    long long k[8];
+    bin_splat_keys(s[8 * i], s[8 * i + 1], s[8 * i + 2], s[8 * i + 3],
+                   valid[i] != 0, shape, k);
+    for (int c = 0; c < 8; ++c) keys[c * n + i] = k[c];
+  }
+}
+
+extern "C" void host_entries(const float* s, const long long* perm,
+                             long long n, float* data, long long* vals) {
+  for (long long e = 0; e < 8 * n; ++e) {
+    const long long v = perm[e] % n;
+    vals[e] = v;
+    for (int a = 0; a < 8; ++a) data[8 * e + a] = s[8 * v + a];
+    data[8 * e + 3] = bin_inv_r2(s[8 * v + 3]);
+  }
+}
+
+extern "C" void host_segments(const long long* keys, long long m,
+                              int min_shift, int max_shift, int tpa,
+                              int* starts, int* lens) {
+  const int levels = max_shift - min_shift + 1;
+  const long long items = (long long)tpa * tpa * tpa * levels;
+  for (long long j = 0; j < items; ++j) {
+    const long long node = bin_tile_node(j / levels, tpa, (int)(j % levels),
+                                         min_shift, max_shift);
+    const long long start = bin_lower_bound(keys, m, node);
+    const long long end =
+        start + bin_lower_bound(keys + start, m - start, node + 1);
+    starts[j] = (int)start;
+    lens[j] = (int)(end - start);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """binning.cuh built for the host (g++ -ffp-contract=off: no FMA, as
+    the kernels' _rn intrinsics), loaded with ctypes."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        pytest.skip("no C++ compiler to build binning.cuh for the host")
+    d = tmp_path_factory.mktemp("binning_host")
+    (d / "harness.cpp").write_text(_HARNESS)
+    so = str(d / "libharness.so")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
+                    "-fwrapv", "-shared", "-fPIC", "-I", CSRC, "-o", so,
+                    str(d / "harness.cpp")], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.host_r2_factor.restype = ctypes.c_float
+    lib.host_keys.argtypes = [p, p, i64, i32, i32, i64, i64, i64, p]
+    lib.host_entries.argtypes = [p, p, i64, p, p]
+    lib.host_segments.argtypes = [p, i64, i32, i32, i32, p, p]
+    return lib
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def _host_keys(lib, splats, valid, origin, min_s, max_s):
+    splats = np.ascontiguousarray(splats, np.float32)
+    valid = np.ascontiguousarray(valid, np.uint8)
+    keys = np.empty(8 * len(splats), np.int64)
+    lib.host_keys(_ptr(splats), _ptr(valid), len(splats), min_s, max_s,
+                  *(int(v) for v in origin), _ptr(keys))
+    return keys
+
+
+def test_host_constant_is_the_plain_factor(host):
+    assert np.float32(host.host_r2_factor()) == np.float32(1.00001)
+
+
+def _fuzz():
+    """Random splats around the lattice: positions on integer and
+    half-integer cells or an ulp off them, radii from 2^-4 to 2^12 cells."""
+    rng = np.random.default_rng(5)
+    n = 20000
+    s = np.zeros((n, 8), np.float32)
+    base = rng.integers(-40, 80, size=(n, 3)) + rng.choice([0.0, 0.5],
+                                                           size=(n, 3))
+    on = base.astype(np.float32)
+    step = rng.integers(-1, 2, size=(n, 3))          # one ulp down, none, up
+    s[:, 0:3] = np.where(step == 0, on, np.nextafter(
+        on, np.where(step > 0, np.inf, -np.inf).astype(np.float32)))
+    s[:, 3] = np.exp2(rng.uniform(-4, 12, n)).astype(np.float32)
+    s[:, 4:7] = _normals(rng, n)
+    return s, rng.random(n) < 0.9, (-8, 16, 0)
+
+
+@pytest.mark.parametrize("kind", KINDS + ("fuzz",))
+def test_host_build_keys_equal_the_plain_pass(host, kind):
+    splats, valid, origin = _fuzz() if kind == "fuzz" else edge_cloud(kind)
+    for min_s, max_s in ((3, 5), (3, 8), (5, 6)):
+        want = binning.splat_keys(torch.as_tensor(splats),
+                                  torch.as_tensor(valid), origin, min_s,
+                                  max_s).numpy()
+        got = _host_keys(host, splats, valid, origin, min_s, max_s)
+        np.testing.assert_array_equal(got, want)
+        assert (want != binning.INVALID_KEY).sum() > 100
+
+
+def test_host_build_entries_equal_the_plain_gather(host):
+    splats, valid, origin = _fuzz()
+    splats = splats[:3000].copy()
+    splats[0:6, 3] = [0.0, 1e-30, 1e30, np.inf, 3e-20, -2.5]  # edge radii
+    keys = binning.splat_keys(torch.as_tensor(splats),
+                              torch.as_tensor(valid[:3000]), origin, 3, 6)
+    _, perm = torch.sort(keys, stable=True)
+    want_data, want_vals = binning.entry_rows(torch.as_tensor(splats), perm)
+    n = len(splats)
+    perm = np.ascontiguousarray(perm.numpy())
+    data = np.empty((8 * n, 8), np.float32)
+    vals = np.empty(8 * n, np.int64)
+    host.host_entries(_ptr(splats), _ptr(perm), n, _ptr(data), _ptr(vals))
+    np.testing.assert_array_equal(vals, want_vals.numpy())
+    np.testing.assert_array_equal(data.view(np.uint32),
+                                  want_data.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("levels,sub", [(3, 3), (6, 3), (2, 5)])
+def test_host_build_segments_equal_the_plain_search(host, levels, sub):
+    splats, valid, origin = edge_cloud("sphere")
+    min_s, max_s = sub, levels + sub - 1
+    tpa = 1 << (max_s - 3)
+    keys, _ = torch.sort(binning.splat_keys(
+        torch.as_tensor(splats), torch.as_tensor(valid), origin, min_s,
+        max_s), stable=True)
+    want_s, want_l = binning.tile_segments(keys, min_s, max_s, tpa)
+    keys = np.ascontiguousarray(keys.numpy())
+    starts = np.empty(want_s.shape, np.int32)
+    lens = np.empty(want_l.shape, np.int32)
+    host.host_segments(_ptr(keys), len(keys), min_s, max_s, tpa,
+                       _ptr(starts), _ptr(lens))
+    np.testing.assert_array_equal(starts, want_s.numpy())
+    np.testing.assert_array_equal(lens, want_l.numpy())
+    assert int(lens.sum()) > 0
+
+
+# --- the wrappers, the build and the counters --------------------------------
+
+def test_no_splats_on_cpu():
+    splats = torch.zeros((0, 8), dtype=torch.float32)
+    b = binning_cuda.bin_splats(splats, torch.zeros(0, dtype=torch.bool),
+                                (0, 0, 0), 3, 5)
+    assert b.entry_data.shape == (0, 8) and b.entry_keys.shape == (0,)
+    assert b.entry_vals.shape == (0,)
+    s, ln = binning_cuda.tile_segments(b.entry_keys, 3, 5, 4)
+    assert s.shape == ln.shape == (64, 3)
+    assert int(s.abs().sum()) == int(ln.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("call", ["splat_keys", "entry_rows", "bin_splats",
+                                  "tile_segments"])
+def test_wrappers_raise_for_a_device_they_cannot_take(call):
+    splats, valid, origin = edge_cloud("sphere")
+    sp = torch.as_tensor(splats).to("meta")
+    va = torch.as_tensor(valid).to("meta")
+    args = {"splat_keys": (sp, va, origin, 3, 5),
+            "entry_rows": (sp, torch.empty(8 * len(splats),
+                                           dtype=torch.int64, device="meta")),
+            "bin_splats": (sp, va, origin, 3, 5),
+            "tile_segments": (torch.empty(8, dtype=torch.int64,
+                                          device="meta"), 3, 5, 4)}[call]
+    with pytest.raises(ValueError, match="meta"):
+        getattr(binning_cuda, call)(*args)
+
+
+def test_one_nvcc_call_builds_the_binning_kernels(tmp_path, monkeypatch):
+    """One nvcc command for sm_90a names the three sources; the library
+    is rebuilt when binning.cuh, which no command line names, is newer."""
+    cmd = mls_cuda.build_command(["nvcc"], "lib.so")
+    assert [os.path.basename(a) for a in cmd if a.endswith(".cu")] == [
+        "mls_field.cu", "seam_moments.cu", "binning.cu"]
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert [os.path.basename(h) for h in mls_cuda.HEADERS] == ["binning.cuh"]
+    assert all(os.path.isfile(h) for h in mls_cuda.HEADERS)
+    log = tmp_path / "calls.log"
+    stub = tmp_path / "stub.py"
+    stub.write_text(textwrap.dedent(f"""
+        import sys
+        with open({str(log)!r}, "a") as f:
+            f.write("call\\n")
+        open(sys.argv[sys.argv.index("-o") + 1], "wb").write(b"lib")
+    """))
+    monkeypatch.setenv("MLSGPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    header = tmp_path / "binning.cuh"
+    header.write_text("// a header\n")
+    monkeypatch.setattr(mls_cuda, "HEADERS", [str(header)])
+    compiler = [sys.executable, str(stub)]
+    target = mls_cuda.build(compiler=compiler)
+    mls_cuda.build(compiler=compiler)                  # fresh: no call
+    t = os.path.getmtime(target) + 10
+    os.utime(header, (t, t))
+    mls_cuda.build(compiler=compiler)                  # the header changed
+    assert log.read_text().splitlines() == ["call", "call"]
+
+
+def test_launch_counts_add_up():
+    saved = launches.counts()
+    try:
+        launches.add({"bin_keys": 2, "bin_entries": 3, "tile_segments": 4})
+        for name in BINNING:
+            launches.count(name)
+        assert launches.since(saved) == {**dict.fromkeys(launches.KERNELS, 0),
+                                         "bin_keys": 3, "bin_entries": 4,
+                                         "tile_segments": 5}
+        with pytest.raises(KeyError):
+            launches.add({"keys": 1})
+        assert launches.counts()["bin_keys"] == saved["bin_keys"] + 3
+    finally:
+        launches.reset()
+        launches.add(saved)
+
+
+class CountingStep:
+    """The staged block step, which also counts one launch of each binning
+    kernel per block (the CPU path launches none)."""
+
+    def __call__(self, *args, **kw):
+        for name in BINNING:
+            launches.count(name)
+        return block_step_staged(*args, **kw)
+
+
+def test_worker_processes_carry_binning_launches_back():
+    """Two worker processes count their blocks' binning launches; the run's
+    statistics (`binning.keyLaunches`, `entryLaunches`, `segmentLaunches`)
+    and this process's counts each gain one a block."""
+    from mlsgpu_tpu_torch.pipeline import reconstruct as trec
+    from mlsgpu_tpu_torch.pipeline import streamer
+    from mlsgpu_tpu_torch.utils.statistics import get_registry
+    from tests.test_torch_multidevice import CPU, _bounded, _setup
+
+    cfg, source, info, buckets = _setup()
+    buckets = buckets[:4]
+    _, readback = trec.prepare_run(cfg, "cpu")
+    saved = launches.counts()
+    get_registry().clear()
+    try:
+        got, err = _bounded(lambda: list(streamer.stream_blocks(
+            source, info, buckets, cfg, [CPU] * 2, readback,
+            read_images=False, step=CountingStep())))
+        counts = _since(saved)
+    finally:
+        launches.reset()
+        launches.add(saved)
+    assert err is None, err
+    assert len(got) == len(buckets)
+    stats = get_registry().to_dict()
+    assert stats["workers.spawned"]["total"] == 2
+    assert counts == [len(buckets)] * 3
+    for name in ("keyLaunches", "entryLaunches", "segmentLaunches"):
+        assert stats[f"binning.{name}"]["total"] == len(buckets), name
+
+
+# --- on the card --------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the binning kernels have no CPU "
+                    "mode)")
+    return torch.device("cuda", 0)
+
+
+def _same(got, ref, label):
+    if got.dtype == torch.float32:
+        got, ref = got.view(torch.int32), ref.view(torch.int32)
+    assert got.shape == ref.shape and torch.equal(got, ref), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS + ("fuzz",))
+def test_kernels_bit_for_bit_on_card(cuda_device, kind):
+    splats, valid, origin = _fuzz() if kind == "fuzz" else edge_cloud(kind)
+    sp = torch.as_tensor(splats, device=cuda_device)
+    va = torch.as_tensor(valid, device=cuda_device)
+    for min_s, max_s in ((3, 5), (3, 8), (5, 6)):
+        tpa = 1 << (max_s - 3)
+        before = launches.counts()
+        keys = binning_cuda.splat_keys(sp, va, origin, min_s, max_s)
+        _same(keys, binning.splat_keys(sp, va, origin, min_s, max_s), "keys")
+        _, perm = torch.sort(keys, stable=True)
+        data, vals = binning_cuda.entry_rows(sp, perm)
+        ref_data, ref_vals = binning.entry_rows(sp, perm)
+        _same(vals, ref_vals, "entry_vals")
+        _same(data, ref_data, "entry_data")
+        b = binning_cuda.bin_splats(sp, va, origin, min_s, max_s)
+        s, ln = binning_cuda.tile_segments(b.entry_keys, min_s, max_s, tpa)
+        ref_s, ref_l = binning.tile_segments(b.entry_keys, min_s, max_s,
+                                             tpa)
+        _same(s, ref_s, "starts")
+        _same(ln, ref_l, "lens")
+        assert _since(before) == [2, 2, 1]
+        ref = binning.bin_splats(sp, va, origin, min_s, max_s)
+        for name in ("entry_keys", "entry_vals", "entry_data"):
+            _same(getattr(b, name), getattr(ref, name), name)
+
+
+@pytest.mark.cuda
+def test_no_splats_on_card(cuda_device):
+    before = launches.counts()
+    b = binning_cuda.bin_splats(
+        torch.zeros((0, 8), dtype=torch.float32, device=cuda_device),
+        torch.zeros(0, dtype=torch.bool, device=cuda_device), (0, 0, 0), 3,
+        5)
+    s, ln = binning_cuda.tile_segments(b.entry_keys, 3, 5, 4)
+    assert b.entry_data.shape == (0, 8) and s.shape == (64, 3)
+    assert int(s.abs().sum()) == int(ln.abs().sum()) == 0
+    assert _since(before) == [0, 0, 1]
+
+
+@pytest.mark.cuda
+def test_block_field_launches_each_kernel_once_on_card(cuda_device):
+    splats, valid, origin = edge_cloud("sphere")
+    before = launches.counts()
+    block.block_field(torch.as_tensor(splats, device=cuda_device),
+                      torch.as_tensor(valid, device=cuda_device),
+                      (31, 31, 31), origin, 0.0, levels=3, subsampling=3)
+    assert _since(before) == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_kernel_path_raises_on_what_it_cannot_take(cuda_device):
+    splats, valid, origin = edge_cloud("sphere")
+    sp = torch.as_tensor(splats, device=cuda_device)
+    va = torch.as_tensor(valid, device=cuda_device)
+    with pytest.raises(TypeError):
+        binning_cuda.splat_keys(sp.double(), va, origin, 3, 5)
+    with pytest.raises(ValueError, match="aligned"):
+        binning_cuda.splat_keys(sp.reshape(-1)[1:8 * 100 + 1].reshape(100, 8),
+                                va[:100], origin, 3, 5)
+    with pytest.raises(ValueError, match="shifts"):
+        binning_cuda.splat_keys(sp, va, origin, 2, 5)

@@ -16,7 +16,7 @@ from mlsgpu_tpu.ops import binning as jbin
 from mlsgpu_tpu.ops import mls as jmls
 from mlsgpu_tpu_torch.convert import binned_from_numpy, block_inputs_from_numpy
 from mlsgpu_tpu_torch.core.chunk import ChunkId
-from mlsgpu_tpu_torch.ops import block, kernel_gate, mls
+from mlsgpu_tpu_torch.ops import binning, block, kernel_gate, mls
 from mlsgpu_tpu_torch.pipeline.bucket import Bucket, skeleton_points
 
 from tests import oracle
@@ -54,9 +54,9 @@ def port_field(splats, lo, hi, points=None, **kw):
                                    np.subtract(hi, lo), lo, points)
     if kw:
         # same passes with non-default chunking
-        b = block.binning.bin_splats(args["splats"], args["valid"],
+        b = binning.bin_splats(args["splats"], args["valid"],
                                      args["cell_origin"], SUB, LEVELS + SUB - 1)
-        s, ln = block.binning.tile_segments(b.entry_keys, SUB,
+        s, ln = binning.tile_segments(b.entry_keys, SUB,
                                             LEVELS + SUB - 1, TPA)
         f = mls.eval_field(b.entry_data, s, ln, args["cell_origin"], TPA,
                            "sphere", 0.0, tile_chunk=kw["tile_chunk"])
@@ -224,9 +224,9 @@ def test_straddling_patch_keeps_the_shared_face_bitwise():
     for lo, hi, listed in ((lo_a, hi_a, True), (lo_b, hi_b, False)):
         args = block_inputs_from_numpy(splats, np.ones(len(splats), bool),
                                        np.subtract(hi, lo), lo)
-        b = block.binning.bin_splats(args["splats"], args["valid"], lo, SUB,
+        b = binning.bin_splats(args["splats"], args["valid"], lo, SUB,
                                      LEVELS + SUB - 1)
-        binned = b.entry_keys != block.binning.INVALID_KEY
+        binned = b.entry_keys != binning.INVALID_KEY
         assert bool(((b.entry_vals == mid) & binned).any()) == listed
     fa = port_field(splats, lo_a, hi_a)
     fb = port_field(splats, lo_b, hi_b)

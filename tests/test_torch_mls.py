@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from mlsgpu_tpu_torch.convert import binned_from_numpy
-from mlsgpu_tpu_torch.ops import binning, kernel_gate, mls, mls_cuda
+from mlsgpu_tpu_torch.ops import binning, kernel_gate, launches, mls, mls_cuda
 
 LEVELS, SUB = 3, 3
 TPA = 1 << (LEVELS + SUB - 1 - 3)
@@ -103,10 +103,10 @@ def test_eval_field_uncapped_chunking(jax_binned):
 def test_dispatch_cpu_uses_plain_version(jax_binned):
     jb, starts, lens = jax_binned
     args = _port_inputs(jb, starts, lens)
-    before = mls_cuda.launches
+    before = launches.counts()["mls_field"]
     field, max_total, n_occ = mls_cuda.eval_field(*args, (0, 0, 0), TPA,
                                                   "sphere", 0.0)
-    assert mls_cuda.launches == before
+    assert launches.counts()["mls_field"] == before
     assert max_total == 0
     assert int(n_occ) == int((lens.sum(axis=1) > 0).sum())
     plain = mls.eval_field(*args, (0, 0, 0), TPA, "sphere", 0.0)
@@ -209,9 +209,9 @@ def cuda_device():
 def test_kernel_matches_plain_on_card(cuda_device, fit, bf):
     args = _port_binned(_dense_cloud(), cuda_device)
     assert int(args[2].max()) > 128
-    before = mls_cuda.launches
+    before = launches.counts()["mls_field"]
     got, _, _ = mls_cuda.eval_field(*args, (0, 0, 0), TPA, fit, bf)
-    assert mls_cuda.launches == before + 1
+    assert launches.counts()["mls_field"] == before + 1
     ref = mls.eval_field(*args, (0, 0, 0), TPA, fit, bf)
     torch.cuda.synchronize()
     kernel_gate.check(kernel_gate.compare_fields(ref, got), min_defined=2000)
@@ -277,11 +277,11 @@ def test_kernel_chunk_counts_on_card(cuda_device, fit):
 @pytest.mark.cuda
 def test_kernel_no_occupied_tile_on_card(cuda_device):
     entries, starts, lens = _port_binned(_dense_cloud(), cuda_device)
-    before = mls_cuda.launches
+    before = launches.counts()["mls_field"]
     got, _, n_occ = mls_cuda.eval_field(entries, starts,
                                         torch.zeros_like(lens), (0, 0, 0),
                                         TPA, "sphere", 0.0)
-    assert mls_cuda.launches == before + 1 and int(n_occ) == 0
+    assert launches.counts()["mls_field"] == before + 1 and int(n_occ) == 0
     assert got.shape == (8 * TPA,) * 3 and torch.isnan(got).all()
 
 

@@ -23,7 +23,7 @@ from mlsgpu_tpu_torch.config import ReconstructConfig
 from mlsgpu_tpu_torch.device import resolve_devices
 from mlsgpu_tpu_torch.io import ply
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource
-from mlsgpu_tpu_torch.ops import mls_cuda
+from mlsgpu_tpu_torch.ops import launches
 from mlsgpu_tpu_torch.ops.block import block_step
 from mlsgpu_tpu_torch.pipeline import blobs as blobs_mod
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod
@@ -398,21 +398,26 @@ def test_worker_streams_on_the_cpu():
     assert all(dev == CPU for dev, _, _ in workers)
 
 
-def test_launch_counter_is_thread_safe(monkeypatch):
+def test_launch_counter_is_thread_safe():
     """8 threads x 1,000 increments through the function the launch uses
     count 8,000."""
-    monkeypatch.setattr(mls_cuda, "launches", 0)
+    saved = launches.counts()
+    launches.reset()
 
     def bump():
         for _ in range(1000):
-            mls_cuda.count_launch()
+            launches.count("mls_field")
 
     threads = [threading.Thread(target=bump) for _ in range(8)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    assert mls_cuda.launches == 8000
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert launches.counts()["mls_field"] == 8000
+    finally:
+        launches.reset()
+        launches.add(saved)
 
 
 def _two_cards(monkeypatch):

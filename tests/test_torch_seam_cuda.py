@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from mlsgpu_tpu_torch.convert import block_inputs_from_numpy
-from mlsgpu_tpu_torch.ops import binning, block, mls, mls_cuda, seam_cuda
+from mlsgpu_tpu_torch.ops import (binning, block, launches, mls, mls_cuda,
+                                  seam_cuda)
 from mlsgpu_tpu_torch.pipeline.bucket import skeleton_points
 
 # pytest puts tests/ on the path (no package: on the GPU hosts an installed
@@ -70,10 +71,10 @@ def test_wrappers_take_the_plain_passes_on_cpu(tjunction, fit, bf):
     b, s, ln, origin, region, points = binned_block(splats, bk.cell_lo,
                                                     bk.cell_hi, bk.skeleton)
     field = mls.eval_field(b.entry_data, s, ln, origin, TPA, fit, bf)
-    before = seam_cuda.launch_counts()
+    before = launches.counts()
     got = _passes(b, s, ln, origin, region, points, field, seam_cuda, fit, bf)
     ref = _passes(b, s, ln, origin, region, points, field, mls, fit, bf)
-    assert seam_cuda.launch_counts() == before
+    assert launches.counts() == before
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   ref.numpy().view(np.uint32))
     assert (got.numpy().view(np.uint32)
@@ -99,7 +100,8 @@ def test_one_nvcc_call_builds_both_sources_for_sm_90a():
     cmd = mls_cuda.build_command(["nvcc"], "lib.so")
     sources = [a for a in cmd if a.endswith(".cu")]
     assert [a.replace("\\", "/").rsplit("/", 2)[-2:] for a in sources] == [
-        ["csrc", "mls_field.cu"], ["csrc", "seam_moments.cu"]]
+        ["csrc", "mls_field.cu"], ["csrc", "seam_moments.cu"],
+        ["csrc", "binning.cu"]]
     assert all(os.path.isfile(a) for a in sources)
     i = cmd.index("-gencode")
     assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
@@ -107,19 +109,27 @@ def test_one_nvcc_call_builds_both_sources_for_sm_90a():
     assert "-shared" in cmd
 
 
+def _since(before, *names):
+    """The launches of the kernels `names` since `before`."""
+    now = launches.since(before)
+    return [now[k] for k in names]
+
+
+SEAM = ("mls_field", "seam_face", "seam_skeleton")
+
+
 def test_launch_counts_add_up():
-    saved = (mls_cuda.launches, seam_cuda.face_launches,
-             seam_cuda.skeleton_launches)
+    saved = launches.counts()
     try:
-        before = seam_cuda.launch_counts()
-        seam_cuda.add_launch_counts([2, 3, 4])
-        seam_cuda.count_launch("face")
-        seam_cuda.count_launch("skeleton")
-        after = seam_cuda.launch_counts()
-        assert [b - a for a, b in zip(before, after)] == [2, 4, 5]
+        launches.add({"mls_field": 2, "seam_face": 3, "seam_skeleton": 4})
+        launches.count("seam_face")
+        launches.count("seam_skeleton")
+        assert _since(saved, *SEAM) == [2, 4, 5]
+        with pytest.raises(KeyError):
+            launches.count("face")
     finally:
-        (mls_cuda.launches, seam_cuda.face_launches,
-         seam_cuda.skeleton_launches) = saved
+        launches.reset()
+        launches.add(saved)
 
 
 # --- on the card --------------------------------------------------------------
@@ -176,11 +186,11 @@ def test_face_kernel_matches_plain_on_card(cuda_device, tjunction, buffer):
                                device=cuda_device)
         ref_m, ref_h = mls.face_moments(b.entry_data, b.entry_vals, s, ln,
                                         rows)
-        before = seam_cuda.face_launches
+        before = launches.counts()
         m, h = seam_cuda.face_moments(b.entry_data, b.entry_vals, s, ln,
                                       r[3], r[4], TPA, buffer)
         torch.cuda.synchronize()
-        assert seam_cuda.face_launches == before + 1
+        assert _since(before, "seam_face") == [1]
         assert_equal_values(m.cpu().numpy(), ref_m.cpu().numpy())
         assert torch.equal(h, ref_h) and int((h > 0).sum()) > 20
 
@@ -197,11 +207,11 @@ def test_skeleton_kernel_matches_plain_on_card(cuda_device, tjunction,
         pts, _, tid, inside = mls.skeleton_points(points, origin, TPA, 32)
         ref_m, ref_h = mls.skeleton_moments(b.entry_data, b.entry_vals, s, ln,
                                             pts, tid, inside)
-        before = seam_cuda.skeleton_launches
+        before = launches.counts()
         m, h = seam_cuda.skeleton_moments(b.entry_data, b.entry_vals, s, ln,
                                           origin, points, TPA, buffer)
         torch.cuda.synchronize()
-        assert seam_cuda.skeleton_launches == before + 1
+        assert _since(before, "seam_skeleton") == [1]
         assert_equal_values(m.cpu().numpy(), ref_m.cpu().numpy())
         assert torch.equal(h, ref_h)
 
@@ -224,11 +234,10 @@ def test_kernel_passes_equal_the_plain_passes_on_card(cuda_device, tjunction,
         origin, region = r[3], r[4]
         points = None if skel is None else r[5].to(cuda_device)
         field = mls_cuda.launch(b.entry_data, s, ln, origin, TPA, fit, bf)
-        before = seam_cuda.launch_counts()
+        before = launches.counts()
         got = _passes(b, s, ln, origin, region, points, field, seam_cuda,
                       fit, bf, buffer=buffer)
-        assert [y - x for x, y in zip(before, seam_cuda.launch_counts())] == \
-            [0, 1, int(points is not None)]
+        assert _since(before, *SEAM) == [0, 1, int(points is not None)]
         ref = _passes(b, s, ln, origin, region, points, field, mls, fit, bf)
         assert_same_bits(got.cpu().numpy(), ref.cpu().numpy())
 
@@ -250,10 +259,9 @@ def test_t_junction_bitwise_through_the_kernels_on_card(cuda_device,
             subsampling=3)
         return f.cpu().numpy()
 
-    before = seam_cuda.launch_counts()
+    before = launches.counts()
     fa, fc, fb = (field_of(bk) for bk in bks)
-    assert [b - a for a, b in zip(before, seam_cuda.launch_counts())] == \
-        [3, 3, 3]
+    assert _since(before, *SEAM) == [3, 3, 3]
     for pa, pb in ((fa[:, 16, 0:17], fb[:, 0, 0:17]),
                    (fc[:, 16, 0:16], fb[:, 0, 16:32]),
                    (fa[:, 0:17, 16], fc[:, 0:17, 0])):

@@ -25,7 +25,7 @@ import torch
 from mlsgpu_tpu_torch import cli
 from mlsgpu_tpu_torch.io import ply
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource
-from mlsgpu_tpu_torch.ops import mls_cuda
+from mlsgpu_tpu_torch.ops import launches
 from mlsgpu_tpu_torch.ops.block import block_step, block_step_staged
 from mlsgpu_tpu_torch.pipeline import reconstruct as trec
 from mlsgpu_tpu_torch.pipeline import resources
@@ -100,7 +100,7 @@ class CheckedStep:
         bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
         if bad:
             raise AssertionError(f"a worker process imported {bad[:5]}")
-        mls_cuda.count_launch()
+        launches.count("mls_field")
         return block_step_staged(*args, **kw)
 
 
@@ -230,22 +230,23 @@ def checked(small, tmp_path_factory):
     start and end on the monotonic clock)."""
     cfg, source, info, buckets = small
     trace = str(tmp_path_factory.mktemp("workers") / "trace.txt")
-    saved = mls_cuda.launches
-    mls_cuda.launches = 0
+    saved = launches.counts()
+    launches.reset()
     timeplot.init(trace)
     try:
         t0 = time.monotonic()
         got, err, _ = _run(cfg, source, info, buckets, [CPU] * 2,
                            read_images=False, step=CheckedStep())
         t1 = time.monotonic()
-        launches = mls_cuda.launches
+        launched = launches.counts()["mls_field"]
     finally:
         timeplot.init(None)
-        mls_cuda.launches = saved
+        launches.reset()
+        launches.add(saved)
     assert err is None, err
     with open(trace) as f:
         events = [ln.split() for ln in f if ln.startswith("EVENT ")]
-    return got, get_registry().to_dict(), events, launches, (t0, t1)
+    return got, get_registry().to_dict(), events, launched, (t0, t1)
 
 
 def test_counts_only_through_processes(small, one, checked):
@@ -287,7 +288,7 @@ def test_worker_statistics_reach_the_parent(small, checked):
 
 def test_worker_launches_reach_the_parents_count(small, checked):
     """The launches a worker process counts arrive in this process's
-    mls_cuda.launches: one per block here."""
+    count of the field kernel (ops/launches.py): one per block here."""
     assert checked[3] == len(small[3])
 
 
