@@ -13,9 +13,11 @@ raises, exits non-zero and prints no result line:
      registers) and the local memory reserve they cost a process;
   3. at main-path shapes (the densest 256^3-corner bucket of the 2M-splat
      bench cloud), first the binning kernels (csrc/binning.cu: the key
-     pass, the entry gather, the tile segments) against their plain
-     versions, every output bit for bit, each kernel's call host-paced and
-     on the device, the kernel alone, its plain version, the PyTorch call
+     pass, the entry gather, the tile segments' bounds and gather) against
+     their plain versions, every output bit for bit, each kernel's call
+     host-paced and on the device, the kernel alone (from the kernel
+     events of a profiler trace: the bounds kernel's only time, as it
+     runs inside the segments' call), its plain version, the PyTorch call
      that computes the same where there is one, its bound
      (binning_bound), the stable sort between them, and the stage's
      launches and syncs through the kernels and through the plain versions
@@ -134,7 +136,7 @@ raises, exits non-zero and prints no result line:
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
-Kernel launches (the field, face, skeleton and three binning kernels')
+Kernel launches (the field, face, skeleton and four binning kernels')
 are counted per main-path run (every counter set to 0 just before it and
 read just after; the comparisons of phases 3, 4 and 9 excluded); each run
 must launch the field, face and binning kernels once a block and the
@@ -194,6 +196,8 @@ from mlsgpu_tpu_torch.pipeline import workers as workers_mod  # noqa: E402
 from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, bench_queues,
                                     cloud, verify_chunks)
+from mlsgpu_tpu_torch.tools.bench_binning import (  # noqa: E402
+    event_ms, kernel_ms, segment_queries)
 from mlsgpu_tpu_torch.tools.bench_queues import bench_args  # noqa: E402
 from mlsgpu_tpu_torch.utils import misc, step_profile  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
@@ -245,11 +249,14 @@ FIT_OPS = {"sphere": 111, "plane": 71}
 # The kernels of the main path, by the names their wrappers count them
 # under (ops/launches.py), in the order of the kernel record.
 KERNELS = tuple(launch_counts.KERNELS)
-# The binning kernels: (record name, kernel function, what it replaces).
+# The binning kernels: (record name, kernel functions, what it replaces).
+# The segments' row times both of their kernels (one C call launches the
+# bounds kernel and the gather); the bounds kernel also has a row alone.
 BINNING_KERNELS = (
-    ("bin_keys", "bin_keys_kernel", "mlsgpu_tpu/ops/binning.py:76"),
-    ("bin_entries", "bin_entries_kernel", "mlsgpu_tpu/ops/binning.py:76"),
-    ("tile_segments", "tile_segments_kernel",
+    ("bin_keys", ("bin_keys_kernel",), "mlsgpu_tpu/ops/binning.py:76"),
+    ("bin_entries", ("bin_entries_kernel",), "mlsgpu_tpu/ops/binning.py:76"),
+    ("tile_bounds", ("tile_bounds_kernel",), "mlsgpu_tpu/ops/binning.py:161"),
+    ("tile_segments", ("tile_bounds_kernel", "tile_segments_kernel"),
      "mlsgpu_tpu/ops/binning.py:161"))
 
 
@@ -322,46 +329,10 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = REPS, device_only: bool = False,
-            sleep_cycles: int = SLEEP_CYCLES) -> float:
-    """Median CUDA-event time of fn() after one warm-up call. By default
-    the events also see the host: work the card finishes faster than the
-    host can queue it is timed at the host's pace. device_only: the card
-    first sleeps `sleep_cycles` while the host queues fn's work, so the
-    events time the device's work alone."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(sleep_cycles)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def kernel_device_ms(fn, name: str = "mls_field_kernel", reps: int = REPS):
-    """Mean device time of the kernels whose name contains `name` over
-    `reps` calls of fn, from a torch.profiler trace; None when the trace
-    shows no device time for them."""
-    import torch.profiler as tp
-    fn()
-    torch.cuda.synchronize()
-    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total_us += ev.self_device_time_total
-            count += ev.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+def cuda_ms(fn, reps: int = REPS, device_only: bool = False) -> float:
+    """Median CUDA-event time of fn(), host-paced or (device_only) with
+    the host's enqueue hidden: tools/bench_binning.event_ms."""
+    return event_ms(fn, reps, device_only)
 
 
 def phase1_toolchain() -> dict:
@@ -479,7 +450,7 @@ def kernel_vs_plain(n, binned, starts, lens, origin, tpa, fit, bf,
     call = lambda: mls_cuda.launch(*args)  # noqa: E731
     host_paced_ms = cuda_ms(call, reps)
     device_ms = cuda_ms(call, reps, device_only=True)
-    alone_ms = kernel_device_ms(call, reps=reps)
+    alone_ms = kernel_ms(call, "mls_field_kernel", reps)
     order_ms = cuda_ms(lambda: mls_cuda.tile_order(lens), reps,
                        device_only=True)
     # the order's plain version (sum, argsort, count): what the two order
@@ -645,9 +616,8 @@ def seam_vs_plain(n, binned, starts, lens, origin, region, points, tpa, fit,
             call = lambda: run(scratch, None)  # noqa: E731
             row["host_paced_ms"] = cuda_ms(call, reps)
             row["device_ms"] = cuda_ms(call, reps, device_only=True)
-            row["kernel_ms"] = kernel_device_ms(call, f"seam_{kind}_kernel",
-                                                reps)
-            row["kernel_small_buffer_ms"] = kernel_device_ms(
+            row["kernel_ms"] = kernel_ms(call, f"seam_{kind}_kernel", reps)
+            row["kernel_small_buffer_ms"] = kernel_ms(
                 lambda: run(scratch, SMALL_BUFFER), f"seam_{kind}_kernel",
                 reps)
             row["plain_ms"] = cuda_ms(lambda: plain(scratch), reps)
@@ -727,7 +697,7 @@ def segment_key_sectors(sorted_keys, starts, lens) -> int:
 
 
 def binning_bound(name: str, n: int, tiles: int, levels: int,
-                  key_sectors: int = 0) -> dict:
+                  key_sectors: int = 0, nodes: int = 0) -> dict:
     """The least time the card could take for a binning kernel's work on
     these inputs: the larger of its bytes over the memory rate (each input
     read once, each output written once) and its FP32 operations over the
@@ -736,15 +706,19 @@ def binning_bound(name: str, n: int, tiles: int, levels: int,
     clamp, difference and square 24, the 8 corners' two adds and compare
     24). Entries (8n): the permutation in and each splat row once, the row
     index and the entry row out; one reciprocal and one product an entry.
-    Segments: the `key_sectors` 32-byte sectors of the sorted keys that
-    hold a segment boundary (segment_key_sectors) in, starts and lens out;
-    no FP32 operation (the searches are integer compares, which the table
-    has no rate for). Integer work (the Morton interleave, the shifts) is
-    not counted."""
+    Segments (both of their kernels): the `key_sectors` 32-byte sectors of
+    the sorted keys that hold a segment boundary (segment_key_sectors) in,
+    starts and lens out; no FP32 operation (the searches are integer
+    compares, which the table has no rate for). Bounds (the first of the
+    segments' kernels): the same key sectors in, the `nodes` + 1 int32
+    bounds out. Integer work (the Morton interleave, the shifts) is not
+    counted."""
     if name == "bin_keys":
         nbytes, flops = n * (16 + 1 + 64), 56 * n
     elif name == "bin_entries":
         nbytes, flops = 8 * n * (8 + 8 + 32) + 32 * n, 2 * 8 * n
+    elif name == "tile_bounds":
+        nbytes, flops = 32 * key_sectors + 4 * (nodes + 1), 0
     else:
         nbytes, flops = 32 * key_sectors + 2 * 4 * tiles * levels, 0
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
@@ -766,17 +740,19 @@ def _max_abs(got, ref) -> float:
 def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     """The binning kernels (csrc/binning.cu through ops/binning_cuda.py)
     against their plain versions (ops/binning.py) on one block's splats:
-    keys, entry_vals, entry_data, segment starts and lens bit for bit
-    (NaN payloads too). Then, for each kernel, its wrapper call host-paced
-    and on the device alone, the kernel alone (profiler), its plain
-    version, the one PyTorch call that computes the same (entries: the row
-    index `mls_form[vals]`; segments: torch.searchsorted on prebuilt
-    queries; keys: none) and its bound (binning_bound); the stable sort
-    between them; and the whole stage (keys, sort, entries, segments)
-    traced through the kernels and through the plain versions: its
-    launches and host syncs (pass_profile). Its launches are comparisons:
-    not counted by callers, who reset the counters after it. Returns a row
-    per kernel."""
+    keys, entry_vals, entry_data, the segments' bounds table
+    (binning.node_bounds), segment starts and lens bit for bit (NaN
+    payloads too). Then, for each kernel, its wrapper call host-paced and
+    on the device alone, the kernel alone (profiler; the segments' row
+    both of their kernels; the bounds kernel has no call of its own, so
+    its row has the kernel alone and no call times), its plain version, the one PyTorch call that computes the same (entries:
+    the row index `mls_form[vals]`; segments: torch.searchsorted on
+    prebuilt queries; bounds: torch.searchsorted of every node key; keys:
+    none) and its bound (binning_bound); the stable sort between them;
+    and the whole stage (keys, sort, entries, segments) traced through
+    the kernels and through the plain versions: its launches and host
+    syncs (pass_profile). Its launches are comparisons: not counted by
+    callers, who reset the counters after it. Returns a row per kernel."""
     tpa = 1 << (max_s - 3)
     levels = max_s - min_s + 1
     nsp = sp.shape[0]
@@ -785,34 +761,36 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     sorted_keys, perm = torch.sort(keys, stable=True)
     data, vals = binning_cuda.entry_rows(sp, perm)
     ref_data, ref_vals = binning.entry_rows(sp, perm)
-    starts, lens = binning_cuda.tile_segments(sorted_keys, min_s, max_s, tpa)
+    starts, lens, bounds = binning_cuda.segments_and_bounds(
+        sorted_keys, min_s, max_s, tpa)
     ref_s, ref_l = binning.tile_segments(sorted_keys, min_s, max_s, tpa)
+    ref_b = binning.node_bounds(sorted_keys, min_s, max_s)
     torch.cuda.synchronize()
     errs = {"bin_keys": _max_abs(keys, ref_keys),
             "bin_entries": max(_max_abs(vals, ref_vals),
                                _max_abs(data, ref_data)),
+            "tile_bounds": _max_abs(bounds, ref_b),
             "tile_segments": max(_max_abs(starts, ref_s),
                                  _max_abs(lens, ref_l))}
     for label, got, ref in (("keys", keys, ref_keys),
                             ("entry_vals", vals, ref_vals),
                             ("entry_data", data.view(torch.int32),
                              ref_data.view(torch.int32)),
+                            ("bounds", bounds, ref_b),
                             ("starts", starts, ref_s), ("lens", lens, ref_l)):
         if got.shape != ref.shape or not torch.equal(got, ref):
             raise AssertionError(f"binning kernels: {label} differ from the "
                                  "plain version's")
     # the PyTorch calls that compute the same: the row index of a prebuilt
-    # mls_form, and searchsorted on tile_segments' prebuilt queries
+    # mls_form, searchsorted on tile_segments' prebuilt queries, and
+    # searchsorted of every node key
     mls_form = sp.clone()
     mls_form[:, 3] = 1.0 / (sp[:, 3] * sp[:, 3])
-    t = torch.arange(tpa, dtype=torch.int64, device=sp.device)
-    tz, ty, tx = torch.meshgrid(t, t, t, indexing="ij")
-    code = binning.morton.encode(tx.reshape(-1), ty.reshape(-1),
-                                 tz.reshape(-1))
-    offs = binning.level_offsets(min_s, max_s)
-    queries = torch.stack([q for li in range(levels) for q in (
-        (code >> (3 * (min_s - 3 + li))) + int(offs[li]),
-        (code >> (3 * (min_s - 3 + li))) + int(offs[li]) + 1)])
+    queries = segment_queries(min_s, max_s, tpa, sp.device)
+    nodes = binning.node_count(min_s, max_s)
+    node_keys = torch.arange(nodes + 1, dtype=torch.int64, device=sp.device)
+    segments = (lambda: binning_cuda.tile_segments(sorted_keys, min_s, max_s,
+                                                   tpa))
     calls = {
         "bin_keys": (lambda: binning_cuda.splat_keys(sp, va, origin, min_s,
                                                      max_s),
@@ -821,29 +799,36 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
         "bin_entries": (lambda: binning_cuda.entry_rows(sp, perm),
                         lambda: binning.entry_rows(sp, perm),
                         lambda: mls_form[vals]),
-        "tile_segments": (lambda: binning_cuda.tile_segments(
-                              sorted_keys, min_s, max_s, tpa),
+        "tile_bounds": (segments,
+                        lambda: binning.node_bounds(sorted_keys, min_s,
+                                                    max_s),
+                        lambda: torch.searchsorted(sorted_keys, node_keys)),
+        "tile_segments": (segments,
                           lambda: binning.tile_segments(sorted_keys, min_s,
                                                         max_s, tpa),
                           lambda: torch.searchsorted(sorted_keys, queries))}
     sectors = segment_key_sectors(sorted_keys, ref_s, ref_l)
     rows = []
-    for name, kernel, _ in BINNING_KERNELS:
+    for name, kernels, _ in BINNING_KERNELS:
         call, plain, library = calls[name]
+        # the bounds kernel runs only inside the segments' call
+        alone = name == "tile_bounds"
         row = {"name": name, "splats": nsp, "entries": 8 * nsp,
-               "tiles": tpa ** 3, "levels": levels,
+               "tiles": tpa ** 3, "levels": levels, "nodes": nodes,
                "max_abs_err": errs[name], "bitwise_the_plain_version": True,
-               "host_paced_ms": cuda_ms(call, reps),
-               "device_ms": cuda_ms(call, reps, device_only=True),
-               "kernel_ms": kernel_device_ms(call, kernel, reps),
+               "host_paced_ms": None if alone else cuda_ms(call, reps),
+               "device_ms": None if alone
+               else cuda_ms(call, reps, device_only=True),
+               "kernel_ms": kernel_ms(call, kernels, reps),
                "plain_ms": cuda_ms(plain, reps),
                "library_ms": None if library is None
                else cuda_ms(library, reps, device_only=True),
                "key_sectors": sectors,
-               "bound": binning_bound(name, nsp, tpa ** 3, levels,
-                                      sectors)}
+               "bound": binning_bound(name, nsp, tpa ** 3, levels, sectors,
+                                      nodes)}
         k_ms = row["kernel_ms"] or row["device_ms"]
-        row["share_of_bound"] = row["bound"]["bound_ms"] / k_ms
+        row["share_of_bound"] = (None if k_ms is None
+                                 else row["bound"]["bound_ms"] / k_ms)
         rows.append(row)
     sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), reps,
                       device_only=True)
@@ -860,10 +845,10 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     for row in rows:
         row.update(sort_ms=sort_ms, stage_ms=stage_ms, stage=traced)
     phase(n, f"binning kernels vs plain at {tpa}^3 tiles, {levels} levels, "
-             f"{nsp} splats: keys, entry_vals, entry_data, starts and lens "
-             f"bit for bit; the sort {sort_ms:.4f} ms on the device; the "
-             f"stage host-paced {json.dumps(stage_ms)}, traced (launches, "
-             f"syncs) {json.dumps(traced)}")
+             f"{nsp} splats: keys, entry_vals, entry_data, the bounds of "
+             f"{nodes + 1} node keys, starts and lens bit for bit; the sort {sort_ms:.4f} ms "
+             f"on the device; the stage host-paced {json.dumps(stage_ms)}, "
+             f"traced (launches, syncs) {json.dumps(traced)}")
     for row in rows:
         phase(n, f"{row['name']}: " + json.dumps(
             {k: v for k, v in row.items()
@@ -2019,8 +2004,11 @@ def print_kernel_record(rows, seams, bins, launches) -> None:
             "replaces": replaces, "launches": total[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             # the wrapper's call host-paced, on the device alone, and the
-            # kernel alone
-            "ms": first["host_paced_ms"], "device_ms": first["device_ms"],
+            # kernel alone; the bounds kernel has no call of its own (its
+            # call is the segments'), so its ms is the kernel alone
+            "ms": (first["kernel_ms"] if first["host_paced_ms"] is None
+                   else first["host_paced_ms"]),
+            "device_ms": first["device_ms"],
             "kernel_ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound"]["bound_ms"],
             "bound_by": first["bound"]["bound_by"],

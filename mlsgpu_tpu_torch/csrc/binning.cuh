@@ -1,6 +1,7 @@
 // The per-item arithmetic of the binning kernels (binning.cu): one
-// splat's eight node keys, one tile's ancestor node at a level, a lower
-// bound in the sorted keys, and an entry row's 1/r^2.
+// splat's eight node keys, one tile's ancestor node at a level, the
+// searches of the sorted keys that find each node's first entry, and an
+// entry row's 1/r^2.
 //
 // Written once for the card and for a host build: nvcc compiles these
 // functions into the kernels, where every float product and sum is an
@@ -9,6 +10,12 @@
 // the same operations as plain IEEE float arithmetic, so a CPU test can
 // hold this arithmetic to the plain version (ops/binning.py) bit for bit
 // without a card. The order of every sum is the plain version's.
+//
+// Node keys and node boundaries are 32-bit: a node address has at most
+// 10 bits an axis (max_shift - min_shift <= 10), so its Morton code fits
+// 30 bits, and a level's offset plus a code stays below the key space of
+// 11 levels, under 2^31 (the static_assert below). Only the block's
+// origin needs 64 bits: `lo - org` and the slab faces `(a << s) + org`.
 
 #pragma once
 
@@ -25,12 +32,46 @@
 // float(np.float32(1.00001)), octree.cl:194's conservative factor as the
 // plain version rounds it (0x3f800054).
 #define BIN_R2_FACTOR 0x1.0000a8p+0f
+// The node shifts the kernels take: 3 <= min_shift <= max_shift <= 13.
+#define BIN_MIN_SHIFT 3
+#define BIN_MAX_SHIFT 13
+#define BIN_MAX_LEVELS (BIN_MAX_SHIFT - BIN_MIN_SHIFT + 1)
+// The node boundaries one CTA of the bounds pass takes.
+#define BIN_BOUND_THREADS 256
+
+// The number of node keys of `levels` levels: 8^(levels-1) + ... + 8 + 1
+// (level_offsets' end).
+constexpr long long bin_key_space(int levels) {
+  return levels == 0 ? 0 : 8 * bin_key_space(levels - 1) + 1;
+}
+static_assert(bin_key_space(BIN_MAX_LEVELS) < (1LL << 31),
+              "node keys and node boundaries must fit an int");
 
 struct BinShape {
   int min_shift;  // leaf node size = 2^min_shift cells
   int max_shift;  // root node size = 2^max_shift cells
   long long org[3];  // the block's first cell, x y z
+  // level_offsets(min_shift, max_shift): the key-space offset of the
+  // level li shifts above the leaves
+  int level_offset[BIN_MAX_LEVELS];
 };
+
+// The BinShape of a block (the caller checks the shifts).
+static inline BinShape bin_shape(int min_shift, int max_shift, long long ox,
+                                 long long oy, long long oz) {
+  BinShape s{min_shift, max_shift, {ox, oy, oz}, {}};
+  for (int li = 0; li <= max_shift - min_shift; ++li)
+    s.level_offset[li] =
+        (int)(bin_key_space(max_shift - min_shift + 1) -
+              bin_key_space(max_shift - min_shift + 1 - li));
+  return s;
+}
+
+// The node keys of a block: every key is below this, and the bounds pass
+// finds the first entry of each node key and of this one.
+static inline int bin_nodes(const BinShape& s) {
+  return (int)bin_key_space(s.max_shift - s.min_shift + 1);
+}
 
 BIN_FN float bin_mul(float a, float b) {
 #ifdef __CUDA_ARCH__
@@ -84,26 +125,20 @@ BIN_FN int bin_bit_length(long long x) {
   return bits < 31 ? bits : 31;
 }
 
-// morton.py::_part1by2 / encode: 10 bits an axis, z-major.
-BIN_FN long long bin_part1by2(long long x) {
-  x &= 0x3FF;
-  x = (x | (x << 16)) & 0x30000FF;
-  x = (x | (x << 8)) & 0x300F00F;
-  x = (x | (x << 4)) & 0x30C30C3;
-  x = (x | (x << 2)) & 0x9249249;
+// morton.py::_part1by2 in 32 bits: the low 10 bits of x, two zero bits
+// between each.
+BIN_FN unsigned bin_spread(unsigned x) {
+  x &= 0x3FFu;
+  x = (x | (x << 16)) & 0x030000FFu;
+  x = (x | (x << 8)) & 0x0300F00Fu;
+  x = (x | (x << 4)) & 0x030C30C3u;
+  x = (x | (x << 2)) & 0x09249249u;
   return x;
 }
 
-BIN_FN long long bin_encode(long long x, long long y, long long z) {
-  return bin_part1by2(x) | (bin_part1by2(y) << 1) | (bin_part1by2(z) << 2);
-}
-
-// level_offsets(min_shift, max_shift)[li]: the key-space offset of the
-// level li shifts above the leaves.
-BIN_FN long long bin_level_offset(int li, int min_shift, int max_shift) {
-  long long off = 0;
-  for (int k = 0; k < li; ++k) off += 1LL << (3 * (max_shift - min_shift - k));
-  return off;
+// morton.py::encode: 10 bits an axis, z-major.
+BIN_FN unsigned bin_morton(unsigned x, unsigned y, unsigned z) {
+  return bin_spread(x) | (bin_spread(y) << 1) | (bin_spread(z) << 2);
 }
 
 // torch.clamp(v, min=lo, max=hi) with tensor bounds: NaN propagates.
@@ -113,7 +148,8 @@ BIN_FN float bin_clamp(float v, float lo, float hi) {
 
 // splat_keys for one splat (px, py, pz, r): its key for corner
 // c = dz * 4 + dy * 2 + dx into keys[c], BIN_INVALID_KEY where the splat
-// is invalid, misses the node or the node lies outside the block.
+// is invalid, misses the node or the node lies outside the block. Each
+// axis address is spread once and the corners' codes are ORs of them.
 BIN_FN void bin_splat_keys(float px, float py, float pz, float r, bool valid,
                            const BinShape& s, long long keys[8]) {
   const float p[3] = {px, py, pz};
@@ -127,57 +163,85 @@ BIN_FN void bin_splat_keys(float px, float py, float pz, float r, bool valid,
   int shift = big > 1 ? bin_bit_length(big - 1 > 1 ? big - 1 : 1) : 0;
   shift = shift < s.min_shift ? s.min_shift
                               : (shift > s.max_shift ? s.max_shift : shift);
-  const long long level_offset =
-      bin_level_offset(shift - s.min_shift, s.min_shift, s.max_shift);
+  const unsigned level_offset = (unsigned)s.level_offset[shift - s.min_shift];
   const long long bound = 1LL << (s.max_shift - shift);
   const float r2c = bin_mul(bin_mul(r, r), BIN_R2_FACTOR);
-  // axis a, d in {0, 1}: the node address and the squared distance from
-  // the splat to that node's slab [addr, addr + 1) at `shift`
-  long long addr[3][2];
+  // axis a, d in {0, 1}: the node address ilo + d, spread and moved to
+  // its axis' bits, whether it lies in the block, and the squared distance
+  // from the splat to that node's slab [face d, face d + 1) at `shift`
+  unsigned code[3][2];
+  bool in[3][2];
   float d2[3][2];
   for (int a = 0; a < 3; ++a) {
     const long long rel = lo[a] - s.org[a];
     const long long ilo = (rel > 0 ? rel : 0) >> shift;
+    float face[3];
+    for (int k = 0; k < 3; ++k)
+      face[k] = bin_i2f(((ilo + k) << shift) + s.org[a]);
     for (int d = 0; d < 2; ++d) {
-      const long long ad = ilo + d;
-      const float blo = bin_i2f((ad << shift) + s.org[a]);
-      const float bhi = bin_i2f(((ad + 1) << shift) + s.org[a]);
-      const float dd = bin_sub(bin_clamp(p[a], blo, bhi), p[a]);
-      addr[a][d] = ad;
+      const float dd = bin_sub(bin_clamp(p[a], face[d], face[d + 1]), p[a]);
       d2[a][d] = bin_mul(dd, dd);
+      in[a][d] = ilo + d < bound;
+      code[a][d] = bin_spread((unsigned)(ilo + d)) << a;
     }
   }
   for (int c = 0; c < 8; ++c) {
     const int dx = c & 1, dy = (c >> 1) & 1, dz = c >> 2;
-    const long long ax = addr[0][dx], ay = addr[1][dy], az = addr[2][dz];
     const bool isect = bin_add(bin_add(d2[0][dx], d2[1][dy]), d2[2][dz]) < r2c;
-    const bool inb = ax < bound && ay < bound && az < bound;
-    keys[c] = isect && inb && valid ? level_offset + bin_encode(ax, ay, az)
-                                    : BIN_INVALID_KEY;
+    const bool ok = isect && in[0][dx] && in[1][dy] && in[2][dz] && valid;
+    const unsigned key = level_offset + (code[0][dx] | code[1][dy] | code[2][dz]);
+    keys[c] = ok ? (long long)key : BIN_INVALID_KEY;
   }
 }
 
-// tile_segments' query for tile t (tiles in (tz, ty, tx) C order) at level
-// li: its ancestor node's key (the Morton code of t shifted to the level,
-// morton(t) >> 3k == morton(t >> k), plus the level's offset).
-BIN_FN long long bin_tile_node(long long t, int tpa, int li, int min_shift,
-                               int max_shift) {
-  const long long tx = t % tpa, ty = (t / tpa) % tpa, tz = t / tpa / tpa;
-  return (bin_encode(tx, ty, tz) >> (3 * (min_shift - 3 + li))) +
-         bin_level_offset(li, min_shift, max_shift);
+// tile_segments' query for tile t (tiles in (tz, ty, tx) C order, tpa <=
+// 2^(max_shift - 3) an axis): the Morton code of the tile.
+BIN_FN unsigned bin_tile_code(unsigned t, unsigned tpa) {
+  const unsigned tq = t / tpa;
+  return bin_morton(t - tq * tpa, tq % tpa, tq / tpa);
 }
 
-// The first index in sorted keys[0, n) whose key is not below q
-// (torch.searchsorted(side="left")).
-BIN_FN long long bin_lower_bound(const long long* keys, long long n,
-                                 long long q) {
-  long long lo = 0, hi = n;
+// The key of the ancestor at level li of the tile with Morton code
+// `code`: the code shifted to the level (morton(t) >> 3k == morton(t >>
+// k)) plus the level's offset.
+BIN_FN int bin_level_node(unsigned code, int li, const BinShape& s) {
+  return (int)((code >> (3 * (s.min_shift - 3 + li))) +
+               (unsigned)s.level_offset[li]);
+}
+
+// The first index in sorted keys[lo, hi) whose key is not below q, or hi
+// (torch.searchsorted(side="left") on that range).
+BIN_FN int bin_lower_bound(const long long* keys, int lo, int hi,
+                           long long q) {
   while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
+    const int mid = lo + ((hi - lo) >> 1);
     if (keys[mid] < q)
       lo = mid + 1;
     else
       hi = mid;
   }
   return lo;
+}
+
+// A 32-ary search for a lower bound, one probe a lane of a warp: the
+// answer lies in [lo, hi] (keys[hi] is not below q, or hi is the end). A
+// round cuts [lo, hi) into 32 parts of bin_part keys; lane l probes the
+// last key of part l (bin_probe: its index, or -1 past hi), and
+// bin_narrow takes the number of probes below q, which are a prefix of
+// the lanes. Unsigned: lo + 32 parts may pass hi by 31.
+BIN_FN unsigned bin_part(int lo, int hi) {
+  return ((unsigned)(hi - lo) + 31u) >> 5;
+}
+
+BIN_FN int bin_probe(int lo, int hi, int lane) {
+  const unsigned idx = (unsigned)lo + (unsigned)(lane + 1) * bin_part(lo, hi) - 1u;
+  return idx < (unsigned)hi ? (int)idx : -1;
+}
+
+BIN_FN void bin_narrow(int& lo, int& hi, int below) {
+  const unsigned part = bin_part(lo, hi);
+  const unsigned nlo = (unsigned)lo + (unsigned)below * part;
+  const unsigned nhi = nlo + part - 1u;
+  lo = nlo < (unsigned)hi ? (int)nlo : hi;
+  hi = nhi < (unsigned)hi ? (int)nhi : hi;
 }

@@ -15,7 +15,8 @@ of the contract.
 
 These are the plain versions: on the card the block step runs the key
 pass, the gather and the segments as kernels (ops/binning_cuda.py,
-csrc/binning.cu), bit for bit these functions.
+csrc/binning.cu), bit for bit these functions; the segments' kernels first
+build `node_bounds`' table and gather the segments from it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,12 @@ def level_offsets(min_shift: int, max_shift: int) -> np.ndarray:
         offs.append(pos)
         pos += 8 ** (max_shift - s)
     return np.asarray(offs, dtype=np.int64)
+
+
+def node_count(min_shift: int, max_shift: int) -> int:
+    """K, the node keys of the levels [min_shift, max_shift]: every node
+    key is below it (level_offsets' end)."""
+    return (8 ** (max_shift - min_shift + 1) - 1) // 7
 
 
 def bit_length(x: torch.Tensor) -> torch.Tensor:
@@ -169,3 +176,13 @@ def tile_segments(entry_keys: torch.Tensor, min_shift: int, max_shift: int,
     starts = per[:, 0, :].T.contiguous()
     lens = (per[:, 1, :] - per[:, 0, :]).T.contiguous()
     return starts, lens
+
+
+def node_bounds(entry_keys: torch.Tensor, min_shift: int,
+                max_shift: int) -> torch.Tensor:
+    """The first sorted entry of every node key q in [0, K] (K =
+    node_count): (K + 1,) int32. Node q's segment is [bounds[q],
+    bounds[q + 1]), the one tile_segments finds for it."""
+    q = torch.arange(node_count(min_shift, max_shift) + 1, dtype=torch.int64,
+                     device=entry_keys.device)
+    return torch.searchsorted(entry_keys, q, side="left").to(torch.int32)

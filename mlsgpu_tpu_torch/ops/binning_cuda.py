@@ -4,9 +4,11 @@ ops/binning.py's signatures.
 
 Tensors on a CUDA device take the kernel path: the key pass
 (`bin_keys_kernel`), `torch.sort(stable=True)` of the keys, the entry
-gather (`bin_entries_kernel`) and the tile segments
-(`tile_segments_kernel`), each kernel one launch per block with no host
-synchronisation, bit for bit the plain functions. Tensors on the CPU take
+gather (`bin_entries_kernel`) and the tile segments (`tile_bounds_kernel`,
+the first entry of every node key, then `tile_segments_kernel`, which
+gathers each (tile, level)'s segment from that table; one C call), each
+kernel one launch per block with no host synchronisation, bit for bit the
+plain functions. Tensors on the CPU take
 the plain versions (ops/binning.py). A CUDA tensor launches the kernels or
 raises; nothing falls back. The kernels live in the library
 ops/mls_cuda.py builds.
@@ -20,6 +22,7 @@ import torch
 
 from mlsgpu_tpu_torch.ops import binning, launches, mls_cuda
 from mlsgpu_tpu_torch.ops.binning import BinnedSplats
+
 
 def _path(t: torch.Tensor) -> bool:
     """True for the kernel path (a CUDA tensor), False for the plain one
@@ -121,30 +124,50 @@ def bin_splats(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
 
 def tile_segments(entry_keys: torch.Tensor, min_shift: int, max_shift: int,
                   tiles_per_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """binning.tile_segments: the segment kernel for CUDA tensors (one
-    launch), the plain version for CPU tensors. Returns (starts, lens),
-    each (T, L) int32."""
+    """binning.tile_segments: the bounds and segment kernels for CUDA
+    tensors (one C call, a launch of each), the plain version for CPU
+    tensors. Returns (starts, lens), each (T, L) int32."""
     if not _path(entry_keys):
         return binning.tile_segments(entry_keys, min_shift, max_shift,
                                      tiles_per_axis)
+    return segments_and_bounds(entry_keys, min_shift, max_shift,
+                               tiles_per_axis)[:2]
+
+
+def segments_and_bounds(entry_keys: torch.Tensor, min_shift: int,
+                        max_shift: int, tiles_per_axis: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(starts, lens, bounds): tile_segments' segments and the table of
+    binning.node_bounds they are gathered from. For CUDA tensors the
+    bounds kernel and the segment kernel, launched back to back by one C
+    call, tiles_per_axis at most 2^(max_shift - 3); for CPU tensors the
+    plain versions."""
+    if not _path(entry_keys):
+        return (*binning.tile_segments(entry_keys, min_shift, max_shift,
+                                       tiles_per_axis),
+                binning.node_bounds(entry_keys, min_shift, max_shift))
     dev = entry_keys.device
     mls_cuda._check("entry_keys", entry_keys, torch.int64,
                     (entry_keys.numel(),))
     _check_shifts(min_shift, max_shift)
     tpa = int(tiles_per_axis)
-    if not 1 <= tpa <= 1024:
-        raise ValueError(f"{tpa} tiles an axis: the kernel takes 1-1024")
-    if entry_keys.numel() >= 1 << 31:
-        raise ValueError(f"{entry_keys.numel()} entries: segment starts "
-                         "are int32")
+    if not 1 <= tpa <= 1 << (max_shift - 3):
+        raise ValueError(f"{tpa} tiles an axis: the kernels take 1-"
+                         f"{1 << (max_shift - 3)} at max_shift {max_shift}")
     shape = (tpa ** 3, max_shift - min_shift + 1)
+    if entry_keys.numel() >= 1 << 31 or shape[0] * shape[1] >= 1 << 31:
+        raise ValueError(f"{entry_keys.numel()} entries, {shape} segments: "
+                         "segment starts and items are int32")
+    nodes = binning.node_count(min_shift, max_shift)
     starts = torch.empty(shape, dtype=torch.int32, device=dev)
     lens = torch.empty(shape, dtype=torch.int32, device=dev)
+    bounds = torch.empty(nodes + 1, dtype=torch.int32, device=dev)
     lib = mls_cuda.load()
     with torch.cuda.device(dev):
         _raise_on(lib.bin_segments_launch(
             entry_keys.data_ptr(), entry_keys.numel(), min_shift, max_shift,
-            tpa, starts.data_ptr(), lens.data_ptr(), _stream(dev)),
-            "bin_segments_launch")
+            tpa, bounds.data_ptr(), starts.data_ptr(), lens.data_ptr(),
+            _stream(dev)), "bin_segments_launch")
+    launches.count("tile_bounds")
     launches.count("tile_segments")
-    return starts, lens
+    return starts, lens, bounds

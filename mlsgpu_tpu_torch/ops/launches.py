@@ -20,6 +20,7 @@ KERNELS = {
     "seam_skeleton": "seam.skeletonLaunches",
     "bin_keys": "binning.keyLaunches",
     "bin_entries": "binning.entryLaunches",
+    "tile_bounds": "binning.boundLaunches",
     "tile_segments": "binning.segmentLaunches",
 }
 

@@ -8,7 +8,7 @@ CUDA tensor either launches the kernel or raises — nothing falls back.
 The kernel library holds the port's hand-written kernels: the field kernel
 (csrc/mls_field.cu), the seam passes' face and skeleton kernels
 (csrc/seam_moments.cu, called from ops/seam_cuda.py) and the binning
-stage's key, entry and segment kernels (csrc/binning.cu with
+stage's key, entry, bounds and segment kernels (csrc/binning.cu with
 csrc/binning.cuh, called from ops/binning_cuda.py). One nvcc call
 compiles the three sources for sm_90a on first use into
 `mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source is newer);
@@ -137,7 +137,7 @@ def load():
             fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
             fn = lib.bin_segments_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ptr, i64] + [ctypes.c_int] * 3 + [ptr] * 3
+            fn.argtypes = [ptr, i64] + [ctypes.c_int] * 3 + [ptr] * 4
             _lib = lib
         return _lib
 

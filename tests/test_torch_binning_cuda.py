@@ -5,10 +5,15 @@ kernels' arithmetic (csrc/binning.cuh) built for the host with g++
 -ffp-contract=off and held to the plain versions bit for bit on clouds
 with splats on slab boundaries, at the conservative test's margin and with
 giant radii (`edge_cloud`; tests/test_torch_binning.py holds the plain
-versions to the JAX package on the same clouds); the build, the launch
-counters (also carried back from worker processes), no splats, and a
-device the wrappers cannot take. On the card (marker `cuda`): keys,
-entries and segments bit for bit against the plain versions, and one
+versions to the JAX package on the same clouds); the 32-bit Morton spread
+and the level table against ops/morton.py and binning.level_offsets; the
+segments' two passes (the bounds pass CTA by CTA, its warp searches lane
+by lane, then the gather) against
+binning.node_bounds and binning.tile_segments on edge cases
+(`segment_case`); the build, the launch counters (also carried back from
+worker processes), no splats, and a device the wrappers cannot take. On
+the card (marker `cuda`): keys, entries, bounds and segments bit for bit
+against the plain versions (the segments on the edge cases too), and one
 launch of each kernel a block.
 
 This module imports no jax: a worker process imports it for its block
@@ -114,7 +119,7 @@ KINDS = ("sphere", "boundaries", "corners", "giant")
 
 
 #: The binning kernels' names in ops/launches.py.
-BINNING = ("bin_keys", "bin_entries", "tile_segments")
+BINNING = ("bin_keys", "bin_entries", "tile_bounds", "tile_segments")
 
 
 def _since(before):
@@ -142,17 +147,34 @@ def test_wrappers_on_cpu_take_the_plain_path(kind):
 
 # --- the kernels' arithmetic, built for the host ----------------------------
 
-# The kernels' bodies (csrc/binning.cu) as host loops over binning.cuh.
+# The kernels' bodies (csrc/binning.cu) as host loops over binning.cuh:
+# the bounds pass CTA by CTA (BIN_BOUND_THREADS node keys each), its warp
+# searches lane by lane.
 _HARNESS = """
+#include <algorithm>
+
 #include "binning.cuh"
 
 extern "C" float host_r2_factor() { return BIN_R2_FACTOR; }
+
+extern "C" unsigned host_spread(unsigned x) { return bin_spread(x); }
+
+extern "C" unsigned host_morton(unsigned x, unsigned y, unsigned z) {
+  return bin_morton(x, y, z);
+}
+
+extern "C" int host_level_offsets(int min_shift, int max_shift, int* out) {
+  const BinShape shape = bin_shape(min_shift, max_shift, 0, 0, 0);
+  for (int li = 0; li <= max_shift - min_shift; ++li)
+    out[li] = shape.level_offset[li];
+  return bin_nodes(shape);
+}
 
 extern "C" void host_keys(const float* s, const unsigned char* valid,
                           long long n, int min_shift, int max_shift,
                           long long ox, long long oy, long long oz,
                           long long* keys) {
-  const BinShape shape{min_shift, max_shift, {ox, oy, oz}};
+  const BinShape shape = bin_shape(min_shift, max_shift, ox, oy, oz);
   for (long long i = 0; i < n; ++i) {
     long long k[8];
     bin_splat_keys(s[8 * i], s[8 * i + 1], s[8 * i + 2], s[8 * i + 3],
@@ -171,19 +193,46 @@ extern "C" void host_entries(const float* s, const long long* perm,
   }
 }
 
-extern "C" void host_segments(const long long* keys, long long m,
-                              int min_shift, int max_shift, int tpa,
-                              int* starts, int* lens) {
+// warp_lower_bound: the 32 lanes' probes of a round counted one by one.
+static int warp_lower_bound(const long long* keys, int m, long long q) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    int below = 0;
+    for (int lane = 0; lane < 32; ++lane) {
+      const int idx = bin_probe(lo, hi, lane);
+      below += idx >= 0 && keys[idx] < q;
+    }
+    bin_narrow(lo, hi, below);
+  }
+  return lo;
+}
+
+// tile_bounds_kernel: each CTA's key range, then a search in it.
+extern "C" int host_bounds(const long long* keys, int m, int min_shift,
+                           int max_shift, int* bounds) {
+  const int nodes = bin_nodes(bin_shape(min_shift, max_shift, 0, 0, 0));
+  for (int q0 = 0; q0 <= nodes; q0 += BIN_BOUND_THREADS) {
+    const int last = std::min(q0 + BIN_BOUND_THREADS - 1, nodes);
+    const int lo = warp_lower_bound(keys, m, q0);
+    const int hi = warp_lower_bound(keys, m, last);
+    for (int q = q0; q <= last; ++q) bounds[q] = bin_lower_bound(keys, lo, hi, q);
+  }
+  return nodes;
+}
+
+// tile_segments_kernel.
+extern "C" void host_gather(const int* bounds, int min_shift, int max_shift,
+                            int tpa, int* starts, int* lens) {
+  const BinShape shape = bin_shape(min_shift, max_shift, 0, 0, 0);
   const int levels = max_shift - min_shift + 1;
-  const long long items = (long long)tpa * tpa * tpa * levels;
-  for (long long j = 0; j < items; ++j) {
-    const long long node = bin_tile_node(j / levels, tpa, (int)(j % levels),
-                                         min_shift, max_shift);
-    const long long start = bin_lower_bound(keys, m, node);
-    const long long end =
-        start + bin_lower_bound(keys + start, m - start, node + 1);
-    starts[j] = (int)start;
-    lens[j] = (int)(end - start);
+  const unsigned tiles = (unsigned)tpa * tpa * tpa;
+  for (unsigned t = 0; t < tiles; ++t) {
+    const unsigned code = bin_tile_code(t, tpa);
+    for (int li = 0; li < levels; ++li) {
+      const int node = bin_level_node(code, li, shape);
+      starts[t * levels + li] = bounds[node];
+      lens[t * levels + li] = bounds[node + 1] - bounds[node];
+    }
   }
 }
 """
@@ -207,7 +256,15 @@ def host(tmp_path_factory):
     lib.host_r2_factor.restype = ctypes.c_float
     lib.host_keys.argtypes = [p, p, i64, i32, i32, i64, i64, i64, p]
     lib.host_entries.argtypes = [p, p, i64, p, p]
-    lib.host_segments.argtypes = [p, i64, i32, i32, i32, p, p]
+    u32 = ctypes.c_uint
+    lib.host_spread.restype = lib.host_morton.restype = u32
+    lib.host_spread.argtypes = [u32]
+    lib.host_morton.argtypes = [u32] * 3
+    lib.host_level_offsets.restype = i32
+    lib.host_level_offsets.argtypes = [i32, i32, p]
+    lib.host_bounds.restype = i32
+    lib.host_bounds.argtypes = [p, i32, i32, i32, p]
+    lib.host_gather.argtypes = [p, i32, i32, i32, p, p]
     return lib
 
 
@@ -275,6 +332,20 @@ def test_host_build_entries_equal_the_plain_gather(host):
                                   want_data.numpy().view(np.uint32))
 
 
+def _host_segments(lib, keys, min_s, max_s, tpa):
+    """The two passes built for the host: (starts, lens, bounds)."""
+    keys = np.ascontiguousarray(keys, np.int64)
+    bounds = np.empty(binning.node_count(min_s, max_s) + 1, np.int32)
+    assert lib.host_bounds(_ptr(keys), len(keys), min_s, max_s,
+                           _ptr(bounds)) == len(bounds) - 1
+    shape = (tpa ** 3, max_s - min_s + 1)
+    starts = np.empty(shape, np.int32)
+    lens = np.empty(shape, np.int32)
+    lib.host_gather(_ptr(bounds), min_s, max_s, tpa, _ptr(starts),
+                    _ptr(lens))
+    return starts, lens, bounds
+
+
 @pytest.mark.parametrize("levels,sub", [(3, 3), (6, 3), (2, 5)])
 def test_host_build_segments_equal_the_plain_search(host, levels, sub):
     splats, valid, origin = edge_cloud("sphere")
@@ -284,14 +355,141 @@ def test_host_build_segments_equal_the_plain_search(host, levels, sub):
         torch.as_tensor(splats), torch.as_tensor(valid), origin, min_s,
         max_s), stable=True)
     want_s, want_l = binning.tile_segments(keys, min_s, max_s, tpa)
-    keys = np.ascontiguousarray(keys.numpy())
-    starts = np.empty(want_s.shape, np.int32)
-    lens = np.empty(want_l.shape, np.int32)
-    host.host_segments(_ptr(keys), len(keys), min_s, max_s, tpa,
-                       _ptr(starts), _ptr(lens))
+    starts, lens, _ = _host_segments(host, keys.numpy(), min_s, max_s, tpa)
     np.testing.assert_array_equal(starts, want_s.numpy())
     np.testing.assert_array_equal(lens, want_l.numpy())
     assert int(lens.sum()) > 0
+
+
+def segment_case(case):
+    """(sorted keys (m,) int64, min_shift, max_shift) of an edge case for
+    the segments: "empty" (m = 0), "invalid" (every key INVALID_KEY),
+    "root" (only the root node), "leaves" (every leaf node, 1-40 entries
+    each), "last_leaf"
+    (only the last leaf node K0 - 1), "runs" (a few nodes with runs of
+    3,000-40,000 entries, among single ones) or "sparse" (a fuzzed sparse
+    block at (levels, sub) = (7, 3): 2% of each level's nodes, up to 60
+    entries each)."""
+    rng = np.random.default_rng(17)
+    min_s, max_s = (3, 9) if case == "sparse" else (3, 6)
+    offs = binning.level_offsets(min_s, max_s)
+    nodes = binning.node_count(min_s, max_s)
+    leaves = int(offs[1])
+    inv = binning.INVALID_KEY
+    if case == "empty":
+        keys = np.zeros(0, np.int64)
+    elif case == "invalid":
+        keys = np.full(5000, inv, np.int64)
+    elif case == "root":
+        keys = np.concatenate([np.full(700, nodes - 1), np.full(30, inv)])
+    elif case == "leaves":
+        keys = np.repeat(np.arange(leaves), rng.integers(1, 41, leaves))
+    elif case == "last_leaf":
+        keys = np.concatenate([np.full(9, leaves - 1), np.full(4, inv)])
+    elif case == "runs":
+        some = rng.choice(nodes, 60, replace=False)
+        reps = np.where(np.arange(60) % 6 == 0,
+                        rng.integers(3000, 40000, 60), 1)
+        keys = np.concatenate([np.repeat(some, reps), np.full(2000, inv)])
+    else:
+        parts = []
+        for li in range(len(offs)):
+            count = (nodes if li == len(offs) - 1 else int(offs[li + 1])
+                     ) - int(offs[li])
+            occ = rng.random(count) < 0.02
+            parts.append(np.repeat(int(offs[li]) + np.flatnonzero(occ),
+                                   rng.integers(1, 61, int(occ.sum()))))
+        parts.append(np.full(rng.integers(1, 5000), inv))
+        keys = np.concatenate(parts)
+    return np.sort(keys.astype(np.int64), kind="stable"), min_s, max_s
+
+
+SEGMENT_CASES = ("empty", "invalid", "root", "leaves", "last_leaf", "runs",
+                 "sparse")
+_plain_cache = {}
+
+
+def _plain_segments(case):
+    """segment_case(case) and the plain versions' starts, lens and bounds
+    (computed once a case)."""
+    if case not in _plain_cache:
+        keys, min_s, max_s = segment_case(case)
+        tpa = 1 << (max_s - 3)
+        k = torch.as_tensor(keys)
+        s, ln = binning.tile_segments(k, min_s, max_s, tpa)
+        b = binning.node_bounds(k, min_s, max_s)
+        _plain_cache[case] = (keys, min_s, max_s, tpa, s.numpy(), ln.numpy(),
+                              b.numpy())
+    return _plain_cache[case]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_host_build_two_passes_equal_the_plain_segments(host, case):
+    """The bounds pass and the gather, built for the host, against
+    binning.node_bounds and binning.tile_segments, the starts of empty
+    segments too."""
+    keys, min_s, max_s, tpa, want_s, want_l, want_b = _plain_segments(case)
+    starts, lens, bounds = _host_segments(host, keys, min_s, max_s, tpa)
+    np.testing.assert_array_equal(bounds, want_b)
+    np.testing.assert_array_equal(starts, want_s)
+    np.testing.assert_array_equal(lens, want_l)
+    # the last bound (of K) is where the invalid entries start
+    assert bounds[0] == 0
+    assert bounds[-1] == int((keys != binning.INVALID_KEY).sum())
+
+
+def test_host_build_spread_and_codes_equal_morton(host):
+    """The 32-bit spread on every 10-bit address, and the codes of
+    random, extreme and diagonal addresses, equal ops/morton.py's."""
+    from mlsgpu_tpu_torch.ops import morton
+    lib = host
+    x = np.arange(1024)
+    got = np.array([lib.host_spread(int(v)) for v in x], np.int64)
+    np.testing.assert_array_equal(
+        got, morton._part1by2(torch.as_tensor(x)).numpy())
+    rng = np.random.default_rng(3)
+    xyz = np.concatenate([rng.integers(0, 1024, (4000, 3)),
+                          np.array([[0, 0, 0], [1023, 1023, 1023],
+                                    [1023, 0, 0], [0, 1023, 0], [0, 0, 1023]]),
+                          np.repeat(x[:, None], 3, axis=1)])
+    got = np.array([lib.host_morton(*(int(v) for v in row)) for row in xyz],
+                   np.int64)
+    t = torch.as_tensor(xyz)
+    np.testing.assert_array_equal(
+        got, morton.encode(t[:, 0], t[:, 1], t[:, 2]).numpy())
+
+
+def test_host_build_level_table_equals_level_offsets(host):
+    """BinShape's level table and the node count, for every pair of
+    shifts the kernels take, equal binning.level_offsets and its end, and
+    every node key and boundary fits 31 bits."""
+    lib = host
+    out = np.empty(11, np.int32)
+    pairs = 0
+    for min_s in range(3, 14):
+        for max_s in range(min_s, 14):
+            nodes = lib.host_level_offsets(min_s, max_s, _ptr(out))
+            want = binning.level_offsets(min_s, max_s)
+            np.testing.assert_array_equal(out[:len(want)], want)
+            assert nodes == binning.node_count(min_s, max_s)
+            assert nodes == int(want[-1]) + 1 < 1 << 31
+            pairs += 1
+    assert pairs == 66
+
+
+def test_host_build_tile_nodes_equal_the_plain_queries(host):
+    """Each (tile, level)'s node from the gather equals the plain query
+    (tile_segments' node keys) at every level, for tiles a power of two
+    an axis and fewer: through keys that are the node keys themselves,
+    each node's bound is its rank."""
+    for min_s, max_s, tpa in ((3, 7, 16), (4, 6, 4), (3, 5, 3)):
+        keys = np.arange(binning.node_count(min_s, max_s), dtype=np.int64)
+        starts, lens, _ = _host_segments(host, keys, min_s, max_s, tpa)
+        want_s, want_l = binning.tile_segments(torch.as_tensor(keys), min_s,
+                                               max_s, tpa)
+        np.testing.assert_array_equal(starts, want_s.numpy())
+        np.testing.assert_array_equal(lens, want_l.numpy())
+        assert (lens == 1).all()
 
 
 # --- the wrappers, the build and the counters --------------------------------
@@ -307,8 +505,49 @@ def test_no_splats_on_cpu():
     assert int(s.abs().sum()) == int(ln.abs().sum()) == 0
 
 
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segments_and_bounds_on_cpu_are_the_plain_versions(case):
+    """On CPU tensors the segments and their table are the plain
+    tile_segments and node_bounds, and nothing is launched."""
+    keys, min_s, max_s, tpa, want_s, want_l, want_b = _plain_segments(case)
+    before = launches.counts()
+    s, ln, b = binning_cuda.segments_and_bounds(torch.as_tensor(keys),
+                                                min_s, max_s, tpa)
+    assert launches.counts() == before
+    for got, want in ((s, want_s), (ln, want_l), (b, want_b)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kernel_event_ms_means_each_kernel_over_its_events():
+    """The kernels-alone time of a trace (tools/bench_binning, chip_smoke):
+    each named kernel's mean over its kernel events, summed; host events
+    of the same name do not count, and a trace that lost a kernel's events
+    (fewer than one a call) is not measured."""
+    from mlsgpu_tpu_torch.tools.bench_binning import kernel_event_ms
+    events = [
+        {"ph": "X", "cat": "kernel", "dur": 4.0,
+         "name": "(anonymous namespace)::tile_bounds_kernel(long long)"},
+        {"ph": "X", "cat": "kernel", "dur": 6.0, "name": "tile_bounds_kernel"},
+        {"ph": "X", "cat": "kernel", "dur": 2.0,
+         "name": "tile_segments_kernel"},
+        {"ph": "X", "cat": "kernel", "dur": 1.0,
+         "name": "tile_segments_kernel"},
+        {"ph": "X", "cat": "cpu_op", "dur": 90.0,
+         "name": "tile_segments_kernel"},
+        {"ph": "i", "cat": "kernel", "name": "tile_bounds_kernel"}]
+    names = ("tile_bounds_kernel", "tile_segments_kernel")
+    assert kernel_event_ms(events, names, 2) == pytest.approx(0.0065)
+    assert kernel_event_ms(events, ("tile_bounds_kernel",), 2) == \
+        pytest.approx(0.005)
+    # three calls traced, two events kept: not measured
+    assert kernel_event_ms(events, names, 3) is None
+    assert kernel_event_ms(events[:3], names, 2) is None
+    assert kernel_event_ms(events, ("bin_keys_kernel",), 2) is None
+
+
 @pytest.mark.parametrize("call", ["splat_keys", "entry_rows", "bin_splats",
-                                  "tile_segments"])
+                                  "tile_segments", "segments_and_bounds"])
 def test_wrappers_raise_for_a_device_they_cannot_take(call):
     splats, valid, origin = edge_cloud("sphere")
     sp = torch.as_tensor(splats).to("meta")
@@ -318,7 +557,10 @@ def test_wrappers_raise_for_a_device_they_cannot_take(call):
                                            dtype=torch.int64, device="meta")),
             "bin_splats": (sp, va, origin, 3, 5),
             "tile_segments": (torch.empty(8, dtype=torch.int64,
-                                          device="meta"), 3, 5, 4)}[call]
+                                          device="meta"), 3, 5, 4),
+            "segments_and_bounds": (torch.empty(8, dtype=torch.int64,
+                                                device="meta"), 3, 5, 4)
+            }[call]
     with pytest.raises(ValueError, match="meta"):
         getattr(binning_cuda, call)(*args)
 
@@ -356,11 +598,13 @@ def test_one_nvcc_call_builds_the_binning_kernels(tmp_path, monkeypatch):
 def test_launch_counts_add_up():
     saved = launches.counts()
     try:
-        launches.add({"bin_keys": 2, "bin_entries": 3, "tile_segments": 4})
+        launches.add({"bin_keys": 2, "bin_entries": 3, "tile_bounds": 6,
+                      "tile_segments": 4})
         for name in BINNING:
             launches.count(name)
         assert launches.since(saved) == {**dict.fromkeys(launches.KERNELS, 0),
                                          "bin_keys": 3, "bin_entries": 4,
+                                         "tile_bounds": 7,
                                          "tile_segments": 5}
         with pytest.raises(KeyError):
             launches.add({"keys": 1})
@@ -382,8 +626,8 @@ class CountingStep:
 
 def test_worker_processes_carry_binning_launches_back():
     """Two worker processes count their blocks' binning launches; the run's
-    statistics (`binning.keyLaunches`, `entryLaunches`, `segmentLaunches`)
-    and this process's counts each gain one a block."""
+    statistics (`binning.keyLaunches`, `entryLaunches`, `boundLaunches`,
+    `segmentLaunches`) and this process's counts each gain one a block."""
     from mlsgpu_tpu_torch.pipeline import reconstruct as trec
     from mlsgpu_tpu_torch.pipeline import streamer
     from mlsgpu_tpu_torch.utils.statistics import get_registry
@@ -406,8 +650,9 @@ def test_worker_processes_carry_binning_launches_back():
     assert len(got) == len(buckets)
     stats = get_registry().to_dict()
     assert stats["workers.spawned"]["total"] == 2
-    assert counts == [len(buckets)] * 3
-    for name in ("keyLaunches", "entryLaunches", "segmentLaunches"):
+    assert counts == [len(buckets)] * 4
+    for name in ("keyLaunches", "entryLaunches", "boundLaunches",
+                 "segmentLaunches"):
         assert stats[f"binning.{name}"]["total"] == len(buckets), name
 
 
@@ -449,7 +694,13 @@ def test_kernels_bit_for_bit_on_card(cuda_device, kind):
                                              tpa)
         _same(s, ref_s, "starts")
         _same(ln, ref_l, "lens")
-        assert _since(before) == [2, 2, 1]
+        assert _since(before) == [2, 2, 1, 1]
+        s, ln, bounds = binning_cuda.segments_and_bounds(b.entry_keys, min_s,
+                                                         max_s, tpa)
+        _same(bounds, binning.node_bounds(b.entry_keys, min_s, max_s),
+              "bounds")
+        _same(s, ref_s, "starts (segments_and_bounds)")
+        _same(ln, ref_l, "lens (segments_and_bounds)")
         ref = binning.bin_splats(sp, va, origin, min_s, max_s)
         for name in ("entry_keys", "entry_vals", "entry_data"):
             _same(getattr(b, name), getattr(ref, name), name)
@@ -465,7 +716,7 @@ def test_no_splats_on_card(cuda_device):
     s, ln = binning_cuda.tile_segments(b.entry_keys, 3, 5, 4)
     assert b.entry_data.shape == (0, 8) and s.shape == (64, 3)
     assert int(s.abs().sum()) == int(ln.abs().sum()) == 0
-    assert _since(before) == [0, 0, 1]
+    assert _since(before) == [0, 0, 1, 1]
 
 
 @pytest.mark.cuda
@@ -475,7 +726,7 @@ def test_block_field_launches_each_kernel_once_on_card(cuda_device):
     block.block_field(torch.as_tensor(splats, device=cuda_device),
                       torch.as_tensor(valid, device=cuda_device),
                       (31, 31, 31), origin, 0.0, levels=3, subsampling=3)
-    assert _since(before) == [1, 1, 1]
+    assert _since(before) == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -490,3 +741,23 @@ def test_kernel_path_raises_on_what_it_cannot_take(cuda_device):
                                 va[:100], origin, 3, 5)
     with pytest.raises(ValueError, match="shifts"):
         binning_cuda.splat_keys(sp, va, origin, 2, 5)
+    keys = binning_cuda.splat_keys(sp, va, origin, 3, 5)
+    with pytest.raises(ValueError, match="tiles an axis"):
+        binning_cuda.tile_segments(keys, 3, 5, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_kernels_bit_for_bit_on_edge_cases_on_card(cuda_device,
+                                                           case):
+    """The bounds and segment kernels against the plain versions on
+    segment_case's keys: m = 0, all invalid, only the root, every leaf, the
+    last leaf, long runs, a sparse 7-level block."""
+    keys, min_s, max_s, tpa, want_s, want_l, want_b = _plain_segments(case)
+    k = torch.as_tensor(keys, device=cuda_device)
+    before = launches.counts()
+    s, ln, b = binning_cuda.segments_and_bounds(k, min_s, max_s, tpa)
+    assert _since(before) == [0, 0, 1, 1]
+    for got, want, label in ((b, want_b, "bounds"), (s, want_s, "starts"),
+                             (ln, want_l, "lens")):
+        assert torch.equal(got.cpu(), torch.as_tensor(want)), label
