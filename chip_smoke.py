@@ -44,7 +44,15 @@ raises, exits non-zero and prints no result line:
      SEAM_PASS_LAUNCHES and none: checked) and of the plain one (a traced
      pass summarized by utils/step_profile); then face passes on two
      streams of the card at once, each field bit for bit the plain pass's
-     (face_passes_on_two_streams);
+     (face_passes_on_two_streams); then the bucket's block field (binning
+     to skeleton, block.block_field) through the codes path's kernels
+     (csrc/marching.cu: classify, scan, emit) against the plain
+     generate_codes + pack_codes, the image and the counts bit for bit,
+     the call host-paced, each kernel alone (profiler), the card's busy
+     time, the launches and syncs of a traced call (the three kernels and
+     at most one sync: checked) beside the plain stage's, the plain stage
+     host-paced, each kernel's bound and the stage's (marching_bound)
+     (marching_vs_plain);
   4. the seam contract on the card, through the seam kernels: shared-face
      and T-junction corners of adjacent blocks bitwise equal, also where a
      face patch straddles the blocks' in-plane edge; both seam passes
@@ -60,12 +68,14 @@ raises, exits non-zero and prints no result line:
      bitwise phase 7's, and every `device.<stage>.time`, its mean and each
      block's (stage_samples);
   9. on the densest 512^3-corner dispatch (`--levels 7`, 64^3 tiles, 7
-     levels): the binning kernels as in phase 3, the kernel against its
-     plain version as in phase 3 (sphere
-     fit, the run's boundary factor), the seam kernels as in phase 3, the
-     block's field (one launch of each kernel), then tiled against dense
-     classification of the block's field: the codes images bitwise equal;
-     all four times;
+     levels): the block's field (one launch of each binning, field and
+     seam kernel, none of the marching kernels) and the marching kernels
+     against their plain version on it as in phase 3 (the tiled rule's
+     candidate tiles in the counts), then the binning kernels as in phase
+     3, the kernel against its plain version as in phase 3 (sphere fit,
+     the run's boundary factor), the seam kernels as in phase 3, then
+     tiled against dense classification of the block's field: the codes
+     images bitwise equal; all four times;
  10. `DeviceScaleBias(scale=2, bias)` through `reconstruct(device_filter=)`
      on a small cloud: each block's filtered vertices equal its unfiltered
      ones transformed on the host within 1e-5 of a cell; manifold;
@@ -136,17 +146,20 @@ raises, exits non-zero and prints no result line:
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
-Kernel launches (the field, face, skeleton and four binning kernels')
-are counted per main-path run (every counter set to 0 just before it and
-read just after; the comparisons of phases 3, 4 and 9 excluded); each run
-must launch the field, face and binning kernels once a block and the
-skeleton kernel where its blocks have skeleton points (check_launches),
-and a kernel record's
+Kernel launches (the field, face, skeleton, four binning and three
+marching kernels') are counted per main-path run (every counter set to 0
+just before it and read just after; the comparisons of phases 3, 4 and 9
+excluded); each run must launch the field, face and binning kernels once
+a block, the skeleton kernel where its blocks have skeleton points, and,
+by its readback mode, the classify and scan kernels once a codes block
+and the emit kernel once a codes block with an occupied cell, none in a
+packed or raw run (check_launches); a kernel record's
 `launches` is the sum over the runs in this process (phase 12's ranks
 count their own and print them); its `max_abs_err` is the largest of
 phases 3 (and 4) and 9; its `ms` is the call's (for a seam kernel, the
-pass's) host-paced time at the densest 256^3 bucket, `device_ms` on the
-device alone (and `kernel_ms` a seam or binning kernel alone).
+pass's; for a marching kernel, the kernel alone) host-paced time at the
+densest 256^3 bucket, `device_ms` on the device alone (and `kernel_ms` a
+seam, binning or marching kernel alone).
 The second-last lines are the kernel JSON record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -182,8 +195,8 @@ from mlsgpu_tpu_torch.device import set_precision  # noqa: E402
 from mlsgpu_tpu_torch.io import ply  # noqa: E402
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource  # noqa: E402
 from mlsgpu_tpu_torch.ops import (binning, binning_cuda,  # noqa: E402
-                                  block, kernel_gate, marching, mls,
-                                  mls_cuda, seam_cuda)
+                                  block, kernel_gate, marching,
+                                  marching_cuda, mls, mls_cuda, seam_cuda)
 from mlsgpu_tpu_torch.ops import launches as launch_counts  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
@@ -197,7 +210,7 @@ from mlsgpu_tpu_torch.tools import (bench_d2h, bench_micro,  # noqa: E402
                                     bench_micro2, bench_ooc, bench_queues,
                                     cloud, verify_chunks)
 from mlsgpu_tpu_torch.tools.bench_binning import (  # noqa: E402
-    event_ms, kernel_ms, segment_queries)
+    event_ms, kernel_event_ms, kernel_ms, segment_queries, trace_events)
 from mlsgpu_tpu_torch.tools.bench_queues import bench_args  # noqa: E402
 from mlsgpu_tpu_torch.utils import misc, step_profile  # noqa: E402
 from mlsgpu_tpu_torch.utils.manifold import check_manifold  # noqa: E402
@@ -258,6 +271,15 @@ BINNING_KERNELS = (
     ("tile_bounds", ("tile_bounds_kernel",), "mlsgpu_tpu/ops/binning.py:161"),
     ("tile_segments", ("tile_bounds_kernel", "tile_segments_kernel"),
      "mlsgpu_tpu/ops/binning.py:161"))
+# The codes path's kernels: (record name, kernel function, what it
+# replaces: the JAX package's dense classification (its tiled one is
+# :202), generate(emit="codes")'s counts and emission, and _pack_codes).
+MARCHING_KERNELS = (
+    ("march_classify", "march_classify_kernel",
+     "mlsgpu_tpu/ops/marching.py:119"),
+    ("march_scan", "march_scan_kernel", "mlsgpu_tpu/ops/marching.py:302"),
+    ("march_emit", "march_emit_kernel", "mlsgpu_tpu/ops/block.py:322"))
+MARCHING = tuple(name for name, _, _ in MARCHING_KERNELS)
 
 
 def reset_launches() -> None:
@@ -271,16 +293,30 @@ def read_launches() -> dict:
 
 
 def check_launches(name: str, got: dict, blocks: int,
-                   skeleton_blocks: int) -> dict:
+                   skeleton_blocks: int, codes_blocks: int) -> dict:
     """A main-path run of `blocks` blocks, `skeleton_blocks` of them with
-    skeleton points, went through its kernels: the field, face and
-    binning kernels at least once per block (and at all), the skeleton
-    kernel at least once per block with skeleton points."""
+    skeleton points and `codes_blocks` read back in codes mode, went
+    through its kernels: the field, face and binning kernels at least once
+    per block (and at all), the skeleton kernel at least once per block
+    with skeleton points, the classify and scan kernels at least once per
+    codes block and the emit kernel at least once and at most once per
+    classified block (not for a block without an occupied cell); a run
+    with no codes block (packed, raw) launches no marching kernel."""
     need = dict.fromkeys(KERNELS, max(blocks, 1))
     need["seam_skeleton"] = skeleton_blocks
-    if any(got[k] < need[k] for k in KERNELS):
-        raise AssertionError(f"{name}: launches {got} for {blocks} blocks")
+    need.update(march_classify=codes_blocks, march_scan=codes_blocks,
+                march_emit=min(codes_blocks, 1))
+    if any(got[k] < need[k] for k in KERNELS) or \
+            got["march_emit"] > got["march_classify"] or \
+            (codes_blocks == 0 and any(got[k] for k in MARCHING)):
+        raise AssertionError(f"{name}: launches {got} for {blocks} blocks, "
+                             f"{codes_blocks} in codes mode")
     return got
+
+
+def codes_blocks(reg) -> int:
+    """The blocks a run read back in codes mode (its statistics)."""
+    return reg.counter("readback.mode.codes").get()
 
 
 def sphere_cloud(center, radius, n, splat_radius, rng) -> np.ndarray:
@@ -856,6 +892,144 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     return rows
 
 
+def marching_bound(name: str, b: int, march_tiles: int, read_tiles: int,
+                   vertices: int, words: int) -> dict:
+    """The least time the card could take for a marching kernel's work on
+    these inputs (a (b, b, b) field, `march_tiles` tiles with an occupied
+    cell, `read_tiles` tiles in the row segments that hold one, `vertices`
+    vertices, an image of `words` words): the larger of its bytes over the
+    memory rate (each input read once, each output written once) and its
+    FP32 operations over the FP32 peak. Classify: the field in, an 8-byte
+    record a tile and a 16-byte record a row segment out; 16 operations a
+    cell (8 sign tests, 8 finite tests). Scan: the segment records in, the
+    tile records of the segments with an occupied tile (the others it
+    never reads), a 16-byte row a listed tile and the totals out; no FP32
+    operation. Emit: the rows and the listed tiles' 8^3 corners in, the
+    image out; 16 operations a cell of a listed tile and 6 a vertex (t16's
+    subtraction, division, product, rounding and clamp). "stage": the
+    three together, the field read once and the image written once."""
+    g = -(-(b - 1) // marching.TILE)
+    tiles, cells = g ** 3, (b - 1) ** 3
+    segments = g * g * -(-g // marching_cuda.ROW_TILES)
+    listed = march_tiles * marching.TILE ** 3
+    if name == "march_classify":
+        nbytes, flops = 4 * b ** 3 + 8 * tiles + 16 * segments, 16 * cells
+    elif name == "march_scan":
+        nbytes = (16 * segments + 8 * read_tiles + 16 * march_tiles
+                  + 8 * len(marching_cuda.TOTALS))
+        flops = 0
+    elif name == "march_emit":
+        nbytes = 16 * march_tiles + 4 * listed + 4 * words
+        flops = 16 * listed + 6 * vertices
+    else:
+        nbytes, flops = 4 * b ** 3 + 4 * words, 16 * cells + 6 * vertices
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def segment_tiles(marched: marching_cuda.Marched) -> int:
+    """The tiles of the classify pass's row segments that hold a listed
+    tile: the tile records the scan reads."""
+    b = marched.field.shape[0]
+    g = -(-(b - 1) // marching.TILE)
+    per = marching_cuda.ROW_TILES
+    t = marched.tile_list[:marched.march_tiles, 0].long()
+    first = torch.unique(t - t % g % per)  # each such segment's first tile
+    return int(torch.clamp(g - first % g, max=per).sum())
+
+
+def marching_vs_plain(n, field, region, n_occ, reps=REPS) -> list:
+    """The codes path's kernels (csrc/marching.cu through
+    ops/marching_cuda.py) against the plain block.pack_codes(
+    marching.generate_codes(...)) on one block's field: the image and the
+    counts bit for bit, n_occ copied back with the totals. Then the call
+    host-paced, its two C calls on the device alone (classify and scan;
+    emit), each kernel alone (one profiler trace's kernel events),
+    the call's card busy time, launches and host syncs (pass_profile;
+    checked: the three kernels and at most one sync) beside the plain
+    stage's, the plain stage host-paced, each kernel's bound and the
+    stage's (marching_bound). Its launches are comparisons: not counted by
+    callers, who reset the counters after it. Returns a row per kernel."""
+    b = field.shape[0]
+    img, counts = marching_cuda.codes_image(field, region)
+    cm = marching.generate_codes(field, region)
+    want = block.pack_codes(cm)
+    torch.cuda.synchronize()
+    if img.shape != want.shape or not torch.equal(img, want):
+        raise AssertionError("marching kernels: the codes image differs from "
+                             "the plain version's")
+    plain_counts = marching_cuda.MarchCounts(
+        cm.num_cells, cm.num_vertices, cm.num_indices, cm.num_tiles)
+    if counts != plain_counts:
+        raise AssertionError(f"marching kernels: counts {counts}, plain "
+                             f"{plain_counts}")
+    err = _max_abs(img, want)
+    marched = marching_cuda.classify(field, region, n_occ)
+    if marched.counts != plain_counts or marched.n_occ != int(n_occ):
+        raise AssertionError(f"marching kernels: {marched.counts}, n_occ "
+                             f"{marched.n_occ}; plain {plain_counts}, "
+                             f"{int(n_occ)}")
+    march_tiles, read_tiles = marched.march_tiles, segment_tiles(marched)
+    words = int(img.numel())
+    del img, want
+    call = lambda: marching_cuda.codes_image(field, region)  # noqa: E731
+    plain = lambda: block.pack_codes(  # noqa: E731
+        marching.generate_codes(field, region))
+    host_ms = cuda_ms(call, reps)
+    plain_ms = cuda_ms(plain, reps)
+    # the two C calls on the device alone (no sync inside either): the
+    # classify and scan kernels, and the emit kernel
+    calls_ms = {
+        "classify_scan": cuda_ms(
+            lambda: marching_cuda.launch_classify(field, region), reps,
+            device_only=True),
+        "emit": cuda_ms(lambda: marching_cuda.emit(marched), reps,
+                        device_only=True)}
+    events = trace_events(call, reps)
+    alone = {name: kernel_event_ms(events, (fn,), reps)
+             for name, fn, _ in MARCHING_KERNELS}
+    traced = {"kernels": pass_profile(call), "plain": pass_profile(plain, 1)}
+    if traced["kernels"]["launches"] != 3 or \
+            traced["kernels"]["sync_calls"] > 1:
+        raise AssertionError(f"marching kernels: {traced['kernels']} a call")
+    stage_bound = marching_bound("stage", b, march_tiles, read_tiles,
+                                 cm.num_vertices, words)
+    rows = []
+    for name, _, _ in MARCHING_KERNELS:
+        bound = marching_bound(name, b, march_tiles, read_tiles,
+                               cm.num_vertices, words)
+        k_ms = alone[name]
+        rows.append({
+            "name": name, "corners": b, "cells": cm.num_cells,
+            "vertices": cm.num_vertices, "indices": cm.num_indices,
+            "candidate_tiles": cm.num_tiles, "march_tiles": march_tiles,
+            "segment_tiles": read_tiles,
+            "image_words": words, "max_abs_err": err,
+            "bitwise_the_plain_image": True, "host_paced_ms": host_ms,
+            "device_ms": traced["kernels"]["device_busy_ms"],
+            "call_device_ms": calls_ms[
+                "emit" if name == "march_emit" else "classify_scan"],
+            "kernel_ms": k_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound": bound,
+            "share_of_bound": None if k_ms is None
+            else bound["bound_ms"] / k_ms})
+    known = [r["kernel_ms"] for r in rows if r["kernel_ms"] is not None]
+    stage = {"host_paced_ms": host_ms, "plain_ms": plain_ms,
+             "calls_device_ms": calls_ms,
+             "kernels_ms": sum(known) if len(known) == len(rows) else None,
+             "bound": stage_bound, "traced": traced}
+    phase(n, f"marching kernels vs plain at {b}^3 corners, region {region}: "
+             f"image and counts bit for bit ({cm.num_cells} cells, "
+             f"{cm.num_vertices} vertices, {march_tiles} tiles listed, "
+             f"{cm.num_tiles} candidate tiles); stage {json.dumps(stage)}")
+    for row in rows:
+        phase(n, f"{row['name']}: " + json.dumps(row))
+        row["stage"] = stage
+    return rows
+
+
 def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     """`b`: the densest of the buckets the main path streams."""
     grid_form, valid = load_bucket(src, info, b)
@@ -888,10 +1062,17 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
                            timed=False)
     face_passes_on_two_streams(3, binned, starts, lens, origin, region, tpa,
                                field)
+    del field
+    # the block's field, binning to skeleton, as the block step marches it
+    bfield, field_occ = block.block_field(sp, va, region, origin, 0.0,
+                                          points, levels=LEVELS,
+                                          subsampling=SUB)
+    marches = marching_vs_plain(3, bfield, region, field_occ)
+    del bfield
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
              f"{max_tile}, {len(b.skeleton)} skeleton points: OK")
-    return rows, seams, bins
+    return rows, seams, bins, marches
 
 
 def _seam_block(splats, lo, hi, dev, points=None):
@@ -990,7 +1171,8 @@ def cli_run(cloud, name, extra=(), manifold=True) -> dict:
     os.remove(out)
     blocks = reg.counter("bucket.count").get()
     check_launches(name, launches, blocks,
-                   reg.counter("bucket.skeletonBlocks").get())
+                   reg.counter("bucket.skeletonBlocks").get(),
+                   codes_blocks(reg))
     res = {"seconds": elapsed, "vertices": len(verts),
            "triangles": len(tris), "blocks": blocks,
            "kernel_launches": launches, "stats": reg.to_dict(),
@@ -1129,8 +1311,26 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     bf = float(cfg.boundary_factor)
     sp = torch.as_tensor(grid_form, device=dev)
     va = torch.as_tensor(valid, device=dev)
-    # the kernel against its plain version at this dispatch's shapes, before
-    # the face and skeleton passes overwrite the field
+    points = (torch.as_tensor(b.skeleton, device=dev) if len(b.skeleton)
+              else None)
+    # the block's field first (one launch of each kernel before the
+    # marching kernels), and the marching kernels on it before the other
+    # comparisons' profiler traces (after many, a trace can lose kernel
+    # events)
+    reset_launches()
+    field, n_occ = block.block_field(sp, va, region, origin, bf, points,
+                                     levels=cfg.device_levels,
+                                     subsampling=SUB)
+    launches = read_launches()
+    if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or \
+            launches != dict(dict.fromkeys(KERNELS, 1),
+                             seam_skeleton=int(points is not None),
+                             **dict.fromkeys(MARCHING, 0)):
+        raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
+                             "launches")
+    marches = marching_vs_plain(9, field, region, n_occ, reps=3)
+    # the binning, field and seam kernels against their plain versions at
+    # this dispatch's shapes
     min_s, max_s = SUB, TILED_LEVELS + SUB - 1
     tpa = 1 << (max_s - 3)
     bins = binning_vs_plain(9, sp, va, origin, min_s, max_s, reps=3)
@@ -1138,22 +1338,11 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
     row = kernel_vs_plain(9, binned, starts, lens, origin, tpa,
                           cfg.fit_shape, bf, reps=3)
-    points = (torch.as_tensor(b.skeleton, device=dev) if len(b.skeleton)
-              else None)
     field0 = mls_cuda.launch(binned.entry_data, starts, lens, origin, tpa,
                              cfg.fit_shape, bf)
     seams = seam_vs_plain(9, binned, starts, lens, origin, region, points,
                           tpa, cfg.fit_shape, bf, field0, reps=3)
     del binned, starts, lens, field0
-    reset_launches()
-    field, _ = block.block_field(sp, va, region, origin, bf, points,
-                                 levels=cfg.device_levels, subsampling=SUB)
-    launches = read_launches()
-    if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or \
-            launches != dict(dict.fromkeys(KERNELS, 1),
-                             seam_skeleton=int(points is not None)):
-        raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
-                             "launches")
     images = {}
     for tiled in (True, False):
         cm = marching.generate_codes(field, region, tiled=tiled)
@@ -1174,6 +1363,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
              f"codes images bitwise equal; {json.dumps(res)}")
     res["seam_rows"] = seams
     res["binning_rows"] = bins
+    res["marching_rows"] = marches
     return res
 
 
@@ -1207,7 +1397,8 @@ def phase10_device_filter(workdir) -> dict:
         port_rec.reconstruct(SequenceSource(splats), cfg, path, device="cuda",
                              filters=rec, device_filter=dfilter)
         got = check_launches(name, read_launches(), len(rec.blocks),
-                             reg.counter("bucket.skeletonBlocks").get())
+                             reg.counter("bucket.skeletonBlocks").get(),
+                             codes_blocks(reg))
         launches = {k: launches[k] + got[k] for k in KERNELS}
         verts, tris = ply.read_mesh(path)
         out[name] = (verts, tris, rec.blocks)
@@ -1306,7 +1497,8 @@ def phase11_chunked(cloud_ply, workdir) -> dict:
     if rc != 0:
         raise AssertionError(f"chunked run: rc {rc}")
     check_launches("chunked run", launches, blocks,
-                   reg.counter("bucket.skeletonBlocks").get())
+                   reg.counter("bucket.skeletonBlocks").get(),
+                   codes_blocks(reg))
     counts = chunk_counts(base)
     if len(counts) < 2:
         raise AssertionError(f"--split-size {SPLIT_SIZE}: {len(counts)} file")
@@ -1341,6 +1533,7 @@ merge = multihost._merge_stats
 def snapshot(transport):
     reg = get_registry()
     own.update(blocks=reg.counter("mesher.blocks").get(),
+               codes=reg.counter("readback.mode.codes").get(),
                splats=reg.counter("distributed.rankSplats").get(),
                device_s=reg.to_dict().get("device.time", {}).get("sum", 0.0))
     return merge(transport)
@@ -1434,7 +1627,7 @@ def phase12_two_ranks(cloud_ply, small_ply, workdir, single) -> dict:
             raise AssertionError(f"rank {r} imported {rec['forbidden']}")
         # every bucket of the 2M cloud has skeleton points
         check_launches(f"rank {r}", rec["launches"], rec["blocks"],
-                       rec["blocks"])
+                       rec["blocks"], rec["codes"])
     if sum(rec["blocks"] for _, rec, _ in ranks) != single["blocks"]:
         raise AssertionError(f"ranks ran {[r[1]['blocks'] for r in ranks]} "
                              f"blocks of {single['blocks']}")
@@ -1512,7 +1705,8 @@ def phase13_out_of_core(workdir) -> dict:
     if rc != 0 or not res["rss_ok"]:
         raise AssertionError(f"bench_ooc: rc {rc}: {res}")
     check_launches("bench_ooc", launches, blocks,
-                   reg.counter("bucket.skeletonBlocks").get())
+                   reg.counter("bucket.skeletonBlocks").get(),
+                   codes_blocks(reg))
     spilled = {k: reg.counter(k).get()
                for k in ("blobs.spilled", "spill.flushBytes")}
     if not all(spilled.values()):
@@ -1600,7 +1794,9 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
     `python -m mlsgpu_tpu_torch --statistics` process of its own on
     `cloud` (tools/bench_queues.run_cli), its statistics read back from its
     output. Each mesh's digest is `digest` (the first run's when None),
-    launches equal blocks, every worker ran a block, more than one worker
+    launches equal blocks (the skeleton kernel's the blocks with skeleton
+    points, the emit kernel's at most the blocks, at least one), every
+    worker ran a block, more than one worker
     are as many processes, and no process of the run outlives it. Returns
     each run's numbers by name."""
     out = {}
@@ -1612,7 +1808,10 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
                                  "reference run's")
         need = dict.fromkeys(KERNELS, res["blocks"])
         need["seam_skeleton"] = res["skeleton_blocks"]
-        if res["launches"] != need:
+        # a block without an occupied cell has no emit launch
+        need["march_emit"] = res["launches"]["march_emit"]
+        if res["launches"] != need or \
+                not 0 < need["march_emit"] <= res["blocks"]:
             raise AssertionError(
                 f"{name}: launches {res['launches']}, {res['blocks']} "
                 f"blocks, {res['skeleton_blocks']} with skeleton points")
@@ -1872,9 +2071,10 @@ def main(argv=None) -> int:
     splats, spacing, cfg = bench_setup()
     src = SequenceSource(splats)
     info, _, densest = cloud.densest_bucket(src, cfg)
-    launches, rows, seams, bins = [], [], [], []
+    launches, rows, seams, bins, marches = [], [], [], [], []
     if want(3):
-        rows, seams, bins = phase3_kernel_vs_plain(src, info, densest, dev)
+        rows, seams, bins, marches = phase3_kernel_vs_plain(src, info,
+                                                            densest, dev)
         check_isolated("phase 3")
     if want(4):
         seams += phase4_seams(dev)
@@ -1914,6 +2114,7 @@ def main(argv=None) -> int:
             rows.append(tiled["kernel_row"])
             seams += tiled["seam_rows"]
             bins += tiled["binning_rows"]
+            marches += tiled["marching_rows"]
         if want(10):
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
             check_isolated("phase 10")
@@ -1945,7 +2146,7 @@ def main(argv=None) -> int:
     phase(6, "no process started by this one is left: OK")
 
     if rows:  # no kernel record from --only without phase 3
-        print_kernel_record(rows, seams, bins, launches)
+        print_kernel_record(rows, seams, bins, marches, launches)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1953,7 +2154,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def print_kernel_record(rows, seams, bins, launches) -> None:
+def print_kernel_record(rows, seams, bins, marches, launches) -> None:
     """The kernel record: each kernel's launches summed over the main-path
     runs of this process, its largest error against its plain version, and
     its times and bound at the densest 256^3 bucket (phase 3) on the
@@ -2014,6 +2215,32 @@ def print_kernel_record(rows, seams, bins, launches) -> None:
             "bound_by": first["bound"]["bound_by"],
             # keys: no single PyTorch call computes them
             "library_ms": first["library_ms"]})
+    for name, _, replaces in MARCHING_KERNELS:
+        mine = [r for r in marches if r["name"] == name]
+        if not mine:
+            continue
+        first = mine[0]   # phase 3's: the densest 256^3 bucket
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "mlsgpu_tpu_torch/csrc/marching.cu",
+            "replaces": replaces, "launches": total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            # the kernel alone (profiler), or its C call on the device
+            # (classify and scan together) where the trace lost its
+            # events; the whole call (classify, scan, the totals' copy and
+            # sync, emit) host-paced and the card's busy time in it
+            "ms": (first["call_device_ms"] if first["kernel_ms"] is None
+                   else first["kernel_ms"]),
+            "kernel_ms": first["kernel_ms"],
+            "call_device_ms": first["call_device_ms"],
+            "call_ms": first["host_paced_ms"],
+            "device_ms": first["device_ms"],
+            # the plain stage (generate_codes + pack_codes)
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"]["bound_ms"],
+            "bound_by": first["bound"]["bound_by"],
+            # no single PyTorch call computes them
+            "library_ms": None})
     print(json.dumps({"kernels": record}))
 
 

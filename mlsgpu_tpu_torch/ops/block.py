@@ -1,11 +1,13 @@
 """The per-block device step: binning (kernels) -> MLS field (kernel) ->
-canonical faces and skeleton points (kernels) -> marching -> one readback
+canonical faces and skeleton points (kernels) -> marching (kernels in
+codes mode) -> one readback
 (port of mlsgpu_tpu/ops/block.py: `block_step_body`, `block_step_staged`,
 the packed and codes layouts and their host decoders).
 
 Three readback modes, as in the JAX package:
-- "codes": marching codes packed into one image; the host rebuilds and
-  welds the mesh natively (_native.rebuild_block);
+- "codes": marching codes packed into one image (on the card by the
+  classify, scan and emit kernels, ops/marching_cuda.py); the host
+  rebuilds and welds the mesh natively (_native.rebuild_block);
 - "packed": marching emits the mesh, the device welds it (ops/weld.py) and
   quantizes it into one image (PackFormat); the host decodes it
   (_native.unpack_readback);
@@ -27,8 +29,8 @@ import torch
 
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 
-from mlsgpu_tpu_torch.ops import (binning_cuda, marching, mls, mls_cuda,
-                                  seam_cuda, weld)
+from mlsgpu_tpu_torch.ops import (binning_cuda, marching, marching_cuda, mls,
+                                  mls_cuda, seam_cuda, weld)
 
 
 #: Order of the scalars inside BlockResult.counts (the JAX package's order).
@@ -51,8 +53,7 @@ class CodesFormat(NamedTuple):
     nc_axis: int
 
     def total_words(self, num_cells: int, num_unwelded: int) -> int:
-        return (num_cells + (num_cells + 3) // 4
-                + (num_unwelded + 1) // 2)
+        return marching.codes_words(num_cells, num_unwelded)
 
 
 class PackFormat(NamedTuple):
@@ -185,35 +186,13 @@ def resolve_readback(requested: str, levels: int, subsampling: int) -> str:
     return "packed"
 
 
-def _bytes_to_words(b: torch.Tensor) -> torch.Tensor:
-    """Little-endian packing of a flat uint8 tensor into int32 words (the
-    u32 bits the host reads back with ndarray.view(np.uint32))."""
-    pad = (-b.shape[0]) % 4
-    if pad:
-        b = torch.cat([b, b.new_zeros(pad)])
-    return b.view(torch.int32)
-
-
-def _u16_to_words(u16: torch.Tensor) -> torch.Tensor:
-    """Flat int64 tensor of u16 values -> int32 words, two per word,
-    little-endian (the JAX package's _u16_pairs_to_u32)."""
-    u16 = u16.reshape(-1)
-    b = torch.stack([u16 & 0xFF, u16 >> 8], dim=1).reshape(-1)
-    return _bytes_to_words(b.to(torch.uint8))
-
-
 def _u32_to_words(u32: torch.Tensor) -> torch.Tensor:
     """int64 tensor of u32 values -> int32 words with the same bits."""
     return torch.where(u32 >= 1 << 31, u32 - (1 << 32), u32).to(torch.int32)
 
 
-def pack_codes(cmesh: marching.BlockCodes) -> torch.Tensor:
-    """The codes image of one block: cells, then case codes 4 per word, then
-    t16 2 per word, each region starting where the previous live one ends —
-    bitwise the live prefix of the JAX package's `_pack_codes` image."""
-    cells = cmesh.cell_ids.to(torch.int32)
-    codes = _bytes_to_words(cmesh.cell_codes.to(torch.uint8))
-    return torch.cat([cells, codes, _u16_to_words(cmesh.t16)])
+#: The plain codes image (marching.pack_codes: the layout the kernels write).
+pack_codes = marching.pack_codes
 
 
 def key_to_doubled_local(key_hi: torch.Tensor, key_lo: torch.Tensor,
@@ -237,7 +216,7 @@ def pack_readback(welded: weld.WeldedMesh, cell_origin: Sequence[int],
     `_pack_readback` image."""
     tris = welded.triangles
     if fmt.index_mode == "u16":
-        idx_words = _u16_to_words(tris)
+        idx_words = marching.u16_to_words(tris)
     elif fmt.index_mode == "u21x3":
         a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
         w0 = (a | ((b & 0x7FF) << 21)) & 0xFFFFFFFF
@@ -265,7 +244,7 @@ def pack_readback(welded: weld.WeldedMesh, cell_origin: Sequence[int],
     else:
         w012 = (base | (parity << 13) | (dir_i << 14)) & 0xFFFF
         words = torch.cat([w012, t16[:, None]], dim=1)
-    return torch.cat([idx_words, _u16_to_words(words)])
+    return torch.cat([idx_words, marching.u16_to_words(words)])
 
 
 def block_field(splats: torch.Tensor, valid: torch.Tensor,
@@ -334,18 +313,26 @@ def block_step(splats: torch.Tensor, valid: torch.Tensor,
                                boundary_factor, points, levels=levels,
                                subsampling=subsampling, fit_shape=fit_shape,
                                stage=stage)
-    n_occ = int(n_occ)
     if readback == "codes":
-        with stage("marching"):
-            cmesh = marching.generate_codes(field, region_cells)
-        with stage("pack"):
-            packed = pack_codes(cmesh)
-        counts = np.array([cmesh.num_vertices, 0, cmesh.num_indices, 0,
-                           cmesh.num_cells, cmesh.num_vertices, n_occ,
-                           cmesh.num_tiles], np.int64)
+        if field.device.type == "cuda":
+            # the kernels; their one copy of the totals brings n_occ too
+            with stage("marching"):
+                marched = marching_cuda.classify(field, region_cells, n_occ)
+            with stage("pack"):
+                packed = marching_cuda.emit(marched)
+            c, n_occ = marched.counts, marched.n_occ
+        else:
+            n_occ = int(n_occ)
+            with stage("marching"):
+                c = marching.generate_codes(field, region_cells)
+            with stage("pack"):
+                packed = pack_codes(c)
+        counts = np.array([c.num_vertices, 0, c.num_indices, 0, c.num_cells,
+                           c.num_vertices, n_occ, c.num_tiles], np.int64)
         return BlockResult(packed=packed, counts=counts, readback="codes",
                            fmt=codes_format(levels, subsampling))
 
+    n_occ = int(n_occ)
     with stage("marching"):
         mesh = marching.generate_mesh(field, region_cells, cell_origin)
     with stage("weld"):

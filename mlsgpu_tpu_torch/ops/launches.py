@@ -1,10 +1,10 @@
 """Launch counts of the port's hand-written kernels, by kernel name.
 
 Each wrapper calls `count(name)` where it launches its kernel and nowhere
-else (ops/mls_cuda.py, ops/seam_cuda.py, ops/binning_cuda.py). A worker
-process sends back what it counted for a block (`since`), and the parent
-`add`s it (pipeline/workers.py). `reset` before a run counts that run's
-launches alone.
+else (ops/mls_cuda.py, ops/seam_cuda.py, ops/binning_cuda.py,
+ops/marching_cuda.py). A worker process sends back what it counted for a
+block (`since`), and the parent `add`s it (pipeline/workers.py). `reset`
+before a run counts that run's launches alone.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ KERNELS = {
     "bin_entries": "binning.entryLaunches",
     "tile_bounds": "binning.boundLaunches",
     "tile_segments": "binning.segmentLaunches",
+    "march_classify": "marching.classifyLaunches",
+    "march_scan": "marching.scanLaunches",
+    "march_emit": "marching.emitLaunches",
 }
 
 _counts = dict.fromkeys(KERNELS, 0)

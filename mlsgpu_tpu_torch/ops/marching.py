@@ -228,6 +228,38 @@ def generate_codes(field: torch.Tensor, region_cells: Sequence[int],
                       num_tiles=num_tiles)
 
 
+def codes_words(num_cells: int, num_vertices: int) -> int:
+    """Int32 words of a block's codes image (block.CodesFormat): the cell
+    ids, then the case codes 4 a word, then the t16 2 a word."""
+    return num_cells + (num_cells + 3) // 4 + (num_vertices + 1) // 2
+
+
+def _bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """Little-endian packing of a flat uint8 tensor into int32 words (the
+    u32 bits the host reads back with ndarray.view(np.uint32))."""
+    pad = (-b.shape[0]) % 4
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    return b.view(torch.int32)
+
+
+def u16_to_words(u16: torch.Tensor) -> torch.Tensor:
+    """Flat int64 tensor of u16 values -> int32 words, two per word,
+    little-endian (the JAX package's _u16_pairs_to_u32)."""
+    u16 = u16.reshape(-1)
+    b = torch.stack([u16 & 0xFF, u16 >> 8], dim=1).reshape(-1)
+    return _bytes_to_words(b.to(torch.uint8))
+
+
+def pack_codes(cmesh: BlockCodes) -> torch.Tensor:
+    """The codes image of one block: cells, then case codes 4 per word, then
+    t16 2 per word, each region starting where the previous live one ends —
+    bitwise the live prefix of the JAX package's `_pack_codes` image."""
+    cells = cmesh.cell_ids.to(torch.int32)
+    codes = _bytes_to_words(cmesh.cell_codes.to(torch.uint8))
+    return torch.cat([cells, codes, u16_to_words(cmesh.t16)])
+
+
 def generate_mesh(field: torch.Tensor, region_cells: Sequence[int],
                   cell_origin: Sequence[int],
                   tiled: Optional[bool] = None) -> BlockMesh:

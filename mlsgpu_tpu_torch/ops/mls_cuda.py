@@ -7,11 +7,14 @@ CUDA tensor either launches the kernel or raises — nothing falls back.
 
 The kernel library holds the port's hand-written kernels: the field kernel
 (csrc/mls_field.cu), the seam passes' face and skeleton kernels
-(csrc/seam_moments.cu, called from ops/seam_cuda.py) and the binning
+(csrc/seam_moments.cu, called from ops/seam_cuda.py), the binning
 stage's key, entry, bounds and segment kernels (csrc/binning.cu with
-csrc/binning.cuh, called from ops/binning_cuda.py). One nvcc call
-compiles the three sources for sm_90a on first use into
-`mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source is newer);
+csrc/binning.cuh, called from ops/binning_cuda.py) and the codes path's
+classify, scan and emit kernels (csrc/marching.cu with csrc/marching.cuh,
+called from ops/marching_cuda.py). One nvcc call compiles the four
+sources for sm_90a on first use into
+`mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source or a
+header is newer);
 the kernels are called through their plain C entry points with ctypes, on
 PyTorch's current stream, without synchronising.
 """
@@ -33,9 +36,11 @@ from mlsgpu_tpu_torch.utils import native_build
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("mls_field.cu", "seam_moments.cu", "binning.cu")]
+           for name in ("mls_field.cu", "seam_moments.cu", "binning.cu",
+                        "marching.cu")]
 #: Headers the sources include: the library is rebuilt when one is newer.
-HEADERS = [os.path.join(_PKG, "csrc", "binning.cuh")]
+HEADERS = [os.path.join(_PKG, "csrc", name)
+           for name in ("binning.cuh", "marching.cuh", "marching_tables.h")]
 LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -138,6 +143,13 @@ def load():
             fn = lib.bin_segments_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ptr, i64] + [ctypes.c_int] * 3 + [ptr] * 4
+            fn = lib.march_classify_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr] + [ctypes.c_int] * 5 + [ptr] * 5
+            fn = lib.march_emit_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ptr] + [ctypes.c_int] * 4 + [ptr, ctypes.c_int,
+                                                         i64, i64, ptr, ptr])
             _lib = lib
         return _lib
 

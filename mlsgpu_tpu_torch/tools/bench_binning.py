@@ -21,9 +21,10 @@ card.
 Prints the card's name and power limit, then one line `BINNING {json}`
 per root and level count.
 
-The timing helpers here (event_ms, kernel_ms, segment_queries) are also
-chip_smoke.py's. They import nothing of the package at module level, so
-that each root's process takes the root's own.
+The timing helpers here (event_ms, trace_events, kernel_ms,
+segment_queries) are also chip_smoke.py's. They import nothing of the
+package at module level, so that each root's process takes the root's
+own.
 """
 
 from __future__ import annotations
@@ -84,12 +85,10 @@ def kernel_event_ms(events, names, reps: int):
     return sum(statistics.fmean(d) for d in per.values()) / 1e3
 
 
-def kernel_ms(fn, names, reps: int):
-    """kernel_event_ms of a torch.profiler trace (the host's and the
-    card's activity) of `reps` calls of fn after one warm-up call; `names`
-    a kernel name or a tuple of them."""
+def trace_events(fn, reps: int):
+    """The events of a torch.profiler trace (the host's and the card's
+    activity) of `reps` calls of fn after one warm-up call."""
     import torch.profiler as tp
-    names = (names,) if isinstance(names, str) else tuple(names)
     fn()
     torch.cuda.synchronize()
     with tp.profile(activities=[tp.ProfilerActivity.CPU,
@@ -101,8 +100,14 @@ def kernel_ms(fn, names, reps: int):
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return kernel_event_ms(json.load(f).get("traceEvents", []),
-                                   names, reps)
+            return json.load(f).get("traceEvents", [])
+
+
+def kernel_ms(fn, names, reps: int):
+    """kernel_event_ms of a trace of `reps` calls of fn (trace_events);
+    `names` a kernel name or a tuple of them."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    return kernel_event_ms(trace_events(fn, reps), names, reps)
 
 
 def segment_queries(min_s: int, max_s: int, tpa: int, device):

@@ -16,7 +16,9 @@ bucket of the bench cloud (port of mlsgpu_tpu/tools/bench_micro.py):
   card and the plain version;
 - classification's parts: the candidate-tile reduction and 9^3 gather of
   the tiled form, the tiled form whole, the dense form's signs and codes
-  alone, the dense form whole, and codes-mode marching whole.
+  alone, the dense form whole, and codes-mode marching whole (the plain
+  version); on a card also the codes image through its kernels
+  (ops/marching_cuda.py: classify, scan, the totals' copy, emit).
 
 Left out: the JAX tool's probe of `_classify_tiled` under a tile cap (the
 port sizes its candidate tiles from their true count and has no cap).
@@ -144,8 +146,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from mlsgpu_tpu_torch.ops import (binning, binning_cuda, marching, mls,
-                                      seam_cuda)
+    from mlsgpu_tpu_torch.ops import (binning, binning_cuda, marching,
+                                      marching_cuda, mls, seam_cuda)
 
     blk = BenchBlock(args.splats, args.levels, args.device)
     sp, va, org = blk.splats, blk.valid, blk.origin
@@ -266,6 +268,10 @@ def main(argv=None) -> int:
                lambda: marching.classify_dense(field, blk.region), args.reps)
     blk.timeit("march codes full",
                lambda: marching.generate_codes(field, blk.region), args.reps)
+    if blk.dev.type == "cuda":
+        blk.timeit("march codes image (kernels)",
+                   lambda: marching_cuda.codes_image(field, blk.region),
+                   args.reps)
     return 0
 
 

@@ -137,5 +137,6 @@ def test_kernel_build_lock_six_processes_at_once(tmp_path):
     lines = log.read_text().splitlines()
     assert len(lines) == 1                         # built once, under lock
     assert [os.path.basename(a) for a in lines[0].split()[1:]] == [
-        "mls_field.cu", "seam_moments.cu", "binning.cu"]  # one call
+        "mls_field.cu", "seam_moments.cu", "binning.cu",
+        "marching.cu"]  # one call
     assert (tmp_path / "build" / "libmls_field.so").stat().st_size == 100000
