@@ -28,24 +28,28 @@
 // What bounds them on the H100, and what the design does about it: the
 // work is a few integer and float operations a cell, so reading the field
 // bounds classification (4 B^3 bytes, 64 MiB at 256^3) and the emission
-// reads only the tiles with surface. The plain versions run dozens of
-// launches and two host syncs (the compaction's nonzero and the counts'
-// tolist) and build an int64 code volume of (B-1)^3 cells (133 MB at
-// 256^3). The kernels keep every intermediate in shared memory and
-// registers:
-//   * march_classify_kernel: a CTA a row segment of 8 tiles along x stages
-//     their corners in shared memory as one (9, 9, 65) block, read in
-//     rows of 65 floats and all of a thread's loads in flight together
-//     (corners at index >= B read as NaN, as classify_tiled's pad); then
-//     each warp classifies rows of 32 cells along x, a tile's counts are
-//     summed by eight lanes and the warps, and the CTA writes an 8-byte
+// reads only the tiles with surface. A cell needs of its corners only two
+// bits each, the sign (>= 0) and whether it is finite, so both kernels
+// compute those once a corner and then work on words of 32 cells at once:
+// which cells are occupied is a dozen bitwise operations on their corner
+// words (marching.cuh), and only the occupied cells (0.7% at 256^3) take
+// a code, a table lookup and their vertices.
+//   * march_classify_kernel: a warp a column of 8 tiles along x, 2 along y
+//     and a run along z (march_run_tiles), which it walks a corner plane
+//     at a time, each warp on its own (no CTA barrier): a ring of two
+//     planes of (17 rows, 2 halves of 33 corners) in shared memory, filled
+//     by 4-byte cp.async copies (any b; NaN written past the field's end,
+//     classify_tiled's pad), keeps the next plane in flight while one is
+//     classified. Lane (y, h) turns its row half into a sign and a finite
+//     word (16-byte shared loads); its next row comes from the next lane
+//     (the band's last row by ballot), the plane below from its registers,
+//     so each plane is read once in a run. The occupied word of its 32
+//     cells, their counts by tile as popcounts, the vertex and index counts
+//     of the occupied cells from the table in shared memory. At the end of
+//     a tile layer eight lanes sum each tile's counts and write an 8-byte
 //     record a tile (occupied cells, candidate flag, vertices, indices)
-//     and a 16-byte record for the segment (the same summed, and its
-//     tiles with an occupied cell). With one tile a CTA and one load in
-//     flight a thread the kernel waited on load latency at 8x its bound;
-//     what is left is mostly the per-cell tests (8 loads from shared
-//     memory, 8 sign and 8 finite tests a cell) and the y and z halos,
-//     read by two CTAs.
+//     and a 16-byte record a row segment (the same summed, and its tiles
+//     with an occupied cell).
 //   * march_scan_kernel: one CTA of 1024 threads, a contiguous range of
 //     segments a thread: it sums their records, an exclusive CTA scan of
 //     the occupied tiles, cells and vertices gives its bases, and for each
@@ -54,13 +58,21 @@
 //     an occupied cell; then the totals (cells, vertices, indices,
 //     candidate tiles, occupied tiles), which the host copies back in
 //     one copy.
-//   * march_emit_kernel: a CTA a row of that list restages the tile's
-//     corners, recomputes its cells, ranks them in raster order with a
-//     CTA scan of (occupied, vertices) and writes each cell's id word, code
-//     byte and t16 halfwords at their final places. A code word or a t16
-//     word can hold slots of two tiles, so codes and t16 are written as
-//     bytes and halfwords, never as a read-modify-write of the word; no
-//     atomics.
+//   * march_emit_kernel: a warp a row of that list (8 tiles a CTA, all
+//     their corners in flight at once): it stages the tile's 9^3 corners
+//     by cp.async, a lane a corner row makes the row's sign and finite
+//     bits, 16 lanes the occupied words of the tile's 512 cells in raster
+//     order, a warp scan of their popcounts ranks them, and the occupied
+//     cells go into a list in shared memory. Then 32 occupied cells at a
+//     time, a lane each: a warp scan of their vertex counts, each cell's
+//     id word and code byte written, its vertices marked as its own in an
+//     owner map (march_spread_vertices), and the vertices a lane each, so
+//     that each lane computes one t16 and a warp's halfword stores are
+//     contiguous. The tables (vertex counts, the END_OFFSETS table of each
+//     vertex's edge corners) are copied into shared memory once a CTA. A
+//     code word or a t16 word can hold slots of two tiles, so codes and
+//     t16 are written as bytes and halfwords, never as a read-modify-write
+//     of the word; no atomics.
 
 #include <cuda_runtime.h>
 
@@ -68,107 +80,268 @@
 
 namespace {
 
-constexpr int CELL_THREADS = MARCH_TILE_CELLS;  // 512
-constexpr int WARPS = CELL_THREADS / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int ROW_TILES = MARCH_ROW_TILES;
-constexpr int ROW_PITCH = MARCH_ROW_PITCH;
-constexpr int ROW_CORNERS = MARCH_SPAN * MARCH_SPAN * ROW_PITCH;
 constexpr int SCAN_THREADS = MARCH_SCAN_THREADS;
-static_assert(2 * 32 == ROW_TILES * MARCH_TILE, "a warp pair spans a row");
+// classify: a warp a column, CLASSIFY_WARPS columns a CTA. A stage of the
+// ring is a corner plane of the column: (BAND_ROWS + 1) rows of two halves
+// of 33 corners (x, x + 1, ..., x + 32), each at a pitch of 36 floats.
+constexpr int CLASSIFY_WARPS = 2;
+constexpr int CLASSIFY_THREADS = 32 * CLASSIFY_WARPS;
+constexpr int BAND_ROWS = MARCH_BAND_TILES * MARCH_TILE;  // 16
+constexpr int STAGE_ROWS = BAND_ROWS + 1;
+constexpr int STAGE_PITCH = 36;
+constexpr int STAGE_HALF = STAGE_ROWS * STAGE_PITCH;
+constexpr int STAGE = 2 * STAGE_HALF;
+constexpr int STAGES = 2;
+static_assert(2 * 32 == ROW_TILES * MARCH_TILE, "two words span a segment");
+static_assert(2 * BAND_ROWS == 32, "a lane a row half of the band");
+// emit: a warp a listed tile
+constexpr int EMIT_WARPS = 8;
+constexpr int EMIT_THREADS = 32 * EMIT_WARPS;
+constexpr int TILE_ROWS = MARCH_SPAN * MARCH_SPAN;  // a tile's corner rows
+constexpr int CELL_WORDS = MARCH_TILE_CELLS / 32;   // a tile's cell words
+constexpr int ENDS = 256 * MARCH_MAX_CELL_VERTICES;
+constexpr int BATCH_VERTICES = 32 * MARCH_MAX_CELL_VERTICES;
+static_assert(EMIT_THREADS == 256, "a thread a code fills the table");
+static_assert(ENDS % 2 == 0, "the END_OFFSETS table copies as words");
 
-// Copies the (9, 9, pitch) corners of the field from (x0, y0, z0) into
-// `block`, NaN past the field's end (classify_tiled's pad). Each thread
-// issues all of its loads before its first store to shared memory, so that
-// they are in flight together.
-template <int PITCH>
-__device__ void stage(const float* __restrict__ field, int b, int x0, int y0,
-                      int z0, float* block) {
-  constexpr int CORNERS = MARCH_SPAN * MARCH_SPAN * PITCH;
-  constexpr int PER = (CORNERS + CELL_THREADS - 1) / CELL_THREADS;
-  float r[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int k = threadIdx.x + i * CELL_THREADS;
-    const int x = x0 + k % PITCH, y = y0 + (k / PITCH) % MARCH_SPAN,
-              z = z0 + k / (PITCH * MARCH_SPAN);
-    r[i] = k < CORNERS && x < b && y < b && z < b
-               ? __ldg(&field[((long long)z * b + y) * b + x])
-               : __int_as_float(0x7fc00000);
-  }
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int k = threadIdx.x + i * CELL_THREADS;
-    if (k < CORNERS) block[k] = r[i];
-  }
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(gmem) : "memory");
 }
 
-// A CTA a row segment: the tiles tx in [s * 8, s * 8 + 8) of row (ty, tz).
-// Its block is staged once (rows of 65 corners along x, read coalesced);
-// then each warp takes rows of 32 cells along x (a warp pair a row of the
-// segment), eight rows a thread, so a thread's cells all lie in one tile
-// and a warp reads shared memory without bank conflicts. Eight lanes sum a
-// tile's counts, the warps' sums meet in shared memory, and the CTA writes
-// a record a tile and one for the segment.
-__global__ void __launch_bounds__(CELL_THREADS)
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The sign and finite bits of four corners at bits x .. x + 3.
+__device__ __forceinline__ void corner_bits4(float4 v, int x, unsigned& s,
+                                             unsigned& f) {
+  s |= (march_sign_bit(v.x) << x) | (march_sign_bit(v.y) << (x + 1)) |
+       (march_sign_bit(v.z) << (x + 2)) | (march_sign_bit(v.w) << (x + 3));
+  f |= (march_finite_bit(v.x) << x) | (march_finite_bit(v.y) << (x + 1)) |
+       (march_finite_bit(v.z) << (x + 2)) | (march_finite_bit(v.w) << (x + 3));
+}
+
+// Warp `task` = (run * bands + band) * segments + seg: the tiles tx in [8 seg,
+// 8 seg + 8), ty in [2 band, 2 band + 2), tz in [run_tiles * run, ...)
+// (fewer at the field's end). Corner plane q of the run is z0 + q; cell
+// plane q - 1 lies between planes q - 1 and q, so a layer of tiles ends at
+// every eighth plane and the last plane of a run is the next run's first
+// too. Lane (y, h) = (lane % 16, lane / 16) takes the corner row y0 + y,
+// corners x0 + 32 h .. x0 + 32 h + 31: the 32 cells with those base
+// corners.
+__global__ void __launch_bounds__(CLASSIFY_THREADS)
 march_classify_kernel(const float* __restrict__ field, int b, int g,
-                      int segments, int rx, int ry, int rz,
+                      int run_tiles, int rx, int ry, int rz,
                       uint2* __restrict__ records, uint4* __restrict__ rows) {
-  __shared__ float block[ROW_CORNERS];
-  __shared__ uint2 part[WARPS][4];
-  const int seg = blockIdx.x % segments, row = blockIdx.x / segments;
-  const int ty = row % g, tz = row / g, tx0 = seg * ROW_TILES;
-  const int n = min(ROW_TILES, g - tx0);
-  stage<ROW_PITCH>(field, b, tx0 * MARCH_TILE, ty * MARCH_TILE,
-                   tz * MARCH_TILE, block);
+  __shared__ __align__(16) float ring[CLASSIFY_WARPS][STAGES][STAGE];
+  __shared__ unsigned counts[256];
+  for (int i = threadIdx.x; i < 256; i += CLASSIFY_THREADS)
+    counts[i] = march_cell_counts(i);
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lx = (warp & 1) * 32 + lane;  // the cell's x in the segment
-  unsigned cells = 0, counts = 0;
-#pragma unroll 2
-  for (int i = 0; i < MARCH_TILE; ++i) {
-    const int q = (warp >> 1) + (WARPS / 2) * i;  // its (y, z) row
-    const int ly = q % MARCH_TILE, lz = q / MARCH_TILE;
-    float c[8];
-    march_cell_corners(block + march_corner_index(lx, ly, lz, ROW_PITCH),
-                       ROW_PITCH, c);
-    const unsigned code = march_code(c);
-    const bool occupied = march_occupied(
-        c, code, tx0 * MARCH_TILE + lx < rx && ty * MARCH_TILE + ly < ry &&
-                     tz * MARCH_TILE + lz < rz);
-    // the tile's own corners are its cells' base corners
-    cells += (occupied ? 1u : 0u) | (isfinite(c[0]) ? 1u << 16 : 0u);
-    if (occupied)
-      counts += march_vertex_count(code) | (march_index_count(code) << 16);
-  }
+  const int segments = march_segments(g), bands = march_bands(g);
+  const int runs = (g + run_tiles - 1) / run_tiles;
+  const int task = blockIdx.x * CLASSIFY_WARPS + (threadIdx.x >> 5);
+  if (task >= segments * bands * runs) return;
+  const int seg = task % segments, band = task / segments % bands,
+            run = task / (segments * bands);
+  const int ty0 = band * MARCH_BAND_TILES, tz0 = run * run_tiles;
+  const int n = min(ROW_TILES, g - seg * ROW_TILES);
+  const int layers = min(run_tiles, g - tz0);
+  const int planes = layers * MARCH_TILE + 1;
+  const int x0 = seg * ROW_TILES * MARCH_TILE, y0 = ty0 * MARCH_TILE,
+            z0 = tz0 * MARCH_TILE;
+  const int lane = threadIdx.x & 31;
+  float* const stages = ring[threadIdx.x >> 5][0];
+
+  // plane q into its stage, a commit group (empty past the run); NaN past
+  // the field's end
+  auto issue = [&](int q) {
+    if (q < planes) {
+      const int z = z0 + q;
+      float* const stage = stages + (q % STAGES) * STAGE;
+      if (z < b) {
+        // lane (c, r0) = (lane % 8, lane / 8): corners x + 4c .. x + 4c + 3
+        // of both row halves of the rows r0, r0 + 4, ...: 16 bytes where
+        // the row's start allows it, else 4 at a time
+        const int c4 = 4 * (lane % 8), r0 = lane / 8;
+        const float* src = field + ((long long)z * b + y0 + r0) * b + x0 + c4;
+        float* dst = stage + r0 * STAGE_PITCH + c4;
+        for (int r = r0; r < STAGE_ROWS;
+             r += 4, src += 4 * (long long)b, dst += 4 * STAGE_PITCH) {
+          const bool whole = y0 + r < b &&
+                             (reinterpret_cast<size_t>(src) & 15u) == 0u;
 #pragma unroll
-  for (int d = 1; d < 8; d <<= 1) {
-    cells += __shfl_xor_sync(0xFFFFFFFFu, cells, d);
-    counts += __shfl_xor_sync(0xFFFFFFFFu, counts, d);
-  }
-  if ((lane & 7) == 0) part[warp][lane >> 3] = make_uint2(cells, counts);
-  __syncthreads();
-  if (warp == 0) {
-    // lane j < n: tile tx0 + j, whose cells the warps of parity j / 4 hold
-    unsigned tc = 0, tn = 0;
-    if (lane < n) {
-      for (int w = lane >> 2; w < WARPS; w += 2) {
-        tc += part[w][lane & 3].x;
-        tn += part[w][lane & 3].y;
+          for (int h = 0; h < 2; ++h) {
+            const int x = x0 + 32 * h + c4;
+            if (whole && x + 3 < b) {
+              cp_async16(dst + h * STAGE_HALF, src + 32 * h);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                if (y0 + r < b && x + k < b)
+                  cp_async4(dst + h * STAGE_HALF + k, src + 32 * h + k);
+                else
+                  dst[h * STAGE_HALF + k] = nan_f();
+              }
+            }
+          }
+        }
+        // corner 32 of the row halves hr = lane and lane + 32
+        for (int hr = lane; hr < 2 * STAGE_ROWS; hr += 32) {
+          const int h = hr / STAGE_ROWS, r = hr % STAGE_ROWS;
+          const int x = x0 + 32 * h + 32, y = y0 + r;
+          float* to = stage + h * STAGE_HALF + r * STAGE_PITCH + 32;
+          if (y < b && x < b)
+            cp_async4(to, field + ((long long)z * b + y) * b + x);
+          else
+            *to = nan_f();
+        }
+      } else {
+        for (int i = lane; i < STAGE; i += 32) stage[i] = nan_f();
       }
-      const unsigned candidate = march_tile_candidate(tc) ? 1u << 16 : 0u;
-      tc = march_tile_cells(tc) | candidate;
-      records[(long long)row * g + tx0 + lane] = make_uint2(tc, tn);
     }
-    unsigned sum[4] = {(march_tile_cells(tc) > 0 ? 1u : 0u) |
-                           (march_tile_candidate(tc) ? 1u << 16 : 0u),
-                       march_tile_cells(tc), march_tile_vertices(tn),
-                       march_tile_indices(tn)};
+    cp_async_commit();
+  };
+  for (int q = 0; q < STAGES - 1; ++q) issue(q);
+
+  const int y = lane % BAND_ROWS, h = lane / BAND_ROWS;
+  const int left = rx - (x0 + 32 * h);  // cells of the region in the word
+  const unsigned region_x =
+      left >= 32 ? FULL : left <= 0 ? 0u : (1u << left) - 1u;
+  const bool row_in = y0 + y < ry;
+  // the corner words dx + 2 dy of this lane's cells in the plane below
+  unsigned below_s[4] = {0u, 0u, 0u, 0u}, below_f[4] = {0u, 0u, 0u, 0u};
+  // this layer's: own finite corners (row y), occupied cells of tile j in
+  // byte j, vertices | indices << 16 of tile j
+  unsigned own = 0u, cells = 0u, sums[4] = {0u, 0u, 0u, 0u};
+  for (int q = 0; q < planes; ++q) {
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();  // plane q is in; every lane is done with plane q - 1
+    issue(q + STAGES - 1);
+    const float* st = stages + (q % STAGES) * STAGE;
+    // this lane's row half and its next corner
+    const float* mine = st + h * STAGE_HALF + y * STAGE_PITCH;
+    unsigned s = 0u, f = 0u;
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int x = 0; x < 32; x += 4)
+      corner_bits4(*reinterpret_cast<const float4*>(mine + x), x, s, f);
+    const unsigned next = march_sign_bit(mine[32]) |
+                          (march_finite_bit(mine[32]) << 1);
+    // the band's last row (y = 16), by ballot, for lanes y = 15
+    const float* last = st + BAND_ROWS * STAGE_PITCH;
+    const float l0 = last[lane], l1 = last[STAGE_HALF + lane];
+    const float lt = lane < 2 ? last[lane * STAGE_HALF + 32] : 0.0f;
+    const unsigned last_s[2] = {__ballot_sync(FULL, march_sign_bit(l0)),
+                                __ballot_sync(FULL, march_sign_bit(l1))};
+    const unsigned last_f[2] = {__ballot_sync(FULL, march_finite_bit(l0)),
+                                __ballot_sync(FULL, march_finite_bit(l1))};
+    const unsigned last_ts = __ballot_sync(FULL, lane < 2 && march_sign_bit(lt));
+    const unsigned last_tf =
+        __ballot_sync(FULL, lane < 2 && march_finite_bit(lt));
+    // row y + 1: the next lane's
+    unsigned s1 = __shfl_down_sync(FULL, s, 1);
+    unsigned f1 = __shfl_down_sync(FULL, f, 1);
+    unsigned next1 = __shfl_down_sync(FULL, next, 1);
+    if (y == BAND_ROWS - 1) {
+      s1 = last_s[h];
+      f1 = last_f[h];
+      next1 = ((last_ts >> h) & 1u) | (((last_tf >> h) & 1u) << 1);
+    }
+    const unsigned now_s[4] = {s, march_next_corners(s, next), s1,
+                               march_next_corners(s1, next1)};
+    const unsigned now_f[4] = {f, march_next_corners(f, next >> 1), f1,
+                               march_next_corners(f1, next1 >> 1)};
+    if (q > 0) {
+      const unsigned sign[8] = {below_s[0], below_s[1], below_s[2],
+                                below_s[3], now_s[0],   now_s[1],
+                                now_s[2],   now_s[3]};
+      const unsigned fin[8] = {below_f[0], below_f[1], below_f[2],
+                               below_f[3], now_f[0],   now_f[1],
+                               now_f[2],   now_f[3]};
+      const unsigned occ = march_word_occupied(
+          sign, fin, row_in && z0 + q - 1 < rz ? region_x : 0u);
 #pragma unroll
-      for (int d = 1; d < 8; d <<= 1)
-        sum[k] += __shfl_xor_sync(0xFFFFFFFFu, sum[k], d);
-    if (lane == 0) rows[blockIdx.x] = make_uint4(sum[0], sum[1], sum[2], sum[3]);
+      for (int j = 0; j < 4; ++j)
+        cells += (unsigned)__popc(occ & (0xFFu << (8 * j))) << (8 * j);
+      for (unsigned o = occ; o != 0u; o &= o - 1u) {
+        const int x = __ffs(o) - 1;
+        const unsigned c = counts[march_word_code(sign, x)];
+        const int j = x / MARCH_TILE;
+        sums[0] += j == 0 ? c : 0u;
+        sums[1] += j == 1 ? c : 0u;
+        sums[2] += j == 2 ? c : 0u;
+        sums[3] += j == 3 ? c : 0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      below_s[i] = now_s[i];
+      below_f[i] = now_f[i];
+    }
+    if (q > 0 && q % MARCH_TILE == 0) {
+      // cell plane q - 1 ended layer k: each tile's sums over its eight
+      // lanes (same h, rows y / 8), written by the first of them
+      const int k = q / MARCH_TILE - 1, t = y / MARCH_TILE;
+      unsigned lo = (cells & 0xFFu) | ((cells & 0xFF00u) << 8);
+      unsigned hi = ((cells >> 16) & 0xFFu) | ((cells >> 8) & 0xFF0000u);
+#pragma unroll
+      for (int d = 1; d < MARCH_TILE; d <<= 1) {
+        lo += __shfl_xor_sync(FULL, lo, d);
+        hi += __shfl_xor_sync(FULL, hi, d);
+        own |= __shfl_xor_sync(FULL, own, d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sums[j] += __shfl_xor_sync(FULL, sums[j], d);
+      }
+      const unsigned tile_cells[4] = {lo & 0xFFFFu, lo >> 16, hi & 0xFFFFu,
+                                      hi >> 16};
+      unsigned seg_sum[4] = {0u, 0u, 0u, 0u};
+      const long long row = (long long)(tz0 + k) * g + ty0 + t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool candidate = ((own >> (8 * j)) & 0xFFu) != 0u;
+        const unsigned x = tile_cells[j] | (candidate ? 1u << 16 : 0u);
+        const int tx = 4 * h + j;
+        if (y % MARCH_TILE == 0 && tx < n && ty0 + t < g)
+          records[row * g + seg * ROW_TILES + tx] = make_uint2(x, sums[j]);
+        if (tx < n) {
+          seg_sum[0] += (tile_cells[j] > 0 ? 1u : 0u) |
+                        (candidate ? 1u << 16 : 0u);
+          seg_sum[1] += tile_cells[j];
+          seg_sum[2] += march_tile_vertices(sums[j]);
+          seg_sum[3] += march_tile_indices(sums[j]);
+        }
+      }
+      // the segment's two halves (lanes h = 0 and 1 of the same row)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        seg_sum[i] += __shfl_xor_sync(FULL, seg_sum[i], BAND_ROWS);
+      if (lane % BAND_ROWS == t * MARCH_TILE && h == 0 && ty0 + t < g)
+        rows[row * march_segments(g) + seg] =
+            make_uint4(seg_sum[0], seg_sum[1], seg_sum[2], seg_sum[3]);
+      own = cells = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sums[j] = 0u;
+    }
+    // plane q is one of layer q / 8's own (all but the run's last plane)
+    if (q < planes - 1) own |= f;
   }
 }
 
@@ -278,44 +451,24 @@ march_scan_kernel(const uint4* __restrict__ rows, int nrows, int segments,
   }
 }
 
-// The exclusive scan of v across the CTA's CELL_THREADS threads, in thread
-// order; `shared` holds an int a warp. The emission scans (occupied |
-// vertices << 16), each sum over a tile below 2^16.
-__device__ unsigned cta_exclusive_scan(unsigned v, unsigned* shared) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned o = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-    if (lane >= d) inc += o;
-  }
-  if (lane == 31) shared[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const unsigned w = lane < WARPS ? shared[lane] : 0u;
-    unsigned s = w;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned o = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (lane >= d) s += o;
-    }
-    if (lane < WARPS) shared[lane] = s - w;
-  }
-  __syncthreads();
-  return shared[warp] + inc - v;
-}
-
-// A CTA a listed tile, a thread a cell l = (lz * 8 + ly) * 8 + lx: raster
-// order is thread order, so the CTA's scan ranks the occupied cells.
-__global__ void __launch_bounds__(CELL_THREADS)
+// A warp a listed tile, 8 a CTA. Cell l = (lz * 8 + ly) * 8 + lx of the
+// tile is bit l % 32 of its cell word l / 32 (raster order is word and bit
+// order): word k holds the rows ly = 4 (k % 2) .. + 3 of cell plane k / 2,
+// a byte a row.
+__global__ void __launch_bounds__(EMIT_THREADS)
 march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
                   int ry, int rz, const int4* __restrict__ list,
-                  long long m, long long vertices, int* __restrict__ image) {
-  __shared__ float block[MARCH_TILE_CORNERS];
-  __shared__ unsigned warp_sums[WARPS];
-  const int4 row = __ldg(&list[blockIdx.x]);
-  const int t = row.x;
-  const int tx = t % g, ty = (t / g) % g, tz = t / (g * g);
+                  int march_tiles, long long m, long long vertices,
+                  int* __restrict__ image) {
+  __shared__ float blocks[EMIT_WARPS][MARCH_TILE_CORNERS];
+  __shared__ unsigned row_bits[EMIT_WARPS][TILE_ROWS];
+  // the tile's occupied cells in raster order
+  __shared__ unsigned short occupied[EMIT_WARPS][MARCH_TILE_CELLS];
+  __shared__ unsigned char owner[EMIT_WARPS][BATCH_VERTICES];
+  __shared__ __align__(4) unsigned short end_offsets[ENDS];
+  __shared__ unsigned char nverts[256];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * EMIT_WARPS + warp;
   unsigned char* code_bytes = reinterpret_cast<unsigned char*>(image) + 4 * m;
   unsigned short* t16 = reinterpret_cast<unsigned short*>(image) +
                         2 * (m + (m + 3) / 4);
@@ -325,35 +478,151 @@ march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
     for (long long p = m; p < 4 * ((m + 3) / 4); ++p) code_bytes[p] = 0;
     if (vertices & 1) t16[vertices] = 0;
   }
-  stage<MARCH_SPAN>(field, b, tx * MARCH_TILE, ty * MARCH_TILE,
-                    tz * MARCH_TILE, block);
+  float* block = blocks[warp];
+  int4 row = make_int4(0, 0, 0, 0);
+  int tx = 0, ty = 0, tz = 0;
+  if (r < march_tiles) {
+    // the tile's (9, 9, 9) corners, NaN past the field's end
+    row = __ldg(&list[r]);
+    tx = row.x % g, ty = row.x / g % g, tz = row.x / (g * g);
+    // lane (x, y3) < 27: corner x of the rows y = y3, y3 + 3, y3 + 6 of
+    // each corner plane
+    if (lane < 3 * MARCH_SPAN) {
+      const int x = lane % MARCH_SPAN, y3 = lane / MARCH_SPAN;
+      const int x0 = tx * MARCH_TILE, y0 = ty * MARCH_TILE,
+                z0 = tz * MARCH_TILE;
+      const float* src = field + ((long long)z0 * b + y0 + y3) * b + x0 + x;
+      float* dst = block + y3 * MARCH_SPAN + x;
+      for (int z = 0; z < MARCH_SPAN; ++z) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float* to = dst + (z * MARCH_SPAN + 3 * j) * MARCH_SPAN;
+          if (x0 + x < b && y0 + y3 + 3 * j < b && z0 + z < b)
+            cp_async4(to, src + ((long long)z * b + 3 * j) * b);
+          else
+            *to = nan_f();
+        }
+      }
+    }
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < ENDS / 2; i += EMIT_THREADS)
+    reinterpret_cast<unsigned*>(end_offsets)[i] = __ldg(
+        reinterpret_cast<const unsigned*>(&march_end_offsets_d[0][0]) + i);
+  nverts[threadIdx.x] = (unsigned char)march_vertex_count(threadIdx.x);
+  cp_async_wait<0>();
   __syncthreads();
-  const int l = threadIdx.x;
-  const int lx = l % MARCH_TILE, ly = (l / MARCH_TILE) % MARCH_TILE,
-            lz = l / (MARCH_TILE * MARCH_TILE);
-  const float* base = block + march_corner_index(lx, ly, lz, MARCH_SPAN);
-  float c[8];
-  march_cell_corners(base, MARCH_SPAN, c);
-  const unsigned code = march_code(c);
-  const int cx = tx * MARCH_TILE + lx, cy = ty * MARCH_TILE + ly,
-            cz = tz * MARCH_TILE + lz;
-  const bool occupied = march_occupied(c, code, cx < rx && cy < ry && cz < rz);
-  const unsigned nv = occupied ? march_vertex_count(code) : 0u;
-  const unsigned excl =
-      cta_exclusive_scan((occupied ? 1u : 0u) | (nv << 16), warp_sums);
-  if (!occupied) return;
-  const long long at = (long long)row.y + (excl & 0xFFFFu);
+  if (r >= march_tiles) return;
+  // a lane a corner row (y, z): its sign bits 0-8, finite bits 16-24
+  unsigned* bits = row_bits[warp];
+  for (int k = lane; k < TILE_ROWS; k += 32) {
+    unsigned v = 0u;
+#pragma unroll
+    for (int x = 0; x < MARCH_SPAN; ++x) {
+      const float c = block[k * MARCH_SPAN + x];
+      v |= (march_sign_bit(c) << x) | (march_finite_bit(c) << (16 + x));
+    }
+    bits[k] = v;
+  }
+  __syncwarp();
+  // lanes k < 16: cell word k, its occupied cells; a warp scan ranks them
+  unsigned occ = 0u;
+  if (lane < CELL_WORDS) {
+    const int lz = lane / 2, ly0 = 4 * (lane % 2);
+    unsigned sign[8], fin[8];
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        unsigned rows4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          rows4[i] = bits[(lz + dz) * MARCH_SPAN + ly0 + dy + i];
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          sign[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, dx);
+          fin[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, 16 + dx);
+        }
+      }
+    // the region: cells lx < rx - 8 tx of the rows ly < ry - 8 ty, in
+    // cell plane lz < rz - 8 tz
+    const int nx = min(max(rx - tx * MARCH_TILE, 0), MARCH_TILE);
+    const unsigned byte = (1u << nx) - 1u;
+    unsigned region = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (ty * MARCH_TILE + ly0 + i < ry) region |= byte << (8 * i);
+    if (tz * MARCH_TILE + lz >= rz) region = 0u;
+    occ = march_word_occupied(sign, fin, region);
+  }
+  const unsigned n_occ = __popc(occ);
+  unsigned at = n_occ;
+#pragma unroll
+  for (int d = 1; d < CELL_WORDS; d <<= 1) {
+    const unsigned o = __shfl_up_sync(FULL, at, d);
+    if (lane >= d) at += o;
+  }
+  const unsigned tile_cells = __shfl_sync(FULL, at, CELL_WORDS - 1);
+  at -= n_occ;
+  unsigned short* cell_l = occupied[warp];
+  for (unsigned o = occ; o != 0u; o &= o - 1u)
+    cell_l[at++] = (unsigned short)(32 * lane + __ffs(o) - 1);
+  __syncwarp();
+  // 32 occupied cells at a time, a lane each; then their vertices
   const int nc = b - 1;
-  image[at] = (cz * nc + cy) * nc + cx;
-  code_bytes[at] = (unsigned char)code;
-  unsigned short* out = t16 + (unsigned)row.z + (excl >> 16);
-  // the edge's corners from shared memory (an index into c would put the
-  // array in local memory)
-  for (int j = 0; j < (int)nv; ++j) {
-    int c0, c1;
-    march_vertex_edge(code, j, &c0, &c1);
-    out[j] = (unsigned short)march_t16(base[march_corner_offset(c0, MARCH_SPAN)],
-                                       base[march_corner_offset(c1, MARCH_SPAN)]);
+  const long long cell_base = row.y;
+  long long vertex_at = (unsigned)row.z;
+  unsigned char* own = owner[warp];
+  for (unsigned first = 0; first < tile_cells; first += 32) {
+    const unsigned i = first + lane;
+    const unsigned l = i < tile_cells ? cell_l[i] : 0u;
+    const int lx = l % MARCH_TILE, ly = l / MARCH_TILE % MARCH_TILE,
+              lz = l / (MARCH_TILE * MARCH_TILE);
+    const int row0 = lz * MARCH_SPAN + ly, row1 = row0 + MARCH_SPAN;
+    const unsigned code =
+        i < tile_cells ? march_rows_code(bits[row0], bits[row0 + 1],
+                                         bits[row1], bits[row1 + 1], lx)
+                       : 0u;
+    const unsigned nv = nverts[code];
+    unsigned incl = nv;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += o;
+    }
+    if (i < tile_cells) {
+      const int cx = tx * MARCH_TILE + lx, cy = ty * MARCH_TILE + ly,
+                cz = tz * MARCH_TILE + lz;
+      image[cell_base + i] = (cz * nc + cy) * nc + cx;
+      code_bytes[cell_base + i] = (unsigned char)code;
+    }
+    march_spread_vertices(own, incl - nv, nv, lane);
+    __syncwarp();
+    const unsigned total = __shfl_sync(FULL, incl, 31);
+    // what a vertex needs of its cell: the code, its first vertex (< 416)
+    // and its base corner in the block (< 729), in one word
+    const unsigned cell =
+        code | ((incl - nv) << 8) |
+        ((unsigned)march_corner_index(lx, ly, lz) << 17);
+    // two vertices a lane at a time, their loads in flight together
+    for (unsigned v0 = 0; v0 < total; v0 += 64) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const unsigned v = v0 + 32 * u + lane;
+        const int o = v < total ? own[v] : 0;
+        const unsigned o_cell = __shfl_sync(FULL, cell, o);
+        const int o_base = (int)(o_cell >> 17);
+        if (v < total) {
+          const unsigned e = march_vertex_end_offsets(
+              end_offsets, o_cell & 0xFFu,
+              (int)(v - ((o_cell >> 8) & 0x1FFu)));
+          t16[vertex_at + v] = (unsigned short)march_t16(
+              block[o_base + (e & 0xFFu)], block[o_base + (e >> 8)]);
+        }
+      }
+    }
+    __syncwarp();  // the owner map is rewritten by the next batch
+    vertex_at += total;
   }
 }
 
@@ -382,11 +651,14 @@ extern "C" int march_classify_launch(const float* field, int b, int rx,
                                      void* stream) {
   if (bad_block(b, rx, ry, rz)) return (int)cudaErrorInvalidValue;
   const int g = tiles_an_axis(b);
-  const int segments = (g + ROW_TILES - 1) / ROW_TILES;
+  const int segments = march_segments(g);
   const int nrows = g * g * segments;
+  const int run_tiles = march_run_tiles(g);
+  const int tasks = segments * march_bands(g) * ((g + run_tiles - 1) / run_tiles);
   const cudaStream_t s = (cudaStream_t)stream;
-  march_classify_kernel<<<nrows, CELL_THREADS, 0, s>>>(
-      field, b, g, segments, rx, ry, rz, reinterpret_cast<uint2*>(records),
+  march_classify_kernel<<<(tasks + CLASSIFY_WARPS - 1) / CLASSIFY_WARPS,
+                          CLASSIFY_THREADS, 0, s>>>(
+      field, b, g, run_tiles, rx, ry, rz, reinterpret_cast<uint2*>(records),
       reinterpret_cast<uint4*>(rows));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -408,8 +680,9 @@ extern "C" int march_emit_launch(const float* field, int b, int rx, int ry,
   if (bad_block(b, rx, ry, rz) || march_tiles < 0 || m < 0 || vertices < 0)
     return (int)cudaErrorInvalidValue;
   if (march_tiles == 0) return (int)cudaSuccess;
-  march_emit_kernel<<<march_tiles, CELL_THREADS, 0, (cudaStream_t)stream>>>(
+  march_emit_kernel<<<(march_tiles + EMIT_WARPS - 1) / EMIT_WARPS,
+                      EMIT_THREADS, 0, (cudaStream_t)stream>>>(
       field, b, tiles_an_axis(b), rx, ry, rz,
-      reinterpret_cast<const int4*>(list), m, vertices, image);
+      reinterpret_cast<const int4*>(list), march_tiles, m, vertices, image);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// The per-cell arithmetic of the marching kernels (marching.cu): one
-// cell's case code from its eight corners, whether it is occupied, its
-// vertex and index counts, the corners at the ends of its local vertex
-// j's edge, and a vertex's 16-bit interpolant t16.
+// The per-cell arithmetic of the marching kernels (marching.cu): each
+// corner's sign and finite bit, the occupied cells of 32 cells at once and
+// a cell's case code from words of those bits, its vertex and index
+// counts, the corners at the ends of its local vertex j's edge, the
+// spread of a warp's vertices over its lanes, and a vertex's 16-bit
+// interpolant t16.
 //
 // Written once for the card and for a host build: nvcc compiles these
 // functions into the kernels, where t16's subtraction, division and
@@ -12,9 +14,8 @@
 // version (ops/marching.py) bit for bit without a card.
 //
 // The tables are ops/tables.py's, generated into marching_tables.h; the
-// card reads them from global memory through the read-only cache (the
-// lanes of a warp look up different codes, which constant memory would
-// serialise), a host build from static arrays.
+// kernels copy the ones they read into shared memory once a CTA (the lanes
+// of a warp look up different codes), a host build reads static arrays.
 
 #pragma once
 
@@ -34,49 +35,56 @@
 #define MARCH_TILE_CELLS (MARCH_TILE * MARCH_TILE * MARCH_TILE)
 #define MARCH_SPAN (MARCH_TILE + 1)
 #define MARCH_TILE_CORNERS (MARCH_SPAN * MARCH_SPAN * MARCH_SPAN)
-// The classify pass takes a row segment of MARCH_ROW_TILES tiles along x a
-// CTA, their corner blocks as one (9, 9, MARCH_ROW_PITCH) block; the scan
+// The classify pass takes a column a warp: a row segment of
+// MARCH_ROW_TILES tiles along x, MARCH_BAND_TILES along y and a run of
+// march_run_tiles(g) along z, walked one corner plane at a time. The scan
 // is one CTA of MARCH_SCAN_THREADS threads.
 #define MARCH_ROW_TILES 8
-#define MARCH_ROW_PITCH (MARCH_ROW_TILES * MARCH_TILE + 1)
+#define MARCH_BAND_TILES 2
 #define MARCH_SCAN_THREADS 1024
 
+MARCH_FN int march_segments(int g) {
+  return (g + MARCH_ROW_TILES - 1) / MARCH_ROW_TILES;
+}
+
+MARCH_FN int march_bands(int g) {
+  return (g + MARCH_BAND_TILES - 1) / MARCH_BAND_TILES;
+}
+
+// The run a classify warp walks along z: the longest of 8, 4, 2 and 1
+// tiles that still leaves 8,192 warps, else 1. A longer run reads the
+// plane between two runs once; more warps than the card holds at once (22
+// an SM, 2,904 on an H100's 132) keep every SM full to the end: at 512^3
+// on an H100, runs of 2 tiles took 0.25 ms, of 8 tiles 0.33 ms.
+MARCH_FN int march_run_tiles(int g) {
+  const long long columns = (long long)march_segments(g) * march_bands(g);
+  int run = 8;
+  while (run > 1 && columns * ((g + run - 1) / run) < 8192) run >>= 1;
+  return run;
+}
+
 #if defined(__CUDACC__)
-__device__ const unsigned char march_edges_d[MARCH_NUM_EDGES][2] =
-    MARCH_EDGES_INIT;
 __device__ const unsigned char march_counts_d[256][2] = MARCH_COUNT_INIT;
-__device__ const signed char march_verts_d[256][MARCH_MAX_CELL_VERTICES] =
-    MARCH_VERT_INIT;
+__device__ __align__(4) const unsigned short
+    march_end_offsets_d[256][MARCH_MAX_CELL_VERTICES] = MARCH_END_OFFSETS_INIT;
 #endif
 static const unsigned char march_edges_h[MARCH_NUM_EDGES][2] =
     MARCH_EDGES_INIT;
 static const unsigned char march_counts_h[256][2] = MARCH_COUNT_INIT;
 static const signed char march_verts_h[256][MARCH_MAX_CELL_VERTICES] =
     MARCH_VERT_INIT;
+static const unsigned short
+    march_end_offsets_h[256][MARCH_MAX_CELL_VERTICES] = MARCH_END_OFFSETS_INIT;
 
-// The index of corner (x, y, z) in a corner block of (9, 9, pitch)
-// corners [z, y, x]: pitch 9 for one tile, MARCH_ROW_PITCH for a row
-// segment.
-MARCH_FN int march_corner_index(int x, int y, int z, int pitch) {
-  return (z * MARCH_SPAN + y) * pitch + x;
+// The index of corner (x, y, z) in a tile's (9, 9, 9) corner block
+// [z, y, x].
+MARCH_FN int march_corner_index(int x, int y, int z) {
+  return (z * MARCH_SPAN + y) * MARCH_SPAN + x;
 }
 
-// Where corner v of a cell lies in a corner block, from the cell's base
-// corner: v is at offset (v & 1, (v >> 1) & 1, (v >> 2) & 1) along (x, y,
-// z) (ops/marching.py::CORNER_OFFS).
-MARCH_FN int march_corner_offset(int v, int pitch) {
-  return march_corner_index(v & 1, (v >> 1) & 1, (v >> 2) & 1, pitch);
-}
-
-// The eight corners of the cell whose base corner is at `base` in a
-// corner block of `pitch`.
-MARCH_FN void march_cell_corners(const float* base, int pitch, float c[8]) {
-#pragma unroll
-  for (int v = 0; v < 8; ++v) c[v] = base[march_corner_offset(v, pitch)];
-}
-
-// The case code: bit v set where corner v is >= 0 (true for -0.0, false
-// for NaN).
+// The case code of a cell's eight corners: bit v set where corner v is
+// >= 0 (true for -0.0 and +inf, false for NaN). The plain rule, which the
+// kernels compute from corner bits (below).
 MARCH_FN unsigned march_code(const float c[8]) {
   unsigned code = 0;
 #pragma unroll
@@ -91,6 +99,77 @@ MARCH_FN bool march_occupied(const float c[8], unsigned code, bool in_region) {
 #pragma unroll
   for (int v = 0; v < 8; ++v) finite = finite && isfinite(c[v]);
   return finite && in_region && code != 0u && code != 255u;
+}
+
+// The two bits the kernels compute once a corner: its sign bit (v >= 0,
+// march_code's) and its finite bit. A corner past the field's end is NaN:
+// both 0.
+MARCH_FN unsigned march_sign_bit(float v) { return v >= 0.0f ? 1u : 0u; }
+MARCH_FN unsigned march_finite_bit(float v) { return isfinite(v) ? 1u : 0u; }
+
+// The kernels hold corner bits in words, 32 cells a word: word[v] has at
+// each cell's bit the bit of that cell's corner v (v = dx + 2 dy + 4 dz,
+// march_code's order). A row word of corners x, x + 1, ... serves as the
+// dx = 0 word of the cells x, x + 1, ...; march_next_corners gives dx = 1.
+
+// The corners x + 1 of a row word w: w shifted down a bit, the next
+// word's first corner (bit 0 of `next`) at bit 31.
+MARCH_FN unsigned march_next_corners(unsigned w, unsigned next) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(w, next, 1);
+#else
+  return (w >> 1) | (next << 31);
+#endif
+}
+
+// A word of four rows of 8 cells, a byte a row: byte i the bits `shift` to
+// `shift` + 7 of rows[i] (a tile's corner row held as sign bits 0-8 and
+// finite bits 16-24: shift 0 or 16 for the cells' dx = 0 corners, 1 or 17
+// for dx = 1).
+MARCH_FN unsigned march_row_bytes(const unsigned rows[4], int shift) {
+  unsigned w = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w |= ((rows[i] >> shift) & 0xFFu) << (8 * i);
+  return w;
+}
+
+// Of 32 cells from their corner words, the occupied ones (march_occupied):
+// every corner finite, some but not all signs set, in `region`.
+MARCH_FN unsigned march_word_occupied(const unsigned sign[8],
+                                      const unsigned finite[8],
+                                      unsigned region) {
+  unsigned any = 0u, all = ~0u, fin = ~0u;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    any |= sign[v];
+    all &= sign[v];
+    fin &= finite[v];
+  }
+  return fin & any & ~all & region;
+}
+
+// The case code of a tile's cell at x from its four corner rows (dy, dz) =
+// (0, 0), (1, 0), (0, 1), (1, 1), each held as sign bits 0-8 (march_code).
+MARCH_FN unsigned march_rows_code(unsigned r00, unsigned r10, unsigned r01,
+                                  unsigned r11, int x) {
+  return ((r00 >> x) & 3u) | (((r10 >> x) & 3u) << 2) |
+         (((r01 >> x) & 3u) << 4) | (((r11 >> x) & 3u) << 6);
+}
+
+// The case code of the cell at bit x of the words (march_code).
+MARCH_FN unsigned march_word_code(const unsigned sign[8], int x) {
+  unsigned code = 0u;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) code |= ((sign[v] >> x) & 1u) << v;
+  return code;
+}
+
+// The vertex spread: a cell whose `count` vertices are a warp's vertices
+// first .. first + count - 1 marks itself, `lane`, as their owner, so that
+// each lane can then take one vertex and find its cell.
+MARCH_FN void march_spread_vertices(unsigned char* owner, unsigned first,
+                                    unsigned count, unsigned lane) {
+  for (unsigned j = 0; j < count; ++j) owner[first + j] = (unsigned char)lane;
 }
 
 // COUNT_TABLE[code]: the vertices and the triangle indices of a cell.
@@ -110,18 +189,19 @@ MARCH_FN unsigned march_index_count(unsigned code) {
 #endif
 }
 
-// The corners c0, c1 at the ends of local vertex j's edge:
-// EDGES[VERT_TABLE[code][j]] (j below the code's vertex count).
-MARCH_FN void march_vertex_edge(unsigned code, int j, int* c0, int* c1) {
-#ifdef __CUDA_ARCH__
-  const int e = __ldg(&march_verts_d[code][j]);
-  *c0 = __ldg(&march_edges_d[e][0]);
-  *c1 = __ldg(&march_edges_d[e][1]);
-#else
-  const int e = march_verts_h[code][j];
-  *c0 = march_edges_h[e][0];
-  *c1 = march_edges_h[e][1];
-#endif
+// Both counts of a code in one word, vertices | indices << 16 (a tile's
+// sums stay below 2^16: 512 * 13 and 512 * 36).
+MARCH_FN unsigned march_cell_counts(unsigned code) {
+  return march_vertex_count(code) | (march_index_count(code) << 16);
+}
+
+// Where the corners at the ends of local vertex j's edge (j below the
+// code's vertex count) lie in a tile's corner block from the cell's base
+// corner, off0 | off1 << 8: from `offsets`, the END_OFFSETS table flat
+// (march_end_offsets_h, or the kernel's copy in shared memory).
+MARCH_FN unsigned march_vertex_end_offsets(const unsigned short* offsets,
+                                           unsigned code, int j) {
+  return offsets[code * MARCH_MAX_CELL_VERTICES + j];
 }
 
 // t16 = clamp(rint((iso0 / (iso0 - iso1)) * 65535), 0, 65535), each
@@ -140,8 +220,7 @@ MARCH_FN unsigned march_t16(float iso0, float iso1) {
 
 // A tile's record from the classify pass (uint2): x = occupied cells |
 // candidate << 16 (any of the tile's own 8^3 corners finite:
-// classify_tiled's candidate test), y = vertices | indices << 16 (at most
-// 512 * 13 and 512 * 36, both below 2^16).
+// classify_tiled's candidate test), y = vertices | indices << 16.
 MARCH_FN unsigned march_tile_cells(unsigned x) { return x & 0xFFFFu; }
 MARCH_FN unsigned march_tile_candidate(unsigned x) { return x >> 16; }
 MARCH_FN unsigned march_tile_vertices(unsigned y) { return y & 0xFFFFu; }

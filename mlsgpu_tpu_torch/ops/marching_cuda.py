@@ -3,19 +3,21 @@ functions the block step calls for them on the card: `classify`, then
 `emit`, or both as `codes_image`.
 
 Tensors on a CUDA device take the kernel path: `march_classify_kernel` (a
-CTA a row segment of 8 tiles: each tile's occupied cells, vertices,
-indices and candidate flag, and their sums for the segment) and
-`march_scan_kernel` (the list of tiles with an occupied cell and their
-cell and vertex bases, and the totals) from one C call, one copy of
-the totals to pinned host memory and a wait on the stream (the stage's
-one sync), then `march_emit_kernel` (a CTA a listed tile), which writes the
-image in its final layout, bit for bit `marching.pack_codes(
-marching.generate_codes(...))`. `codes_image` on a CPU tensor returns
-those plain functions' image; `classify` and `emit` take CUDA tensors
-alone. A CUDA tensor launches the kernels or raises; nothing falls back.
-The kernels live in the library ops/mls_cuda.py builds; their tables
-(csrc/marching_tables.h) are generated from ops/tables.py by
-`python -m mlsgpu_tpu_torch.ops.marching_cuda`.
+warp a column of 8 by 2 tiles walking a run along z, each corner's sign
+and finite bit computed once and the cells classified 32 at a time as bit
+words: each tile's occupied cells, vertices, indices and candidate flag,
+and their sums for each row segment of 8 tiles) and `march_scan_kernel`
+(the list of tiles with an occupied cell and their cell and vertex bases,
+and the totals) from one C call, one copy of the totals to pinned host
+memory and a wait on the stream (the stage's one sync), then
+`march_emit_kernel` (a warp a listed tile, its occupied cells ranked by
+popcounts, its vertices a lane each), which writes the image in its final
+layout, bit for bit `marching.pack_codes(marching.generate_codes(...))`.
+`codes_image` on a CPU tensor returns those plain functions' image;
+`classify` and `emit` take CUDA tensors alone. A CUDA tensor launches the
+kernels or raises; nothing falls back. The kernels live in the library
+ops/mls_cuda.py builds; their tables (csrc/marching_tables.h) are
+generated from ops/tables.py by `python -m mlsgpu_tpu_torch.ops.marching_cuda`.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from mlsgpu_tpu_torch.ops import launches, marching, mls_cuda, tables
 TABLES_HEADER = os.path.join(os.path.dirname(mls_cuda.SOURCES[0]),
                              "marching_tables.h")
 #: Ints a row of the occupied-tile list, and tiles a row segment of the
-#: classify pass (csrc/marching.cuh).
+#: classify pass's records (csrc/marching.cuh).
 LIST_WIDTH = 4
 ROW_TILES = 8
 #: The totals the scan writes, in this order (csrc/marching.cuh).
@@ -182,6 +184,17 @@ def codes_image(field: torch.Tensor, region_cells: Sequence[int]
     return emit(marched), marched.counts
 
 
+def vertex_end_offsets() -> np.ndarray:
+    """(256, MAX_CELL_VERTICES) END_OFFSETS table: for each local vertex,
+    where the corners at the ends of its edge (EDGES[VERT_TABLE]) lie in a
+    tile's (9, 9, 9) corner block [z, y, x] from the cell's base corner,
+    off0 | off1 << 8; 0 past the code's vertices."""
+    dx, dy, dz = marching.CORNER_OFFS.T
+    corner = dx + 9 * dy + 81 * dz
+    e = corner[tables.EDGES[np.maximum(tables.VERT_TABLE, 0)]]
+    return np.where(tables.VERT_TABLE >= 0, e[..., 0] | e[..., 1] << 8, 0)
+
+
 def tables_header() -> str:
     """csrc/marching_tables.h as ops/tables.py gives it."""
     def rows(a: np.ndarray, per_line: int) -> str:
@@ -208,6 +221,13 @@ def tables_header() -> str:
         "// VERT_TABLE: the edge of each local vertex of each code, -1 past",
         "// its vertices.",
         "#define MARCH_VERT_INIT { \\", rows(tables.VERT_TABLE, 1) + "}",
+        "",
+        "// END_OFFSETS: the offsets in a tile's 9x9x9 corner block from a",
+        "// cell's base corner of the corners at the ends of each local",
+        "// vertex's edge, off0 | off1 << 8 (EDGES[VERT_TABLE]), 0 past its",
+        "// vertices.",
+        "#define MARCH_END_OFFSETS_INIT { \\",
+        rows(vertex_end_offsets(), 1) + "}",
         ""])
 
 

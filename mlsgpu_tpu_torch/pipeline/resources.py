@@ -53,7 +53,11 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     """Approximate peak device bytes of one block step in a readback mode
     ("codes", "packed" or "raw") on a device of `device_type` ("cuda": the
     kernels' path; "cpu": the plain versions'). `seam_reserve`: the seam
-    kernels' local memory reserve on the card (seam_local_reserve)."""
+    kernels' local memory reserve on the card (seam_local_reserve). On
+    the card the codes readback marches and packs in the marching kernels,
+    whose buffers `marching_kernels` counts; the packed and raw readbacks
+    and the CPU march with the plain versions (`marching_dense` or
+    `marching_tiled`, `emission`)."""
     b = 1 << cfg.device_shift  # corners of one device dispatch
     cells = (b - 1) ** 3
     n = cfg.max_device_splats
@@ -81,24 +85,37 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
         # (u8)
         usage["faces"] = 32 * 64 * cfg.tile_candidates * (
             2 * 9 * F32 + I64 + 4 * F32 + 2)
-    if b > TILED_ABOVE:
-        # tiled classification: the NaN-padded field copy, the candidate
-        # tiles' (tiles, 9, 9, 9) halo gather, and per candidate cell a
-        # case code and masks
-        tiles = int(-(-(b - 1) // TILE) ** 3 * CANDIDATE_TILE_SHARE)
-        usage["marching_tiled"] = ((b + TILE) ** 3 * F32
-                                   + tiles * (TILE + 1) ** 3 * F32
-                                   + tiles * TILE ** 3 * (I64 + 3))
-    else:
-        # dense classification: case code, finite/region/occupied masks and
-        # a shifted-corner temporary per cell
-        usage["marching_dense"] = cells * (I64 + 3 + F32)
-    # Emission, per occupied cell: code, (x, y, z), 8 corner isos; per
-    # emitted vertex (<= 13 per cell, ~4 on a surface) its producer, rank,
-    # edge and t.
+    # Per occupied cell, per emitted vertex (<= 13 per cell, ~4 on a
+    # surface).
     occ = int(cells * SURFACE_CELL_SHARE)
     verts = 4 * occ
-    usage["emission"] = occ * (4 * I64 + 8 * F32) + verts * (4 * I64 + F32)
+    if device_type == "cuda" and readback == "codes":
+        # the marching kernels' buffers (ops/marching_cuda.py), nothing
+        # more: an 8-byte record a tile, a 16-byte record a row segment of
+        # 8 tiles, the occupied-tile list (4 int32 a tile), the totals, and
+        # the codes image (an id word and a code byte an occupied cell, a
+        # t16 halfword a vertex)
+        g = -(-(b - 1) // TILE)
+        usage["marching_kernels"] = (
+            g ** 3 * (8 + 16) + g * g * -(-g // 8) * 16 + 5 * I64
+            + 4 * (occ + -(-occ // 4) + -(-verts // 2)))
+    else:
+        if b > TILED_ABOVE:
+            # tiled classification: the NaN-padded field copy, the
+            # candidate tiles' (tiles, 9, 9, 9) halo gather, and per
+            # candidate cell a case code and masks
+            tiles = int(-(-(b - 1) // TILE) ** 3 * CANDIDATE_TILE_SHARE)
+            usage["marching_tiled"] = ((b + TILE) ** 3 * F32
+                                       + tiles * (TILE + 1) ** 3 * F32
+                                       + tiles * TILE ** 3 * (I64 + 3))
+        else:
+            # dense classification: case code, finite/region/occupied
+            # masks and a shifted-corner temporary per cell
+            usage["marching_dense"] = cells * (I64 + 3 + F32)
+        # Emission, per occupied cell: code, (x, y, z), 8 corner isos; per
+        # emitted vertex its producer, rank, edge and t.
+        usage["emission"] = (occ * (4 * I64 + 8 * F32)
+                             + verts * (4 * I64 + F32))
     if readback != "codes":
         # mesh mode: f32 vertices, (hi, lo) keys and ~2 triangles of three
         # int64 indices per vertex; the weld's sort key, order, first-mask,

@@ -2,24 +2,31 @@
 csrc/marching.cu).
 
 On the CPU: the kernels' arithmetic (csrc/marching.cuh) built for the host
-with g++ -ffp-contract=off, with host loops that run the three kernels CTA
-by CTA (classify a row segment of eight tiles a CTA, the scan a range of
-segments a thread, emit a listed tile a CTA, writing bytes and halfwords
-into the image), held bit
-for bit, image and counts, to the plain `block.pack_codes(
+with g++ -ffp-contract=off, with host loops that run the three kernels
+warp by warp (classify a column of 8 by 2 tiles walking a run along z, its
+lanes' sign and finite words and occupied words as the kernel makes them;
+the scan a range of segments a thread; emit a listed tile a warp, its
+occupied cells ranked and its vertices spread a lane each through the
+owner map, writing bytes and halfwords into the image), held bit for bit,
+image and counts, to the plain `block.pack_codes(
 marching.generate_codes(...))` and to the JAX package's
 `generate(emit="codes")` + `_pack_codes` live prefix, on fields made from a
 numpy seed: a sphere, region edges that are not multiples of 8, a block
-of 10 tiles an axis (two row segments of the classify pass), all NaN
-(an empty image), all positive, one bipolar cell, exact 0.0 and -0.0
-corners, subnormal differences, and the tiled rule's candidate tiles
-(marching.TILED_ABOVE lowered rather than a > 256^3 field built); t16
-against torch's formula on edge values; the header's tables against
-ops/tables.py; the wrapper on CPU tensors (the plain image, no launch) and
-on a device it cannot take (raises). On the card (marker `cuda`): the
-kernels' image bit for bit the plain one at 256^3 and 512^3, an empty
-field, two images on two streams at once, one launch of each kernel and
-at most one sync a call.
+of 10 tiles an axis (two row segments), all NaN (an empty image), all
+positive, one bipolar cell, exact 0.0 and -0.0 corners, subnormal
+differences, +inf and -inf beside NaN, -0.0 and subnormals, sizes that
+are not multiples of 4 (37, 21), and the tiled rule's candidate tiles
+(marching.TILED_ABOVE lowered rather than a > 256^3 field built); the
+z-walk with runs of 2, 4 and 8 tiles (a shorter last run); the word
+helpers against march_code and march_occupied on every sign pattern with
+each corner made non-finite; t16 against torch's formula on edge values;
+the header's tables against ops/tables.py; the wrapper on CPU tensors
+(the plain image, no launch) and on a device it cannot take (raises); the
+card's memory estimate of the codes stage. On the card (marker `cuda`):
+the kernels' image bit for bit the plain one at 256^3, 512^3 and at 77,
+300 and 600 corners an axis, an empty field, two images on two streams at
+once, one launch of each kernel and at most one sync a call, and the
+memory estimate above what a codes stage allocates.
 
 Only the JAX comparison imports jax, inside its test: the card's machine
 has none (and runs the `cuda` tests alone), and there an installed package
@@ -104,6 +111,26 @@ def field_case(name):
         f = sphere_field(76, (40.0, 33.0, 37.0), 29.0)
         f[rng.random(f.shape) < 0.01] = np.nan
         return f, (75, 70, 61)
+    if name == "infinities":
+        # +inf and -inf corners beside NaN, -0.0, 0.0 and subnormals: +inf
+        # is >= 0 (its sign bit set) but no cell with it is occupied
+        vals = np.float32([np.inf, -np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45,
+                           3e-39, -7e-41, 0.5, -0.5, 2.0, -2.0, 1e-3, -1e-3])
+        p = np.array([0.02, 0.02, 0.02, 0.06, 0.06, 0.04, 0.04, 0.04, 0.04,
+                      0.14, 0.14, 0.14, 0.14, 0.05, 0.05])
+        return rng.choice(vals, size=(24, 24, 24), p=p / p.sum()), \
+            (23, 21, 22)
+    if name == "odd_37":
+        # b = 37 (not a multiple of 4): 5 tiles an axis, one row segment
+        # of 5 tiles, three bands of 2, 2 and 1 tiles; forced runs of 2, 4
+        # and 8 tiles leave a shorter last run
+        f = sphere_field(37, (18.0, 16.5, 19.2), 12.5)
+        f[rng.random(f.shape) < 0.02] = np.nan
+        return f, (36, 31, 35)
+    if name == "odd_21":
+        # b = 21: 3 tiles an axis, one band of 2 and one of 1
+        f = sphere_field(21, (10.2, 9.6, 11.1), 6.5)
+        return f, (20, 20, 17)
     if name == "noise":
         # a dense random field: most cells cut, many tiles full
         f = rng.normal(size=(40, 40, 40)).astype(np.float32)
@@ -113,7 +140,8 @@ def field_case(name):
 
 
 CASES = ("sphere", "region_edges", "all_nan", "all_positive", "one_cell",
-         "zeros", "subnormal", "noise", "wide")
+         "zeros", "subnormal", "noise", "wide", "infinities", "odd_37",
+         "odd_21")
 
 
 def _plain(field, region, tiled=None):
@@ -124,11 +152,17 @@ def _plain(field, region, tiled=None):
 
 # --- the kernels' arithmetic, built for the host ------------------------------
 
-# The kernels' bodies (csrc/marching.cu) as host loops over marching.cuh:
-# classify a row segment of MARCH_ROW_TILES tiles a CTA (its corners as one
-# block of MARCH_ROW_PITCH), the scan a contiguous range of segments a
-# thread, each thread's bases the sums of the threads before it, emit a
-# tile a CTA (a thread a cell, raster order).
+# The kernels' bodies (csrc/marching.cu) as host loops over marching.cuh,
+# their warps and lanes written out: classify a column (a row segment of
+# MARCH_ROW_TILES tiles along x, MARCH_BAND_TILES along y, a run along z) a
+# warp, walked a corner plane at a time: each lane's sign and finite words
+# of its row half, its next row from the next lane (the band's last row by
+# ballot), the plane below kept, the occupied word of its 32 cells, the
+# layer's sums by tile over eight lanes; the scan a contiguous range of
+# segments a thread, each thread's bases the sums of the threads before
+# it; emit a listed tile a warp: its corner rows' bits, the 16 cell words'
+# occupied cells ranked into a list, then 32 of them at a time, their
+# vertices spread over the lanes through the owner map.
 _HARNESS = """
 #include <math.h>
 #include <string.h>
@@ -138,14 +172,18 @@ _HARNESS = """
 extern "C" int host_num_edges() { return MARCH_NUM_EDGES; }
 extern "C" int host_max_vertices() { return MARCH_MAX_CELL_VERTICES; }
 
-extern "C" void host_tables(int* edges, int* counts, int* verts) {
+extern "C" void host_tables(int* edges, int* counts, int* verts,
+                            int* offsets) {
   for (int e = 0; e < MARCH_NUM_EDGES; ++e)
     for (int k = 0; k < 2; ++k) edges[2 * e + k] = march_edges_h[e][k];
   for (int c = 0; c < 256; ++c) {
     counts[2 * c] = (int)march_vertex_count(c);
     counts[2 * c + 1] = (int)march_index_count(c);
-    for (int j = 0; j < MARCH_MAX_CELL_VERTICES; ++j)
+    for (int j = 0; j < MARCH_MAX_CELL_VERTICES; ++j) {
       verts[c * MARCH_MAX_CELL_VERTICES + j] = march_verts_h[c][j];
+      offsets[c * MARCH_MAX_CELL_VERTICES + j] =
+          (int)march_vertex_end_offsets(&march_end_offsets_h[0][0], c, j);
+    }
   }
 }
 
@@ -154,73 +192,235 @@ extern "C" void host_t16(const float* iso0, const float* iso1, long long n,
   for (long long i = 0; i < n; ++i) t16[i] = march_t16(iso0[i], iso1[i]);
 }
 
-// The (9, 9, pitch) corners from (x0, y0, z0), NaN past the field's end.
-static void stage(const float* field, int b, int x0, int y0, int z0,
-                  int pitch, float* block) {
-  for (int k = 0; k < MARCH_SPAN * MARCH_SPAN * pitch; ++k) {
-    const int x = x0 + k % pitch, y = y0 + (k / pitch) % MARCH_SPAN,
-              z = z0 + k / (pitch * MARCH_SPAN);
-    block[k] = x < b && y < b && z < b ? field[((long long)z * b + y) * b + x]
-                                       : NAN;
-  }
+// The word helpers against march_code and march_occupied: every sign
+// pattern of a cell's eight corners (>= 0: 0.0, -0.0 or 2.5; below: a
+// negative value), as it is and with each corner in turn NaN, +inf or
+// -inf, in and out of the region; the cell at bits 0, 13, 30 and 31 of
+// classify's row words (its dx = 1 corners by march_next_corners, across
+// the word's end at 31) and at four places of emit's row bytes
+// (march_row_bytes; the code also by march_rows_code), the other bits
+// noise. Returns the mismatches;
+// *checks the cases held.
+extern "C" int host_check_masks(long long* checks) {
+  const float bad[3] = {NAN, INFINITY, -INFINITY};
+  const int xs[4] = {0, 13, 30, 31};
+  const int bytes[4][2] = {{0, 0}, {1, 7}, {3, 3}, {2, 6}};  // (row, x)
+  const unsigned noise = 0xA5C3F00Fu;
+  int wrong = 0;
+  *checks = 0;
+  for (int p = 0; p < 256; ++p)
+    for (int which = -1; which < 8; ++which)
+      for (int kind = 0; kind < (which < 0 ? 1 : 3); ++kind) {
+        float c[8];
+        for (int v = 0; v < 8; ++v)
+          c[v] = (p >> v) & 1 ? (v % 3 == 0 ? 0.0f : v % 3 == 1 ? -0.0f : 2.5f)
+                              : -1.25f - (float)v;
+        if (which >= 0) c[which] = bad[kind];
+        for (int in = 0; in < 2; ++in) {
+          const unsigned code = march_code(c);
+          const bool occupied = march_occupied(c, code, in == 1);
+          for (int place = 0; place < 8; ++place) {
+            unsigned sign[8], fin[8];
+            int x;
+            if (place < 4) {
+              // classify: each corner row (dy, dz) as two words, the cell's
+              // corners at bits x and x + 1 of the 64
+              x = xs[place];
+              for (int row = 0; row < 4; ++row) {
+                unsigned long long s = ((unsigned long long)noise << 32) | ~noise;
+                unsigned long long f = ~s;
+                s &= ~(3ULL << x);
+                f &= ~(3ULL << x);
+                for (int dx = 0; dx < 2; ++dx) {
+                  const float v = c[dx + 2 * row];
+                  s |= (unsigned long long)march_sign_bit(v) << (x + dx);
+                  f |= (unsigned long long)march_finite_bit(v) << (x + dx);
+                }
+                sign[2 * row] = (unsigned)s;
+                fin[2 * row] = (unsigned)f;
+                sign[2 * row + 1] = march_next_corners((unsigned)s,
+                                                       (unsigned)(s >> 32));
+                fin[2 * row + 1] = march_next_corners((unsigned)f,
+                                                      (unsigned)(f >> 32));
+              }
+            } else {
+              // emit: each corner row (dy, dz) as tile rows, sign bits 0-8,
+              // finite bits 16-24, the cell in row i at x; its code also
+              // from the four rows (march_rows_code)
+              const int i = bytes[place - 4][0], lx = bytes[place - 4][1];
+              unsigned cell_rows[4];
+              x = 8 * i + lx;
+              for (int row = 0; row < 4; ++row) {
+                unsigned rows4[4];
+                for (int k = 0; k < 4; ++k) rows4[k] = noise * (k + 1) + row;
+                unsigned w = rows4[i] & ~((3u << lx) | (3u << (16 + lx)));
+                for (int dx = 0; dx < 2; ++dx) {
+                  const float v = c[dx + 2 * row];
+                  w |= (march_sign_bit(v) << (lx + dx)) |
+                       (march_finite_bit(v) << (16 + lx + dx));
+                }
+                rows4[i] = cell_rows[row] = w;
+                for (int dx = 0; dx < 2; ++dx) {
+                  sign[dx + 2 * row] = march_row_bytes(rows4, dx);
+                  fin[dx + 2 * row] = march_row_bytes(rows4, 16 + dx);
+                }
+              }
+              wrong += march_rows_code(cell_rows[0], cell_rows[1],
+                                       cell_rows[2], cell_rows[3], lx) != code;
+            }
+            const unsigned region = in ? noise | (1u << x) : noise & ~(1u << x);
+            const unsigned occ = march_word_occupied(sign, fin, region);
+            wrong += march_word_code(sign, x) != code ||
+                     (((occ >> x) & 1u) != 0) != occupied;
+            ++*checks;
+          }
+        }
+      }
+  return wrong;
+}
+
+static float corner(const float* field, int b, int x, int y, int z) {
+  return x < b && y < b && z < b ? field[((long long)z * b + y) * b + x] : NAN;
 }
 
 static int tiles_an_axis(int b) { return (b - 1 + MARCH_TILE - 1) / MARCH_TILE; }
 
-static int row_segments(int g) {
-  return (g + MARCH_ROW_TILES - 1) / MARCH_ROW_TILES;
-}
+static int imin(int a, int b) { return a < b ? a : b; }
 
 extern "C" int host_segment_rows(int b) {
   const int g = tiles_an_axis(b);
-  return g * g * row_segments(g);
+  return g * g * march_segments(g);
 }
 
-// march_classify_kernel, a CTA (a row segment of MARCH_ROW_TILES tiles) at
-// a time.
+extern "C" int host_run_tiles(int b) { return march_run_tiles(tiles_an_axis(b)); }
+
+// march_classify_kernel with runs of run_tiles, a warp (a column) at a
+// time, its lanes in loops. Returns the warps.
 extern "C" int host_classify(const float* field, int b, int rx, int ry, int rz,
-                             unsigned* records, unsigned* rows) {
-  const int g = tiles_an_axis(b), segments = row_segments(g);
-  const int nrows = g * g * segments;
-  static float block[MARCH_SPAN * MARCH_SPAN * MARCH_ROW_PITCH];
-  for (int r = 0; r < nrows; ++r) {
-    const int seg = r % segments, row = r / segments;
-    const int ty = row % g, tz = row / g, tx0 = seg * MARCH_ROW_TILES;
-    const int n = g - tx0 < MARCH_ROW_TILES ? g - tx0 : MARCH_ROW_TILES;
-    stage(field, b, tx0 * MARCH_TILE, ty * MARCH_TILE, tz * MARCH_TILE,
-          MARCH_ROW_PITCH, block);
-    unsigned tc[MARCH_ROW_TILES] = {0}, tn[MARCH_ROW_TILES] = {0};
-    for (int lz = 0; lz < MARCH_TILE; ++lz)
-      for (int ly = 0; ly < MARCH_TILE; ++ly)
-        for (int lx = 0; lx < MARCH_ROW_TILES * MARCH_TILE; ++lx) {
-          float c[8];
-          march_cell_corners(
-              block + march_corner_index(lx, ly, lz, MARCH_ROW_PITCH),
-              MARCH_ROW_PITCH, c);
-          const unsigned code = march_code(c);
-          const bool occupied = march_occupied(
-              c, code, tx0 * MARCH_TILE + lx < rx && ty * MARCH_TILE + ly < ry &&
-                           tz * MARCH_TILE + lz < rz);
-          const int j = lx / MARCH_TILE;
-          tc[j] += (occupied ? 1u : 0u) | (isfinite(c[0]) ? 1u << 16 : 0u);
-          if (occupied)
-            tn[j] += march_vertex_count(code) | (march_index_count(code) << 16);
+                             int run_tiles, unsigned* records, unsigned* rows) {
+  const int g = tiles_an_axis(b), segments = march_segments(g),
+            bands = march_bands(g), runs = (g + run_tiles - 1) / run_tiles;
+  const int band_rows = MARCH_BAND_TILES * MARCH_TILE;
+  for (int task = 0; task < segments * bands * runs; ++task) {
+    const int seg = task % segments, band = task / segments % bands,
+              run = task / (segments * bands);
+    const int ty0 = band * MARCH_BAND_TILES, tz0 = run * run_tiles;
+    const int n = imin(MARCH_ROW_TILES, g - seg * MARCH_ROW_TILES);
+    const int layers = imin(run_tiles, g - tz0);
+    const int planes = layers * MARCH_TILE + 1;
+    const int x0 = seg * MARCH_ROW_TILES * MARCH_TILE, y0 = ty0 * MARCH_TILE,
+              z0 = tz0 * MARCH_TILE;
+    unsigned below_s[32][4], below_f[32][4], own[32], cells[32], sums[32][4];
+    memset(below_s, 0, sizeof below_s);
+    memset(below_f, 0, sizeof below_f);
+    memset(own, 0, sizeof own);
+    memset(cells, 0, sizeof cells);
+    memset(sums, 0, sizeof sums);
+    for (int q = 0; q < planes; ++q) {
+      // each lane's row half (y, h): its word and next corner; the band's
+      // last row by ballot
+      unsigned s[32], f[32], next[32], last_s[2] = {0, 0}, last_f[2] = {0, 0};
+      unsigned last_ts = 0, last_tf = 0;
+      for (int lane = 0; lane < 32; ++lane) {
+        const int y = lane % band_rows, h = lane / band_rows;
+        s[lane] = f[lane] = 0;
+        for (int x = 0; x < 32; ++x) {
+          const float v = corner(field, b, x0 + 32 * h + x, y0 + y, z0 + q);
+          s[lane] |= march_sign_bit(v) << x;
+          f[lane] |= march_finite_bit(v) << x;
         }
-    unsigned sum[4] = {0, 0, 0, 0};
-    for (int j = 0; j < n; ++j) {
-      const unsigned x = march_tile_cells(tc[j]) |
-                         (march_tile_candidate(tc[j]) ? 1u << 16 : 0u);
-      records[2 * (row * g + tx0 + j)] = x;
-      records[2 * (row * g + tx0 + j) + 1] = tn[j];
-      sum[0] += (march_tile_cells(x) > 0 ? 1u : 0u) |
-                (march_tile_candidate(x) ? 1u << 16 : 0u);
-      sum[1] += march_tile_cells(x);
-      sum[2] += march_tile_vertices(tn[j]);
-      sum[3] += march_tile_indices(tn[j]);
+        const float v = corner(field, b, x0 + 32 * h + 32, y0 + y, z0 + q);
+        next[lane] = march_sign_bit(v) | (march_finite_bit(v) << 1);
+        for (int hh = 0; hh < 2; ++hh) {
+          const float l = corner(field, b, x0 + 32 * hh + lane, y0 + band_rows,
+                                 z0 + q);
+          last_s[hh] |= march_sign_bit(l) << lane;
+          last_f[hh] |= march_finite_bit(l) << lane;
+        }
+        if (lane < 2) {
+          const float l = corner(field, b, x0 + 32 * lane + 32, y0 + band_rows,
+                                 z0 + q);
+          last_ts |= march_sign_bit(l) << lane;
+          last_tf |= march_finite_bit(l) << lane;
+        }
+      }
+      for (int lane = 0; lane < 32; ++lane) {
+        const int y = lane % band_rows, h = lane / band_rows;
+        // row y + 1: the next lane's (the band's last row for y = 15)
+        unsigned s1 = s[(lane + 1) % 32], f1 = f[(lane + 1) % 32],
+                 next1 = next[(lane + 1) % 32];
+        if (y == band_rows - 1) {
+          s1 = last_s[h];
+          f1 = last_f[h];
+          next1 = ((last_ts >> h) & 1u) | (((last_tf >> h) & 1u) << 1);
+        }
+        const unsigned now_s[4] = {s[lane], march_next_corners(s[lane], next[lane]),
+                                   s1, march_next_corners(s1, next1)};
+        const unsigned now_f[4] = {f[lane],
+                                   march_next_corners(f[lane], next[lane] >> 1),
+                                   f1, march_next_corners(f1, next1 >> 1)};
+        if (q > 0) {
+          unsigned sign[8], fin[8];
+          for (int i = 0; i < 4; ++i) {
+            sign[i] = below_s[lane][i];
+            sign[4 + i] = now_s[i];
+            fin[i] = below_f[lane][i];
+            fin[4 + i] = now_f[i];
+          }
+          const int left = rx - (x0 + 32 * h);
+          const unsigned region_x =
+              left >= 32 ? 0xFFFFFFFFu : left <= 0 ? 0u : (1u << left) - 1u;
+          const bool in = y0 + y < ry && z0 + q - 1 < rz;
+          const unsigned occ = march_word_occupied(sign, fin, in ? region_x : 0u);
+          for (int j = 0; j < 4; ++j)
+            cells[lane] += (unsigned)__builtin_popcount(occ & (0xFFu << (8 * j)))
+                           << (8 * j);
+          for (int x = 0; x < 32; ++x)
+            if ((occ >> x) & 1u)
+              sums[lane][x / MARCH_TILE] +=
+                  march_cell_counts(march_word_code(sign, x));
+        }
+        for (int i = 0; i < 4; ++i) {
+          below_s[lane][i] = now_s[i];
+          below_f[lane][i] = now_f[i];
+        }
+      }
+      if (q > 0 && q % MARCH_TILE == 0) {
+        // layer k: each tile's sums over its eight lanes
+        const int k = q / MARCH_TILE - 1;
+        for (int t = 0; t < MARCH_BAND_TILES; ++t) {
+          if (ty0 + t >= g) continue;
+          unsigned seg_sum[4] = {0, 0, 0, 0};
+          const long long row = (long long)(tz0 + k) * g + ty0 + t;
+          for (int tx = 0; tx < n; ++tx) {
+            const int h = tx / 4, j = tx % 4;
+            unsigned c = 0, anyfin = 0, sum = 0;
+            for (int i = 0; i < MARCH_TILE; ++i) {
+              const int lane = 16 * h + 8 * t + i;
+              c += (cells[lane] >> (8 * j)) & 0xFFu;
+              anyfin |= (own[lane] >> (8 * j)) & 0xFFu;
+              sum += sums[lane][j];
+            }
+            records[2 * (row * g + seg * MARCH_ROW_TILES + tx)] =
+                c | (anyfin ? 1u << 16 : 0u);
+            records[2 * (row * g + seg * MARCH_ROW_TILES + tx) + 1] = sum;
+            seg_sum[0] += (c > 0 ? 1u : 0u) | (anyfin ? 1u << 16 : 0u);
+            seg_sum[1] += c;
+            seg_sum[2] += march_tile_vertices(sum);
+            seg_sum[3] += march_tile_indices(sum);
+          }
+          for (int i = 0; i < 4; ++i)
+            rows[4 * (row * segments + seg) + i] = seg_sum[i];
+        }
+        memset(own, 0, sizeof own);
+        memset(cells, 0, sizeof cells);
+        memset(sums, 0, sizeof sums);
+      }
+      if (q < planes - 1)
+        for (int lane = 0; lane < 32; ++lane) own[lane] |= f[lane];
     }
-    for (int k = 0; k < 4; ++k) rows[4 * r + k] = sum[k];
   }
-  return g * g * g;
+  return segments * bands * runs;
 }
 
 // march_scan_kernel: thread i's contiguous segments, its bases the sums of
@@ -228,7 +428,7 @@ extern "C" int host_classify(const float* field, int b, int rx, int ry, int rz,
 extern "C" long long host_scan(const unsigned* rows, int nrows, int b,
                           const unsigned* records, int count_candidates,
                           int* list, long long* totals) {
-  const int g = tiles_an_axis(b), segments = row_segments(g);
+  const int g = tiles_an_axis(b), segments = march_segments(g);
   const int per = (nrows + MARCH_SCAN_THREADS - 1) / MARCH_SCAN_THREADS;
   unsigned at[3] = {0, 0, 0};
   unsigned long long vertices = 0, indices = 0, candidates = 0;
@@ -269,8 +469,7 @@ extern "C" long long host_scan(const unsigned* rows, int nrows, int b,
   return reads;
 }
 
-// march_emit_kernel, a listed tile at a time: the CTA's scan of
-// (occupied, vertices) in thread order, then each cell's bytes.
+// march_emit_kernel, a listed tile (a warp) at a time, its lanes in loops.
 extern "C" void host_emit(const float* field, int b, int rx, int ry, int rz,
                           const int* list, int march_tiles, long long m,
                           long long vertices, int* image) {
@@ -281,43 +480,89 @@ extern "C" void host_emit(const float* field, int b, int rx, int ry, int rz,
     for (long long p = m; p < 4 * ((m + 3) / 4); ++p) code_bytes[p] = 0;
     if (vertices & 1) t16[vertices] = 0;
   }
+  const int nc = b - 1;
   float block[MARCH_TILE_CORNERS];
+  unsigned bits[MARCH_SPAN * MARCH_SPAN];
+  unsigned short cell_l[MARCH_TILE_CELLS];
+  unsigned char owner[32 * MARCH_MAX_CELL_VERTICES];
   for (int r = 0; r < march_tiles; ++r) {
     const int* row = list + MARCH_LIST_WIDTH * r;
     const int t = row[MARCH_LIST_TILE];
     const int tx = t % g, ty = (t / g) % g, tz = t / (g * g);
-    stage(field, b, tx * MARCH_TILE, ty * MARCH_TILE, tz * MARCH_TILE,
-          MARCH_SPAN, block);
-    unsigned excl = 0;
-    for (int l = 0; l < MARCH_TILE_CELLS; ++l) {
-      const int lx = l % MARCH_TILE, ly = (l / MARCH_TILE) % MARCH_TILE,
-                lz = l / (MARCH_TILE * MARCH_TILE);
-      const float* base = block + march_corner_index(lx, ly, lz, MARCH_SPAN);
-      float c[8];
-      march_cell_corners(base, MARCH_SPAN, c);
-      const unsigned code = march_code(c);
-      const int cx = tx * MARCH_TILE + lx, cy = ty * MARCH_TILE + ly,
-                cz = tz * MARCH_TILE + lz;
-      const bool occupied =
-          march_occupied(c, code, cx < rx && cy < ry && cz < rz);
-      const unsigned nv = occupied ? march_vertex_count(code) : 0u;
-      if (occupied) {
-        const long long at = (long long)row[MARCH_LIST_CELL_BASE] +
-                             (excl & 0xFFFFu);
-        const int nc = b - 1;
-        image[at] = (cz * nc + cy) * nc + cx;
-        code_bytes[at] = (unsigned char)code;
-        unsigned short* out =
-            t16 + (unsigned)row[MARCH_LIST_VERTEX_BASE] + (excl >> 16);
-        for (int j = 0; j < (int)nv; ++j) {
-          int c0, c1;
-          march_vertex_edge(code, j, &c0, &c1);
-          out[j] = (unsigned short)march_t16(
-              base[march_corner_offset(c0, MARCH_SPAN)],
-              base[march_corner_offset(c1, MARCH_SPAN)]);
-        }
+    for (int k = 0; k < MARCH_TILE_CORNERS; ++k)
+      block[k] = corner(field, b, tx * MARCH_TILE + k % MARCH_SPAN,
+                        ty * MARCH_TILE + k / MARCH_SPAN % MARCH_SPAN,
+                        tz * MARCH_TILE + k / (MARCH_SPAN * MARCH_SPAN));
+    for (int k = 0; k < MARCH_SPAN * MARCH_SPAN; ++k) {
+      unsigned v = 0;
+      for (int x = 0; x < MARCH_SPAN; ++x) {
+        const float c = block[k * MARCH_SPAN + x];
+        v |= (march_sign_bit(c) << x) | (march_finite_bit(c) << (16 + x));
       }
-      excl += (occupied ? 1u : 0u) | (nv << 16);
+      bits[k] = v;
+    }
+    // lanes 0-15: the cell words, ranked by a scan of their popcounts
+    unsigned at = 0;
+    for (int lane = 0; lane < MARCH_TILE_CELLS / 32; ++lane) {
+      const int lz = lane / 2, ly0 = 4 * (lane % 2);
+      unsigned sign[8], fin[8];
+      for (int dz = 0; dz < 2; ++dz)
+        for (int dy = 0; dy < 2; ++dy) {
+          unsigned rows4[4];
+          for (int i = 0; i < 4; ++i)
+            rows4[i] = bits[(lz + dz) * MARCH_SPAN + ly0 + dy + i];
+          for (int dx = 0; dx < 2; ++dx) {
+            sign[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, dx);
+            fin[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, 16 + dx);
+          }
+        }
+      int nx = rx - tx * MARCH_TILE;
+      nx = nx < 0 ? 0 : nx > MARCH_TILE ? MARCH_TILE : nx;
+      const unsigned byte = (1u << nx) - 1u;
+      unsigned region = 0;
+      for (int i = 0; i < 4; ++i)
+        if (ty * MARCH_TILE + ly0 + i < ry) region |= byte << (8 * i);
+      if (tz * MARCH_TILE + lz >= rz) region = 0;
+      const unsigned occ = march_word_occupied(sign, fin, region);
+      for (int x = 0; x < 32; ++x)
+        if ((occ >> x) & 1u) cell_l[at++] = (unsigned short)(32 * lane + x);
+    }
+    const unsigned tile_cells = at;
+    const long long cell_base = row[MARCH_LIST_CELL_BASE];
+    long long vertex_at = (unsigned)row[MARCH_LIST_VERTEX_BASE];
+    for (unsigned first = 0; first < tile_cells; first += 32) {
+      unsigned l[32], code[32], nv[32], excl[32], total = 0;
+      for (int lane = 0; lane < 32; ++lane) {
+        const unsigned i = first + lane;
+        l[lane] = i < tile_cells ? cell_l[i] : 0;
+        const int row0 = l[lane] / 64 * MARCH_SPAN + l[lane] / 8 % 8,
+                  row1 = row0 + MARCH_SPAN;
+        code[lane] = i < tile_cells
+                         ? march_rows_code(bits[row0], bits[row0 + 1],
+                                           bits[row1], bits[row1 + 1],
+                                           l[lane] % 8)
+                         : 0;
+        nv[lane] = march_vertex_count(code[lane]);
+        excl[lane] = total;
+        total += nv[lane];
+        if (i < tile_cells) {
+          const int lx = l[lane] % 8, ly = l[lane] / 8 % 8, lz = l[lane] / 64;
+          const int cx = tx * MARCH_TILE + lx, cy = ty * MARCH_TILE + ly,
+                    cz = tz * MARCH_TILE + lz;
+          image[cell_base + i] = (cz * nc + cy) * nc + cx;
+          code_bytes[cell_base + i] = (unsigned char)code[lane];
+        }
+        march_spread_vertices(owner, excl[lane], nv[lane], lane);
+      }
+      for (unsigned v = 0; v < total; ++v) {
+        const int o = owner[v];
+        const unsigned e = march_vertex_end_offsets(
+            &march_end_offsets_h[0][0], code[o], (int)(v - excl[o]));
+        const int base = march_corner_index(l[o] % 8, l[o] / 8 % 8, l[o] / 64);
+        t16[vertex_at + v] = (unsigned short)march_t16(
+            block[base + (e & 0xFFu)], block[base + (e >> 8)]);
+      }
+      vertex_at += total;
     }
   }
 }
@@ -339,12 +584,16 @@ def host(tmp_path_factory):
                     str(d / "harness.cpp")], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.host_tables.argtypes = [p, p, p]
+    lib.host_tables.argtypes = [p, p, p, p]
+    lib.host_check_masks.restype = i32
+    lib.host_check_masks.argtypes = [p]
     lib.host_t16.argtypes = [p, p, i64, p]
     lib.host_segment_rows.restype = i32
     lib.host_segment_rows.argtypes = [i32]
+    lib.host_run_tiles.restype = i32
+    lib.host_run_tiles.argtypes = [i32]
     lib.host_classify.restype = i32
-    lib.host_classify.argtypes = [p, i32, i32, i32, i32, p, p]
+    lib.host_classify.argtypes = [p, i32, i32, i32, i32, i32, p, p]
     lib.host_scan.restype = i64
     lib.host_scan.argtypes = [p, i32, i32, p, i32, p, p]
     lib.host_emit.argtypes = [p, i32, i32, i32, i32, p, i32, i64, i64, p]
@@ -355,21 +604,27 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def host_image(lib, field, region):
+def host_image(lib, field, region, run_tiles=None):
     """The three kernels run on the host as the wrapper runs them on the
     card: (image int32, totals by marching_cuda.TOTALS name, with the
     occupied-tile list and the tile records the scan read). Candidate
-    tiles are counted above marching.TILED_ABOVE corners an axis."""
+    tiles are counted above marching.TILED_ABOVE corners an axis.
+    run_tiles: the classify warps' run along z (by default the launch's,
+    march_run_tiles)."""
     field = np.ascontiguousarray(field, np.float32)
     b = field.shape[0]
     g = -(-(b - 1) // marching.TILE)
     nrows = g * g * -(-g // marching_cuda.ROW_TILES)
     assert lib.host_segment_rows(b) == nrows
+    if run_tiles is None:
+        run_tiles = lib.host_run_tiles(b)
     # poisoned: a record the classify pass leaves unwritten shows
     records = np.full((g ** 3, 2), 0xFFFFFFFF, np.uint32)
     rows = np.full((nrows, 4), 0xFFFFFFFF, np.uint32)
-    assert lib.host_classify(_ptr(field), b, *region, _ptr(records),
-                             _ptr(rows)) == g ** 3
+    # a warp a column: a row segment by a band of 2 tiles by a run
+    assert lib.host_classify(_ptr(field), b, *region, run_tiles,
+                             _ptr(records), _ptr(rows)) == (
+        nrows // g ** 2 * -(-g // 2) * -(-g // run_tiles))
     tile_list = np.empty((g ** 3, marching_cuda.LIST_WIDTH), np.int32)
     totals = np.empty(len(marching_cuda.TOTALS), np.int64)
     reads = lib.host_scan(_ptr(rows), nrows, b, _ptr(records),
@@ -393,7 +648,9 @@ def _assert_counts(t, cm):
 def test_header_tables_are_tables_py(host):
     """marching_tables.h is what ops/tables.py generates, and the host
     build reads EDGES, COUNT_TABLE and VERT_TABLE from it as tables.py
-    has them."""
+    has them, and the END_OFFSETS table as the corners EDGES[VERT_TABLE]
+    at their offsets in a (9, 9, 9) corner block, off0 | off1 << 8 (0 past
+    a code's vertices)."""
     with open(marching_cuda.TABLES_HEADER) as f:
         assert f.read() == marching_cuda.tables_header()
     assert host.host_num_edges() == tables.NUM_EDGES
@@ -401,10 +658,54 @@ def test_header_tables_are_tables_py(host):
     edges = np.empty((tables.NUM_EDGES, 2), np.int32)
     counts = np.empty((256, 2), np.int32)
     verts = np.empty((256, tables.MAX_CELL_VERTICES), np.int32)
-    host.host_tables(_ptr(edges), _ptr(counts), _ptr(verts))
+    offsets = np.empty((256, tables.MAX_CELL_VERTICES), np.int32)
+    host.host_tables(_ptr(edges), _ptr(counts), _ptr(verts), _ptr(offsets))
     np.testing.assert_array_equal(edges, tables.EDGES)
     np.testing.assert_array_equal(counts, tables.COUNT_TABLE)
     np.testing.assert_array_equal(verts, tables.VERT_TABLE)
+    block = np.arange(9 ** 3).reshape(9, 9, 9)  # [z, y, x]
+    for code in range(256):
+        for j in range(tables.MAX_CELL_VERTICES):
+            e = tables.VERT_TABLE[code, j]
+            want = 0
+            if e >= 0:
+                (x0, y0, z0), (x1, y1, z1) = (
+                    marching.CORNER_OFFS[c] for c in tables.EDGES[e])
+                want = block[z0, y0, x0] | block[z1, y1, x1] << 8
+            assert offsets[code, j] == want
+    np.testing.assert_array_equal(offsets,
+                                  marching_cuda.vertex_end_offsets())
+
+
+def test_mask_helpers_are_march_code_and_occupied(host):
+    """The kernels' cell rule from corner bits (march_sign_bit,
+    march_finite_bit, march_next_corners, march_row_bytes,
+    march_word_occupied, march_word_code, march_rows_code) against the
+    plain rule on the
+    corner values (march_code, march_occupied), exhaustively: all 256 sign
+    patterns with -0.0 and 0.0 among the corners >= 0, each corner in turn
+    made NaN, +inf or -inf (+inf sets its sign bit and leaves the cell
+    unoccupied), in and out of the region, at four places of classify's row
+    words (one across the word's end) and four of emit's row bytes."""
+    checks = ctypes.c_longlong(0)
+    assert host.host_check_masks(ctypes.addressof(checks)) == 0
+    assert checks.value == 256 * (1 + 8 * 3) * 2 * 8
+
+
+@pytest.mark.parametrize("case", ["odd_37", "odd_21", "wide", "region_edges"])
+@pytest.mark.parametrize("run_tiles", [2, 4, 8])
+def test_host_build_with_longer_runs_is_the_plain_image(host, case,
+                                                       run_tiles):
+    """Classify's z-walk with runs longer than the small fields' launch
+    takes (march_run_tiles gives 1 tile below ~300^3 corners), so that a
+    warp walks several tile layers and the last run is shorter: the image
+    and counts stay the plain ones."""
+    field, region = field_case(case)
+    want, cm = _plain(field, region)
+    assert host.host_run_tiles(field.shape[0]) == 1
+    got, t = host_image(host, field, region, run_tiles)
+    _assert_counts(t, cm)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -459,12 +760,14 @@ def test_host_build_equals_the_jax_image(host, case):
     """The JAX package's image on the CPU, where XLA flushes subnormal
     floats to zero; torch, the plain version and the kernels keep them, so
     for the subnormal field the JAX image is the kernels' image of the
-    flushed field (and differs from the unflushed one)."""
+    flushed field (and differs from the unflushed one); so is the
+    infinities field's."""
     field, region = field_case(case)
     want, cm = _jax_image(field, region)
     if case == "subnormal":
         unflushed, _ = host_image(host, field, region)
         assert not np.array_equal(unflushed, want)
+    if case in ("subnormal", "infinities"):
         field = flush_subnormals(field)
     got, t = host_image(host, field, region)
     assert (t["cells"], t["vertices"], t["indices"], t["candidates"]) == (
@@ -472,7 +775,8 @@ def test_host_build_equals_the_jax_image(host, case):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("case", ["sphere", "region_edges", "noise", "wide"])
+@pytest.mark.parametrize("case", ["sphere", "region_edges", "noise", "wide",
+                                  "odd_37"])
 def test_tiled_rule_counts_candidate_tiles(host, monkeypatch, case):
     """Above marching.TILED_ABOVE corners an axis the counts carry the
     candidate tiles of tiled classification (the JAX package's num_tiles
@@ -608,6 +912,57 @@ def test_block_step_counts_on_cpu_carry_n_occ():
     assert torch.equal(res.packed, block.pack_codes(cm))
 
 
+@pytest.mark.parametrize("levels", [6, 7])
+def test_card_codes_estimate_counts_the_kernels_buffers(levels):
+    """pipeline/resources.py on the card's codes readback counts the
+    marching kernels' buffers (tile and segment records, the list, the
+    totals, the image) and not the plain path's classification and
+    emission temporaries; the CPU and the card's packed and raw readbacks,
+    which march plainly, keep the plain figures."""
+    from mlsgpu_tpu_torch.pipeline import resources
+    from mlsgpu_tpu_torch.tools import cloud
+    cfg = cloud.bench_config(0.03, levels)
+    b = 1 << cfg.device_shift
+    g = -(-(b - 1) // marching.TILE)
+    occ = int((b - 1) ** 3 * resources.SURFACE_CELL_SHARE)
+    card = resources.estimate_block_usage(cfg, "codes", "cuda")
+    assert card["marching_kernels"] == (
+        8 * g ** 3 + 16 * g * g * -(-g // 8) + 16 * g ** 3
+        + 8 * len(marching_cuda.TOTALS)
+        + 4 * block.CodesFormat(b - 1).total_words(occ, 4 * occ))
+    plain = ("marching_tiled" if b > marching.TILED_ABOVE
+             else "marching_dense")
+    assert plain not in card and "emission" not in card
+    for device, readback in (("cpu", "codes"), ("cuda", "packed"),
+                             ("cuda", "raw")):
+        usage = resources.estimate_block_usage(cfg, readback, device)
+        assert "marching_kernels" not in usage
+        assert usage[plain] > 0 and usage["emission"] > 0
+    cpu = resources.estimate_block_usage(cfg, "codes", "cpu")
+    assert card["marching_kernels"] < cpu[plain] + cpu["emission"]
+    assert card["total"] == sum(v for k, v in card.items() if k != "total")
+
+
+def test_bench_marching_takes_each_kernels_median():
+    """tools/bench_marching's kernels-alone time: each kernel's median over
+    its kernel events (host events of the same name do not count), None for
+    a kernel whose trace lost events (fewer than one a call); its timing
+    helpers come from tools/bench_binning.py by file."""
+    from mlsgpu_tpu_torch.tools import bench_marching
+    events = [
+        {"ph": "X", "cat": "kernel", "dur": d,
+         "name": "(anonymous namespace)::march_classify_kernel(int)"}
+        for d in (40.0, 44.0, 90.0)] + [
+        {"ph": "X", "cat": "kernel", "dur": 9.0, "name": "march_scan_kernel"},
+        {"ph": "X", "cat": "cpu_op", "dur": 500.0,
+         "name": "march_emit_kernel"}]
+    got = bench_marching.kernel_medians(events, bench_marching.KERNELS, 3)
+    assert got == {"march_classify_kernel": pytest.approx(0.044),
+                   "march_scan_kernel": None, "march_emit_kernel": None}
+    timing = bench_marching.timing_helpers()
+    assert callable(timing.event_ms) and callable(timing.trace_events)
+
+
 # --- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -644,8 +999,13 @@ def _plain_on_card(field, region):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [256, 512])
+@pytest.mark.parametrize("b", [256, 512, 77, 300, 600])
 def test_kernels_bit_for_bit_on_card(cuda_device, b):
+    """At 256^3 and 512^3 (classify runs of 1 and 2 tiles), and at sizes
+    that are not multiples of 4 or of a tile's 8 cells: 77 (10 tiles an
+    axis, a row segment of 2; rows that start off a 16-byte boundary), 300
+    (38: a band of one tile row) and 600 (75: runs of 2 with a last run of
+    1)."""
     field = card_field(b, cuda_device)
     region = (b - 1, b - 9, b - 3)
     n_occ = torch.tensor(11, dtype=torch.int32, device=cuda_device)
@@ -658,7 +1018,7 @@ def test_kernels_bit_for_bit_on_card(cuda_device, b):
     assert marched.counts == marching_cuda.MarchCounts(
         cm.num_cells, cm.num_vertices, cm.num_indices, cm.num_tiles)
     assert marched.n_occ == 11
-    assert cm.num_cells > 10_000
+    assert cm.num_cells > (10_000 if b >= 256 else 1_000)
     assert (cm.num_tiles > 0) == (b > marching.TILED_ABOVE)
     assert img.shape == want.shape and torch.equal(img, want)
 
@@ -721,3 +1081,26 @@ def test_one_sync_a_call_on_card(cuda_device):
             summary = step_profile.summarize(json.load(f))
     assert summary["launches"] == 3
     assert summary["sync_calls"] <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [6, 7])
+def test_codes_estimate_holds_the_stage_on_card(cuda_device, levels):
+    """The card's codes estimate (pipeline/resources.py) holds what one
+    codes stage allocates on a block's field at 256^3 and 512^3: the peak
+    of torch.cuda.max_memory_allocated above the field."""
+    from mlsgpu_tpu_torch.pipeline import resources
+    from mlsgpu_tpu_torch.tools import cloud
+    cfg = cloud.bench_config(0.03, levels)
+    b = 1 << cfg.device_shift
+    usage = resources.estimate_block_usage(cfg, "codes", "cuda")
+    field = card_field(b, cuda_device)
+    assert field.numel() * field.element_size() <= usage["field"]
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    img, counts = marching_cuda.codes_image(field, (b - 1,) * 3)
+    torch.cuda.synchronize(cuda_device)
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert counts.num_cells > 10_000 and img.numel() > 0
+    assert 0 < peak <= usage["marching_kernels"]
