@@ -13,13 +13,15 @@ raises, exits non-zero and prints no result line:
      registers) and the local memory reserve they cost a process;
   3. at main-path shapes (the densest 256^3-corner bucket of the 2M-splat
      bench cloud), first the binning kernels (csrc/binning.cu: the key
-     pass, the entry gather, the tile segments' bounds and gather) against
-     their plain versions, every output bit for bit, each kernel's call
-     host-paced and on the device, the kernel alone (from the kernel
-     events of a profiler trace: the bounds kernel's only time, as it
-     runs inside the segments' call), its plain version, the PyTorch call
-     that computes the same where there is one, its bound
-     (binning_bound), the stable sort between them, and the stage's
+     pass, the radix sort's histogram and pass kernels, the entry gather,
+     the tile segments' bounds and gather) against their plain versions,
+     every output bit for bit (the sort's keys and permutation also
+     against torch.sort(stable=True)), each kernel's call host-paced and
+     on the device, the kernel alone (from the kernel events of a profiler
+     trace: the bounds and histogram kernels' only time, as they run
+     inside the segments' and the sort's calls), its plain version, the
+     PyTorch call that computes the same where there is one, its bound
+     (binning_bound), the sort whole beside torch.sort, and the stage's
      launches and syncs through the kernels and through the plain versions
      (binning_vs_plain); then the field kernel vs its plain PyTorch
      version on that bucket, sphere
@@ -146,7 +148,7 @@ raises, exits non-zero and prints no result line:
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
-Kernel launches (the field, face, skeleton, four binning and three
+Kernel launches (the field, face, skeleton, six binning and three
 marching kernels') are counted per main-path run (every counter set to 0
 just before it and read just after; the comparisons of phases 3, 4 and 9
 excluded); each run must launch the field, face and binning kernels once
@@ -265,8 +267,14 @@ KERNELS = tuple(launch_counts.KERNELS)
 # The binning kernels: (record name, kernel functions, what it replaces).
 # The segments' row times both of their kernels (one C call launches the
 # bounds kernel and the gather); the bounds kernel also has a row alone.
+# The sort's C call launches its histogram kernel and a pass kernel a
+# digit: the histogram has a row alone, the passes' row times them all.
 BINNING_KERNELS = (
     ("bin_keys", ("bin_keys_kernel",), "mlsgpu_tpu/ops/binning.py:76"),
+    ("bin_sort_histogram", ("bin_sort_histogram_kernel",),
+     "mlsgpu_tpu/ops/binning.py:151"),
+    ("bin_sort_pass", ("bin_sort_pass_kernel",),
+     "mlsgpu_tpu/ops/binning.py:151"),
     ("bin_entries", ("bin_entries_kernel",), "mlsgpu_tpu/ops/binning.py:76"),
     ("tile_bounds", ("tile_bounds_kernel",), "mlsgpu_tpu/ops/binning.py:161"),
     ("tile_segments", ("tile_bounds_kernel", "tile_segments_kernel"),
@@ -733,15 +741,21 @@ def segment_key_sectors(sorted_keys, starts, lens) -> int:
 
 
 def binning_bound(name: str, n: int, tiles: int, levels: int,
-                  key_sectors: int = 0, nodes: int = 0) -> dict:
+                  key_sectors: int = 0, nodes: int = 0,
+                  passes: int = 0) -> dict:
     """The least time the card could take for a binning kernel's work on
     these inputs: the larger of its bytes over the memory rate (each input
     read once, each output written once) and its FP32 operations over the
     FP32 peak. Keys (n splats): x, y, z, r and the valid byte in, 8 int64
     keys out; 56 FP32 operations (px -+ r 6, r^2 c 2, the 6 slab terms'
     clamp, difference and square 24, the 8 corners' two adds and compare
-    24). Entries (8n): the permutation in and each splat row once, the row
-    index and the entry row out; one reciprocal and one product an entry.
+    24). The sort ("bin_sort", and its passes' row "bin_sort_pass", which
+    together make the sort from the histogram): the 8n int64 keys in, the
+    sorted int64 keys and the int64 permutation out, 24 bytes an entry; its
+    histogram kernel: the keys in, `passes` x 256 int32 counts out; no
+    FP32 operation. Entries (8n): the permutation in and each splat row
+    once, the row index and the entry row out; one reciprocal and one
+    product an entry.
     Segments (both of their kernels): the `key_sectors` 32-byte sectors of
     the sorted keys that hold a segment boundary (segment_key_sectors) in,
     starts and lens out; no FP32 operation (the searches are integer
@@ -751,6 +765,10 @@ def binning_bound(name: str, n: int, tiles: int, levels: int,
     counted."""
     if name == "bin_keys":
         nbytes, flops = n * (16 + 1 + 64), 56 * n
+    elif name in ("bin_sort", "bin_sort_pass"):
+        nbytes, flops = 8 * n * 24, 0
+    elif name == "bin_sort_histogram":
+        nbytes, flops = 8 * n * 8 + 4 * 256 * passes, 0
     elif name == "bin_entries":
         nbytes, flops = 8 * n * (8 + 8 + 32) + 32 * n, 2 * 8 * n
     elif name == "tile_bounds":
@@ -776,25 +794,33 @@ def _max_abs(got, ref) -> float:
 def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     """The binning kernels (csrc/binning.cu through ops/binning_cuda.py)
     against their plain versions (ops/binning.py) on one block's splats:
-    keys, entry_vals, entry_data, the segments' bounds table
-    (binning.node_bounds), segment starts and lens bit for bit (NaN
+    keys, the sort's keys and permutation (against torch.sort(stable=True)
+    and binning.radix_sort), entry_vals, entry_data, the segments' bounds
+    table (binning.node_bounds), segment starts and lens bit for bit (NaN
     payloads too). Then, for each kernel, its wrapper call host-paced and
     on the device alone, the kernel alone (profiler; the segments' row
-    both of their kernels; the bounds kernel has no call of its own, so
-    its row has the kernel alone and no call times), its plain version, the one PyTorch call that computes the same (entries:
-    the row index `mls_form[vals]`; segments: torch.searchsorted on
-    prebuilt queries; bounds: torch.searchsorted of every node key; keys:
-    none) and its bound (binning_bound); the stable sort between them;
-    and the whole stage (keys, sort, entries, segments) traced through
-    the kernels and through the plain versions: its launches and host
-    syncs (pass_profile). Its launches are comparisons: not counted by
-    callers, who reset the counters after it. Returns a row per kernel."""
+    both of their kernels, the sort passes' row all its passes of a call;
+    the bounds and the sort's histogram kernels have no call of their own,
+    so their rows have the kernel alone and no call times), its plain
+    version, the one PyTorch call that computes the same (entries: the row
+    index `mls_form[vals]`; segments: torch.searchsorted on prebuilt
+    queries; bounds: torch.searchsorted of every node key; the sort:
+    torch.sort(stable=True); keys: none) and its bound (binning_bound);
+    the sort whole (its call, its kernels, torch.sort, its bound and
+    share, its launches and syncs beside torch.sort's); and the whole
+    stage (keys, sort, entries, segments) traced through the kernels and
+    through the plain versions: its launches and host syncs
+    (pass_profile). Its launches are comparisons: not counted by callers,
+    who reset the counters after it. Returns a row per kernel."""
     tpa = 1 << (max_s - 3)
     levels = max_s - min_s + 1
     nsp = sp.shape[0]
+    passes = len(binning.sort_digits(min_s, max_s))
     keys = binning_cuda.splat_keys(sp, va, origin, min_s, max_s)
     ref_keys = binning.splat_keys(sp, va, origin, min_s, max_s)
-    sorted_keys, perm = torch.sort(keys, stable=True)
+    sorted_keys, perm = binning_cuda.sort_keys(keys, min_s, max_s)
+    lib_keys, lib_perm = torch.sort(keys, stable=True)
+    plain_keys, plain_perm = binning.radix_sort(keys, min_s, max_s)
     data, vals = binning_cuda.entry_rows(sp, perm)
     ref_data, ref_vals = binning.entry_rows(sp, perm)
     starts, lens, bounds = binning_cuda.segments_and_bounds(
@@ -802,13 +828,21 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     ref_s, ref_l = binning.tile_segments(sorted_keys, min_s, max_s, tpa)
     ref_b = binning.node_bounds(sorted_keys, min_s, max_s)
     torch.cuda.synchronize()
+    sort_err = max(_max_abs(sorted_keys, plain_keys),
+                   _max_abs(perm, plain_perm))
     errs = {"bin_keys": _max_abs(keys, ref_keys),
+            "bin_sort_histogram": sort_err, "bin_sort_pass": sort_err,
             "bin_entries": max(_max_abs(vals, ref_vals),
                                _max_abs(data, ref_data)),
             "tile_bounds": _max_abs(bounds, ref_b),
             "tile_segments": max(_max_abs(starts, ref_s),
                                  _max_abs(lens, ref_l))}
     for label, got, ref in (("keys", keys, ref_keys),
+                            ("sorted keys", sorted_keys, lib_keys),
+                            ("permutation", perm, lib_perm),
+                            ("sorted keys (radix_sort)", sorted_keys,
+                             plain_keys),
+                            ("permutation (radix_sort)", perm, plain_perm),
                             ("entry_vals", vals, ref_vals),
                             ("entry_data", data.view(torch.int32),
                              ref_data.view(torch.int32)),
@@ -817,9 +851,10 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
         if got.shape != ref.shape or not torch.equal(got, ref):
             raise AssertionError(f"binning kernels: {label} differ from the "
                                  "plain version's")
+    del lib_keys, lib_perm, plain_keys, plain_perm
     # the PyTorch calls that compute the same: the row index of a prebuilt
-    # mls_form, searchsorted on tile_segments' prebuilt queries, and
-    # searchsorted of every node key
+    # mls_form, searchsorted on tile_segments' prebuilt queries,
+    # searchsorted of every node key, and torch.sort
     mls_form = sp.clone()
     mls_form[:, 3] = 1.0 / (sp[:, 3] * sp[:, 3])
     queries = segment_queries(min_s, max_s, tpa, sp.device)
@@ -827,11 +862,16 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     node_keys = torch.arange(nodes + 1, dtype=torch.int64, device=sp.device)
     segments = (lambda: binning_cuda.tile_segments(sorted_keys, min_s, max_s,
                                                    tpa))
+    sort = (lambda: binning_cuda.sort_keys(keys, min_s, max_s))
+    plain_sort = (lambda: binning.radix_sort(keys, min_s, max_s))
+    library_sort = (lambda: torch.sort(keys, stable=True))
     calls = {
         "bin_keys": (lambda: binning_cuda.splat_keys(sp, va, origin, min_s,
                                                      max_s),
                      lambda: binning.splat_keys(sp, va, origin, min_s, max_s),
                      None),
+        "bin_sort_histogram": (sort, plain_sort, None),
+        "bin_sort_pass": (sort, plain_sort, library_sort),
         "bin_entries": (lambda: binning_cuda.entry_rows(sp, perm),
                         lambda: binning.entry_rows(sp, perm),
                         lambda: mls_form[vals]),
@@ -847,27 +887,44 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     rows = []
     for name, kernels, _ in BINNING_KERNELS:
         call, plain, library = calls[name]
-        # the bounds kernel runs only inside the segments' call
-        alone = name == "tile_bounds"
+        # the bounds and histogram kernels run only inside another call
+        alone = name in ("tile_bounds", "bin_sort_histogram")
         row = {"name": name, "splats": nsp, "entries": 8 * nsp,
                "tiles": tpa ** 3, "levels": levels, "nodes": nodes,
                "max_abs_err": errs[name], "bitwise_the_plain_version": True,
                "host_paced_ms": None if alone else cuda_ms(call, reps),
                "device_ms": None if alone
                else cuda_ms(call, reps, device_only=True),
-               "kernel_ms": kernel_ms(call, kernels, reps),
+               "kernel_ms": kernel_ms(
+                   call, kernels, reps,
+                   passes if name == "bin_sort_pass" else 1),
                "plain_ms": cuda_ms(plain, reps),
                "library_ms": None if library is None
                else cuda_ms(library, reps, device_only=True),
                "key_sectors": sectors,
                "bound": binning_bound(name, nsp, tpa ** 3, levels, sectors,
-                                      nodes)}
+                                      nodes, passes)}
+        if name == "bin_sort_pass":
+            row["launches_a_call"] = passes
         k_ms = row["kernel_ms"] or row["device_ms"]
         row["share_of_bound"] = (None if k_ms is None
                                  else row["bound"]["bound_ms"] / k_ms)
         rows.append(row)
-    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), reps,
-                      device_only=True)
+    by_name = {r["name"]: r for r in rows}
+    parts = [by_name["bin_sort_histogram"]["kernel_ms"],
+             by_name["bin_sort_pass"]["kernel_ms"]]
+    sort_bound = binning_bound("bin_sort", nsp, tpa ** 3, levels)
+    sort_row = {
+        "passes": passes, "launches_a_call": 1 + passes,
+        "call_host_paced_ms": by_name["bin_sort_pass"]["host_paced_ms"],
+        "call_device_ms": by_name["bin_sort_pass"]["device_ms"],
+        "kernels_ms": None if None in parts else sum(parts),
+        "torch_sort_ms": by_name["bin_sort_pass"]["library_ms"],
+        "bound_ms": sort_bound["bound_ms"], "bound_bytes": sort_bound["bytes"],
+        "traced": pass_profile(sort), "torch_sort_traced":
+        pass_profile(library_sort)}
+    k_ms = sort_row["kernels_ms"] or sort_row["call_device_ms"]
+    sort_row["share_of_bound"] = sort_bound["bound_ms"] / k_ms
 
     def stage(path):
         b = path.bin_splats(sp, va, origin, min_s, max_s)
@@ -876,19 +933,20 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     stage_ms = {"kernels": cuda_ms(lambda: stage(binning_cuda), reps),
                 "plain": cuda_ms(lambda: stage(binning), reps)}
     traced = {"kernels": pass_profile(lambda: stage(binning_cuda)),
-              "plain": pass_profile(lambda: stage(binning), 1),
-              "sort": pass_profile(lambda: torch.sort(keys, stable=True))}
+              "plain": pass_profile(lambda: stage(binning), 1)}
     for row in rows:
-        row.update(sort_ms=sort_ms, stage_ms=stage_ms, stage=traced)
+        row.update(sort=sort_row, stage_ms=stage_ms, stage=traced)
     phase(n, f"binning kernels vs plain at {tpa}^3 tiles, {levels} levels, "
-             f"{nsp} splats: keys, entry_vals, entry_data, the bounds of "
-             f"{nodes + 1} node keys, starts and lens bit for bit; the sort {sort_ms:.4f} ms "
-             f"on the device; the stage host-paced {json.dumps(stage_ms)}, "
-             f"traced (launches, syncs) {json.dumps(traced)}")
+             f"{nsp} splats: keys, the sort's keys and permutation (torch."
+             f"sort's and radix_sort's), entry_vals, entry_data, the bounds "
+             f"of {nodes + 1} node keys, starts and lens bit for bit; the "
+             f"sort {json.dumps(sort_row)}; the stage host-paced "
+             f"{json.dumps(stage_ms)}, traced (launches, syncs) "
+             f"{json.dumps(traced)}")
     for row in rows:
         phase(n, f"{row['name']}: " + json.dumps(
             {k: v for k, v in row.items()
-             if k not in ("sort_ms", "stage_ms", "stage")}))
+             if k not in ("sort", "stage_ms", "stage")}))
     return rows
 
 
@@ -1314,7 +1372,8 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     points = (torch.as_tensor(b.skeleton, device=dev) if len(b.skeleton)
               else None)
     # the block's field first (one launch of each kernel before the
-    # marching kernels), and the marching kernels on it before the other
+    # marching kernels, the sort's pass kernel one a digit), and the
+    # marching kernels on it before the other
     # comparisons' profiler traces (after many, a trace can lose kernel
     # events)
     reset_launches()
@@ -1325,6 +1384,8 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     if field.shape[0] != 1 << (TILED_LEVELS + SUB - 1) or \
             launches != dict(dict.fromkeys(KERNELS, 1),
                              seam_skeleton=int(points is not None),
+                             bin_sort_pass=len(binning.sort_digits(
+                                 SUB, TILED_LEVELS + SUB - 1)),
                              **dict.fromkeys(MARCHING, 0)):
         raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
                              "launches")
@@ -1808,6 +1869,9 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
                                  "reference run's")
         need = dict.fromkeys(KERNELS, res["blocks"])
         need["seam_skeleton"] = res["skeleton_blocks"]
+        # the sort's pass kernel once a digit
+        need["bin_sort_pass"] = res["blocks"] * len(binning.sort_digits(
+            SUB, LEVELS + SUB - 1))
         # a block without an occupied cell has no emit launch
         need["march_emit"] = res["launches"]["march_emit"]
         if res["launches"] != need or \
@@ -1940,7 +2004,8 @@ def phase15_sharded(pts, src, info, densest, dev) -> dict:
             mesh, stacked, valid, regions, origins, 0.0, readback="codes",
             **kw)
         step = read_launches()
-        if step != dict(dict.fromkeys(KERNELS, 2), seam_skeleton=0):
+        if step != dict(dict.fromkeys(KERNELS, 2), seam_skeleton=0,
+                        bin_sort_pass=2 * len(binning.sort_digits(3, 5))):
             raise AssertionError(f"sharded step: {step} launches")
         launches = {k: launches[k] + step[k] for k in KERNELS}
         for i, (res, ref) in enumerate(zip(got, alone)):
@@ -2215,6 +2280,14 @@ def print_kernel_record(rows, seams, bins, marches, launches) -> None:
             "bound_by": first["bound"]["bound_by"],
             # keys: no single PyTorch call computes them
             "library_ms": first["library_ms"]})
+        if name.startswith("bin_sort"):
+            # the sort whole, and the stage's traced launches and syncs
+            record[-1]["sort"] = {k: first["sort"][k] for k in (
+                "launches_a_call", "call_device_ms", "kernels_ms",
+                "torch_sort_ms", "bound_ms", "share_of_bound")}
+            record[-1]["stage_launches_syncs"] = {
+                path: [t["launches"], t["sync_calls"]]
+                for path, t in first["stage"].items()}
     for name, _, replaces in MARCHING_KERNELS:
         mine = [r for r in marches if r["name"] == name]
         if not mine:

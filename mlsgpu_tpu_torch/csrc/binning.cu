@@ -1,28 +1,30 @@
-// The binning stage of a block step as three kernels around one library
-// sort: the key pass (bin_keys_kernel), the entry gather
-// (bin_entries_kernel) and the tile segments (tile_segments_kernel).
+// The binning stage of a block step as hand kernels: the key pass
+// (bin_keys_kernel), the stable radix sort of the keys
+// (bin_sort_histogram_kernel, then bin_sort_pass_kernel a digit), the
+// entry gather (bin_entries_kernel) and the tile segments
+// (tile_bounds_kernel, tile_segments_kernel).
 //
 // They stand for stages the JAX package compiles with XLA:
 // mlsgpu_tpu/ops/binning.py::bin_splats (:76; the key pass :95-149, the
-// gather :153-157) and ::tile_segments (:161), jitted at
+// sort `jax.lax.sort((all_keys, all_vals), num_keys=1)` :151, stable by
+// default, the gather :153-157) and ::tile_segments (:161), jitted at
 // mlsgpu_tpu/ops/block.py:404-407. Their plain PyTorch versions are
-// mlsgpu_tpu_torch/ops/binning.py::splat_keys, ::entry_rows and
-// ::tile_segments, which the kernels equal bit for bit (binning.cuh holds
-// the arithmetic they share with a host build). The sort between them
-// stays torch.sort(stable=True), as the JAX package's lax.sort stays
-// outside any kernel. ops/mls_cuda.py builds this file with the other
-// kernels into one library; ops/binning_cuda.py calls the C entry points
-// below through ctypes, on PyTorch's current stream, without
-// synchronising.
+// mlsgpu_tpu_torch/ops/binning.py::splat_keys, ::radix_sort (whose
+// result is torch.sort(stable=True)'s), ::entry_rows and ::tile_segments,
+// which the kernels equal bit for bit (binning.cuh holds the arithmetic
+// they share with a host build, scan.cuh the sort's look-back scan).
+// ops/mls_cuda.py builds this file with the other kernels into one
+// library; ops/binning_cuda.py calls the C entry points below through
+// ctypes, on PyTorch's current stream, without synchronising.
 //
 // What bounds them on the H100, and what the design does about it: all
 // of them move a few bytes per operation, so device memory, the latency of
 // dependent loads and, at a block's sizes (N ~ 10^5-10^6 splats), the
 // launch itself bound them. The plain versions run ~600 elementwise
 // launches for the stage, each a round trip through device memory and the
-// host's dispatch; the kernels are one launch each (two for the segments,
-// from one C call), a thread an item, with the intermediates in
-// registers:
+// host's dispatch; the kernels are one launch each (two for the segments
+// and one and a pass for the sort, each from one C call), with the
+// intermediates in registers and shared memory:
 //   * bin_keys_kernel: a thread a splat reads its position and radius (one
 //     16-byte load of the row's first half) and its valid byte, and writes
 //     its 8 int64 keys at c * N + i (coalesced across the warp for each
@@ -31,6 +33,23 @@
 //     of the 8 corners): it spreads each of the 6 axis addresses once, in
 //     32 bits, ORs them into the corners' codes, and takes the level's
 //     offset from a table in BinShape.
+//   * the sort: every valid key is below K = the node keys of the
+//     block's levels (37,449 at 6 levels, 299,593 at 7), and INVALID_KEY
+//     sorts as K, so a key has bit_length(K) bits: an LSD radix sort of
+//     8-bit digits takes 2 passes at 6 levels and 3 at 7, where
+//     torch.sort of the int64 keys took 11 launches. A histogram kernel
+//     reads the keys once and counts every pass's digits (shared-memory
+//     counts, a warp's equal digits added once, then one global add a
+//     digit a CTA); it also clears the passes' scan state. Then a kernel a
+//     pass, a CTA a ticketed tile of 4,096 keys: it ranks its keys by
+//     digit stably in shared memory (match.any finds a warp's lanes of
+//     equal digit), publishes its digit counts and looks back for the
+//     lower tiles' (scan.cuh), stages the tile in digit order and writes
+//     it out coalesced. Keys travel as 32-bit mapped keys and indices as int32
+//     between the passes (8N < 2^31); the first pass reads the int64
+//     keys, the last writes the int64 sorted keys and permutation. The
+//     counts are integers, so the result is torch.sort(stable=True)'s bit
+//     for bit whatever the CTAs' timing.
 //   * bin_entries_kernel: a thread an entry e of the 8N sorted entries
 //     reads the sort's permutation perm[e], writes entry_vals[e] =
 //     perm[e] % N and the splat row (two 16-byte loads, cached: each row is
@@ -57,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "binning.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -158,6 +178,198 @@ tile_segments_kernel(const int* __restrict__ bounds,
   }
 }
 
+// --- the radix sort ----------------------------------------------------
+
+constexpr int SORT_THREADS = BIN_SORT_THREADS;
+constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int SORT_ITEMS = BIN_SORT_ITEMS;
+constexpr int SORT_TILE = BIN_SORT_TILE;
+constexpr int RADIX = BIN_SORT_RADIX;
+static_assert(SORT_THREADS == RADIX, "a thread a digit");
+// The histogram kernel's keys a thread: half a pass tile a CTA, which
+// took 0.0048-0.0051 / 0.0208-0.0211 ms at 256^3 / 512^3 on the H100,
+// against 0.0073 / 0.0289 with a whole tile and 0.0056 / 0.0193 with a
+// quarter.
+constexpr int HIST_ITEMS = SORT_ITEMS / 2;
+constexpr int HIST_KEYS = SORT_THREADS * HIST_ITEMS;
+
+// The lanes of the warp whose digit equals this lane's (invalid lanes
+// match each other only): one match.any, where a ballot a bit of the
+// digit took the sort 1.4x as long on the H100.
+__device__ __forceinline__ unsigned match_digit(unsigned d, bool valid) {
+  return __match_any_sync(0xFFFFFFFFu, valid ? d : 0xFFFFFFFFu);
+}
+
+// Every pass's digit counts of the n keys into hist (passes x RADIX,
+// zero before), a CTA HIST_KEYS keys: counts in shared memory (a warp's
+// equal digits added once, by their first lane), then one global add a
+// digit. It also clears the passes' tickets and status words (`state`,
+// `state_words`) for them: it runs just before them on the stream.
+__global__ void __launch_bounds__(SORT_THREADS)
+bin_sort_histogram_kernel(const long long* __restrict__ keys, int n,
+                          const __grid_constant__ BinSortPlan plan,
+                          unsigned* __restrict__ hist,
+                          unsigned long long* __restrict__ state,
+                          long long state_words) {
+  __shared__ unsigned counts[BIN_SORT_MAX_PASSES][RADIX];
+  for (long long i = blockIdx.x * (long long)SORT_THREADS + threadIdx.x;
+       i < state_words; i += (long long)gridDim.x * SORT_THREADS)
+    state[i] = 0ULL;
+  for (int p = 0; p < plan.passes; ++p) counts[p][threadIdx.x] = 0u;
+  // the CTA's keys, all loads in flight together
+  const int lane = threadIdx.x & 31;
+  const long long first = (long long)blockIdx.x * HIST_KEYS + threadIdx.x;
+  unsigned m[HIST_ITEMS];
+#pragma unroll
+  for (int i = 0; i < HIST_ITEMS; ++i) {
+    const long long e = first + i * SORT_THREADS;
+    m[i] = e < n ? bin_sort_map(__ldg(&keys[e]), plan.top) : 0u;
+  }
+  __syncthreads();
+  for (int p = 0; p < plan.passes; ++p) {
+#pragma unroll
+    for (int i = 0; i < HIST_ITEMS; ++i) {
+      const bool valid = first + i * SORT_THREADS < n;
+      const unsigned d = bin_sort_digit(m[i], plan.shift[p], plan.bits[p]);
+      const unsigned peers = match_digit(d, valid);
+      if (valid && lane == __ffs(peers) - 1)
+        atomicAdd(&counts[p][d], (unsigned)__popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int p = 0; p < plan.passes; ++p) {
+    const unsigned c = counts[p][threadIdx.x];
+    if (c != 0u) atomicAdd(&hist[p * RADIX + threadIdx.x], c);
+  }
+}
+
+// One pass of the sort: the keys stably by digit `pass`, a CTA a tile of
+// SORT_TILE keys taken by ticket (scan.cuh). Warp w holds the keys
+// [w * 32 * ITEMS, (w + 1) * 32 * ITEMS) of the tile, item i of lane l
+// the key 32 i + l of them, so a warp's items in item order are its keys
+// in order. It ranks them item by item (the lanes of equal digit by
+// match.any, counted per warp in shared memory), so a key's rank in the
+// tile is the tile's keys of lower digit, those of its digit in lower
+// warps, and those before it in its warp. Thread d then publishes the
+// tile's count of digit d and looks back for the count of digit d in the
+// lower tiles; with the digit's base from the histogram, that is where
+// the tile's keys of digit d start in the output. The tile is staged in
+// shared memory in digit order and written out from there, consecutive
+// threads to consecutive places. FIRST: the int64 node keys in, mapped to
+// 32 bits (bin_sort_map), their index e the entry; else the 32-bit keys
+// and int32 indices of the pass before. LAST: the int64 keys (mapped
+// back) and the int64 permutation out; else 32-bit keys and int32
+// indices for the next pass.
+template <bool FIRST, bool LAST>
+__global__ void __launch_bounds__(SORT_THREADS)
+bin_sort_pass_kernel(const void* __restrict__ keys_in,
+                     const int* __restrict__ idx_in, int n,
+                     const __grid_constant__ BinSortPlan plan, int pass,
+                     const unsigned* __restrict__ hist,
+                     unsigned long long* state, void* __restrict__ keys_out,
+                     void* __restrict__ idx_out) {
+  __shared__ unsigned staged_keys[SORT_TILE];
+  __shared__ int staged_idx[SORT_TILE];
+  // each warp's count of each digit, then its exclusive prefix over the
+  // tile's warps
+  __shared__ unsigned short warp_count[SORT_WARPS][RADIX];
+  // where the tile's keys of a digit go: output index - staged index
+  __shared__ int shift_out[RADIX];
+  // where the tile's keys of a digit start in the staged tile
+  __shared__ unsigned short digit_start[RADIX];
+  __shared__ unsigned scan_shared[2 * 33];
+  const int tile = scan_ticket(state);
+  unsigned long long* const status = state + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int shift = plan.shift[pass], bits = plan.bits[pass];
+  const long long first = (long long)tile * SORT_TILE;
+  const int tile_n = (int)min((long long)SORT_TILE, n - first);
+  for (int w = 0; w < SORT_WARPS; ++w) warp_count[w][threadIdx.x] = 0;
+  __syncthreads();
+
+  // the warp's keys, in order
+  unsigned key[SORT_ITEMS];
+  int idx[SORT_ITEMS];
+  const int own = warp * 32 * SORT_ITEMS + lane;
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i) {
+    const int t = own + 32 * i;
+    const bool valid = t < tile_n;
+    if (FIRST) {
+      key[i] = valid ? bin_sort_map(__ldg(static_cast<const long long*>(
+                                        keys_in) + first + t), plan.top)
+                     : 0u;
+      idx[i] = (int)(first + t);
+    } else {
+      key[i] = valid ? __ldg(static_cast<const unsigned*>(keys_in) + first + t)
+                     : 0u;
+      idx[i] = valid ? __ldg(idx_in + first + t) : 0;
+    }
+  }
+  // ranks in the warp, item by item
+  const unsigned below_me = (1u << lane) - 1u;
+  unsigned short rank[SORT_ITEMS];
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i) {
+    const bool valid = own + 32 * i < tile_n;
+    const unsigned d = bin_sort_digit(key[i], shift, bits);
+    const unsigned peers = match_digit(d, valid);
+    const unsigned before = (unsigned)__popc(peers & below_me);
+    const unsigned c = valid ? warp_count[warp][d] : 0u;
+    rank[i] = (unsigned short)(c + before);
+    __syncwarp();
+    if (valid && before == 0u)
+      warp_count[warp][d] = (unsigned short)(c + __popc(peers));
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // thread d: the warps' prefixes of digit d and the tile's count
+  const int d = threadIdx.x;
+  unsigned count = 0;
+  for (int w = 0; w < SORT_WARPS; ++w) {
+    const unsigned c = warp_count[w][d];
+    warp_count[w][d] = (unsigned short)count;
+    count += c;
+  }
+  unsigned long long* word = status + (long long)tile * RADIX + d;
+  scan_publish(word, tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, count);
+  // the tile's digit starts, and the digits' starts in the output
+  const unsigned v[2] = {count, __ldg(&hist[pass * RADIX + d])};
+  unsigned excl[2], total[2];
+  scan_cta<2>(v, excl, total, scan_shared);
+  unsigned long long below = 0;
+  if (tile > 0) {
+    below = scan_lookback(status + d, RADIX, tile);
+    scan_publish(word, SCAN_INCLUSIVE, below + count);
+  }
+  shift_out[d] = (int)(excl[1] + below) - (int)excl[0];
+  digit_start[d] = (unsigned short)excl[0];
+  __syncthreads();
+  // stage the tile in digit order (warp_count now holds each warp's
+  // prefix of each digit)
+#pragma unroll
+  for (int i = 0; i < SORT_ITEMS; ++i) {
+    if (own + 32 * i >= tile_n) continue;
+    const unsigned dd = bin_sort_digit(key[i], shift, bits);
+    const int at = digit_start[dd] + warp_count[warp][dd] + rank[i];
+    staged_keys[at] = key[i];
+    staged_idx[at] = idx[i];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < tile_n; t += SORT_THREADS) {
+    const unsigned k = staged_keys[t];
+    const int at = shift_out[bin_sort_digit(k, shift, bits)] + t;
+    if (LAST) {
+      static_cast<long long*>(keys_out)[at] = bin_sort_unmap(k, plan.top);
+      static_cast<long long*>(idx_out)[at] = staged_idx[t];
+    } else {
+      static_cast<unsigned*>(keys_out)[at] = k;
+      static_cast<int*>(idx_out)[at] = staged_idx[t];
+    }
+  }
+}
+
 bool bad_shifts(int min_shift, int max_shift) {
   return min_shift < BIN_MIN_SHIFT || max_shift < min_shift ||
          max_shift > BIN_MAX_SHIFT;
@@ -184,6 +396,62 @@ extern "C" int bin_keys_launch(const float* splats, const unsigned char* valid,
       reinterpret_cast<const float4*>(splats), valid, n,
       bin_shape(min_shift, max_shift, ox, oy, oz), keys);
   return (int)cudaGetLastError();
+}
+
+// bin_sort_launch: the n int64 node keys of a block of node shifts
+// [min_shift, max_shift] (each a key of those shifts or BIN_INVALID_KEY;
+// n < 2^31) sorted stably: `sorted` (n int64, BIN_INVALID_KEY last) and
+// `perm` (n int64, equal keys in ascending index), torch.sort(keys,
+// stable=True)'s values and indices. On the stream: a memset of the
+// histograms, the histogram kernel, then a pass kernel a digit
+// (bin_sort_plan: 2 at 6 levels, 3 at 7). `work`: 2n ints for the passes
+// between (keys, then indices; none for one pass), `scratch`:
+// bin_sort_scratch_words(n, passes) 64-bit words. The pass before the
+// last writes into `work` and the one before that into the outputs'
+// memory (as 32-bit keys and indices), and so on back, so that no pass
+// reads what it writes. n = 0 launches nothing.
+extern "C" int bin_sort_launch(const long long* keys, long long n,
+                               int min_shift, int max_shift,
+                               long long* sorted, long long* perm, int* work,
+                               unsigned long long* scratch, void* stream) {
+  if (n < 0 || n >= (1LL << 31) || bad_shifts(min_shift, max_shift))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const BinSortPlan plan = bin_sort_plan(min_shift, max_shift);
+  if (plan.passes > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  const unsigned tiles = (unsigned)bin_sort_tiles(n);
+  const long long pass_words = bin_sort_pass_words(n);
+  unsigned* hist = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* state = scratch + plan.passes * (RADIX / 2);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      hist, 0, sizeof(unsigned) * RADIX * plan.passes, s);
+  if (err != cudaSuccess) return (int)err;
+  bin_sort_histogram_kernel<<<(unsigned)((n + HIST_KEYS - 1) / HIST_KEYS),
+                              SORT_THREADS, 0, s>>>(
+      keys, (int)n, plan, hist, state, plan.passes * pass_words);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const void* in_keys = keys;
+  const int* in_idx = nullptr;
+  for (int p = 0; p < plan.passes; ++p) {
+    const bool first = p == 0, last = p == plan.passes - 1;
+    const bool to_work = !last && (plan.passes - 2 - p) % 2 == 0;
+    void* out_keys = to_work ? static_cast<void*>(work) : sorted;
+    void* out_idx = to_work ? static_cast<void*>(work + n) : perm;
+    auto kernel = first ? (last ? bin_sort_pass_kernel<true, true>
+                                : bin_sort_pass_kernel<true, false>)
+                        : (last ? bin_sort_pass_kernel<false, true>
+                                : bin_sort_pass_kernel<false, false>);
+    kernel<<<tiles, SORT_THREADS, 0, s>>>(in_keys, in_idx, (int)n, plan, p,
+                                          hist, state + p * pass_words,
+                                          out_keys, out_idx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    in_keys = out_keys;
+    in_idx = static_cast<const int*>(out_idx);
+  }
+  return (int)cudaSuccess;
 }
 
 // bin_entries_launch: from the stable sort's permutation perm (8N,) int64

@@ -1,7 +1,8 @@
 // The per-item arithmetic of the binning kernels (binning.cu): one
-// splat's eight node keys, one tile's ancestor node at a level, the
-// searches of the sorted keys that find each node's first entry, and an
-// entry row's 1/r^2.
+// splat's eight node keys, the radix sort's digit plan and its map of the
+// keys to 32 bits, one tile's ancestor node at a level, the searches of
+// the sorted keys that find each node's first entry, and an entry row's
+// 1/r^2.
 //
 // Written once for the card and for a host build: nvcc compiles these
 // functions into the kernels, where every float product and sum is an
@@ -123,6 +124,72 @@ BIN_FN int bin_bit_length(long long x) {
   const int bits = 64 - __builtin_clzll((unsigned long long)x);
 #endif
   return bits < 31 ? bits : 31;
+}
+
+// The radix sort (bin_sort_*_kernel): a stable LSD sort of the node keys
+// in digits of at most BIN_SORT_DIGIT_BITS bits, a CTA of
+// BIN_SORT_THREADS threads (a thread a digit) ranking a tile of
+// BIN_SORT_TILE keys, BIN_SORT_ITEMS a thread.
+#define BIN_SORT_DIGIT_BITS 8
+#define BIN_SORT_RADIX (1 << BIN_SORT_DIGIT_BITS)
+#define BIN_SORT_MAX_PASSES 4
+#define BIN_SORT_THREADS 256
+#define BIN_SORT_ITEMS 16
+#define BIN_SORT_TILE (BIN_SORT_THREADS * BIN_SORT_ITEMS)
+
+// A sort's digits: every key of the shifts is below `top` = K (the node
+// keys, bin_nodes), and BIN_INVALID_KEY sorts as `top` itself, so the
+// keys take bit_length(K) bits, cut into passes of BIN_SORT_DIGIT_BITS
+// from the lowest bit (the last pass takes what is left): 2 passes at 6
+// levels (16 bits), 3 at 7 (19), 4 at 11 (31). (Digits of 10 bits, 2
+// passes at 7 levels, took the H100 1.6x as long: their look-back, four
+// digits a thread, cost more than the pass they saved.)
+struct BinSortPlan {
+  unsigned top;
+  int passes;
+  int shift[BIN_SORT_MAX_PASSES];
+  int bits[BIN_SORT_MAX_PASSES];
+};
+
+static inline BinSortPlan bin_sort_plan(int min_shift, int max_shift) {
+  const long long top = bin_key_space(max_shift - min_shift + 1);
+  const int bits = bin_bit_length(top);
+  BinSortPlan plan{(unsigned)top, 0, {}, {}};
+  for (int s = 0; s < bits; s += BIN_SORT_DIGIT_BITS, ++plan.passes) {
+    plan.shift[plan.passes] = s;
+    plan.bits[plan.passes] =
+        bits - s < BIN_SORT_DIGIT_BITS ? bits - s : BIN_SORT_DIGIT_BITS;
+  }
+  return plan;
+}
+
+// A node key as the sort's 32-bit key: itself, BIN_INVALID_KEY as `top`.
+BIN_FN unsigned bin_sort_map(long long key, unsigned top) {
+  return key == BIN_INVALID_KEY ? top : (unsigned)key;
+}
+
+BIN_FN long long bin_sort_unmap(unsigned m, unsigned top) {
+  return m == top ? BIN_INVALID_KEY : (long long)m;
+}
+
+BIN_FN unsigned bin_sort_digit(unsigned m, int shift, int bits) {
+  return (m >> shift) & ((1u << bits) - 1u);
+}
+
+// The tiles of n keys, and the 64-bit words of a sort's scratch: the
+// passes' histograms (BIN_SORT_RADIX 32-bit counts each, two a word),
+// then for each pass its ticket and a status word a (tile, digit)
+// (scan.cuh).
+static inline long long bin_sort_tiles(long long n) {
+  return (n + BIN_SORT_TILE - 1) / BIN_SORT_TILE;
+}
+
+static inline long long bin_sort_pass_words(long long n) {
+  return 1 + bin_sort_tiles(n) * BIN_SORT_RADIX;
+}
+
+static inline long long bin_sort_scratch_words(long long n, int passes) {
+  return (long long)passes * (BIN_SORT_RADIX / 2 + bin_sort_pass_words(n));
 }
 
 // morton.py::_part1by2 in 32 bits: the low 10 bits of x, two zero bits

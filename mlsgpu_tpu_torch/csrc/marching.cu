@@ -38,7 +38,8 @@
 //     and a run along z (march_run_tiles), which it walks a corner plane
 //     at a time, each warp on its own (no CTA barrier): a ring of two
 //     planes of (17 rows, 2 halves of 33 corners) in shared memory, filled
-//     by 4-byte cp.async copies (any b; NaN written past the field's end,
+//     by cp.async copies of 16 bytes where a row starts 16-byte aligned and
+//     of 4 elsewhere (any b; NaN written past the field's end,
 //     classify_tiled's pad), keeps the next plane in flight while one is
 //     classified. Lane (y, h) turns its row half into a sign and a finite
 //     word (16-byte shared loads); its next row comes from the next lane
@@ -50,14 +51,19 @@
 //     record a tile (occupied cells, candidate flag, vertices, indices)
 //     and a 16-byte record a row segment (the same summed, and its tiles
 //     with an occupied cell).
-//   * march_scan_kernel: one CTA of 1024 threads, a contiguous range of
-//     segments a thread: it sums their records, an exclusive CTA scan of
-//     the occupied tiles, cells and vertices gives its bases, and for each
-//     of its segments with an occupied tile it reads the tiles' records
-//     and writes a row (tile, cell base, vertex base) for each tile with
-//     an occupied cell; then the totals (cells, vertices, indices,
-//     candidate tiles, occupied tiles), which the host copies back in
-//     one copy.
+//   * march_scan_kernel: a row segment a thread, 256 segments a CTA, on
+//     the single-launch look-back scan of scan.cuh: each CTA takes its
+//     tile of segments by ticket, sums their records (a CTA scan of the
+//     cells, vertices, indices, candidate and occupied tiles), publishes
+//     the tile's sums and looks back over lower tickets for its bases; each
+//     thread then reads its segment's tile records (if it has an occupied
+//     tile) and writes a row (tile, cell base, vertex base) for each tile
+//     with an occupied cell, and the last tile by ticket writes the totals
+//     (cells, vertices, indices, candidate tiles, occupied tiles), which
+//     the host copies back in one copy. The classify pass clears the
+//     scan's ticket and status words, so the stage stays at three
+//     launches. 16 CTAs at 256^3, 128 at 512^3 (one CTA of 1024 threads
+//     before, on one SM).
 //   * march_emit_kernel: a warp a row of that list (8 tiles a CTA, all
 //     their corners in flight at once): it stages the tile's 9^3 corners
 //     by cp.async, a lane a corner row makes the row's sign and finite
@@ -77,6 +83,7 @@
 #include <cuda_runtime.h>
 
 #include "marching.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -149,9 +156,15 @@ __device__ __forceinline__ void corner_bits4(float4 v, int x, unsigned& s,
 __global__ void __launch_bounds__(CLASSIFY_THREADS)
 march_classify_kernel(const float* __restrict__ field, int b, int g,
                       int run_tiles, int rx, int ry, int rz,
-                      uint2* __restrict__ records, uint4* __restrict__ rows) {
+                      uint2* __restrict__ records, uint4* __restrict__ rows,
+                      unsigned long long* __restrict__ scan_state,
+                      long long scan_words) {
   __shared__ __align__(16) float ring[CLASSIFY_WARPS][STAGES][STAGE];
   __shared__ unsigned counts[256];
+  // the scan's ticket and status words, zero before it starts (scan.cuh)
+  for (long long i = blockIdx.x * (long long)CLASSIFY_THREADS + threadIdx.x;
+       i < scan_words; i += (long long)gridDim.x * CLASSIFY_THREADS)
+    scan_state[i] = 0ULL;
   for (int i = threadIdx.x; i < 256; i += CLASSIFY_THREADS)
     counts[i] = march_cell_counts(i);
   __syncthreads();
@@ -345,109 +358,69 @@ march_classify_kernel(const float* __restrict__ field, int b, int g,
   }
 }
 
-// An exclusive scan of three counts across the CTA's threads: `excl` gets
-// this thread's prefix, `total` the CTA's sums. `shared` holds 3 ints a
-// warp and 3 more.
-__device__ void cta_scan3(const unsigned v[3], unsigned excl[3],
-                          unsigned total[3], unsigned* shared) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  unsigned inc[3] = {v[0], v[1], v[2]};
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const unsigned o = __shfl_up_sync(0xFFFFFFFFu, inc[k], d);
-      if (lane >= d) inc[k] += o;
-    }
-  }
-  if (lane == 31)
-    for (int k = 0; k < 3; ++k) shared[3 * warp + k] = inc[k];
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const unsigned w = lane < warps ? shared[3 * lane + k] : 0u;
-      unsigned s = w;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const unsigned o = __shfl_up_sync(0xFFFFFFFFu, s, d);
-        if (lane >= d) s += o;
-      }
-      if (lane < warps) shared[3 * lane + k] = s - w;  // exclusive
-      if (lane == warps - 1) shared[3 * 32 + k] = s;     // the CTA's total
-    }
-  }
-  __syncthreads();
-  for (int k = 0; k < 3; ++k) {
-    excl[k] = shared[3 * warp + k] + inc[k] - v[k];
-    total[k] = shared[3 * 32 + k];
-  }
-}
-
-// One CTA: thread i takes the contiguous segments [i * per, (i + 1) *
-// per), per = ceil(segments / SCAN_THREADS). Pass one sums its segment
-// records, a CTA scan gives its bases, pass two walks its segments with an
-// occupied tile again and writes the list rows of their occupied tiles
-// from the tiles' records. Cells and tiles total below 2^32 (b <= 1024);
-// the vertex and index totals are summed in 64 bits, and the wrapper
-// refuses a block whose vertices pass the int32 bases.
+// A row segment a thread, SCAN_THREADS segments a tile, the tile by
+// ticket (scan.cuh). The thread's counts (cells, vertices, indices,
+// candidate tiles, tiles with an occupied cell: the totals' order), a CTA
+// scan of them, then a lane a count publishes the tile's aggregate and
+// looks back for its exclusive prefix; each thread then writes the list
+// rows of its segment's occupied tiles from the tiles' records (the eight
+// loads in flight together), and the last tile, once it has its inclusive
+// prefixes, the totals. A tile's sums stay below 2^32 (256 segments of 8
+// tiles); the prefixes and totals are 64-bit, and the wrapper refuses a
+// block whose vertices pass the int32 bases.
 __global__ void __launch_bounds__(SCAN_THREADS)
 march_scan_kernel(const uint4* __restrict__ rows, int nrows, int segments,
                   int g, const uint2* __restrict__ records,
-                  int count_candidates, int4* __restrict__ list, long long* __restrict__ totals) {
-  __shared__ unsigned shared[3 * 32 + 3];
-  __shared__ unsigned long long reduce[SCAN_THREADS / 32][3];
-  const int per = (nrows + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int first = min(nrows, (int)threadIdx.x * per);
-  const int last = min(nrows, first + per);
-  // occupied tiles, cells, vertices of this thread's segments
-  unsigned v[3] = {0u, 0u, 0u};
-  unsigned long long sums[3] = {0, 0, 0};  // vertices, indices, candidates
-#pragma unroll 4
-  for (int r = first; r < last; ++r) {
-    const uint4 seg = __ldg(&rows[r]);
-    v[0] += march_segment_tiles(seg.x);
-    v[1] += seg.y;
-    v[2] += seg.z;
-    sums[0] += seg.z;
-    sums[1] += seg.w;
-    sums[2] += march_segment_candidates(seg.x);
-  }
-  unsigned at[3], total[3];
-  cta_scan3(v, at, total, shared);
-  for (int r = first; r < last; ++r) {
-    if (march_segment_tiles(__ldg(&rows[r]).x) == 0u) continue;
-    const int t0 = (r / segments) * g + (r % segments) * ROW_TILES;
-    const int n = min(ROW_TILES, g - (r % segments) * ROW_TILES);
-    for (int j = 0; j < n; ++j) {
-      const uint2 rec = __ldg(&records[t0 + j]);
-      const unsigned cells = march_tile_cells(rec.x);
-      if (cells == 0u) continue;
-      list[at[0]] = make_int4(t0 + j, (int)at[1], (int)at[2], 0);
-      at[0] += 1u;
-      at[1] += cells;
-      at[2] += march_tile_vertices(rec.y);
+                  int count_candidates, unsigned long long* state,
+                  int4* __restrict__ list, long long* __restrict__ totals) {
+  __shared__ unsigned shared[MARCH_TOTALS * 33];
+  __shared__ unsigned long long base[MARCH_TOTALS];
+  const int tile = scan_ticket(state);
+  unsigned long long* const status = state + 1;
+  const int r = tile * SCAN_THREADS + threadIdx.x;
+  const uint4 seg = r < nrows ? __ldg(&rows[r]) : make_uint4(0u, 0u, 0u, 0u);
+  const unsigned v[MARCH_TOTALS] = {seg.y, seg.z, seg.w,
+                                    march_segment_candidates(seg.x),
+                                    march_segment_tiles(seg.x)};
+  unsigned at[MARCH_TOTALS], total[MARCH_TOTALS];
+  scan_cta<MARCH_TOTALS>(v, at, total, shared);
+  if (threadIdx.x < MARCH_TOTALS) {
+    const int k = threadIdx.x;
+    unsigned long long* word = status + (long long)tile * MARCH_TOTALS + k;
+    unsigned long long excl = 0;
+    if (tile == 0) {
+      scan_publish(word, SCAN_INCLUSIVE, total[k]);
+    } else {
+      scan_publish(word, SCAN_AGGREGATE, total[k]);
+      excl = scan_lookback(status + k, MARCH_TOTALS, tile);
+      scan_publish(word, SCAN_INCLUSIVE, excl + total[k]);
     }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      sums[k] += __shfl_down_sync(0xFFFFFFFFu, sums[k], d);
-    if (lane == 0) reduce[warp][k] = sums[k];
+    base[k] = excl;
+    if (tile == (int)gridDim.x - 1)
+      totals[k] = k == MARCH_TOTAL_CANDIDATES && !count_candidates
+                      ? 0
+                      : (long long)(excl + total[k]);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long sum[3] = {0, 0, 0};
-    for (int w = 0; w < SCAN_THREADS / 32; ++w)
-      for (int k = 0; k < 3; ++k) sum[k] += reduce[w][k];
-    totals[MARCH_TOTAL_CELLS] = total[1];
-    totals[MARCH_TOTAL_VERTICES] = (long long)sum[0];
-    totals[MARCH_TOTAL_INDICES] = (long long)sum[1];
-    totals[MARCH_TOTAL_CANDIDATES] = count_candidates ? (long long)sum[2] : 0;
-    totals[MARCH_TOTAL_TILES] = total[0];
+  if (v[MARCH_TOTAL_TILES] == 0u) return;
+  long long row_at = (long long)(base[MARCH_TOTAL_TILES] + at[MARCH_TOTAL_TILES]);
+  unsigned long long cells = base[MARCH_TOTAL_CELLS] + at[MARCH_TOTAL_CELLS];
+  unsigned long long vertices =
+      base[MARCH_TOTAL_VERTICES] + at[MARCH_TOTAL_VERTICES];
+  const int t0 = (r / segments) * g + (r % segments) * ROW_TILES;
+  const int n = min(ROW_TILES, g - (r % segments) * ROW_TILES);
+  uint2 rec[ROW_TILES];
+#pragma unroll
+  for (int j = 0; j < ROW_TILES; ++j)
+    rec[j] = j < n ? __ldg(&records[t0 + j]) : make_uint2(0u, 0u);
+#pragma unroll
+  for (int j = 0; j < ROW_TILES; ++j) {
+    const unsigned c = march_tile_cells(rec[j].x);
+    if (c == 0u) continue;
+    list[row_at] = make_int4(t0 + j, (int)cells, (int)vertices, 0);
+    row_at += 1;
+    cells += c;
+    vertices += march_tile_vertices(rec[j].y);
   }
 }
 
@@ -643,10 +616,13 @@ bool bad_block(int b, int rx, int ry, int rz) {
 // ints: tile, cell base, vertex base, 0, for each tile with an occupied
 // cell, in tile order) and `totals` (MARCH_TOTALS int64: cells, vertices,
 // indices, candidate tiles when count_candidates else 0, tiles with an
-// occupied cell). Returns the cudaError_t of the launches.
+// occupied cell). `scan_state`: scratch of march_scan_state_words(g^2 *
+// ceil(g/8)) 64-bit words, which the classify pass clears for the scan.
+// Returns the cudaError_t of the launches.
 extern "C" int march_classify_launch(const float* field, int b, int rx,
                                      int ry, int rz, int count_candidates,
                                      unsigned* records, unsigned* rows,
+                                     unsigned long long* scan_state,
                                      int* list, long long* totals,
                                      void* stream) {
   if (bad_block(b, rx, ry, rz)) return (int)cudaErrorInvalidValue;
@@ -659,12 +635,13 @@ extern "C" int march_classify_launch(const float* field, int b, int rx,
   march_classify_kernel<<<(tasks + CLASSIFY_WARPS - 1) / CLASSIFY_WARPS,
                           CLASSIFY_THREADS, 0, s>>>(
       field, b, g, run_tiles, rx, ry, rz, reinterpret_cast<uint2*>(records),
-      reinterpret_cast<uint4*>(rows));
+      reinterpret_cast<uint4*>(rows), scan_state,
+      march_scan_state_words(nrows));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  march_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(
+  march_scan_kernel<<<march_scan_tiles(nrows), SCAN_THREADS, 0, s>>>(
       reinterpret_cast<const uint4*>(rows), nrows, segments, g,
-      reinterpret_cast<const uint2*>(records), count_candidates,
+      reinterpret_cast<const uint2*>(records), count_candidates, scan_state,
       reinterpret_cast<int4*>(list), totals);
   return (int)cudaGetLastError();
 }

@@ -38,10 +38,11 @@
 // The classify pass takes a column a warp: a row segment of
 // MARCH_ROW_TILES tiles along x, MARCH_BAND_TILES along y and a run of
 // march_run_tiles(g) along z, walked one corner plane at a time. The scan
-// is one CTA of MARCH_SCAN_THREADS threads.
+// takes a row segment a thread, MARCH_SCAN_THREADS segments a CTA (a
+// tile of scan.cuh's look-back).
 #define MARCH_ROW_TILES 8
 #define MARCH_BAND_TILES 2
-#define MARCH_SCAN_THREADS 1024
+#define MARCH_SCAN_THREADS 256
 
 MARCH_FN int march_segments(int g) {
   return (g + MARCH_ROW_TILES - 1) / MARCH_ROW_TILES;
@@ -242,10 +243,22 @@ MARCH_FN unsigned march_segment_candidates(unsigned x) { return x >> 16; }
 #define MARCH_LIST_VERTEX_BASE 2
 #define MARCH_LIST_WIDTH 4
 
-// The totals the scan writes, int64 each.
+// The totals the scan writes, int64 each. They are also the counts its
+// look-back scans, a status word each a scan tile, in this order.
 #define MARCH_TOTAL_CELLS 0
 #define MARCH_TOTAL_VERTICES 1
 #define MARCH_TOTAL_INDICES 2
 #define MARCH_TOTAL_CANDIDATES 3
 #define MARCH_TOTAL_TILES 4
 #define MARCH_TOTALS 5
+
+// The scan's tiles (CTAs) for `nrows` row segments.
+MARCH_FN int march_scan_tiles(int nrows) {
+  return (nrows + MARCH_SCAN_THREADS - 1) / MARCH_SCAN_THREADS;
+}
+
+// The scan's per-call state, 64-bit words: its ticket, then MARCH_TOTALS
+// status words a tile (scan.cuh), all zero before it starts.
+MARCH_FN long long march_scan_state_words(int nrows) {
+  return 1 + (long long)MARCH_TOTALS * march_scan_tiles(nrows);
+}

@@ -14,14 +14,17 @@ package's unstable `lax.sort` — only the multiset of splats per node is part
 of the contract.
 
 These are the plain versions: on the card the block step runs the key
-pass, the gather and the segments as kernels (ops/binning_cuda.py,
-csrc/binning.cu), bit for bit these functions; the segments' kernels first
-build `node_bounds`' table and gather the segments from it.
+pass, the sort, the gather and the segments as kernels
+(ops/binning_cuda.py, csrc/binning.cu), bit for bit these functions; the
+sort is a radix sort whose result is torch.sort(stable=True)'s (its plain
+version `radix_sort`, which bin_splats here does not call), and the
+segments' kernels first build `node_bounds`' table and gather the segments
+from it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +49,38 @@ def node_count(min_shift: int, max_shift: int) -> int:
     """K, the node keys of the levels [min_shift, max_shift]: every node
     key is below it (level_offsets' end)."""
     return (8 ** (max_shift - min_shift + 1) - 1) // 7
+
+
+#: The radix sort's widest digit (csrc/binning.cuh).
+SORT_DIGIT_BITS = 8
+
+
+def sort_digits(min_shift: int, max_shift: int) -> List[Tuple[int, int]]:
+    """The radix sort's digits, (shift, bits) for each pass, low digit
+    first: every node key is below K = node_count and INVALID_KEY sorts as
+    K, so the keys take K.bit_length() bits, cut into SORT_DIGIT_BITS from
+    the lowest (the last digit takes what is left): 2 passes at 6 levels,
+    3 at 7 (csrc/binning.cuh::bin_sort_plan)."""
+    bits = node_count(min_shift, max_shift).bit_length()
+    return [(s, min(SORT_DIGIT_BITS, bits - s))
+            for s in range(0, bits, SORT_DIGIT_BITS)]
+
+
+def radix_sort(keys: torch.Tensor, min_shift: int, max_shift: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the card's radix sort of (M,) int64 node keys
+    of the shifts [min_shift, max_shift] (each below node_count, or
+    INVALID_KEY): INVALID_KEY mapped to K = node_count, a stable sort by
+    each digit of sort_digits, low digit first, and the map back. Returns
+    (sorted keys, permutation), torch.sort(keys, stable=True)'s."""
+    top = node_count(min_shift, max_shift)
+    mapped = torch.where(keys == INVALID_KEY, top, keys)
+    perm = torch.arange(keys.numel(), dtype=torch.int64, device=keys.device)
+    for shift, bits in sort_digits(min_shift, max_shift):
+        order = torch.sort((mapped >> shift) & ((1 << bits) - 1),
+                           stable=True).indices
+        mapped, perm = mapped[order], perm[order]
+    return torch.where(mapped == top, INVALID_KEY, mapped), perm
 
 
 def bit_length(x: torch.Tensor) -> torch.Tensor:

@@ -3,15 +3,16 @@ step calls for binning: `bin_splats` and `tile_segments`, with
 ops/binning.py's signatures.
 
 Tensors on a CUDA device take the kernel path: the key pass
-(`bin_keys_kernel`), `torch.sort(stable=True)` of the keys, the entry
-gather (`bin_entries_kernel`) and the tile segments (`tile_bounds_kernel`,
-the first entry of every node key, then `tile_segments_kernel`, which
-gathers each (tile, level)'s segment from that table; one C call), each
-kernel one launch per block with no host synchronisation, bit for bit the
-plain functions. Tensors on the CPU take
-the plain versions (ops/binning.py). A CUDA tensor launches the kernels or
-raises; nothing falls back. The kernels live in the library
-ops/mls_cuda.py builds.
+(`bin_keys_kernel`), the stable radix sort of the keys (`sort_keys`: a
+histogram kernel, then a pass kernel a digit, on the look-back scan of
+csrc/scan.cuh; one C call), the entry gather (`bin_entries_kernel`) and
+the tile segments (`tile_bounds_kernel`, the first entry of every node
+key, then `tile_segments_kernel`, which gathers each (tile, level)'s
+segment from that table; one C call), with no host synchronisation, bit
+for bit the plain functions (the sort torch.sort(stable=True)'s). Tensors
+on the CPU take the plain versions (ops/binning.py; bin_splats sorts with
+torch.sort there). A CUDA tensor launches the kernels or raises; nothing
+falls back. The kernels live in the library ops/mls_cuda.py builds.
 """
 
 from __future__ import annotations
@@ -83,6 +84,57 @@ def splat_keys(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
     return keys
 
 
+#: The radix sort's keys a tile (a CTA) and digits a pass
+#: (csrc/binning.cuh).
+SORT_TILE = 4096
+SORT_RADIX = 256
+
+
+def sort_scratch_words(n: int, min_shift: int, max_shift: int) -> int:
+    """The sort's scratch for n keys, int64 words
+    (bin_sort_scratch_words): each pass's histogram (SORT_RADIX int32),
+    its ticket and a status word a (tile, digit)."""
+    passes = len(binning.sort_digits(min_shift, max_shift))
+    return passes * (SORT_RADIX // 2 + 1 + -(-n // SORT_TILE) * SORT_RADIX)
+
+
+def sort_keys(keys: torch.Tensor, min_shift: int, max_shift: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sorted keys, permutation) of (M,) int64 node keys of the shifts
+    [min_shift, max_shift] (each below binning.node_count, or
+    INVALID_KEY): torch.sort(keys, stable=True)'s. For a CUDA tensor the
+    radix sort's kernels (one C call: the histogram kernel and a pass
+    kernel a digit of binning.sort_digits; nothing for no keys), for a CPU
+    tensor its plain version, binning.radix_sort."""
+    if not _path(keys):
+        return binning.radix_sort(keys, min_shift, max_shift)
+    dev = keys.device
+    m = keys.numel()
+    mls_cuda._check("keys", keys, torch.int64, (m,))
+    _check_shifts(min_shift, max_shift)
+    if m >= 1 << 31:
+        raise ValueError(f"{m} keys: the sort's indices are int32")
+    sorted_keys = torch.empty(m, dtype=torch.int64, device=dev)
+    perm = torch.empty(m, dtype=torch.int64, device=dev)
+    if m == 0:
+        return sorted_keys, perm
+    passes = len(binning.sort_digits(min_shift, max_shift))
+    work = torch.empty(2 * m if passes > 1 else 0, dtype=torch.int32,
+                       device=dev)
+    scratch = torch.empty(sort_scratch_words(m, min_shift, max_shift),
+                          dtype=torch.int64, device=dev)
+    lib = mls_cuda.load()
+    with torch.cuda.device(dev):
+        _raise_on(lib.bin_sort_launch(
+            keys.data_ptr(), m, min_shift, max_shift, sorted_keys.data_ptr(),
+            perm.data_ptr(), work.data_ptr() if passes > 1 else None,
+            scratch.data_ptr(), _stream(dev)), "bin_sort_launch")
+    launches.count("bin_sort_histogram")
+    for _ in range(passes):
+        launches.count("bin_sort_pass")
+    return sorted_keys, perm
+
+
 def entry_rows(splats: torch.Tensor, perm: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """binning.entry_rows: the entry kernel for CUDA tensors (one launch;
@@ -109,13 +161,13 @@ def entry_rows(splats: torch.Tensor, perm: torch.Tensor
 
 def bin_splats(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
                min_shift: int, max_shift: int) -> BinnedSplats:
-    """binning.bin_splats: on a CUDA device the key kernel, the stable
-    sort and the entry kernel; on the CPU the plain version."""
+    """binning.bin_splats: on a CUDA device the key kernel, the sort's
+    kernels and the entry kernel; on the CPU the plain version."""
     if not _path(splats):
         return binning.bin_splats(splats, valid, cell_origin, min_shift,
                                   max_shift)
     keys = splat_keys(splats, valid, cell_origin, min_shift, max_shift)
-    sorted_keys, perm = torch.sort(keys, stable=True)
+    sorted_keys, perm = sort_keys(keys, min_shift, max_shift)
     del keys
     entry_data, entry_vals = entry_rows(splats, perm)
     return BinnedSplats(entry_data=entry_data, entry_keys=sorted_keys,

@@ -19,6 +19,8 @@ KERNELS = {
     "seam_face": "seam.faceLaunches",
     "seam_skeleton": "seam.skeletonLaunches",
     "bin_keys": "binning.keyLaunches",
+    "bin_sort_histogram": "binning.sortHistogramLaunches",
+    "bin_sort_pass": "binning.sortPassLaunches",
     "bin_entries": "binning.entryLaunches",
     "tile_bounds": "binning.boundLaunches",
     "tile_segments": "binning.segmentLaunches",

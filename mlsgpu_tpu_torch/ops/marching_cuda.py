@@ -8,7 +8,9 @@ and finite bit computed once and the cells classified 32 at a time as bit
 words: each tile's occupied cells, vertices, indices and candidate flag,
 and their sums for each row segment of 8 tiles) and `march_scan_kernel`
 (the list of tiles with an occupied cell and their cell and vertex bases,
-and the totals) from one C call, one copy of the totals to pinned host
+and the totals: a segment a thread, a CTA a ticketed tile of SCAN_ROWS
+segments, one launch on the look-back scan of csrc/scan.cuh, its state
+cleared by the classify pass) from one C call, one copy of the totals to pinned host
 memory and a wait on the stream (the stage's one sync), then
 `march_emit_kernel` (a warp a listed tile, its occupied cells ranked by
 popcounts, its vertices a lane each), which writes the image in its final
@@ -38,6 +40,21 @@ LIST_WIDTH = 4
 ROW_TILES = 8
 #: The totals the scan writes, in this order (csrc/marching.cuh).
 TOTALS = ("cells", "vertices", "indices", "candidates", "tiles")
+#: Row segments a tile of the scan (a CTA: csrc/marching.cuh).
+SCAN_ROWS = 256
+
+
+def segment_rows(g: int) -> int:
+    """The classify pass's row segments for g tiles an axis: a record
+    each, g^2 * ceil(g / ROW_TILES)."""
+    return g * g * -(-g // ROW_TILES)
+
+
+def scan_state_words(g: int) -> int:
+    """The scan's per-call state, int64 words (march_scan_state_words):
+    its ticket and a status word a total for each tile of SCAN_ROWS
+    segments, cleared by the classify pass."""
+    return 1 + len(TOTALS) * -(-segment_rows(g) // SCAN_ROWS)
 
 
 class MarchCounts(NamedTuple):
@@ -92,8 +109,9 @@ def launch_classify(field: torch.Tensor, region_cells: Sequence[int]
     b, region = _check_field(field, region_cells)
     g = -(-(b - 1) // marching.TILE)
     records = torch.empty((g ** 3, 2), dtype=torch.int32, device=dev)
-    rows = torch.empty((g * g * -(-g // ROW_TILES), 4), dtype=torch.int32,
-                       device=dev)
+    rows = torch.empty((segment_rows(g), 4), dtype=torch.int32, device=dev)
+    scan_state = torch.empty(scan_state_words(g), dtype=torch.int64,
+                             device=dev)
     tile_list = torch.empty((g ** 3, LIST_WIDTH), dtype=torch.int32,
                             device=dev)
     totals = torch.empty(len(TOTALS), dtype=torch.int64, device=dev)
@@ -101,8 +119,9 @@ def launch_classify(field: torch.Tensor, region_cells: Sequence[int]
     with torch.cuda.device(dev):
         err = lib.march_classify_launch(
             field.data_ptr(), b, *region, int(b > marching.TILED_ABOVE),
-            records.data_ptr(), rows.data_ptr(), tile_list.data_ptr(),
-            totals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            records.data_ptr(), rows.data_ptr(), scan_state.data_ptr(),
+            tile_list.data_ptr(), totals.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"march_classify_launch failed: cudaError_t {err}")
     launches.count("march_classify")

@@ -8,10 +8,12 @@ CUDA tensor either launches the kernel or raises — nothing falls back.
 The kernel library holds the port's hand-written kernels: the field kernel
 (csrc/mls_field.cu), the seam passes' face and skeleton kernels
 (csrc/seam_moments.cu, called from ops/seam_cuda.py), the binning
-stage's key, entry, bounds and segment kernels (csrc/binning.cu with
-csrc/binning.cuh, called from ops/binning_cuda.py) and the codes path's
-classify, scan and emit kernels (csrc/marching.cu with csrc/marching.cuh,
-called from ops/marching_cuda.py). One nvcc call compiles the four
+stage's key, sort (histogram and pass), entry, bounds and segment
+kernels (csrc/binning.cu with csrc/binning.cuh, called from
+ops/binning_cuda.py) and the codes path's classify, scan and emit kernels
+(csrc/marching.cu with csrc/marching.cuh, called from
+ops/marching_cuda.py); the sort's passes and the scan share the look-back
+scan of csrc/scan.cuh. One nvcc call compiles the four
 sources for sm_90a on first use into
 `mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source or a
 header is newer);
@@ -40,7 +42,8 @@ SOURCES = [os.path.join(_PKG, "csrc", name)
                         "marching.cu")]
 #: Headers the sources include: the library is rebuilt when one is newer.
 HEADERS = [os.path.join(_PKG, "csrc", name)
-           for name in ("binning.cuh", "marching.cuh", "marching_tables.h")]
+           for name in ("binning.cuh", "marching.cuh", "marching_tables.h",
+                        "scan.cuh")]
 LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -137,6 +140,9 @@ def load():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ptr, ptr, i64] + [ctypes.c_int] * 2 + [i64] * 3
                            + [ptr, ptr])
+            fn = lib.bin_sort_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr, i64] + [ctypes.c_int] * 2 + [ptr] * 5
             fn = lib.bin_entries_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
@@ -145,7 +151,7 @@ def load():
             fn.argtypes = [ptr, i64] + [ctypes.c_int] * 3 + [ptr] * 4
             fn = lib.march_classify_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ptr] + [ctypes.c_int] * 5 + [ptr] * 5
+            fn.argtypes = [ptr] + [ctypes.c_int] * 5 + [ptr] * 6
             fn = lib.march_emit_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ptr] + [ctypes.c_int] * 4 + [ptr, ctypes.c_int,

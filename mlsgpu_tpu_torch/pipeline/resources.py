@@ -14,7 +14,9 @@ from mlsgpu_tpu_torch.config import ReconstructConfig
 from mlsgpu_tpu_torch.utils import logging as log
 from mlsgpu_tpu_torch.utils.errors import InvalidOption
 
+from mlsgpu_tpu_torch.ops.binning_cuda import sort_scratch_words
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
+from mlsgpu_tpu_torch.ops.marching_cuda import scan_state_words, segment_rows
 from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
                                                uses_processes)
 
@@ -29,6 +31,15 @@ I64 = 8
 #: densest block has MLS candidates in 2,841 of 32,768 tiles (8.7%).
 SURFACE_CELL_SHARE = 1 / 32
 CANDIDATE_TILE_SHARE = 1 / 4
+
+
+def _block(nbytes: int) -> int:
+    """The most bytes PyTorch's CUDA caching allocator counts for a buffer
+    of `nbytes`: a multiple of its 512-byte block and, above 1 MiB, up to
+    1 MiB more (it hands out a cached block whole when splitting it would
+    leave 1 MiB or less)."""
+    b = -(-nbytes // 512) * 512
+    return b + (1 << 20 if b > 1 << 20 else 0)
 
 
 def seam_local_reserve(device: torch.device, attributes=None) -> int:
@@ -54,7 +65,9 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     ("codes", "packed" or "raw") on a device of `device_type` ("cuda": the
     kernels' path; "cpu": the plain versions'). `seam_reserve`: the seam
     kernels' local memory reserve on the card (seam_local_reserve). On
-    the card the codes readback marches and packs in the marching kernels,
+    the card binning holds the radix sort's buffers, then the gather's
+    (`binning`; torch.sort's on the CPU), and the codes readback marches
+    and packs in the marching kernels,
     whose buffers `marching_kernels` counts; the packed and raw readbacks
     and the CPU march with the plain versions (`marching_dense` or
     `marching_tiled`, `emission`)."""
@@ -64,19 +77,30 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     entries = 8 * n
     usage = {
         "splats": n * (8 * F32 + 1),
-        # an entry's int64 key, sorted key, sort permutation and row index
-        # and its gathered row (the kernel path, ops/binning_cuda.py: the
-        # keys are freed before the gather); the sort itself holds at most
-        # 6 int64 an entry (keys and indices in, sorted out, its own
-        # alternate buffers)
-        "binning": entries * (2 * I64 * 2 + 8 * F32),
         "field": b ** 3 * F32,
     }
     if device_type == "cuda":
+        # the kernel path (ops/binning_cuda.py): the radix sort holds the
+        # int64 keys, the sorted keys and permutation, the int32 keys and
+        # indices of the passes between, and its scratch (each pass's
+        # histogram, ticket and a status word a (tile, digit)); then the
+        # keys and the sort's buffers are freed, and the gather holds the
+        # sorted keys, the permutation, the row indices and the gathered
+        # rows. Each buffer as the caching allocator may count it.
+        min_s = cfg.subsampling
+        max_s = cfg.levels + cfg.subsampling - 1
+        sort = (3 * _block(entries * I64) + _block(entries * 2 * 4)
+                + _block(I64 * sort_scratch_words(entries, min_s, max_s)))
+        gather = 3 * _block(entries * I64) + _block(entries * 8 * F32)
+        usage["binning"] = max(sort, gather)
         # the seam kernels write the field in place and allocate nothing:
         # only the driver's reserve for their local memory
         usage["faces"] = int(seam_reserve)
     else:
+        # an entry's int64 key, sorted key, sort permutation and row index
+        # and its gathered row; torch.sort holds at most 6 int64 an entry
+        # (keys and indices in, sorted out, its own alternate buffers)
+        usage["binning"] = entries * (2 * I64 * 2 + 8 * F32)
         # per-chunk tensors of the face pass over 32 rows x 64 corners x K
         # slots, K ~ the per-tile candidate guess: the weighted moments
         # (9 f32) and the first level of their pairwise tree, the
@@ -92,12 +116,14 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     if device_type == "cuda" and readback == "codes":
         # the marching kernels' buffers (ops/marching_cuda.py), nothing
         # more: an 8-byte record a tile, a 16-byte record a row segment of
-        # 8 tiles, the occupied-tile list (4 int32 a tile), the totals, and
-        # the codes image (an id word and a code byte an occupied cell, a
-        # t16 halfword a vertex)
+        # 8 tiles, the scan's state (its ticket and a status word a total
+        # a tile of segments), the occupied-tile list (4 int32 a tile), the
+        # totals, and the codes image (an id word and a code byte an
+        # occupied cell, a t16 halfword a vertex)
         g = -(-(b - 1) // TILE)
         usage["marching_kernels"] = (
-            g ** 3 * (8 + 16) + g * g * -(-g // 8) * 16 + 5 * I64
+            g ** 3 * (8 + 16) + segment_rows(g) * 16
+            + scan_state_words(g) * I64 + 5 * I64
             + 4 * (occ + -(-occ // 4) + -(-verts // 2)))
     else:
         if b > TILED_ABOVE:

@@ -6,13 +6,15 @@
 On the bench cloud of tools/cloud.py, at the densest bucket of each
 `--levels` (6: the main path's 256^3-corner dispatches, 7: `--levels 7`'s
 512^3), each root (a checkout of the repository, `label=path`) times its
-own binning stage through its own ops/binning_cuda.py: the key pass, the
-entry gather and the tile segments, each call host-paced and on the
-device alone (CUDA events, the card first sleeping while the host queues
-the call), and each kernel alone (the kernel events of a torch.profiler
-trace; the segments sum their kernels: the bounds kernel and the gather
-where the tree has both, each also alone), beside `torch.sort` of the
-keys and `torch.searchsorted` on the segments' prebuilt queries. Every
+own binning stage through its own ops/binning_cuda.py: the key pass,
+the entry gather, the tile segments and, where the tree has it, the radix
+sort (`sort_keys`), each call host-paced and on the device alone (CUDA
+events, the card first sleeping while the host queues the call), and each
+kernel alone (the kernel events of a torch.profiler trace; the segments
+sum their kernels: the bounds kernel and the gather where the tree has
+both, each also alone; the sort's histogram kernel and its pass kernels
+over a call), beside `torch.sort` of the keys and `torch.searchsorted` on
+the segments' prebuilt queries. Every
 root runs in a process of its own (this file as a script, the root first
 on sys.path), once per `--roots` entry in the order given, so `--roots
 parent=P change=. change=. parent=P` compares two trees in turns on one
@@ -68,21 +70,22 @@ def event_ms(fn, reps: int, device_only: bool = False,
     return statistics.median(times)
 
 
-def kernel_event_ms(events, names, reps: int):
+def kernel_event_ms(events, names, reps: int, launches: int = 1):
     """Device ms a call spends in the kernels whose name contains one of
     `names`, from the events of a Chrome trace of `reps` calls that each
-    launch every named kernel once: the sum over `names` of the mean
-    duration of its kernel events. None unless each name has exactly
-    `reps` kernel events: a trace that lost some is not measured."""
+    launch every named kernel `launches` times: the sum over `names` of
+    its kernel events' durations over `reps`. None unless each name has
+    exactly `reps * launches` kernel events: a trace that lost some is not
+    measured."""
     per = {n: [] for n in names}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "kernel":
             for n in names:
                 if n in e.get("name", ""):
                     per[n].append(float(e["dur"]))
-    if any(len(d) != reps for d in per.values()):
+    if any(len(d) != reps * launches for d in per.values()):
         return None
-    return sum(statistics.fmean(d) for d in per.values()) / 1e3
+    return sum(sum(d) for d in per.values()) / reps / 1e3
 
 
 def trace_events(fn, reps: int):
@@ -103,11 +106,12 @@ def trace_events(fn, reps: int):
             return json.load(f).get("traceEvents", [])
 
 
-def kernel_ms(fn, names, reps: int):
-    """kernel_event_ms of a trace of `reps` calls of fn (trace_events);
-    `names` a kernel name or a tuple of them."""
+def kernel_ms(fn, names, reps: int, launches: int = 1):
+    """kernel_event_ms of a trace of `reps` calls of fn (trace_events),
+    each launching every named kernel `launches` times; `names` a kernel
+    name or a tuple of them."""
     names = (names,) if isinstance(names, str) else tuple(names)
-    return kernel_event_ms(trace_events(fn, reps), names, reps)
+    return kernel_event_ms(trace_events(fn, reps), names, reps, launches)
 
 
 def segment_queries(min_s: int, max_s: int, tpa: int, device):
@@ -129,7 +133,7 @@ def run_root(label: str, root: str, splats: int, levels_list, reps: int):
     sys.path) and prints a BINNING line for each level count."""
     sys.path.insert(0, os.path.abspath(root))
     from mlsgpu_tpu_torch.io.splat_set import SequenceSource
-    from mlsgpu_tpu_torch.ops import binning_cuda
+    from mlsgpu_tpu_torch.ops import binning, binning_cuda
     from mlsgpu_tpu_torch.pipeline.streamer import load_bucket
     from mlsgpu_tpu_torch.tools import cloud
 
@@ -149,6 +153,7 @@ def run_root(label: str, root: str, splats: int, levels_list, reps: int):
         keys = binning_cuda.splat_keys(sp, va, origin, min_s, max_s)
         sorted_keys, perm = torch.sort(keys, stable=True)
         queries = segment_queries(min_s, max_s, tpa, dev)
+        hand_sort = hasattr(binning_cuda, "sort_keys")
         two = hasattr(binning_cuda, "segments_and_bounds")
         segments = (("tile_bounds_kernel", "tile_segments_kernel") if two
                     else ("tile_segments_kernel",))
@@ -170,6 +175,20 @@ def run_root(label: str, root: str, splats: int, levels_list, reps: int):
             for kernel in segments:
                 out[f"{kernel}_ms"] = kernel_ms(calls["segments"][0], kernel,
                                                 reps)
+        if hand_sort:
+            # the sort's C call (a memset, the histogram kernel, a pass
+            # kernel a digit), each of its kernels alone over a call
+            sort = (lambda: binning_cuda.sort_keys(keys, min_s, max_s))
+            passes = len(binning.sort_digits(min_s, max_s))
+            out["sort_passes"] = passes
+            out["sort_call_host_paced_ms"] = event_ms(sort, reps)
+            out["sort_call_device_ms"] = event_ms(sort, reps,
+                                                  device_only=True)
+            events = trace_events(sort, reps)
+            out["bin_sort_histogram_kernel_ms"] = kernel_event_ms(
+                events, ("bin_sort_histogram_kernel",), reps)
+            out["bin_sort_pass_kernel_ms"] = kernel_event_ms(
+                events, ("bin_sort_pass_kernel",), reps, passes)
         out["sort_device_ms"] = event_ms(
             lambda: torch.sort(keys, stable=True), reps, device_only=True)
         out["searchsorted_device_ms"] = event_ms(

@@ -1,5 +1,7 @@
 """The port's binning against the JAX package's on the same splats: the clz
 replacement over every edge value, node keys and tile segments bitwise,
+the card's radix sort (its plain version binning.radix_sort) equal to the
+JAX package's jax.lax.sort on keys of 3 to 11 levels,
 entry splats equal as multisets per key (the JAX sort is not stable, so tie
 order inside a node is not part of the contract). Besides the clouds of
 this module, those of tests/test_torch_binning_cuda.py (`edge_cloud`):
@@ -17,7 +19,7 @@ from mlsgpu_tpu.ops import binning as jbin
 from mlsgpu_tpu_torch.ops import binning as tbin
 
 from tests import oracle
-from tests.test_torch_binning_cuda import edge_cloud
+from tests.test_torch_binning_cuda import SORT_CASES, edge_cloud, sort_case
 
 #: The clouds of edge_cloud this module runs as well as its own.
 EDGE_KINDS = ("boundaries", "corners", "giant")
@@ -126,3 +128,23 @@ def test_tile_segments_bitwise(levels, sub, kind):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     assert int(tl.sum()) > 0
+
+
+@pytest.mark.parametrize("case", list(SORT_CASES))
+def test_radix_sort_matches_jax_sort(case):
+    """binning.radix_sort, the plain version of the card's sort, gives the
+    keys and permutation of torch.sort(stable=True) and of the JAX
+    package's jax.lax.sort((keys, vals), num_keys=1) (stable, uint32
+    keys) on the same numpy keys: 3, 6, 7 and 11 levels, no invalid key,
+    all invalid, heavy ties, one key and none."""
+    keys, min_s, max_s = sort_case(case)
+    got_k, got_p = tbin.radix_sort(torch.as_tensor(keys), min_s, max_s)
+    want_k, want_p = torch.sort(torch.as_tensor(keys), stable=True)
+    assert torch.equal(got_k, want_k) and torch.equal(got_p, want_p)
+    jk, jp = jax.lax.sort((jnp.asarray(keys.astype(np.uint32)),
+                           jnp.arange(len(keys), dtype=jnp.int32)),
+                          num_keys=1)
+    np.testing.assert_array_equal(got_k.numpy(),
+                                  np.asarray(jk).astype(np.int64))
+    np.testing.assert_array_equal(got_p.numpy(),
+                                  np.asarray(jp).astype(np.int64))

@@ -119,7 +119,8 @@ KINDS = ("sphere", "boundaries", "corners", "giant")
 
 
 #: The binning kernels' names in ops/launches.py.
-BINNING = ("bin_keys", "bin_entries", "tile_bounds", "tile_segments")
+BINNING = ("bin_keys", "bin_entries", "tile_bounds", "tile_segments",
+           "bin_sort_histogram", "bin_sort_pass")
 
 
 def _since(before):
@@ -152,8 +153,10 @@ def test_wrappers_on_cpu_take_the_plain_path(kind):
 # searches lane by lane.
 _HARNESS = """
 #include <algorithm>
+#include <vector>
 
 #include "binning.cuh"
+#include "scan.cuh"
 
 extern "C" float host_r2_factor() { return BIN_R2_FACTOR; }
 
@@ -220,6 +223,193 @@ extern "C" int host_bounds(const long long* keys, int m, int min_shift,
   return nodes;
 }
 
+extern "C" int host_sort_plan(int min_shift, int max_shift, int* shift,
+                              int* bits, unsigned* top) {
+  const BinSortPlan plan = bin_sort_plan(min_shift, max_shift);
+  for (int p = 0; p < plan.passes; ++p) {
+    shift[p] = plan.shift[p];
+    bits[p] = plan.bits[p];
+  }
+  *top = plan.top;
+  return plan.passes;
+}
+
+extern "C" void host_sort_map(const long long* keys, long long n,
+                              unsigned top, unsigned* mapped,
+                              long long* back) {
+  for (long long i = 0; i < n; ++i) {
+    mapped[i] = bin_sort_map(keys[i], top);
+    back[i] = bin_sort_unmap(mapped[i], top);
+  }
+}
+
+extern "C" long long host_sort_scratch_words(long long n, int min_shift,
+                                             int max_shift) {
+  return bin_sort_scratch_words(n, bin_sort_plan(min_shift, max_shift).passes);
+}
+
+extern "C" unsigned long long host_scan_word(unsigned flag,
+                                             unsigned long long value) {
+  return scan_word(flag, value);
+}
+
+extern "C" unsigned host_scan_flag(unsigned long long w) { return scan_flag(w); }
+
+extern "C" unsigned long long host_scan_value(unsigned long long w) {
+  return scan_value(w);
+}
+
+extern "C" int host_window_step(const unsigned long long* words, int n,
+                                unsigned long long* sum, int* done) {
+  bool d;
+  const int taken = scan_window_step(words, n, *sum, &d);
+  *done = d;
+  return taken;
+}
+
+// scan_lookback on the host: SCAN_WINDOW words a round, below tile 0 an
+// inclusive 0.
+static unsigned long long lookback(const unsigned long long* words,
+                                   int stride, int tile) {
+  unsigned long long sum = 0, w[SCAN_WINDOW];
+  int next = tile - 1;
+  while (next >= 0) {
+    for (int i = 0; i < SCAN_WINDOW; ++i)
+      w[i] = next - i >= 0 ? words[(long long)(next - i) * stride]
+                           : scan_word(SCAN_INCLUSIVE, 0ULL);
+    bool done;
+    next -= scan_window_step(w, SCAN_WINDOW, sum, &done);
+    if (done) break;
+  }
+  return sum;
+}
+
+// match_digit (a match.any on the card): the lanes whose digit and
+// validity equal lane l's, here a ballot a bit.
+static unsigned match_digit(const unsigned* d, const bool* valid, int lane,
+                            int bits) {
+  unsigned v = 0;
+  for (int l = 0; l < 32; ++l) v |= (unsigned)valid[l] << l;
+  unsigned peers = valid[lane] ? v : ~v;
+  for (int b = 0; b < bits; ++b) {
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l) m |= ((d[l] >> b) & 1u) << l;
+    peers &= (d[lane] >> b) & 1u ? m : ~m;
+  }
+  return peers;
+}
+
+// bin_sort_launch: the histogram kernel's counts, then each pass's tiles
+// as its kernel runs them, warps and lanes written out. Every tile first
+// publishes its aggregates (as if all ran at once), then the tiles look
+// back in ascending ticket order or, `descending`, from the last (each
+// walking every aggregate down to tile 0).
+extern "C" int host_sort(const long long* keys, long long n, int min_shift,
+                         int max_shift, int descending, long long* sorted,
+                         long long* perm) {
+  const BinSortPlan plan = bin_sort_plan(min_shift, max_shift);
+  const int R = BIN_SORT_RADIX, W = BIN_SORT_THREADS / 32;
+  const int I = BIN_SORT_ITEMS, T = BIN_SORT_TILE;
+  std::vector<unsigned> hist(plan.passes * R, 0u);
+  std::vector<unsigned> kin(n), kout(n);
+  std::vector<int> iin(n), iout(n);
+  for (long long e = 0; e < n; ++e) {
+    kin[e] = bin_sort_map(keys[e], plan.top);
+    iin[e] = (int)e;
+    for (int p = 0; p < plan.passes; ++p)
+      ++hist[p * R + bin_sort_digit(kin[e], plan.shift[p], plan.bits[p])];
+  }
+  const long long tiles = bin_sort_tiles(n);
+  std::vector<unsigned long long> status(tiles * R);
+  std::vector<std::vector<unsigned short>> rank(tiles), warp_count(tiles);
+  std::vector<std::vector<unsigned>> count(tiles);
+  for (int p = 0; p < plan.passes; ++p) {
+    const int shift = plan.shift[p], bits = plan.bits[p];
+    std::fill(status.begin(), status.end(), 0ULL);
+    // ranking and aggregates, every tile
+    for (long long tile = 0; tile < tiles; ++tile) {
+      const long long first = tile * T;
+      const int tile_n = (int)std::min((long long)T, n - first);
+      rank[tile].assign(T, 0);
+      warp_count[tile].assign(W * R, 0);
+      unsigned short* wc = warp_count[tile].data();
+      for (int w = 0; w < W; ++w)
+        for (int i = 0; i < I; ++i) {
+          unsigned d[32], c[32], peers[32];
+          bool valid[32];
+          for (int l = 0; l < 32; ++l) {
+            const int t = w * 32 * I + 32 * i + l;
+            valid[l] = t < tile_n;
+            d[l] = bin_sort_digit(valid[l] ? kin[first + t] : 0u, shift, bits);
+          }
+          for (int l = 0; l < 32; ++l) {
+            peers[l] = match_digit(d, valid, l, bits);
+            c[l] = valid[l] ? wc[w * R + d[l]] : 0u;
+            const unsigned before = __builtin_popcount(peers[l] & ((1u << l) - 1u));
+            rank[tile][w * 32 * I + 32 * i + l] = (unsigned short)(c[l] + before);
+          }
+          for (int l = 0; l < 32; ++l)
+            if (valid[l] && __builtin_popcount(peers[l] & ((1u << l) - 1u)) == 0)
+              wc[w * R + d[l]] = (unsigned short)(c[l] + __builtin_popcount(peers[l]));
+        }
+      count[tile].assign(R, 0u);
+      for (int d = 0; d < R; ++d) {
+        unsigned run = 0;
+        for (int w = 0; w < W; ++w) {
+          const unsigned c = wc[w * R + d];
+          wc[w * R + d] = (unsigned short)run;
+          run += c;
+        }
+        count[tile][d] = run;
+        status[tile * R + d] =
+            scan_word(tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, run);
+      }
+    }
+    // look-back, staging and the write-out, tile by tile
+    for (long long k = 0; k < tiles; ++k) {
+      const long long tile = descending ? tiles - 1 - k : k;
+      const long long first = tile * T;
+      const int tile_n = (int)std::min((long long)T, n - first);
+      std::vector<int> shift_out(R), digit_start(R);
+      unsigned excl0 = 0, excl1 = 0;
+      for (int d = 0; d < R; ++d) {
+        unsigned long long below = 0;
+        if (tile > 0) {
+          below = lookback(status.data() + d, R, (int)tile);
+          status[tile * R + d] =
+              scan_word(SCAN_INCLUSIVE, below + count[tile][d]);
+        }
+        shift_out[d] = (int)(excl1 + below) - (int)excl0;
+        digit_start[d] = (int)excl0;
+        excl0 += count[tile][d];
+        excl1 += hist[p * R + d];
+      }
+      std::vector<unsigned> staged_keys(T);
+      std::vector<int> staged_idx(T);
+      for (int t = 0; t < tile_n; ++t) {
+        const int w = t / (32 * I);
+        const unsigned d = bin_sort_digit(kin[first + t], shift, bits);
+        const int at = digit_start[d] + warp_count[tile][w * R + d] + rank[tile][t];
+        staged_keys[at] = kin[first + t];
+        staged_idx[at] = iin[first + t];
+      }
+      for (int t = 0; t < tile_n; ++t) {
+        const unsigned k2 = staged_keys[t];
+        const int at = shift_out[bin_sort_digit(k2, shift, bits)] + t;
+        kout[at] = k2;
+        iout[at] = staged_idx[t];
+      }
+    }
+    std::swap(kin, kout);
+    std::swap(iin, iout);
+  }
+  for (long long e = 0; e < n; ++e) {
+    sorted[e] = bin_sort_unmap(kin[e], plan.top);
+    perm[e] = iin[e];
+  }
+  return plan.passes;
+}
+
 // tile_segments_kernel.
 extern "C" void host_gather(const int* bounds, int min_shift, int max_shift,
                             int tpa, int* starts, int* lens) {
@@ -265,6 +455,22 @@ def host(tmp_path_factory):
     lib.host_bounds.restype = i32
     lib.host_bounds.argtypes = [p, i32, i32, i32, p]
     lib.host_gather.argtypes = [p, i32, i32, i32, p, p]
+    lib.host_sort_plan.restype = i32
+    lib.host_sort_plan.argtypes = [i32, i32, p, p, p]
+    lib.host_sort_map.argtypes = [p, i64, u32, p, p]
+    lib.host_sort_scratch_words.restype = i64
+    lib.host_sort_scratch_words.argtypes = [i64, i32, i32]
+    u64 = ctypes.c_ulonglong
+    lib.host_scan_word.restype = u64
+    lib.host_scan_word.argtypes = [u32, u64]
+    lib.host_scan_flag.restype = u32
+    lib.host_scan_flag.argtypes = [u64]
+    lib.host_scan_value.restype = u64
+    lib.host_scan_value.argtypes = [u64]
+    lib.host_window_step.restype = i32
+    lib.host_window_step.argtypes = [p, i32, p, p]
+    lib.host_sort.restype = i32
+    lib.host_sort.argtypes = [p, i64, i32, i32, i32, p, p]
     return lib
 
 
@@ -492,6 +698,182 @@ def test_host_build_tile_nodes_equal_the_plain_queries(host):
         assert (lens == 1).all()
 
 
+# --- the radix sort -----------------------------------------------------------
+
+#: sort_case's key sets: (levels, kind, entries): one pass at 3 levels,
+#: two at 4 and 6, three at 7, four at 9 and 11. "mixed" is node keys of
+#: every level with a third invalid, "valid" none invalid, "invalid" all,
+#: "ties" three distinct keys, "splats" the keys of edge_cloud("sphere").
+#: 4,096 keys make a tile of the sort's passes: the sizes hold one tile,
+#: a tile and one key, several tiles and a last short one.
+SORT_CASES = {
+    "l3_mixed": (3, "mixed", 20000),
+    "l4_mixed": (4, "mixed", 9000),
+    "l6_mixed": (6, "mixed", 3 * 4096 + 1),
+    "l6_valid": (6, "valid", 4096),
+    "l6_invalid": (6, "invalid", 9001),
+    "l6_ties": (6, "ties", 10000),
+    "l6_splats": (6, "splats", None),
+    "l7_mixed": (7, "mixed", 20011),
+    "l9_mixed": (9, "mixed", 20000),
+    "l11_mixed": (11, "mixed", 20000),
+    "empty": (6, "mixed", 0),
+    "one": (6, "mixed", 1),
+}
+
+
+def sort_case(case):
+    """(int64 keys, min_shift, max_shift) of a SORT_CASES entry, from a
+    numpy seed; min_shift 3."""
+    return sort_keys_of(*SORT_CASES[case])
+
+
+def sort_keys_of(levels, kind, m):
+    """sort_case's keys of `kind` at `levels` levels, m of them."""
+    min_s, max_s = 3, levels + 2
+    if kind == "splats":
+        splats, valid, origin = edge_cloud("sphere")
+        keys = binning.splat_keys(torch.as_tensor(splats),
+                                  torch.as_tensor(valid), origin, min_s,
+                                  max_s).numpy()
+        return keys, min_s, max_s
+    rng = np.random.default_rng(levels * 1000 + (m or 0))
+    top = binning.node_count(min_s, max_s)
+    if kind == "ties":
+        keys = rng.choice(np.array([7, top - 1, binning.INVALID_KEY]), m)
+    else:
+        keys = rng.integers(0, top, size=m)
+        if kind == "mixed":
+            keys[rng.random(m) < 1 / 3] = binning.INVALID_KEY
+        elif kind == "invalid":
+            keys[:] = binning.INVALID_KEY
+    return keys.astype(np.int64), min_s, max_s
+
+
+@pytest.mark.parametrize("levels", range(1, 12))
+def test_host_build_sort_plan_is_the_plain_digits(host, levels):
+    """binning.cuh's digit plan, its INVALID_KEY -> K map and back, and
+    the scratch size, built for the host, are binning.sort_digits',
+    binning.node_count's and binning_cuda.sort_scratch_words' at every
+    shift range of `levels` levels the wrapper takes (1 to 11)."""
+    for min_s in range(3, 14 - levels + 1):
+        max_s = min_s + levels - 1
+        shift = np.zeros(4, np.int32)
+        bits = np.zeros(4, np.int32)
+        top = ctypes.c_uint()
+        passes = host.host_sort_plan(min_s, max_s, _ptr(shift), _ptr(bits),
+                                     ctypes.addressof(top))
+        digits = binning.sort_digits(min_s, max_s)
+        k = binning.node_count(min_s, max_s)
+        assert list(zip(shift[:passes].tolist(), bits[:passes].tolist())) \
+            == digits
+        k = binning.node_count(min_s, max_s)
+        assert top.value == k
+        assert sum(b for _, b in digits) == k.bit_length() <= 31
+        keys = np.array([0, k // 2, k - 1, binning.INVALID_KEY], np.int64)
+        mapped = np.empty(4, np.uint32)
+        back = np.empty(4, np.int64)
+        host.host_sort_map(_ptr(keys), 4, k, _ptr(mapped), _ptr(back))
+        assert mapped.tolist() == [0, k // 2, k - 1, k]
+        np.testing.assert_array_equal(back, keys)
+        for n in (1, 4096, 4097, 663496):
+            assert host.host_sort_scratch_words(n, min_s, max_s) == \
+                binning_cuda.sort_scratch_words(n, min_s, max_s)
+
+
+def test_scan_words_round_trip(host):
+    """scan.cuh's status words (a 2-bit flag over a 62-bit value) give
+    back their flag and value, the largest values too."""
+    for flag in (0, 1, 2):
+        for value in (0, 1, 4096, (1 << 31) - 1, 1 << 40, (1 << 62) - 1):
+            w = host.host_scan_word(flag, value)
+            assert w >> 62 == flag
+            assert host.host_scan_flag(w) == flag
+            assert host.host_scan_value(w) == value
+
+
+@pytest.mark.parametrize("words,want", [
+    # (flag, value) of the nearest predecessors first; (taken, sum, done)
+    ([(2, 5)], (1, 5, True)),
+    ([(1, 3), (1, 4), (2, 10)], (3, 17, True)),
+    ([(1, 3), (0, 0), (2, 10)], (1, 3, False)),
+    ([(0, 0), (2, 10)], (0, 0, False)),
+    ([(1, 1)] * 8, (8, 8, False)),
+    ([(1, 2), (2, 3), (1, 100)], (2, 5, True)),
+])
+def test_window_step_takes_aggregates_up_to_an_inclusive_prefix(host, words,
+                                                                 want):
+    """A look-back round adds its predecessors' aggregates up to the first
+    inclusive prefix, and stops before an empty word."""
+    arr = np.array([(f << 62) | v for f, v in words], np.uint64)
+    total = ctypes.c_ulonglong(0)
+    done = ctypes.c_int(0)
+    taken = host.host_window_step(_ptr(arr), len(arr),
+                                  ctypes.addressof(total),
+                                  ctypes.addressof(done))
+    assert (taken, total.value, bool(done.value)) == want
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("case", list(SORT_CASES))
+def test_host_build_sort_equals_torch_sort(host, case, descending):
+    """The sort's kernels run on the host tile by tile (their ranking a
+    warp at a time, the look-back over aggregates, the staging and the
+    write-out) give torch.sort(stable=True)'s keys and permutation; the
+    tiles looked back in ticket order and in reverse (every tile walks
+    every aggregate below it)."""
+    keys, min_s, max_s = sort_case(case)
+    want_k, want_p = torch.sort(torch.as_tensor(keys), stable=True)
+    got_k = np.empty(len(keys), np.int64)
+    got_p = np.empty(len(keys), np.int64)
+    passes = host.host_sort(_ptr(keys), len(keys), min_s, max_s,
+                            int(descending), _ptr(got_k), _ptr(got_p))
+    assert passes == len(binning.sort_digits(min_s, max_s))
+    np.testing.assert_array_equal(got_k, want_k.numpy())
+    np.testing.assert_array_equal(got_p, want_p.numpy())
+
+
+@pytest.mark.parametrize("case", list(SORT_CASES))
+def test_sort_keys_on_cpu_is_the_plain_radix_sort(case):
+    """On a CPU tensor sort_keys is binning.radix_sort and launches
+    nothing; both are torch.sort(stable=True)'s keys and permutation."""
+    keys, min_s, max_s = sort_case(case)
+    k = torch.as_tensor(keys)
+    before = launches.counts()
+    got_k, got_p = binning_cuda.sort_keys(k, min_s, max_s)
+    assert launches.counts() == before
+    want_k, want_p = torch.sort(k, stable=True)
+    for got, want in ((got_k, want_k), (got_p, want_p)):
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("levels", [6, 7])
+def test_card_binning_estimate_counts_the_sorts_buffers(levels):
+    """pipeline/resources.py's `binning` on the card: the larger of the
+    sort's buffers (the int64 keys, sorted keys and permutation, the int32
+    keys and indices between passes, its scratch) and the gather's (the
+    sorted keys, permutation, row indices and rows), each as the caching
+    allocator may count it; on the CPU torch.sort's figure as before."""
+    from mlsgpu_tpu_torch.pipeline import resources
+    from mlsgpu_tpu_torch.tools import cloud
+    cfg = cloud.bench_config(0.03, levels)
+    e = 8 * cfg.max_device_splats
+    min_s, max_s = cfg.subsampling, levels + cfg.subsampling - 1
+
+    def block(nbytes):
+        b = -(-nbytes // 512) * 512
+        return b + (1 << 20 if b > 1 << 20 else 0)
+
+    sort = (3 * block(8 * e) + block(8 * e)
+            + block(8 * binning_cuda.sort_scratch_words(e, min_s, max_s)))
+    gather = 3 * block(8 * e) + block(32 * e)
+    card = resources.estimate_block_usage(cfg, "codes", "cuda")
+    assert card["binning"] == max(sort, gather) == gather
+    cpu = resources.estimate_block_usage(cfg, "codes", "cpu")
+    assert cpu["binning"] == e * 64
+
+
 # --- the wrappers, the build and the counters --------------------------------
 
 def test_no_splats_on_cpu():
@@ -547,7 +929,8 @@ def test_kernel_event_ms_means_each_kernel_over_its_events():
 
 
 @pytest.mark.parametrize("call", ["splat_keys", "entry_rows", "bin_splats",
-                                  "tile_segments", "segments_and_bounds"])
+                                  "tile_segments", "segments_and_bounds",
+                                  "sort_keys"])
 def test_wrappers_raise_for_a_device_they_cannot_take(call):
     splats, valid, origin = edge_cloud("sphere")
     sp = torch.as_tensor(splats).to("meta")
@@ -559,7 +942,9 @@ def test_wrappers_raise_for_a_device_they_cannot_take(call):
             "tile_segments": (torch.empty(8, dtype=torch.int64,
                                           device="meta"), 3, 5, 4),
             "segments_and_bounds": (torch.empty(8, dtype=torch.int64,
-                                                device="meta"), 3, 5, 4)
+                                                device="meta"), 3, 5, 4),
+            "sort_keys": (torch.empty(8, dtype=torch.int64, device="meta"),
+                          3, 5)
             }[call]
     with pytest.raises(ValueError, match="meta"):
         getattr(binning_cuda, call)(*args)
@@ -567,14 +952,14 @@ def test_wrappers_raise_for_a_device_they_cannot_take(call):
 
 def test_one_nvcc_call_builds_the_binning_kernels(tmp_path, monkeypatch):
     """One nvcc command for sm_90a names the four sources; the library
-    is rebuilt when a header (binning.cuh, marching.cuh, marching_tables.h),
-    which no command line names, is newer."""
+    is rebuilt when a header (binning.cuh, marching.cuh, marching_tables.h,
+    scan.cuh), which no command line names, is newer."""
     cmd = mls_cuda.build_command(["nvcc"], "lib.so")
     assert [os.path.basename(a) for a in cmd if a.endswith(".cu")] == [
         "mls_field.cu", "seam_moments.cu", "binning.cu", "marching.cu"]
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert [os.path.basename(h) for h in mls_cuda.HEADERS] == [
-        "binning.cuh", "marching.cuh", "marching_tables.h"]
+        "binning.cuh", "marching.cuh", "marching_tables.h", "scan.cuh"]
     assert all(os.path.isfile(h) for h in mls_cuda.HEADERS)
     log = tmp_path / "calls.log"
     stub = tmp_path / "stub.py"
@@ -601,13 +986,16 @@ def test_launch_counts_add_up():
     saved = launches.counts()
     try:
         launches.add({"bin_keys": 2, "bin_entries": 3, "tile_bounds": 6,
-                      "tile_segments": 4})
+                      "tile_segments": 4, "bin_sort_histogram": 1,
+                      "bin_sort_pass": 2})
         for name in BINNING:
             launches.count(name)
         assert launches.since(saved) == {**dict.fromkeys(launches.KERNELS, 0),
                                          "bin_keys": 3, "bin_entries": 4,
                                          "tile_bounds": 7,
-                                         "tile_segments": 5}
+                                         "tile_segments": 5,
+                                         "bin_sort_histogram": 2,
+                                         "bin_sort_pass": 3}
         with pytest.raises(KeyError):
             launches.add({"keys": 1})
         assert launches.counts()["bin_keys"] == saved["bin_keys"] + 3
@@ -629,7 +1017,8 @@ class CountingStep:
 def test_worker_processes_carry_binning_launches_back():
     """Two worker processes count their blocks' binning launches; the run's
     statistics (`binning.keyLaunches`, `entryLaunches`, `boundLaunches`,
-    `segmentLaunches`) and this process's counts each gain one a block."""
+    `segmentLaunches`, `sortHistogramLaunches`, `sortPassLaunches`) and
+    this process's counts each gain one a block."""
     from mlsgpu_tpu_torch.pipeline import reconstruct as trec
     from mlsgpu_tpu_torch.pipeline import streamer
     from mlsgpu_tpu_torch.utils.statistics import get_registry
@@ -652,9 +1041,10 @@ def test_worker_processes_carry_binning_launches_back():
     assert len(got) == len(buckets)
     stats = get_registry().to_dict()
     assert stats["workers.spawned"]["total"] == 2
-    assert counts == [len(buckets)] * 4
+    assert counts == [len(buckets)] * len(BINNING)
     for name in ("keyLaunches", "entryLaunches", "boundLaunches",
-                 "segmentLaunches"):
+                 "segmentLaunches", "sortHistogramLaunches",
+                 "sortPassLaunches"):
         assert stats[f"binning.{name}"]["total"] == len(buckets), name
 
 
@@ -696,7 +1086,8 @@ def test_kernels_bit_for_bit_on_card(cuda_device, kind):
                                              tpa)
         _same(s, ref_s, "starts")
         _same(ln, ref_l, "lens")
-        assert _since(before) == [2, 2, 1, 1]
+        passes = len(binning.sort_digits(min_s, max_s))
+        assert _since(before) == [2, 2, 1, 1, 1, passes]
         s, ln, bounds = binning_cuda.segments_and_bounds(b.entry_keys, min_s,
                                                          max_s, tpa)
         _same(bounds, binning.node_bounds(b.entry_keys, min_s, max_s),
@@ -718,17 +1109,19 @@ def test_no_splats_on_card(cuda_device):
     s, ln = binning_cuda.tile_segments(b.entry_keys, 3, 5, 4)
     assert b.entry_data.shape == (0, 8) and s.shape == (64, 3)
     assert int(s.abs().sum()) == int(ln.abs().sum()) == 0
-    assert _since(before) == [0, 0, 1, 1]
+    assert _since(before) == [0, 0, 1, 1, 0, 0]
 
 
 @pytest.mark.cuda
 def test_block_field_launches_each_kernel_once_on_card(cuda_device):
+    """One launch of each binning kernel a block, the sort's pass kernel
+    once a digit (one digit at 3 levels)."""
     splats, valid, origin = edge_cloud("sphere")
     before = launches.counts()
     block.block_field(torch.as_tensor(splats, device=cuda_device),
                       torch.as_tensor(valid, device=cuda_device),
                       (31, 31, 31), origin, 0.0, levels=3, subsampling=3)
-    assert _since(before) == [1, 1, 1, 1]
+    assert _since(before) == [1, 1, 1, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -759,7 +1152,98 @@ def test_segment_kernels_bit_for_bit_on_edge_cases_on_card(cuda_device,
     k = torch.as_tensor(keys, device=cuda_device)
     before = launches.counts()
     s, ln, b = binning_cuda.segments_and_bounds(k, min_s, max_s, tpa)
-    assert _since(before) == [0, 0, 1, 1]
+    assert _since(before) == [0, 0, 1, 1, 0, 0]
     for got, want, label in ((b, want_b, "bounds"), (s, want_s, "starts"),
                              (ln, want_l, "lens")):
         assert torch.equal(got.cpu(), torch.as_tensor(want)), label
+
+
+#: The sort's card cases: (levels, kind, keys) as sort_keys_of makes them
+#: (one key, a tile of the passes (4,096 keys) and one key either side, a
+#: prime count, 4 to 11 levels (two to four passes), all keys invalid,
+#: heavy ties), and
+#: the densest bucket of the 2M bench cloud at 6 levels (256^3 corners,
+#: 663,496 entries) and at 7 (512^3, 3,098,216).
+CARD_SORT_CASES = [
+    (6, "mixed", 1), (6, "mixed", 4095), (6, "mixed", 4096),
+    (6, "mixed", 4097), (6, "mixed", 999_983), (7, "mixed", 999_983),
+    (7, "mixed", 4097), (8, "mixed", 999_983), (9, "mixed", 999_983),
+    (11, "mixed", 999_983), (4, "mixed", 50_000), (6, "invalid", 100_003),
+    (6, "ties", 300_007), (7, "valid", 5 * 4096), (6, "bucket", None),
+    (7, "bucket", None)]
+
+
+def bucket_keys(levels, dev):
+    """The key kernel's keys of the densest bucket of the 2M bench cloud
+    at `levels` levels (tools/cloud.py), and the shifts."""
+    from mlsgpu_tpu_torch.io.splat_set import SequenceSource
+    from mlsgpu_tpu_torch.pipeline.streamer import load_bucket
+    from mlsgpu_tpu_torch.tools import cloud
+    pts, sr = cloud.make_cloud(2_000_000)
+    src = SequenceSource(pts)
+    cfg = cloud.bench_config(sr, levels)
+    info, _, b = cloud.densest_bucket(src, cfg)
+    grid_form, valid = load_bucket(src, info, b)
+    min_s, max_s = cfg.subsampling, levels + cfg.subsampling - 1
+    keys = binning_cuda.splat_keys(
+        torch.as_tensor(grid_form, device=dev),
+        torch.as_tensor(valid, device=dev),
+        tuple(int(v) for v in b.cell_lo), min_s, max_s)
+    return keys, min_s, max_s, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,kind,m", CARD_SORT_CASES)
+def test_sort_bit_for_bit_on_card(cuda_device, levels, kind, m):
+    """sort_keys' kernels give torch.sort(stable=True)'s keys and
+    permutation bit for bit, and binning.radix_sort's on the card: one
+    histogram launch and one pass launch a digit."""
+    if kind == "bucket":
+        keys, min_s, max_s, _ = bucket_keys(levels, cuda_device)
+    else:
+        k, min_s, max_s = sort_keys_of(levels, kind, m)
+        keys = torch.as_tensor(k, device=cuda_device)
+    before = launches.counts()
+    got_k, got_p = binning_cuda.sort_keys(keys, min_s, max_s)
+    assert _since(before)[4:] == [1, len(binning.sort_digits(min_s, max_s))]
+    want_k, want_p = torch.sort(keys, stable=True)
+    plain_k, plain_p = binning.radix_sort(keys, min_s, max_s)
+    torch.cuda.synchronize()
+    for got, want, label in ((got_k, want_k, "keys"), (got_p, want_p, "perm"),
+                             (got_k, plain_k, "keys (plain)"),
+                             (got_p, plain_p, "perm (plain)")):
+        assert got.dtype == torch.int64 and torch.equal(got, want), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [6, 7])
+def test_binning_estimate_holds_the_stage_on_card(cuda_device, levels):
+    """pipeline/resources.py's `binning` estimate for the card, at the
+    densest bucket's splat count, holds what binning_cuda.bin_splats
+    allocates on that bucket (torch.cuda.max_memory_allocated above its
+    splats) at 256^3 and 512^3."""
+    import dataclasses
+    from mlsgpu_tpu_torch.io.splat_set import SequenceSource
+    from mlsgpu_tpu_torch.pipeline import resources
+    from mlsgpu_tpu_torch.pipeline.streamer import load_bucket
+    from mlsgpu_tpu_torch.tools import cloud
+    pts, sr = cloud.make_cloud(2_000_000)
+    src = SequenceSource(pts)
+    cfg = cloud.bench_config(sr, levels)
+    info, _, b = cloud.densest_bucket(src, cfg)
+    grid_form, valid = load_bucket(src, info, b)
+    sp = torch.as_tensor(grid_form, device=cuda_device)
+    va = torch.as_tensor(valid, device=cuda_device)
+    usage = resources.estimate_block_usage(
+        dataclasses.replace(cfg, max_device_splats=len(grid_form)), "codes",
+        "cuda")
+    min_s, max_s = cfg.subsampling, levels + cfg.subsampling - 1
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out = binning_cuda.bin_splats(sp, va, tuple(int(v) for v in b.cell_lo),
+                                  min_s, max_s)
+    torch.cuda.synchronize(cuda_device)
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert out.entry_keys.numel() == 8 * len(grid_form)
+    assert 0 < peak <= usage["binning"]

@@ -158,16 +158,21 @@ def _plain(field, region, tiled=None):
 # warp, walked a corner plane at a time: each lane's sign and finite words
 # of its row half, its next row from the next lane (the band's last row by
 # ballot), the plane below kept, the occupied word of its 32 cells, the
-# layer's sums by tile over eight lanes; the scan a contiguous range of
-# segments a thread, each thread's bases the sums of the threads before
-# it; emit a listed tile a warp: its corner rows' bits, the 16 cell words'
+# layer's sums by tile over eight lanes; the scan a segment a thread, a
+# tile of MARCH_SCAN_THREADS segments a CTA: every tile's aggregates, then
+# each tile's look-back over the status words (scan.cuh), then its
+# threads' list rows from the tile's bases and their exclusive sums in
+# the CTA, and the totals from the last tile; emit a listed tile a warp: its corner rows' bits, the 16 cell words'
 # occupied cells ranked into a list, then 32 of them at a time, their
 # vertices spread over the lanes through the owner map.
 _HARNESS = """
 #include <math.h>
 #include <string.h>
 
+#include <vector>
+
 #include "marching.cuh"
+#include "scan.cuh"
 
 extern "C" int host_num_edges() { return MARCH_NUM_EDGES; }
 extern "C" int host_max_vertices() { return MARCH_MAX_CELL_VERTICES; }
@@ -423,49 +428,109 @@ extern "C" int host_classify(const float* field, int b, int rx, int ry, int rz,
   return segments * bands * runs;
 }
 
-// march_scan_kernel: thread i's contiguous segments, its bases the sums of
-// the threads before it. Returns the tile records it read.
+extern "C" int host_scan_state_words(int b) {
+  const int g = tiles_an_axis(b);
+  return (int)march_scan_state_words(g * g * march_segments(g));
+}
+
+// scan_lookback on the host: SCAN_WINDOW words a round, below tile 0 an
+// inclusive 0.
+static unsigned long long lookback(const unsigned long long* words,
+                                   int stride, int tile) {
+  unsigned long long sum = 0, w[SCAN_WINDOW];
+  int next = tile - 1;
+  while (next >= 0) {
+    for (int i = 0; i < SCAN_WINDOW; ++i)
+      w[i] = next - i >= 0 ? words[(long long)(next - i) * stride]
+                           : scan_word(SCAN_INCLUSIVE, 0ULL);
+    bool done;
+    next -= scan_window_step(w, SCAN_WINDOW, sum, &done);
+    if (done) break;
+  }
+  return sum;
+}
+
+// A segment's counts in the totals' order (cells, vertices, indices,
+// candidate tiles, occupied tiles); zero past the last segment.
+static void segment_counts(const unsigned* rows, int nrows, int r,
+                           unsigned v[MARCH_TOTALS]) {
+  const unsigned* seg = rows + 4 * (long long)r;
+  const bool in = r < nrows;
+  v[MARCH_TOTAL_CELLS] = in ? seg[1] : 0u;
+  v[MARCH_TOTAL_VERTICES] = in ? seg[2] : 0u;
+  v[MARCH_TOTAL_INDICES] = in ? seg[3] : 0u;
+  v[MARCH_TOTAL_CANDIDATES] = in ? march_segment_candidates(seg[0]) : 0u;
+  v[MARCH_TOTAL_TILES] = in ? march_segment_tiles(seg[0]) : 0u;
+}
+
+// march_scan_kernel, a tile (a CTA) at a time, its threads in loops. Every
+// tile first publishes its aggregates (as if all ran at once), then the
+// tiles look back in ticket order or, `descending`, from the last (each
+// walking every aggregate below it); then each tile's threads write their
+// list rows, and the last tile the totals. Returns the tile records read.
 extern "C" long long host_scan(const unsigned* rows, int nrows, int b,
-                          const unsigned* records, int count_candidates,
-                          int* list, long long* totals) {
+                               const unsigned* records, int count_candidates,
+                               int descending, int* list, long long* totals) {
   const int g = tiles_an_axis(b), segments = march_segments(g);
-  const int per = (nrows + MARCH_SCAN_THREADS - 1) / MARCH_SCAN_THREADS;
-  unsigned at[3] = {0, 0, 0};
-  unsigned long long vertices = 0, indices = 0, candidates = 0;
-  long long reads = 0;
-  for (int i = 0; i < MARCH_SCAN_THREADS; ++i) {
-    const int first = i * per < nrows ? i * per : nrows;
-    const int last = first + per < nrows ? first + per : nrows;
-    for (int r = first; r < last; ++r) {
-      const unsigned* seg = rows + 4 * r;
-      vertices += seg[2];
-      indices += seg[3];
-      candidates += march_segment_candidates(seg[0]);
-      if (march_segment_tiles(seg[0]) == 0) continue;
-      const int t0 = (r / segments) * g + (r % segments) * MARCH_ROW_TILES;
-      const int left = g - (r % segments) * MARCH_ROW_TILES;
-      const int n = left < MARCH_ROW_TILES ? left : MARCH_ROW_TILES;
-      for (int j = 0; j < n; ++j) {
-        const unsigned x = records[2 * (t0 + j)], y = records[2 * (t0 + j) + 1];
-        ++reads;
-        const unsigned cells = march_tile_cells(x);
-        if (cells == 0) continue;
-        int* row = list + MARCH_LIST_WIDTH * at[0];
-        row[MARCH_LIST_TILE] = t0 + j;
-        row[MARCH_LIST_CELL_BASE] = (int)at[1];
-        row[MARCH_LIST_VERTEX_BASE] = (int)at[2];
-        row[3] = 0;
-        at[0] += 1;
-        at[1] += cells;
-        at[2] += march_tile_vertices(y);
-      }
+  const int tiles = march_scan_tiles(nrows), K = MARCH_TOTALS;
+  std::vector<unsigned> sum((size_t)tiles * K, 0u);
+  std::vector<unsigned long long> status((size_t)tiles * K), base(status);
+  for (int tile = 0; tile < tiles; ++tile)
+    for (int t = 0; t < MARCH_SCAN_THREADS; ++t) {
+      unsigned v[MARCH_TOTALS];
+      segment_counts(rows, nrows, tile * MARCH_SCAN_THREADS + t, v);
+      for (int k = 0; k < K; ++k) sum[tile * K + k] += v[k];
+    }
+  for (int tile = 0; tile < tiles; ++tile)
+    for (int k = 0; k < K; ++k)
+      status[tile * K + k] = scan_word(
+          tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, sum[tile * K + k]);
+  for (int i = 0; i < tiles; ++i) {
+    const int tile = descending ? tiles - 1 - i : i;
+    for (int k = 0; k < K; ++k) {
+      base[tile * K + k] = tile == 0 ? 0 : lookback(status.data() + k, K, tile);
+      status[tile * K + k] =
+          scan_word(SCAN_INCLUSIVE, base[tile * K + k] + sum[tile * K + k]);
     }
   }
-  totals[MARCH_TOTAL_CELLS] = at[1];
-  totals[MARCH_TOTAL_VERTICES] = (long long)vertices;
-  totals[MARCH_TOTAL_INDICES] = (long long)indices;
-  totals[MARCH_TOTAL_CANDIDATES] = count_candidates ? (long long)candidates : 0;
-  totals[MARCH_TOTAL_TILES] = at[0];
+  long long reads = 0;
+  for (int tile = 0; tile < tiles; ++tile) {
+    unsigned at[MARCH_TOTALS] = {0, 0, 0, 0, 0};  // the CTA's exclusive sums
+    for (int t = 0; t < MARCH_SCAN_THREADS; ++t) {
+      const int r = tile * MARCH_SCAN_THREADS + t;
+      unsigned v[MARCH_TOTALS];
+      segment_counts(rows, nrows, r, v);
+      if (v[MARCH_TOTAL_TILES] != 0u) {
+        const unsigned long long* bt = base.data() + tile * K;
+        long long row_at = (long long)(bt[MARCH_TOTAL_TILES] + at[MARCH_TOTAL_TILES]);
+        unsigned long long cells = bt[MARCH_TOTAL_CELLS] + at[MARCH_TOTAL_CELLS];
+        unsigned long long vertices =
+            bt[MARCH_TOTAL_VERTICES] + at[MARCH_TOTAL_VERTICES];
+        const int t0 = (r / segments) * g + (r % segments) * MARCH_ROW_TILES;
+        const int n = imin(MARCH_ROW_TILES, g - (r % segments) * MARCH_ROW_TILES);
+        for (int j = 0; j < n; ++j) {
+          const unsigned x = records[2 * (t0 + j)], y = records[2 * (t0 + j) + 1];
+          ++reads;
+          const unsigned c = march_tile_cells(x);
+          if (c == 0) continue;
+          int* row = list + MARCH_LIST_WIDTH * row_at;
+          row[MARCH_LIST_TILE] = t0 + j;
+          row[MARCH_LIST_CELL_BASE] = (int)cells;
+          row[MARCH_LIST_VERTEX_BASE] = (int)vertices;
+          row[3] = 0;
+          row_at += 1;
+          cells += c;
+          vertices += march_tile_vertices(y);
+        }
+      }
+      for (int k = 0; k < K; ++k) at[k] += v[k];
+    }
+  }
+  const int last = tiles - 1;
+  for (int k = 0; k < K; ++k)
+    totals[k] = k == MARCH_TOTAL_CANDIDATES && !count_candidates
+                    ? 0
+                    : (long long)(base[last * K + k] + sum[last * K + k]);
   return reads;
 }
 
@@ -595,7 +660,9 @@ def host(tmp_path_factory):
     lib.host_classify.restype = i32
     lib.host_classify.argtypes = [p, i32, i32, i32, i32, i32, p, p]
     lib.host_scan.restype = i64
-    lib.host_scan.argtypes = [p, i32, i32, p, i32, p, p]
+    lib.host_scan.argtypes = [p, i32, i32, p, i32, i32, p, p]
+    lib.host_scan_state_words.restype = i32
+    lib.host_scan_state_words.argtypes = [i32]
     lib.host_emit.argtypes = [p, i32, i32, i32, i32, p, i32, i64, i64, p]
     return lib
 
@@ -604,13 +671,14 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def host_image(lib, field, region, run_tiles=None):
+def host_image(lib, field, region, run_tiles=None, descending=False):
     """The three kernels run on the host as the wrapper runs them on the
     card: (image int32, totals by marching_cuda.TOTALS name, with the
     occupied-tile list and the tile records the scan read). Candidate
     tiles are counted above marching.TILED_ABOVE corners an axis.
     run_tiles: the classify warps' run along z (by default the launch's,
-    march_run_tiles)."""
+    march_run_tiles). descending: the scan's tiles look back from the
+    last."""
     field = np.ascontiguousarray(field, np.float32)
     b = field.shape[0]
     g = -(-(b - 1) // marching.TILE)
@@ -627,9 +695,10 @@ def host_image(lib, field, region, run_tiles=None):
         nrows // g ** 2 * -(-g // 2) * -(-g // run_tiles))
     tile_list = np.empty((g ** 3, marching_cuda.LIST_WIDTH), np.int32)
     totals = np.empty(len(marching_cuda.TOTALS), np.int64)
+    assert lib.host_scan_state_words(b) == marching_cuda.scan_state_words(g)
     reads = lib.host_scan(_ptr(rows), nrows, b, _ptr(records),
-                          int(b > marching.TILED_ABOVE), _ptr(tile_list),
-                          _ptr(totals))
+                          int(b > marching.TILED_ABOVE), int(descending),
+                          _ptr(tile_list), _ptr(totals))
     t = dict(zip(marching_cuda.TOTALS, totals.tolist()))
     t.update(tile_list=tile_list, records_read=reads)
     words = block.CodesFormat(b - 1).total_words(t["cells"], t["vertices"])
@@ -827,6 +896,92 @@ def test_scan_bound_counts_the_records_the_scan_reads(host, case):
                               + 8 * len(marching_cuda.TOTALS))
 
 
+def random_records(b, occupied, seed):
+    """(records (g^3, 2) uint32, rows (segments, 4) uint32) as the
+    classify pass writes them, made up from a numpy seed: a tile has an
+    occupied cell with probability `occupied` (1-512 cells, up to 12
+    vertices and 15 indices a cell), is a candidate with probability 1/2
+    (always when occupied), and each row segment holds its tiles' sums."""
+    rng = np.random.default_rng(seed)
+    g = -(-(b - 1) // marching.TILE)
+    n = g ** 3
+    cells = np.where(rng.random(n) < occupied, rng.integers(1, 513, n), 0)
+    vertices = np.where(cells > 0, rng.integers(0, 12 * cells + 1), 0)
+    indices = np.where(cells > 0, rng.integers(0, 15 * cells + 1), 0)
+    cand = (cells > 0) | (rng.random(n) < 0.5)
+    records = np.empty((n, 2), np.uint32)
+    records[:, 0] = cells | cand.astype(np.uint32) << 16
+    records[:, 1] = vertices | indices << 16
+    per = marching_cuda.ROW_TILES
+    segs = -(-g // per)
+    seg = (np.arange(n) % g) // per + np.arange(n) // g * segs
+    rows = np.zeros((g * g * segs, 4), np.uint64)
+    for col, val in ((0, (cells > 0) + (cand.astype(np.uint64) << 16)),
+                     (1, cells), (2, vertices), (3, indices)):
+        np.add.at(rows[:, col], seg, val.astype(np.uint64))
+    return records, rows.astype(np.uint32)
+
+
+def plain_scan(records, count_candidates):
+    """The scan's list (occupied tiles in order: tile, cell base, vertex
+    base, 0) and totals (marching_cuda.TOTALS order) from the tile
+    records, in numpy."""
+    cells = (records[:, 0] & 0xFFFF).astype(np.int64)
+    vertices = (records[:, 1] & 0xFFFF).astype(np.int64)
+    occ = np.flatnonzero(cells)
+    lst = np.zeros((len(occ), marching_cuda.LIST_WIDTH), np.int64)
+    lst[:, 0] = occ
+    lst[:, 1] = np.cumsum(cells[occ]) - cells[occ]
+    lst[:, 2] = np.cumsum(vertices[occ]) - vertices[occ]
+    cand = int((records[:, 0] >> 16).astype(np.int64).sum())
+    totals = [int(cells.sum()), int(vertices.sum()),
+              int((records[:, 1] >> 16).astype(np.int64).sum()),
+              cand if count_candidates else 0, len(occ)]
+    return lst.astype(np.int32), totals
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("b,occupied", [(2, 1.0), (77, 0.3), (300, 0.05),
+                                        (600, 0.01), (1024, 0.002),
+                                        (1024, 1.0)])
+def test_host_scan_is_a_plain_scan_of_the_records(host, b, occupied,
+                                                  descending):
+    """The scan kernel run on the host tile by tile, its look-back in
+    ticket order and in reverse (each tile walking every aggregate below
+    it), on records made up for every size up to b = 1024 (1,024 scan
+    tiles; every tile occupied too): the list and the totals a plain
+    numpy scan of the records gives."""
+    records, rows = random_records(b, occupied, seed=b)
+    g = -(-(b - 1) // marching.TILE)
+    tile_list = np.full((g ** 3, marching_cuda.LIST_WIDTH), -1, np.int32)
+    totals = np.empty(len(marching_cuda.TOTALS), np.int64)
+    count = int(b > marching.TILED_ABOVE)
+    reads = host.host_scan(_ptr(rows), len(rows), b, _ptr(records), count,
+                           int(descending), _ptr(tile_list), _ptr(totals))
+    want_list, want_totals = plain_scan(records, count)
+    assert totals.tolist() == want_totals
+    np.testing.assert_array_equal(tile_list[:len(want_list)], want_list)
+    assert (tile_list[len(want_list):] == -1).all()
+    assert reads >= len(want_list) > 0
+
+
+@pytest.mark.parametrize("case", ["sphere", "region_edges", "wide",
+                                  "every_tile"])
+def test_plain_list_is_the_host_scan_list(host, case):
+    """plain_list, which the card's scan test holds the kernel's list to,
+    is the host scan's list on the same field (every_tile_field: each of
+    its tiles listed)."""
+    if case == "every_tile":
+        field, region = every_tile_field(41, "cpu").numpy(), (40, 40, 40)
+    else:
+        field, region = field_case(case)
+    _, t = host_image(host, field, region)
+    cm = marching.generate_codes(torch.as_tensor(field), region)
+    want = plain_list(cm, field.shape[0]).numpy()
+    assert t["tiles"] == len(want) > 0
+    np.testing.assert_array_equal(t["tile_list"][:len(want)], want)
+
+
 def test_t16_is_torchs_rounding(host):
     """march_t16 against the plain version's torch ops on edge values:
     subnormal corners and differences, exact zeros of both signs on the
@@ -915,10 +1070,10 @@ def test_block_step_counts_on_cpu_carry_n_occ():
 @pytest.mark.parametrize("levels", [6, 7])
 def test_card_codes_estimate_counts_the_kernels_buffers(levels):
     """pipeline/resources.py on the card's codes readback counts the
-    marching kernels' buffers (tile and segment records, the list, the
-    totals, the image) and not the plain path's classification and
-    emission temporaries; the CPU and the card's packed and raw readbacks,
-    which march plainly, keep the plain figures."""
+    marching kernels' buffers (tile and segment records, the scan's state,
+    the list, the totals, the image) and not the plain path's
+    classification and emission temporaries; the CPU and the card's packed
+    and raw readbacks, which march plainly, keep the plain figures."""
     from mlsgpu_tpu_torch.pipeline import resources
     from mlsgpu_tpu_torch.tools import cloud
     cfg = cloud.bench_config(0.03, levels)
@@ -926,9 +1081,11 @@ def test_card_codes_estimate_counts_the_kernels_buffers(levels):
     g = -(-(b - 1) // marching.TILE)
     occ = int((b - 1) ** 3 * resources.SURFACE_CELL_SHARE)
     card = resources.estimate_block_usage(cfg, "codes", "cuda")
+    rows = g * g * -(-g // 8)
+    scan_tiles = -(-rows // 256)
     assert card["marching_kernels"] == (
-        8 * g ** 3 + 16 * g * g * -(-g // 8) + 16 * g ** 3
-        + 8 * len(marching_cuda.TOTALS)
+        8 * g ** 3 + 16 * rows + 16 * g ** 3
+        + 8 * (1 + 5 * scan_tiles) + 8 * len(marching_cuda.TOTALS)
         + 4 * block.CodesFormat(b - 1).total_words(occ, 4 * occ))
     plain = ("marching_tiled" if b > marching.TILED_ABOVE
              else "marching_dense")
@@ -1023,6 +1180,66 @@ def test_kernels_bit_for_bit_on_card(cuda_device, b):
     assert img.shape == want.shape and torch.equal(img, want)
 
 
+def every_tile_field(b, dev):
+    """A (b, b, b) field with an occupied cell in every tile: 1.0 but for
+    the corner (8i + 4, 8j + 4, 8k + 4) of each tile (or its last corner
+    where the tile is shorter), -1.0, so that the eight cells around it,
+    all in that tile, are occupied."""
+    field = torch.ones((b, b, b), dtype=torch.float32, device=dev)
+    g = -(-(b - 1) // marching.TILE)
+    at = torch.clamp(torch.arange(g, device=dev) * marching.TILE + 4,
+                     max=b - 2)
+    field[at[:, None, None], at[None, :, None], at[None, None, :]] = -1.0
+    return field
+
+
+def plain_list(cm, b):
+    """The scan's list (tile, cell base, vertex base, 0) of a block's
+    plain codes (marching.generate_codes): the tiles of its occupied cells
+    in order, each tile's first cell and the vertices before it."""
+    nc = b - 1
+    g = -(-nc // marching.TILE)
+    ids = cm.cell_ids
+    t = marching.TILE
+    tile = ((ids // (nc * nc) // t) * g + ids // nc % nc // t) * g \
+        + ids % nc // t
+    nv = torch.as_tensor(tables.COUNT_TABLE[:, 0], device=ids.device)[
+        cm.cell_codes]
+    vbase = torch.cumsum(nv, 0) - nv
+    first = torch.ones_like(tile, dtype=torch.bool)
+    first[1:] = tile[1:] != tile[:-1]
+    at = first.nonzero().squeeze(1)
+    return torch.stack([tile[at], at, vbase[at], torch.zeros_like(at)],
+                       1).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,every_tile", [
+    (2, False), (77, False), (256, False), (300, False), (512, False),
+    (600, False), (1024, False), (1024, True)])
+def test_scan_bit_for_bit_on_card(cuda_device, b, every_tile):
+    """The scan kernel's list and totals (launch_classify) are the plain
+    stage's bit for bit (the tiles of marching.generate_codes' cells, their
+    cell and vertex bases, its counts) at every size from 2 to 1024 corners
+    an axis (1 to 1,024 scan tiles), and at 1024 with every tile occupied
+    (2,097,152 listed tiles); the image too."""
+    field = (every_tile_field(b, cuda_device) if every_tile
+             else card_field(b, cuda_device))
+    region = (b - 1,) * 3
+    tile_list, totals = marching_cuda.launch_classify(field, region)
+    t = dict(zip(marching_cuda.TOTALS, totals.tolist()))
+    cm = marching.generate_codes(field, region)
+    assert (t["cells"], t["vertices"], t["indices"], t["candidates"]) == (
+        cm.num_cells, cm.num_vertices, cm.num_indices, cm.num_tiles)
+    want = plain_list(cm, b)
+    assert t["tiles"] == want.shape[0]
+    assert torch.equal(tile_list[:t["tiles"]], want)
+    if every_tile:
+        assert t["tiles"] == (-(-(b - 1) // marching.TILE)) ** 3
+    img, _ = marching_cuda.codes_image(field, region)
+    assert torch.equal(img, block.pack_codes(cm))
+
+
 @pytest.mark.cuda
 def test_empty_field_on_card(cuda_device):
     field = torch.full((256, 256, 256), float("nan"), device=cuda_device)
@@ -1035,26 +1252,55 @@ def test_empty_field_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_two_streams_at_once_on_card(cuda_device):
-    """Two images on two streams of the card at the same time, each bit
-    for bit its plain image."""
+    """Two images and two radix sorts (ops/binning_cuda.py, on the same
+    look-back scan as the marching scan) on two streams of the card at the
+    same time, three rounds interleaved: all finish within 60 s (a CTA of
+    either waits only on CTAs that took their tickets before it, so
+    launches sharing the card in any proportion make progress), each image
+    bit for bit its plain image and each sort torch.sort(stable=True)'s."""
+    import time
+    from mlsgpu_tpu_torch.ops import binning, binning_cuda
     fields = [card_field(256, cuda_device, seed=s) for s in (1, 2)]
     region = (255, 255, 255)
     want = [_plain_on_card(f, region)[0] for f in fields]
+    rng = np.random.default_rng(4)
+    top = binning.node_count(3, 9)
+    keys = []
+    for m in (663_496, 3_098_216):
+        k = rng.integers(0, top, size=m)
+        k[rng.random(m) < 0.6] = binning.INVALID_KEY
+        keys.append(torch.as_tensor(k, device=cuda_device))
+    want_sorts = [torch.sort(k, stable=True) for k in keys]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda_device) for _ in fields]
-    got = [None, None]
-    marched = [None, None]
-    for i, (f, s) in enumerate(zip(fields, streams)):
-        s.wait_stream(torch.cuda.current_stream(cuda_device))
-        with torch.cuda.stream(s):
-            marched[i] = marching_cuda.classify(f, region)
-    for i, s in enumerate(streams):
-        with torch.cuda.stream(s):
-            got[i] = marching_cuda.emit(marched[i])
-    for s in streams:
-        s.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    got = [[None] * 3 for _ in streams]
+    sorts = [[None] * 3 for _ in streams]
+    for r in range(3):
+        marched = [None, None]
+        for i, (f, s) in enumerate(zip(fields, streams)):
+            s.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(s):
+                sorts[i][r] = binning_cuda.sort_keys(keys[i], 3, 9)
+                marched[i] = marching_cuda.classify(f, region)
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i][r] = marching_cuda.emit(marched[i])
+                sorts[i][r] = sorts[i][r] + binning_cuda.sort_keys(
+                    keys[1 - i], 3, 9)
+    done = [torch.cuda.Event() for _ in streams]
+    for ev, s in zip(done, streams):
+        ev.record(s)
+    deadline = time.monotonic() + 60.0
+    while not all(ev.query() for ev in done):
+        assert time.monotonic() < deadline, "two streams did not finish"
+        time.sleep(0.001)
+    for i in range(2):
+        for r in range(3):
+            assert torch.equal(got[i][r], want[i])
+            k0, p0, k1, p1 = sorts[i][r]
+            for gk, gp, (wk, wp) in ((k0, p0, want_sorts[i]),
+                                     (k1, p1, want_sorts[1 - i])):
+                assert torch.equal(gk, wk) and torch.equal(gp, wp)
 
 
 @pytest.mark.cuda
