@@ -54,7 +54,16 @@ raises, exits non-zero and prints no result line:
      time, the launches and syncs of a traced call (the three kernels and
      at most one sync: checked) beside the plain stage's, the plain stage
      host-paced, each kernel's bound and the stage's (marching_bound)
-     (marching_vs_plain);
+     (marching_vs_plain); then the same field through the packed and raw
+     readbacks' kernels (classify and scan, csrc/marching.cu's mesh
+     emission, csrc/mesh.cu's weld sort, compaction and pack) against the
+     plain generate_mesh -> weld -> pack_readback: the unwelded and welded
+     arrays, the counts, raw's triangles and the image bit for bit, the
+     packed stage host-paced, each kernel alone (profiler), the card's
+     busy time, the launches and syncs of a traced stage (the kernels and
+     at most two syncs: checked) beside the plain chain's, the plain chain
+     host-paced, torch.unique and torch.sort of the compact keys, each
+     kernel's bound and the stage's (mesh_bound) (mesh_vs_plain);
   4. the seam contract on the card, through the seam kernels: shared-face
      and T-junction corners of adjacent blocks bitwise equal, also where a
      face patch straddles the blocks' in-plane edge; both seam passes
@@ -62,7 +71,10 @@ raises, exits non-zero and prints no result line:
      fields bit for bit;
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
      cloud (tools/cloud.py make_cloud) written as a PLY: manifold output,
-     kernel launches >= blocks;
+     kernel launches >= blocks; then `--readback packed` and `raw` on it
+     (every block through the mesh kernels): manifold, the codes run's
+     vertex, triangle, boundary-edge and component counts, and whether
+     each mesh is the codes run's bit for bit;
   7. on the 250k-splat bench cloud, `--readback codes`, `packed` and `raw`:
      packed and raw give the codes run's vertex, triangle and boundary-edge
      counts, manifold; the seconds of all three modes;
@@ -71,9 +83,10 @@ raises, exits non-zero and prints no result line:
      block's (stage_samples);
   9. on the densest 512^3-corner dispatch (`--levels 7`, 64^3 tiles, 7
      levels): the block's field (one launch of each binning, field and
-     seam kernel, none of the marching kernels) and the marching kernels
-     against their plain version on it as in phase 3 (the tiled rule's
-     candidate tiles in the counts), then the binning kernels as in phase
+     seam kernel, none of the marching or mesh kernels) and the marching
+     and mesh kernels against their plain versions on it as in phase 3
+     (the tiled rule's candidate tiles in the counts; 31-bit weld keys),
+     then the binning kernels as in phase
      3, the kernel against its plain version as in phase 3 (sphere fit,
      the run's boundary factor), the seam kernels as in phase 3, then
      tiled against dense classification of the block's field: the codes
@@ -148,20 +161,22 @@ raises, exits non-zero and prints no result line:
   6. neither jax, the JAX package `mlsgpu_tpu` nor the repo-root bench.py in
      sys.modules (checked after every phase); at the end, no process that
      this one started is left.
-Kernel launches (the field, face, skeleton, six binning and three
-marching kernels') are counted per main-path run (every counter set to 0
-just before it and read just after; the comparisons of phases 3, 4 and 9
-excluded); each run must launch the field, face and binning kernels once
-a block, the skeleton kernel where its blocks have skeleton points, and,
-by its readback mode, the classify and scan kernels once a codes block
-and the emit kernel once a codes block with an occupied cell, none in a
-packed or raw run (check_launches); a kernel record's
+Kernel launches (the field, face, skeleton, six binning, three marching
+and five mesh kernels') are counted per main-path run (every counter set
+to 0 just before it and read just after; the comparisons of phases 3, 4
+and 9 excluded); each run must launch the field, face and binning
+kernels once a block, the skeleton kernel where its blocks have skeleton
+points, the classify and scan kernels once a block, and, by its readback
+mode, the emit kernel once a codes block with an occupied cell, none in a
+packed or raw run, and the mesh emission, the weld's kernels and the pack
+kernel once a packed or raw block with vertices, none in a codes run
+(check_launches); a kernel record's
 `launches` is the sum over the runs in this process (phase 12's ranks
 count their own and print them); its `max_abs_err` is the largest of
 phases 3 (and 4) and 9; its `ms` is the call's (for a seam kernel, the
 pass's; for a marching kernel, the kernel alone) host-paced time at the
 densest 256^3 bucket, `device_ms` on the device alone (and `kernel_ms` a
-seam, binning or marching kernel alone).
+seam, binning, marching or mesh kernel alone).
 The second-last lines are the kernel JSON record and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -198,7 +213,8 @@ from mlsgpu_tpu_torch.io import ply  # noqa: E402
 from mlsgpu_tpu_torch.io.splat_set import SequenceSource  # noqa: E402
 from mlsgpu_tpu_torch.ops import (binning, binning_cuda,  # noqa: E402
                                   block, kernel_gate, marching,
-                                  marching_cuda, mls, mls_cuda, seam_cuda)
+                                  marching_cuda, mesh_cuda, mls, mls_cuda,
+                                  seam_cuda, weld)
 from mlsgpu_tpu_torch.ops import launches as launch_counts  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import bucket as bucket_mod  # noqa: E402
 from mlsgpu_tpu_torch.pipeline import mesh_filter  # noqa: E402
@@ -288,6 +304,19 @@ MARCHING_KERNELS = (
     ("march_scan", "march_scan_kernel", "mlsgpu_tpu/ops/marching.py:302"),
     ("march_emit", "march_emit_kernel", "mlsgpu_tpu/ops/block.py:322"))
 MARCHING = tuple(name for name, _, _ in MARCHING_KERNELS)
+# The packed and raw readbacks' kernels after classify and scan: (record
+# name, kernel function, what it replaces: generate(emit="mesh")'s
+# emission, the weld's sort and compaction, _pack_readback).
+MESH_KERNELS = (
+    ("march_emit_mesh", "march_emit_mesh_kernel",
+     "mlsgpu_tpu/ops/marching.py:302"),
+    ("weld_sort_histogram", "weld_sort_histogram_kernel",
+     "mlsgpu_tpu/ops/weld.py:34"),
+    ("weld_sort_pass", "weld_sort_pass_kernel", "mlsgpu_tpu/ops/weld.py:34"),
+    ("weld_compact", "weld_compact_kernel", "mlsgpu_tpu/ops/weld.py:34"),
+    ("pack_readback", "pack_readback_kernel",
+     "mlsgpu_tpu/ops/block.py:205"))
+MESH = tuple(name for name, _, _ in MESH_KERNELS)
 
 
 def reset_launches() -> None:
@@ -301,30 +330,52 @@ def read_launches() -> dict:
 
 
 def check_launches(name: str, got: dict, blocks: int,
-                   skeleton_blocks: int, codes_blocks: int) -> dict:
+                   skeleton_blocks: int, codes_blocks: int,
+                   mesh_blocks: int = 0) -> dict:
     """A main-path run of `blocks` blocks, `skeleton_blocks` of them with
-    skeleton points and `codes_blocks` read back in codes mode, went
-    through its kernels: the field, face and binning kernels at least once
-    per block (and at all), the skeleton kernel at least once per block
-    with skeleton points, the classify and scan kernels at least once per
-    codes block and the emit kernel at least once and at most once per
-    classified block (not for a block without an occupied cell); a run
-    with no codes block (packed, raw) launches no marching kernel."""
+    skeleton points, `codes_blocks` read back in codes mode and
+    `mesh_blocks` packed or raw, went through its kernels: the field, face
+    and binning kernels at least once per block (and at all), the skeleton
+    kernel at least once per block with skeleton points, the classify and
+    scan kernels at least once per codes or mesh block; the emit kernel at
+    least once and at most once per codes block (not for a block without
+    an occupied cell); the mesh emission, the weld's histogram and
+    compaction and the pack kernel at least once and at most once per mesh
+    block, as many of each (a block with vertices runs them all, the pack
+    kernel for the image or raw's triangles), and a pass kernel or more
+    per weld; a run without codes blocks launches no emit kernel, one
+    without mesh blocks none of the mesh kernels."""
     need = dict.fromkeys(KERNELS, max(blocks, 1))
     need["seam_skeleton"] = skeleton_blocks
-    need.update(march_classify=codes_blocks, march_scan=codes_blocks,
-                march_emit=min(codes_blocks, 1))
+    need.update(march_classify=codes_blocks + mesh_blocks,
+                march_scan=codes_blocks + mesh_blocks,
+                march_emit=min(codes_blocks, 1),
+                **dict.fromkeys(MESH, min(mesh_blocks, 1)))
+    welds = got["weld_compact"]
     if any(got[k] < need[k] for k in KERNELS) or \
-            got["march_emit"] > got["march_classify"] or \
-            (codes_blocks == 0 and any(got[k] for k in MARCHING)):
+            got["march_emit"] > codes_blocks or \
+            got["march_emit_mesh"] > mesh_blocks or \
+            any(got[k] != welds for k in ("march_emit_mesh",
+                                          "weld_sort_histogram",
+                                          "pack_readback")) or \
+            got["weld_sort_pass"] < welds or \
+            (codes_blocks == 0 and got["march_emit"]) or \
+            (mesh_blocks == 0 and any(got[k] for k in MESH)):
         raise AssertionError(f"{name}: launches {got} for {blocks} blocks, "
-                             f"{codes_blocks} in codes mode")
+                             f"{codes_blocks} in codes mode, {mesh_blocks} "
+                             "packed or raw")
     return got
 
 
 def codes_blocks(reg) -> int:
     """The blocks a run read back in codes mode (its statistics)."""
     return reg.counter("readback.mode.codes").get()
+
+
+def mesh_blocks(reg) -> int:
+    """The blocks a run read back packed or raw (its statistics)."""
+    return (reg.counter("readback.mode.packed").get()
+            + reg.counter("readback.mode.raw").get())
 
 
 def sphere_cloud(center, radius, n, splat_radius, rng) -> np.ndarray:
@@ -1088,6 +1139,170 @@ def marching_vs_plain(n, field, region, n_occ, reps=REPS) -> list:
     return rows
 
 
+def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
+               ni: int, words: int, passes: int) -> dict:
+    """The least time the card could take for a mesh readback kernel's
+    work on these inputs (a (b, b, b) field, `march_tiles` listed tiles,
+    n unwelded and nw welded vertices, ni triangle indices, an image of
+    `words` words, a sort of `passes` passes): the larger of its bytes
+    over the memory rate (each input read once, each output written once)
+    and its FP32 operations over the FP32 peak. Emission: the list rows
+    and the listed tiles' 8^3 corners in; a vertex's 3 floats, 2 key
+    halves and 8-byte sort key and an int32 an index out; 16 operations a
+    cell of a listed tile, 8 a vertex (t's subtraction and division, three
+    products and sums). The sort's histogram: the int64 keys in, `passes`
+    x 256 int32 counts out. The sort ("weld_sort_pass", its passes, which
+    with the histogram make the sort): the int64 keys in, the sorted keys
+    and the int64 permutation out. Compaction: the sorted keys and the
+    permutation in, a welded vertex's 3 floats and 2 key halves in and out,
+    an int32 remap a vertex and the 2 totals out. Pack: a welded vertex's
+    3 floats and 2 key halves, the int32 triangle indices and the remap in,
+    the image out; 5 operations a vertex (3 fractions, 1 - t, t's
+    product). "stage": the field in and the image out, the operations of
+    all. No integer work is counted."""
+    listed = march_tiles * marching.TILE ** 3
+    if name == "march_emit_mesh":
+        nbytes = 16 * march_tiles + 4 * listed + 28 * n + 4 * ni
+        flops = 16 * listed + 8 * n
+    elif name == "weld_sort_histogram":
+        nbytes, flops = 8 * n + 4 * 256 * passes, 0
+    elif name == "weld_sort_pass":
+        nbytes, flops = 24 * n, 0
+    elif name == "weld_compact":
+        nbytes, flops = 16 * n + 2 * 20 * nw + 4 * n + 16, 0
+    elif name == "pack_readback":
+        nbytes, flops = 20 * nw + 4 * ni + 4 * n + 4 * words, 5 * nw
+    else:
+        nbytes = 4 * b ** 3 + 4 * words
+        flops = 16 * (b - 1) ** 3 + 8 * n + 5 * nw
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def mesh_vs_plain(n, field, region, origin, n_occ, levels,
+                  reps=REPS) -> list:
+    """The packed and raw readbacks' kernels (ops/mesh_cuda.py: classify
+    and scan, the mesh emission, the weld's sort and compaction, the pack
+    kernel) against the plain chain marching.generate_mesh -> weld.weld ->
+    block.pack_readback on one block's field: the unwelded vertices, keys
+    and triangles, the welded vertices, keys and counts, raw's triangles
+    and the packed image bit for bit, n_occ copied back with the totals.
+    Then the packed stage (mesh_cuda.mesh_image) host-paced, each kernel
+    alone (one profiler trace's kernel events; the pass kernel's summed
+    over its passes), the stage's card busy time, launches and host syncs
+    (pass_profile; checked: the kernels alone and at most two syncs)
+    beside the plain chain's, the plain chain host-paced, the library
+    yardsticks on the compact keys (torch.unique(sorted=True,
+    return_inverse=True) and torch.sort(stable=True)), each kernel's bound
+    and the stage's (mesh_bound). Its launches are comparisons: callers
+    reset the counters after it. Returns a row per kernel."""
+    b = field.shape[0]
+    mesh = mesh_cuda.generate_mesh(field, region, origin, n_occ)
+    welded = mesh_cuda.weld(mesh)
+    fmt = block.pack_format(levels, SUB, welded.num_vertices)
+    img = mesh_cuda.pack_readback(welded, origin, fmt)
+    raw = mesh_cuda.welded_mesh(welded)
+    pm = marching.generate_mesh(field, region, origin)
+    pw = weld.weld(pm.vertices, pm.key_hi, pm.key_lo, pm.triangles)
+    want = block.pack_readback(pw, origin, fmt)
+    torch.cuda.synchronize()
+    if mesh.n_occ != int(n_occ):
+        raise AssertionError(f"mesh kernels: n_occ {mesh.n_occ}, plain "
+                             f"{int(n_occ)}")
+    counts = (mesh.num_cells, mesh.num_vertices, mesh.num_indices,
+              mesh.num_tiles, welded.num_vertices, welded.first_external)
+    plain_counts = (pm.num_cells, pm.num_vertices, pm.num_indices,
+                    pm.num_tiles, pw.num_vertices, pw.first_external)
+    if counts != plain_counts:
+        raise AssertionError(f"mesh kernels: counts {counts}, plain "
+                             f"{plain_counts}")
+    u32 = lambda t: t.long() & 0xFFFFFFFF  # noqa: E731
+    _same_bits(mesh.vertices, pm.vertices, "mesh kernels: vertices")
+    _same_bits(welded.vertices, pw.vertices, "mesh kernels: welded vertices")
+    for got, ref, label in (
+            (u32(mesh.key_hi), pm.key_hi, "key_hi"),
+            (u32(mesh.key_lo), pm.key_lo, "key_lo"),
+            (mesh.triangles.long(), pm.triangles, "triangles"),
+            (u32(welded.key_hi), pw.key_hi, "welded key_hi"),
+            (u32(welded.key_lo), pw.key_lo, "welded key_lo"),
+            (raw.triangles.long(), pw.triangles, "welded triangles"),
+            (img, want, f"the {fmt.index_mode} image")):
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"mesh kernels: {label} differ from the "
+                                 "plain chain's")
+    err = max(_max_abs(mesh.vertices, pm.vertices),
+              _max_abs(welded.vertices, pw.vertices), _max_abs(img, want))
+    nv, nw, ni = mesh.num_vertices, welded.num_vertices, mesh.num_indices
+    words = int(img.numel())
+    passes = mesh_cuda.sort_passes(mesh_cuda.key_bits(mesh.axis_bits))
+    marched = marching_cuda.classify(
+        field, region, max_corners=marching_cuda.MESH_MAX_CORNERS)
+    march_tiles = marched.march_tiles
+    keys = mesh.sort_keys
+    del img, want, raw, pm, pw, marched
+    call = lambda: mesh_cuda.mesh_image(  # noqa: E731
+        field, region, origin, levels, SUB)
+
+    def plain():
+        m = marching.generate_mesh(field, region, origin)
+        w = weld.weld(m.vertices, m.key_hi, m.key_lo, m.triangles)
+        return block.pack_readback(w, origin, block.pack_format(
+            levels, SUB, w.num_vertices))
+
+    host_ms = cuda_ms(call, reps)
+    plain_ms = cuda_ms(plain, reps)
+    library = {
+        "unique_ms": cuda_ms(lambda: torch.unique(
+            keys, sorted=True, return_inverse=True), reps),
+        "torch_sort_ms": cuda_ms(lambda: torch.sort(keys, stable=True),
+                                 reps)}
+    events = trace_events(call, reps)
+    alone = {name: kernel_event_ms(events, (fn,), reps,
+                                   passes if name == "weld_sort_pass" else 1)
+             for name, fn, _ in MESH_KERNELS}
+    traced = {"kernels": pass_profile(call), "plain": pass_profile(plain, 1)}
+    if traced["kernels"]["launches"] != 6 + passes or \
+            traced["kernels"]["sync_calls"] > 2:
+        raise AssertionError(f"mesh kernels: {traced['kernels']} a call")
+    stage_bound = mesh_bound("stage", b, march_tiles, nv, nw, ni, words,
+                             passes)
+    rows = []
+    for name, _, _ in MESH_KERNELS:
+        bound = mesh_bound(name, b, march_tiles, nv, nw, ni, words, passes)
+        k_ms = alone[name]
+        rows.append({
+            "name": name, "corners": b, "cells": mesh.num_cells,
+            "vertices": nv, "welded": nw, "first_external":
+            welded.first_external, "indices": ni, "march_tiles": march_tiles,
+            "key_bits": mesh_cuda.key_bits(mesh.axis_bits),
+            "sort_passes": passes, "index_mode": fmt.index_mode,
+            "vertex_words": fmt.vertex_words, "image_words": words,
+            "max_abs_err": err, "bitwise_the_plain_chain": True,
+            "host_paced_ms": host_ms,
+            "device_ms": traced["kernels"]["device_busy_ms"],
+            "kernel_ms": k_ms, "plain_ms": plain_ms,
+            "library_ms": (library["unique_ms"]
+                           if name.startswith("weld") else None),
+            "bound": bound,
+            "share_of_bound": None if k_ms is None
+            else bound["bound_ms"] / k_ms})
+    known = [r["kernel_ms"] for r in rows if r["kernel_ms"] is not None]
+    stage = {"host_paced_ms": host_ms, "plain_ms": plain_ms,
+             "kernels_ms": sum(known) if len(known) == len(rows) else None,
+             "library": library, "bound": stage_bound, "traced": traced}
+    phase(n, f"mesh kernels vs plain at {b}^3 corners, region {region}: "
+             f"unwelded, welded, raw and the {fmt.index_mode} image bit for "
+             f"bit ({nv} vertices welded to {nw}, {ni} indices, "
+             f"{march_tiles} tiles listed, {passes} sort passes); stage "
+             f"{json.dumps(stage)}")
+    for row in rows:
+        phase(n, f"{row['name']}: " + json.dumps(row))
+        row["stage"] = stage
+    return rows
+
+
 def phase3_kernel_vs_plain(src, info, b, dev) -> list:
     """`b`: the densest of the buckets the main path streams."""
     grid_form, valid = load_bucket(src, info, b)
@@ -1126,11 +1341,12 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
                                           points, levels=LEVELS,
                                           subsampling=SUB)
     marches = marching_vs_plain(3, bfield, region, field_occ)
+    meshes = mesh_vs_plain(3, bfield, region, origin, field_occ, LEVELS)
     del bfield
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "
              f"{max_tile}, {len(b.skeleton)} skeleton points: OK")
-    return rows, seams, bins, marches
+    return rows, seams, bins, marches, meshes
 
 
 def _seam_block(splats, lo, hi, dev, points=None):
@@ -1209,11 +1425,14 @@ def phase4_seams(dev) -> list:
     return rows
 
 
-def cli_run(cloud, name, extra=(), manifold=True) -> dict:
+def cli_run(cloud, name, extra=(), manifold=True, topology_of=None) -> dict:
     """One run of `cli.main` on the bench cloud, cloud = (PLY path, grid
     spacing); kernel launches counted from 0 for this run alone. Returns
-    the run's numbers, statistics and a digest of its mesh; `manifold`
-    runs the manifold check (~30 s at this size)."""
+    the run's numbers, statistics and digests of its mesh and of its
+    triangles; `manifold` runs the manifold check (~2 min at 2M), whose
+    verdict depends on the triangles and the vertex count alone, so a run
+    whose both equal those of `topology_of` (an earlier result) takes
+    that result's counts instead."""
     inp, spacing = cloud
     out = os.path.join(os.path.dirname(inp), f"{name}.ply")
     reg = get_registry()
@@ -1230,13 +1449,20 @@ def cli_run(cloud, name, extra=(), manifold=True) -> dict:
     blocks = reg.counter("bucket.count").get()
     check_launches(name, launches, blocks,
                    reg.counter("bucket.skeletonBlocks").get(),
-                   codes_blocks(reg))
+                   codes_blocks(reg), mesh_blocks(reg))
     res = {"seconds": elapsed, "vertices": len(verts),
            "triangles": len(tris), "blocks": blocks,
            "kernel_launches": launches, "stats": reg.to_dict(),
            "digest": hashlib.sha256(verts.tobytes() + tris.tobytes())
-           .hexdigest()}
-    if manifold:
+           .hexdigest(),
+           "tri_digest": hashlib.sha256(tris.tobytes()).hexdigest()}
+    if manifold and topology_of is not None and \
+            topology_of["tri_digest"] == res["tri_digest"] and \
+            topology_of["vertices"] == res["vertices"]:
+        res.update(boundary_edges=topology_of["boundary_edges"],
+                   components=topology_of["components"],
+                   manifold_as="the triangles of an earlier run, bit for bit")
+    elif manifold:
         rep = check_manifold(verts, tris)
         if not rep.is_manifold:
             raise AssertionError(f"{name}: output not manifold: "
@@ -1267,6 +1493,32 @@ def phase5_end_to_end(cloud, info) -> dict:
                 "device_s": stats["device.time"]["sum"]})
     phase(5, f"end to end: {json.dumps(res)}")
     return res
+
+
+def phase5_mesh_readbacks(cloud, codes) -> dict:
+    """The 2M cloud through the CLI with --readback packed and raw (the
+    mesh kernels on every block): manifold, with the codes run's vertex,
+    triangle, boundary-edge and component counts (a run whose triangles
+    are the run's before it bit for bit takes that run's check: raw
+    packed's, packed codes'); whether each mesh is the codes run's bit for
+    bit (its digest) and its triangles are (tri_digest)."""
+    runs = {}
+    for mode in ("packed", "raw"):
+        # the manifold check only where the triangles are new: raw welds
+        # as packed does
+        res = cli_run(cloud, f"cli_{mode}", ["--readback", mode],
+                      topology_of=runs.get("packed", codes))
+        stats = res.pop("stats")
+        if stats.get(f"readback.mode.{mode}", {}).get("total") != \
+                res["blocks"]:
+            raise AssertionError(f"{mode}: not every block read back {mode}")
+        _same_mesh(res, codes, mode)
+        res["digest_is_codes"] = res["digest"] == codes["digest"]
+        res["triangles_are_codes"] = res["tri_digest"] == codes["tri_digest"]
+        res["device_s"] = stats["device.time"]["sum"]
+        runs[mode] = res
+        phase(5, f"--readback {mode}: {json.dumps(res)}")
+    return runs
 
 
 def phase7_readbacks(cloud) -> dict:
@@ -1386,10 +1638,12 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
                              seam_skeleton=int(points is not None),
                              bin_sort_pass=len(binning.sort_digits(
                                  SUB, TILED_LEVELS + SUB - 1)),
-                             **dict.fromkeys(MARCHING, 0)):
+                             **dict.fromkeys(MARCHING + MESH, 0)):
         raise AssertionError(f"dispatch {tuple(field.shape)}, {launches} "
                              "launches")
     marches = marching_vs_plain(9, field, region, n_occ, reps=3)
+    meshes = mesh_vs_plain(9, field, region, origin, n_occ, TILED_LEVELS,
+                           reps=3)
     # the binning, field and seam kernels against their plain versions at
     # this dispatch's shapes
     min_s, max_s = SUB, TILED_LEVELS + SUB - 1
@@ -1425,6 +1679,7 @@ def phase9_tiled_vs_dense(splats, spacing, dev) -> dict:
     res["seam_rows"] = seams
     res["binning_rows"] = bins
     res["marching_rows"] = marches
+    res["mesh_rows"] = meshes
     return res
 
 
@@ -1459,7 +1714,7 @@ def phase10_device_filter(workdir) -> dict:
                              filters=rec, device_filter=dfilter)
         got = check_launches(name, read_launches(), len(rec.blocks),
                              reg.counter("bucket.skeletonBlocks").get(),
-                             codes_blocks(reg))
+                             codes_blocks(reg), mesh_blocks(reg))
         launches = {k: launches[k] + got[k] for k in KERNELS}
         verts, tris = ply.read_mesh(path)
         out[name] = (verts, tris, rec.blocks)
@@ -1559,7 +1814,7 @@ def phase11_chunked(cloud_ply, workdir) -> dict:
         raise AssertionError(f"chunked run: rc {rc}")
     check_launches("chunked run", launches, blocks,
                    reg.counter("bucket.skeletonBlocks").get(),
-                   codes_blocks(reg))
+                   codes_blocks(reg), mesh_blocks(reg))
     counts = chunk_counts(base)
     if len(counts) < 2:
         raise AssertionError(f"--split-size {SPLIT_SIZE}: {len(counts)} file")
@@ -1595,6 +1850,8 @@ def snapshot(transport):
     reg = get_registry()
     own.update(blocks=reg.counter("mesher.blocks").get(),
                codes=reg.counter("readback.mode.codes").get(),
+               mesh=reg.counter("readback.mode.packed").get()
+               + reg.counter("readback.mode.raw").get(),
                splats=reg.counter("distributed.rankSplats").get(),
                device_s=reg.to_dict().get("device.time", {}).get("sum", 0.0))
     return merge(transport)
@@ -1688,7 +1945,7 @@ def phase12_two_ranks(cloud_ply, small_ply, workdir, single) -> dict:
             raise AssertionError(f"rank {r} imported {rec['forbidden']}")
         # every bucket of the 2M cloud has skeleton points
         check_launches(f"rank {r}", rec["launches"], rec["blocks"],
-                       rec["blocks"], rec["codes"])
+                       rec["blocks"], rec["codes"], rec["mesh"])
     if sum(rec["blocks"] for _, rec, _ in ranks) != single["blocks"]:
         raise AssertionError(f"ranks ran {[r[1]['blocks'] for r in ranks]} "
                              f"blocks of {single['blocks']}")
@@ -1767,7 +2024,7 @@ def phase13_out_of_core(workdir) -> dict:
         raise AssertionError(f"bench_ooc: rc {rc}: {res}")
     check_launches("bench_ooc", launches, blocks,
                    reg.counter("bucket.skeletonBlocks").get(),
-                   codes_blocks(reg))
+                   codes_blocks(reg), mesh_blocks(reg))
     spilled = {k: reg.counter(k).get()
                for k in ("blobs.spilled", "spill.flushBytes")}
     if not all(spilled.values()):
@@ -1872,8 +2129,10 @@ def _queue_runs(cloud, runs, digest=None) -> dict:
         # the sort's pass kernel once a digit
         need["bin_sort_pass"] = res["blocks"] * len(binning.sort_digits(
             SUB, LEVELS + SUB - 1))
-        # a block without an occupied cell has no emit launch
+        # a block without an occupied cell has no emit launch; a codes
+        # run launches no mesh kernel
         need["march_emit"] = res["launches"]["march_emit"]
+        need.update(dict.fromkeys(MESH, 0))
         if res["launches"] != need or \
                 not 0 < need["march_emit"] <= res["blocks"]:
             raise AssertionError(
@@ -2005,7 +2264,8 @@ def phase15_sharded(pts, src, info, densest, dev) -> dict:
             **kw)
         step = read_launches()
         if step != dict(dict.fromkeys(KERNELS, 2), seam_skeleton=0,
-                        bin_sort_pass=2 * len(binning.sort_digits(3, 5))):
+                        bin_sort_pass=2 * len(binning.sort_digits(3, 5)),
+                        **dict.fromkeys(MESH, 0)):
             raise AssertionError(f"sharded step: {step} launches")
         launches = {k: launches[k] + step[k] for k in KERNELS}
         for i, (res, ref) in enumerate(zip(got, alone)):
@@ -2114,9 +2374,10 @@ def main(argv=None) -> int:
                         "8, 11 for 12, 5 for 14): a several-card call runs "
                         "the phases that need its cards alone")
     args = p.parse_args(argv)
-    only = None
+    only = asked = None
     if args.only:
         only = {int(n) for n in args.only.split(",")}
+        asked = set(only)
         for later, first in ((8, 7), (12, 11), (14, 5)):
             if later in only:
                 only.add(first)
@@ -2136,10 +2397,10 @@ def main(argv=None) -> int:
     splats, spacing, cfg = bench_setup()
     src = SequenceSource(splats)
     info, _, densest = cloud.densest_bucket(src, cfg)
-    launches, rows, seams, bins, marches = [], [], [], [], []
+    launches, rows, seams, bins, marches, meshes = [], [], [], [], [], []
     if want(3):
-        rows, seams, bins, marches = phase3_kernel_vs_plain(src, info,
-                                                            densest, dev)
+        rows, seams, bins, marches, meshes = phase3_kernel_vs_plain(
+            src, info, densest, dev)
         check_isolated("phase 3")
     if want(4):
         seams += phase4_seams(dev)
@@ -2157,6 +2418,11 @@ def main(argv=None) -> int:
             codes = phase5_end_to_end(bench_cloud, info)
             check_isolated("phase 5")
             launches.append(codes["kernel_launches"])
+            if not asked or 5 in asked:   # not when 14 alone needs it
+                launches += [r["kernel_launches"] for r in
+                             phase5_mesh_readbacks(bench_cloud,
+                                                   codes).values()]
+                check_isolated("phase 5")
         if want(7) or want(8) or want(12):
             small, small_sr = cloud.make_cloud(N_SMALL)
             small_ply = os.path.join(workdir, "small_cloud.ply")
@@ -2180,6 +2446,7 @@ def main(argv=None) -> int:
             seams += tiled["seam_rows"]
             bins += tiled["binning_rows"]
             marches += tiled["marching_rows"]
+            meshes += tiled["mesh_rows"]
         if want(10):
             launches.append(phase10_device_filter(workdir)["kernel_launches"])
             check_isolated("phase 10")
@@ -2211,7 +2478,7 @@ def main(argv=None) -> int:
     phase(6, "no process started by this one is left: OK")
 
     if rows:  # no kernel record from --only without phase 3
-        print_kernel_record(rows, seams, bins, marches, launches)
+        print_kernel_record(rows, seams, bins, marches, meshes, launches)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2219,7 +2486,8 @@ def main(argv=None) -> int:
     return 0
 
 
-def print_kernel_record(rows, seams, bins, marches, launches) -> None:
+def print_kernel_record(rows, seams, bins, marches, meshes,
+                        launches) -> None:
     """The kernel record: each kernel's launches summed over the main-path
     runs of this process, its largest error against its plain version, and
     its times and bound at the densest 256^3 bucket (phase 3) on the
@@ -2314,6 +2582,38 @@ def print_kernel_record(rows, seams, bins, marches, launches) -> None:
             "bound_by": first["bound"]["bound_by"],
             # no single PyTorch call computes them
             "library_ms": None})
+    for name, _, replaces in MESH_KERNELS:
+        mine = [r for r in meshes if r["name"] == name]
+        if not mine:
+            continue
+        first = mine[0]   # phase 3's: the densest 256^3 bucket
+        record.append({
+            "name": name, "route": "cuda",
+            "source": ("mlsgpu_tpu_torch/csrc/marching.cu"
+                       if name == "march_emit_mesh"
+                       else "mlsgpu_tpu_torch/csrc/mesh.cu"),
+            "replaces": replaces, "launches": total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            # the kernel alone (profiler; the pass kernel's over its
+            # passes), or the packed stage on the card where the trace
+            # lost its events; the whole stage (classify to pack, its two
+            # syncs) host-paced and the card's busy time in it
+            "ms": (first["device_ms"] if first["kernel_ms"] is None
+                   else first["kernel_ms"]),
+            "kernel_ms": first["kernel_ms"],
+            "call_ms": first["host_paced_ms"],
+            "device_ms": first["device_ms"],
+            # the plain chain (generate_mesh, weld, pack_readback)
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"]["bound_ms"],
+            "bound_by": first["bound"]["bound_by"],
+            # the weld's kernels: torch.unique(sorted=True,
+            # return_inverse=True) of the compact keys (torch.sort's in
+            # the stage record); no single call emits or packs
+            "library_ms": first["library_ms"],
+            "stage_launches_syncs": {
+                path: [t["launches"], t["sync_calls"]]
+                for path, t in first["stage"]["traced"].items()}})
     print(json.dumps({"kernels": record}))
 
 

@@ -12,7 +12,8 @@
 // mlsgpu_tpu_torch/ops/binning.py::splat_keys, ::radix_sort (whose
 // result is torch.sort(stable=True)'s), ::entry_rows and ::tile_segments,
 // which the kernels equal bit for bit (binning.cuh holds the arithmetic
-// they share with a host build, scan.cuh the sort's look-back scan).
+// they share with a host build, radix_sort.cuh the sort's kernel bodies,
+// which the weld's sort shares, scan.cuh the sort's look-back scan).
 // ops/mls_cuda.py builds this file with the other kernels into one
 // library; ops/binning_cuda.py calls the C entry points below through
 // ctypes, on PyTorch's current stream, without synchronising.
@@ -180,86 +181,23 @@ tile_segments_kernel(const int* __restrict__ bounds,
 
 // --- the radix sort ----------------------------------------------------
 
-constexpr int SORT_THREADS = BIN_SORT_THREADS;
-constexpr int SORT_WARPS = SORT_THREADS / 32;
-constexpr int SORT_ITEMS = BIN_SORT_ITEMS;
-constexpr int SORT_TILE = BIN_SORT_TILE;
-constexpr int RADIX = BIN_SORT_RADIX;
-static_assert(SORT_THREADS == RADIX, "a thread a digit");
-// The histogram kernel's keys a thread: half a pass tile a CTA, which
-// took 0.0048-0.0051 / 0.0208-0.0211 ms at 256^3 / 512^3 on the H100,
-// against 0.0073 / 0.0289 with a whole tile and 0.0056 / 0.0193 with a
-// quarter.
-constexpr int HIST_ITEMS = SORT_ITEMS / 2;
-constexpr int HIST_KEYS = SORT_THREADS * HIST_ITEMS;
+// The sort's kernels: radix_sort.cuh's bodies on 32-bit sort keys, the
+// node keys mapped (BinNodeMap). The histogram kernel reads
+// SORT_HIST_ITEMS keys a thread, half a pass tile a CTA, which took
+// 0.0048-0.0051 / 0.0208-0.0211 ms at 256^3 / 512^3 on the H100, against
+// 0.0073 / 0.0289 with a whole tile and 0.0056 / 0.0193 with a quarter.
+constexpr int HIST_KEYS = SORT_THREADS * SORT_HIST_ITEMS;
 
-// The lanes of the warp whose digit equals this lane's (invalid lanes
-// match each other only): one match.any, where a ballot a bit of the
-// digit took the sort 1.4x as long on the H100.
-__device__ __forceinline__ unsigned match_digit(unsigned d, bool valid) {
-  return __match_any_sync(0xFFFFFFFFu, valid ? d : 0xFFFFFFFFu);
-}
-
-// Every pass's digit counts of the n keys into hist (passes x RADIX,
-// zero before), a CTA HIST_KEYS keys: counts in shared memory (a warp's
-// equal digits added once, by their first lane), then one global add a
-// digit. It also clears the passes' tickets and status words (`state`,
-// `state_words`) for them: it runs just before them on the stream.
 __global__ void __launch_bounds__(SORT_THREADS)
 bin_sort_histogram_kernel(const long long* __restrict__ keys, int n,
                           const __grid_constant__ BinSortPlan plan,
                           unsigned* __restrict__ hist,
                           unsigned long long* __restrict__ state,
                           long long state_words) {
-  __shared__ unsigned counts[BIN_SORT_MAX_PASSES][RADIX];
-  for (long long i = blockIdx.x * (long long)SORT_THREADS + threadIdx.x;
-       i < state_words; i += (long long)gridDim.x * SORT_THREADS)
-    state[i] = 0ULL;
-  for (int p = 0; p < plan.passes; ++p) counts[p][threadIdx.x] = 0u;
-  // the CTA's keys, all loads in flight together
-  const int lane = threadIdx.x & 31;
-  const long long first = (long long)blockIdx.x * HIST_KEYS + threadIdx.x;
-  unsigned m[HIST_ITEMS];
-#pragma unroll
-  for (int i = 0; i < HIST_ITEMS; ++i) {
-    const long long e = first + i * SORT_THREADS;
-    m[i] = e < n ? bin_sort_map(__ldg(&keys[e]), plan.top) : 0u;
-  }
-  __syncthreads();
-  for (int p = 0; p < plan.passes; ++p) {
-#pragma unroll
-    for (int i = 0; i < HIST_ITEMS; ++i) {
-      const bool valid = first + i * SORT_THREADS < n;
-      const unsigned d = bin_sort_digit(m[i], plan.shift[p], plan.bits[p]);
-      const unsigned peers = match_digit(d, valid);
-      if (valid && lane == __ffs(peers) - 1)
-        atomicAdd(&counts[p][d], (unsigned)__popc(peers));
-    }
-  }
-  __syncthreads();
-  for (int p = 0; p < plan.passes; ++p) {
-    const unsigned c = counts[p][threadIdx.x];
-    if (c != 0u) atomicAdd(&hist[p * RADIX + threadIdx.x], c);
-  }
+  sort_histogram_body<unsigned, BinNodeMap>(keys, n, plan, hist, state,
+                                            state_words);
 }
 
-// One pass of the sort: the keys stably by digit `pass`, a CTA a tile of
-// SORT_TILE keys taken by ticket (scan.cuh). Warp w holds the keys
-// [w * 32 * ITEMS, (w + 1) * 32 * ITEMS) of the tile, item i of lane l
-// the key 32 i + l of them, so a warp's items in item order are its keys
-// in order. It ranks them item by item (the lanes of equal digit by
-// match.any, counted per warp in shared memory), so a key's rank in the
-// tile is the tile's keys of lower digit, those of its digit in lower
-// warps, and those before it in its warp. Thread d then publishes the
-// tile's count of digit d and looks back for the count of digit d in the
-// lower tiles; with the digit's base from the histogram, that is where
-// the tile's keys of digit d start in the output. The tile is staged in
-// shared memory in digit order and written out from there, consecutive
-// threads to consecutive places. FIRST: the int64 node keys in, mapped to
-// 32 bits (bin_sort_map), their index e the entry; else the 32-bit keys
-// and int32 indices of the pass before. LAST: the int64 keys (mapped
-// back) and the int64 permutation out; else 32-bit keys and int32
-// indices for the next pass.
 template <bool FIRST, bool LAST>
 __global__ void __launch_bounds__(SORT_THREADS)
 bin_sort_pass_kernel(const void* __restrict__ keys_in,
@@ -268,106 +206,8 @@ bin_sort_pass_kernel(const void* __restrict__ keys_in,
                      const unsigned* __restrict__ hist,
                      unsigned long long* state, void* __restrict__ keys_out,
                      void* __restrict__ idx_out) {
-  __shared__ unsigned staged_keys[SORT_TILE];
-  __shared__ int staged_idx[SORT_TILE];
-  // each warp's count of each digit, then its exclusive prefix over the
-  // tile's warps
-  __shared__ unsigned short warp_count[SORT_WARPS][RADIX];
-  // where the tile's keys of a digit go: output index - staged index
-  __shared__ int shift_out[RADIX];
-  // where the tile's keys of a digit start in the staged tile
-  __shared__ unsigned short digit_start[RADIX];
-  __shared__ unsigned scan_shared[2 * 33];
-  const int tile = scan_ticket(state);
-  unsigned long long* const status = state + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int shift = plan.shift[pass], bits = plan.bits[pass];
-  const long long first = (long long)tile * SORT_TILE;
-  const int tile_n = (int)min((long long)SORT_TILE, n - first);
-  for (int w = 0; w < SORT_WARPS; ++w) warp_count[w][threadIdx.x] = 0;
-  __syncthreads();
-
-  // the warp's keys, in order
-  unsigned key[SORT_ITEMS];
-  int idx[SORT_ITEMS];
-  const int own = warp * 32 * SORT_ITEMS + lane;
-#pragma unroll
-  for (int i = 0; i < SORT_ITEMS; ++i) {
-    const int t = own + 32 * i;
-    const bool valid = t < tile_n;
-    if (FIRST) {
-      key[i] = valid ? bin_sort_map(__ldg(static_cast<const long long*>(
-                                        keys_in) + first + t), plan.top)
-                     : 0u;
-      idx[i] = (int)(first + t);
-    } else {
-      key[i] = valid ? __ldg(static_cast<const unsigned*>(keys_in) + first + t)
-                     : 0u;
-      idx[i] = valid ? __ldg(idx_in + first + t) : 0;
-    }
-  }
-  // ranks in the warp, item by item
-  const unsigned below_me = (1u << lane) - 1u;
-  unsigned short rank[SORT_ITEMS];
-#pragma unroll
-  for (int i = 0; i < SORT_ITEMS; ++i) {
-    const bool valid = own + 32 * i < tile_n;
-    const unsigned d = bin_sort_digit(key[i], shift, bits);
-    const unsigned peers = match_digit(d, valid);
-    const unsigned before = (unsigned)__popc(peers & below_me);
-    const unsigned c = valid ? warp_count[warp][d] : 0u;
-    rank[i] = (unsigned short)(c + before);
-    __syncwarp();
-    if (valid && before == 0u)
-      warp_count[warp][d] = (unsigned short)(c + __popc(peers));
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // thread d: the warps' prefixes of digit d and the tile's count
-  const int d = threadIdx.x;
-  unsigned count = 0;
-  for (int w = 0; w < SORT_WARPS; ++w) {
-    const unsigned c = warp_count[w][d];
-    warp_count[w][d] = (unsigned short)count;
-    count += c;
-  }
-  unsigned long long* word = status + (long long)tile * RADIX + d;
-  scan_publish(word, tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, count);
-  // the tile's digit starts, and the digits' starts in the output
-  const unsigned v[2] = {count, __ldg(&hist[pass * RADIX + d])};
-  unsigned excl[2], total[2];
-  scan_cta<2>(v, excl, total, scan_shared);
-  unsigned long long below = 0;
-  if (tile > 0) {
-    below = scan_lookback(status + d, RADIX, tile);
-    scan_publish(word, SCAN_INCLUSIVE, below + count);
-  }
-  shift_out[d] = (int)(excl[1] + below) - (int)excl[0];
-  digit_start[d] = (unsigned short)excl[0];
-  __syncthreads();
-  // stage the tile in digit order (warp_count now holds each warp's
-  // prefix of each digit)
-#pragma unroll
-  for (int i = 0; i < SORT_ITEMS; ++i) {
-    if (own + 32 * i >= tile_n) continue;
-    const unsigned dd = bin_sort_digit(key[i], shift, bits);
-    const int at = digit_start[dd] + warp_count[warp][dd] + rank[i];
-    staged_keys[at] = key[i];
-    staged_idx[at] = idx[i];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < tile_n; t += SORT_THREADS) {
-    const unsigned k = staged_keys[t];
-    const int at = shift_out[bin_sort_digit(k, shift, bits)] + t;
-    if (LAST) {
-      static_cast<long long*>(keys_out)[at] = bin_sort_unmap(k, plan.top);
-      static_cast<long long*>(idx_out)[at] = staged_idx[t];
-    } else {
-      static_cast<unsigned*>(keys_out)[at] = k;
-      static_cast<int*>(idx_out)[at] = staged_idx[t];
-    }
-  }
+  sort_pass_body<unsigned, BinNodeMap, FIRST, LAST>(
+      keys_in, idx_in, n, plan, pass, hist, state, keys_out, idx_out);
 }
 
 bool bad_shifts(int min_shift, int max_shift) {
@@ -422,10 +262,10 @@ extern "C" int bin_sort_launch(const long long* keys, long long n,
   const unsigned tiles = (unsigned)bin_sort_tiles(n);
   const long long pass_words = bin_sort_pass_words(n);
   unsigned* hist = reinterpret_cast<unsigned*>(scratch);
-  unsigned long long* state = scratch + plan.passes * (RADIX / 2);
+  unsigned long long* state = scratch + plan.passes * (SORT_RADIX / 2);
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(
-      hist, 0, sizeof(unsigned) * RADIX * plan.passes, s);
+      hist, 0, sizeof(unsigned) * SORT_RADIX * plan.passes, s);
   if (err != cudaSuccess) return (int)err;
   bin_sort_histogram_kernel<<<(unsigned)((n + HIST_KEYS - 1) / HIST_KEYS),
                               SORT_THREADS, 0, s>>>(

@@ -22,6 +22,8 @@
 
 #include <math.h>
 
+#include "radix_sort.cuh"
+
 #if defined(__CUDACC__)
 #define BIN_FN __host__ __device__ __forceinline__
 #else
@@ -126,16 +128,18 @@ BIN_FN int bin_bit_length(long long x) {
   return bits < 31 ? bits : 31;
 }
 
-// The radix sort (bin_sort_*_kernel): a stable LSD sort of the node keys
-// in digits of at most BIN_SORT_DIGIT_BITS bits, a CTA of
-// BIN_SORT_THREADS threads (a thread a digit) ranking a tile of
-// BIN_SORT_TILE keys, BIN_SORT_ITEMS a thread.
-#define BIN_SORT_DIGIT_BITS 8
-#define BIN_SORT_RADIX (1 << BIN_SORT_DIGIT_BITS)
-#define BIN_SORT_MAX_PASSES 4
-#define BIN_SORT_THREADS 256
+// The radix sort (bin_sort_*_kernel, on radix_sort.cuh): a stable LSD
+// sort of the node keys in digits of at most BIN_SORT_DIGIT_BITS bits, a
+// CTA of BIN_SORT_THREADS threads (a thread a digit) ranking a tile of
+// BIN_SORT_TILE keys, BIN_SORT_ITEMS a thread (32-bit keys between
+// passes).
+#define BIN_SORT_DIGIT_BITS SORT_DIGIT_BITS
+#define BIN_SORT_RADIX SORT_RADIX
+#define BIN_SORT_MAX_PASSES SORT_MAX_PASSES
+#define BIN_SORT_THREADS SORT_THREADS
 #define BIN_SORT_ITEMS 16
 #define BIN_SORT_TILE (BIN_SORT_THREADS * BIN_SORT_ITEMS)
+static_assert(BIN_SORT_TILE == sort_tile_keys(4), "32-bit sort keys");
 
 // A sort's digits: every key of the shifts is below `top` = K (the node
 // keys, bin_nodes), and BIN_INVALID_KEY sorts as `top` itself, so the
@@ -144,23 +148,11 @@ BIN_FN int bin_bit_length(long long x) {
 // levels (16 bits), 3 at 7 (19), 4 at 11 (31). (Digits of 10 bits, 2
 // passes at 7 levels, took the H100 1.6x as long: their look-back, four
 // digits a thread, cost more than the pass they saved.)
-struct BinSortPlan {
-  unsigned top;
-  int passes;
-  int shift[BIN_SORT_MAX_PASSES];
-  int bits[BIN_SORT_MAX_PASSES];
-};
+typedef SortPlan BinSortPlan;
 
 static inline BinSortPlan bin_sort_plan(int min_shift, int max_shift) {
   const long long top = bin_key_space(max_shift - min_shift + 1);
-  const int bits = bin_bit_length(top);
-  BinSortPlan plan{(unsigned)top, 0, {}, {}};
-  for (int s = 0; s < bits; s += BIN_SORT_DIGIT_BITS, ++plan.passes) {
-    plan.shift[plan.passes] = s;
-    plan.bits[plan.passes] =
-        bits - s < BIN_SORT_DIGIT_BITS ? bits - s : BIN_SORT_DIGIT_BITS;
-  }
-  return plan;
+  return sort_plan(bin_bit_length(top), (unsigned)top);
 }
 
 // A node key as the sort's 32-bit key: itself, BIN_INVALID_KEY as `top`.
@@ -173,24 +165,33 @@ BIN_FN long long bin_sort_unmap(unsigned m, unsigned top) {
 }
 
 BIN_FN unsigned bin_sort_digit(unsigned m, int shift, int bits) {
-  return (m >> shift) & ((1u << bits) - 1u);
+  return sort_digit(m, shift, bits);
 }
 
-// The tiles of n keys, and the 64-bit words of a sort's scratch: the
-// passes' histograms (BIN_SORT_RADIX 32-bit counts each, two a word),
-// then for each pass its ticket and a status word a (tile, digit)
-// (scan.cuh).
-static inline long long bin_sort_tiles(long long n) {
-  return (n + BIN_SORT_TILE - 1) / BIN_SORT_TILE;
-}
+// The tiles of n keys, and the 64-bit words of a sort's scratch
+// (radix_sort.cuh): the passes' histograms, then each pass's ticket and
+// status words.
+static inline long long bin_sort_tiles(long long n) { return sort_tiles(n, 4); }
 
 static inline long long bin_sort_pass_words(long long n) {
-  return 1 + bin_sort_tiles(n) * BIN_SORT_RADIX;
+  return sort_pass_words(n, 4);
 }
 
 static inline long long bin_sort_scratch_words(long long n, int passes) {
-  return (long long)passes * (BIN_SORT_RADIX / 2 + bin_sort_pass_words(n));
+  return sort_scratch_words(n, passes, 4);
 }
+
+#if defined(__CUDACC__)
+// The node keys' map to and from the sort's 32-bit keys (radix_sort.cuh).
+struct BinNodeMap {
+  static __device__ __forceinline__ unsigned in(long long key, unsigned top) {
+    return bin_sort_map(key, top);
+  }
+  static __device__ __forceinline__ long long out(unsigned m, unsigned top) {
+    return bin_sort_unmap(m, top);
+  }
+};
+#endif
 
 // morton.py::_part1by2 in 32 bits: the low 10 bits of x, two zero bits
 // between each.

@@ -1,7 +1,8 @@
 // Codes-mode marching and the codes image of a block step as three
 // kernels: classification (march_classify_kernel), the scan of the tiles'
 // counts (march_scan_kernel) and the emission straight into the image
-// (march_emit_kernel).
+// (march_emit_kernel); and for the packed and raw readbacks the mesh
+// emission (march_emit_mesh_kernel) after the same classify and scan.
 //
 // They stand for two programs the JAX package compiles with XLA,
 // mlsgpu_tpu/ops/marching.py::generate(emit="codes") (:302; the dense
@@ -79,10 +80,20 @@
 //     code word or a t16 word can hold slots of two tiles, so codes and
 //     t16 are written as bytes and halfwords, never as a read-modify-write
 //     of the word; no atomics.
+//   * march_emit_mesh_kernel (generate(emit="mesh"), :302; plain
+//     mlsgpu_tpu_torch/ops/marching.py::generate_mesh): the same staging
+//     and ranking (emit_stage_tile, emit_rank_cells), 4 warps a CTA (its
+//     index and vertex-corner tables take 13 KB of shared memory), then
+//     32 occupied cells at a time: one warp scan of their vertex and
+//     triangle counts, two owner maps, a lane a vertex (3 floats, the key
+//     halves and the compact sort key, mesh.cuh) and a lane a triangle (3
+//     int32 indices at the tile's index base from the scan's list). It
+//     writes ~28 bytes a vertex and 4 an index, so those writes bound it.
 
 #include <cuda_runtime.h>
 
 #include "marching.cuh"
+#include "mesh.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -111,6 +122,15 @@ constexpr int CELL_WORDS = MARCH_TILE_CELLS / 32;   // a tile's cell words
 constexpr int ENDS = 256 * MARCH_MAX_CELL_VERTICES;
 constexpr int BATCH_VERTICES = 32 * MARCH_MAX_CELL_VERTICES;
 static_assert(EMIT_THREADS == 256, "a thread a code fills the table");
+// emit mesh: a warp a listed tile, fewer a CTA than emit (its tables take
+// 13 KB of shared memory): a lane a vertex and a lane a triangle
+constexpr int MESH_WARPS = 4;
+constexpr int MESH_THREADS = 32 * MESH_WARPS;
+constexpr int BATCH_TRIANGLES = 32 * MARCH_MAX_CELL_INDICES / 3;
+constexpr int INDEX_ENTRIES = 256 * MARCH_MAX_CELL_INDICES;
+constexpr int CORNER_ENTRIES = 256 * MARCH_MAX_CELL_VERTICES;
+static_assert(INDEX_ENTRIES % 4 == 0 && CORNER_ENTRIES % 4 == 0,
+              "the mesh tables copy as words");
 static_assert(ENDS % 2 == 0, "the END_OFFSETS table copies as words");
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
@@ -366,8 +386,9 @@ march_classify_kernel(const float* __restrict__ field, int b, int g,
 // rows of its segment's occupied tiles from the tiles' records (the eight
 // loads in flight together), and the last tile, once it has its inclusive
 // prefixes, the totals. A tile's sums stay below 2^32 (256 segments of 8
-// tiles); the prefixes and totals are 64-bit, and the wrapper refuses a
-// block whose vertices pass the int32 bases.
+// tiles); the prefixes and totals are 64-bit, and the wrappers refuse a
+// block whose vertices (or, for the mesh readbacks, indices) pass the
+// int32 bases.
 __global__ void __launch_bounds__(SCAN_THREADS)
 march_scan_kernel(const uint4* __restrict__ rows, int nrows, int segments,
                   int g, const uint2* __restrict__ records,
@@ -407,6 +428,8 @@ march_scan_kernel(const uint4* __restrict__ rows, int nrows, int segments,
   unsigned long long cells = base[MARCH_TOTAL_CELLS] + at[MARCH_TOTAL_CELLS];
   unsigned long long vertices =
       base[MARCH_TOTAL_VERTICES] + at[MARCH_TOTAL_VERTICES];
+  unsigned long long indices =
+      base[MARCH_TOTAL_INDICES] + at[MARCH_TOTAL_INDICES];
   const int t0 = (r / segments) * g + (r % segments) * ROW_TILES;
   const int n = min(ROW_TILES, g - (r % segments) * ROW_TILES);
   uint2 rec[ROW_TILES];
@@ -417,45 +440,27 @@ march_scan_kernel(const uint4* __restrict__ rows, int nrows, int segments,
   for (int j = 0; j < ROW_TILES; ++j) {
     const unsigned c = march_tile_cells(rec[j].x);
     if (c == 0u) continue;
-    list[row_at] = make_int4(t0 + j, (int)cells, (int)vertices, 0);
+    list[row_at] = make_int4(t0 + j, (int)cells, (int)vertices, (int)indices);
     row_at += 1;
     cells += c;
     vertices += march_tile_vertices(rec[j].y);
+    indices += march_tile_indices(rec[j].y);
   }
 }
 
-// A warp a listed tile, 8 a CTA. Cell l = (lz * 8 + ly) * 8 + lx of the
-// tile is bit l % 32 of its cell word l / 32 (raster order is word and bit
-// order): word k holds the rows ly = 4 (k % 2) .. + 3 of cell plane k / 2,
-// a byte a row.
-__global__ void __launch_bounds__(EMIT_THREADS)
-march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
-                  int ry, int rz, const int4* __restrict__ list,
-                  int march_tiles, long long m, long long vertices,
-                  int* __restrict__ image) {
-  __shared__ float blocks[EMIT_WARPS][MARCH_TILE_CORNERS];
-  __shared__ unsigned row_bits[EMIT_WARPS][TILE_ROWS];
-  // the tile's occupied cells in raster order
-  __shared__ unsigned short occupied[EMIT_WARPS][MARCH_TILE_CELLS];
-  __shared__ unsigned char owner[EMIT_WARPS][BATCH_VERTICES];
-  __shared__ __align__(4) unsigned short end_offsets[ENDS];
-  __shared__ unsigned char nverts[256];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * EMIT_WARPS + warp;
-  unsigned char* code_bytes = reinterpret_cast<unsigned char*>(image) + 4 * m;
-  unsigned short* t16 = reinterpret_cast<unsigned short*>(image) +
-                        2 * (m + (m + 3) / 4);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    // the pad bytes of the last code word and the pad halfword of the
-    // last t16 word, zero as in the plain image
-    for (long long p = m; p < 4 * ((m + 3) / 4); ++p) code_bytes[p] = 0;
-    if (vertices & 1) t16[vertices] = 0;
-  }
-  float* block = blocks[warp];
+// Stage list row r's tile for a warp of an emit kernel: its (9, 9, 9)
+// corners into `block` by cp.async (NaN past the field's end), one commit
+// group for every lane (empty past march_tiles). Returns the row; the
+// tile's coordinates in tx, ty, tz.
+__device__ __forceinline__ int4 emit_stage_tile(const float* __restrict__ field,
+                                                int b, int g,
+                                                const int4* __restrict__ list,
+                                                int r, int march_tiles,
+                                                int lane, float* block,
+                                                int& tx, int& ty, int& tz) {
   int4 row = make_int4(0, 0, 0, 0);
-  int tx = 0, ty = 0, tz = 0;
+  tx = ty = tz = 0;
   if (r < march_tiles) {
-    // the tile's (9, 9, 9) corners, NaN past the field's end
     row = __ldg(&list[r]);
     tx = row.x % g, ty = row.x / g % g, tz = row.x / (g * g);
     // lane (x, y3) < 27: corner x of the rows y = y3, y3 + 3, y3 + 6 of
@@ -479,15 +484,17 @@ march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
     }
   }
   cp_async_commit();
-  for (int i = threadIdx.x; i < ENDS / 2; i += EMIT_THREADS)
-    reinterpret_cast<unsigned*>(end_offsets)[i] = __ldg(
-        reinterpret_cast<const unsigned*>(&march_end_offsets_d[0][0]) + i);
-  nverts[threadIdx.x] = (unsigned char)march_vertex_count(threadIdx.x);
-  cp_async_wait<0>();
-  __syncthreads();
-  if (r >= march_tiles) return;
-  // a lane a corner row (y, z): its sign bits 0-8, finite bits 16-24
-  unsigned* bits = row_bits[warp];
+  return row;
+}
+
+// A staged tile's occupied cells (a warp, after the corners landed): a
+// lane a corner row (y, z) makes its sign bits 0-8 and finite bits 16-24
+// in `bits`, lanes k < 16 cell word k's occupied cells, and a warp scan
+// of their popcounts ranks them into `cell_l` in raster order. Returns the
+// tile's occupied cells.
+__device__ __forceinline__ unsigned emit_rank_cells(
+    const float* block, unsigned* bits, unsigned short* cell_l, int lane,
+    int rx, int ry, int rz, int tx, int ty, int tz) {
   for (int k = lane; k < TILE_ROWS; k += 32) {
     unsigned v = 0u;
 #pragma unroll
@@ -498,7 +505,6 @@ march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
     bits[k] = v;
   }
   __syncwarp();
-  // lanes k < 16: cell word k, its occupied cells; a warp scan ranks them
   unsigned occ = 0u;
   if (lane < CELL_WORDS) {
     const int lz = lane / 2, ly0 = 4 * (lane % 2);
@@ -537,10 +543,54 @@ march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
   }
   const unsigned tile_cells = __shfl_sync(FULL, at, CELL_WORDS - 1);
   at -= n_occ;
-  unsigned short* cell_l = occupied[warp];
   for (unsigned o = occ; o != 0u; o &= o - 1u)
     cell_l[at++] = (unsigned short)(32 * lane + __ffs(o) - 1);
   __syncwarp();
+  return tile_cells;
+}
+
+// A warp a listed tile, 8 a CTA. Cell l = (lz * 8 + ly) * 8 + lx of the
+// tile is bit l % 32 of its cell word l / 32 (raster order is word and bit
+// order): word k holds the rows ly = 4 (k % 2) .. + 3 of cell plane k / 2,
+// a byte a row.
+__global__ void __launch_bounds__(EMIT_THREADS)
+march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
+                  int ry, int rz, const int4* __restrict__ list,
+                  int march_tiles, long long m, long long vertices,
+                  int* __restrict__ image) {
+  __shared__ float blocks[EMIT_WARPS][MARCH_TILE_CORNERS];
+  __shared__ unsigned row_bits[EMIT_WARPS][TILE_ROWS];
+  // the tile's occupied cells in raster order
+  __shared__ unsigned short occupied[EMIT_WARPS][MARCH_TILE_CELLS];
+  __shared__ unsigned char owner[EMIT_WARPS][BATCH_VERTICES];
+  __shared__ __align__(4) unsigned short end_offsets[ENDS];
+  __shared__ unsigned char nverts[256];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * EMIT_WARPS + warp;
+  unsigned char* code_bytes = reinterpret_cast<unsigned char*>(image) + 4 * m;
+  unsigned short* t16 = reinterpret_cast<unsigned short*>(image) +
+                        2 * (m + (m + 3) / 4);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    // the pad bytes of the last code word and the pad halfword of the
+    // last t16 word, zero as in the plain image
+    for (long long p = m; p < 4 * ((m + 3) / 4); ++p) code_bytes[p] = 0;
+    if (vertices & 1) t16[vertices] = 0;
+  }
+  float* block = blocks[warp];
+  int tx, ty, tz;
+  const int4 row = emit_stage_tile(field, b, g, list, r, march_tiles, lane,
+                                   block, tx, ty, tz);
+  for (int i = threadIdx.x; i < ENDS / 2; i += EMIT_THREADS)
+    reinterpret_cast<unsigned*>(end_offsets)[i] = __ldg(
+        reinterpret_cast<const unsigned*>(&march_end_offsets_d[0][0]) + i);
+  nverts[threadIdx.x] = (unsigned char)march_vertex_count(threadIdx.x);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (r >= march_tiles) return;
+  unsigned* bits = row_bits[warp];
+  unsigned short* cell_l = occupied[warp];
+  const unsigned tile_cells =
+      emit_rank_cells(block, bits, cell_l, lane, rx, ry, rz, tx, ty, tz);
   // 32 occupied cells at a time, a lane each; then their vertices
   const int nc = b - 1;
   const long long cell_base = row.y;
@@ -599,10 +649,146 @@ march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
   }
 }
 
+// A warp a listed tile, MESH_WARPS a CTA: march_emit_kernel's staging and
+// ranking, then 32 occupied cells at a time, a lane each: a warp scan of
+// their vertex and triangle counts, their vertices and triangles marked as
+// theirs in two owner maps, then the vertices a lane each (position, key
+// halves and compact sort key, mesh.cuh) and the triangles a lane each
+// (three int32 indices: the cell's first vertex + INDEX_TABLE). Vertex j
+// of a cell lands at the tile's vertex base + the cell's rank + j, as in
+// generate_mesh's emission order; index i of a cell at the tile's index
+// base + its rank + i.
+__global__ void __launch_bounds__(MESH_THREADS)
+march_emit_mesh_kernel(const float* __restrict__ field, int b, int g, int rx,
+                       int ry, int rz, const __grid_constant__ MeshFrame frame,
+                       const int4* __restrict__ list, int march_tiles,
+                       float* __restrict__ vertices,
+                       unsigned* __restrict__ key_hi,
+                       unsigned* __restrict__ key_lo,
+                       unsigned long long* __restrict__ sort_keys,
+                       int* __restrict__ indices) {
+  __shared__ float blocks[MESH_WARPS][MARCH_TILE_CORNERS];
+  __shared__ unsigned row_bits[MESH_WARPS][TILE_ROWS];
+  __shared__ unsigned short occupied[MESH_WARPS][MARCH_TILE_CELLS];
+  __shared__ unsigned char vertex_owner[MESH_WARPS][BATCH_VERTICES];
+  __shared__ unsigned char triangle_owner[MESH_WARPS][BATCH_TRIANGLES];
+  __shared__ __align__(4) signed char index_table[INDEX_ENTRIES];
+  __shared__ __align__(4) unsigned char vert_corners[CORNER_ENTRIES];
+  // a code's vertices | triangles << 8
+  __shared__ unsigned short counts[256];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * MESH_WARPS + warp;
+  float* block = blocks[warp];
+  int tx, ty, tz;
+  const int4 row = emit_stage_tile(field, b, g, list, r, march_tiles, lane,
+                                   block, tx, ty, tz);
+  for (int i = threadIdx.x; i < INDEX_ENTRIES / 4; i += MESH_THREADS)
+    reinterpret_cast<unsigned*>(index_table)[i] = __ldg(
+        reinterpret_cast<const unsigned*>(&march_index_d[0][0]) + i);
+  for (int i = threadIdx.x; i < CORNER_ENTRIES / 4; i += MESH_THREADS)
+    reinterpret_cast<unsigned*>(vert_corners)[i] = __ldg(
+        reinterpret_cast<const unsigned*>(&march_vert_corners_d[0][0]) + i);
+  for (int i = threadIdx.x; i < 256; i += MESH_THREADS)
+    counts[i] = (unsigned short)(march_vertex_count(i) |
+                                 ((march_index_count(i) / 3) << 8));
+  cp_async_wait<0>();
+  __syncthreads();
+  if (r >= march_tiles) return;
+  unsigned* bits = row_bits[warp];
+  unsigned short* cell_l = occupied[warp];
+  const unsigned tile_cells =
+      emit_rank_cells(block, bits, cell_l, lane, rx, ry, rz, tx, ty, tz);
+  long long vertex_at = (unsigned)row.z, index_at = (unsigned)row.w;
+  unsigned char* v_own = vertex_owner[warp];
+  unsigned char* t_own = triangle_owner[warp];
+  for (unsigned first = 0; first < tile_cells; first += 32) {
+    const unsigned i = first + lane;
+    const unsigned l = i < tile_cells ? cell_l[i] : 0u;
+    const int lx = l % MARCH_TILE, ly = l / MARCH_TILE % MARCH_TILE,
+              lz = l / (MARCH_TILE * MARCH_TILE);
+    const int row0 = lz * MARCH_SPAN + ly, row1 = row0 + MARCH_SPAN;
+    const unsigned code =
+        i < tile_cells ? march_rows_code(bits[row0], bits[row0 + 1],
+                                         bits[row1], bits[row1 + 1], lx)
+                       : 0u;
+    // vertices | triangles << 16 (a batch's sums stay below 2^16: 416 and
+    // 384), scanned at once
+    const unsigned c = i < tile_cells ? counts[code] : 0u;
+    const unsigned nv = c & 0xFFu, nt = c >> 8;
+    const unsigned both = nv | (nt << 16);
+    unsigned incl = both;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned o = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += o;
+    }
+    const unsigned excl = incl - both;
+    const unsigned v_first = excl & 0xFFFFu, t_first = excl >> 16;
+    march_spread_vertices(v_own, v_first, nv, lane);
+    for (unsigned k = 0; k < nt; ++k) t_own[t_first + k] = (unsigned char)lane;
+    __syncwarp();
+    const unsigned total = __shfl_sync(FULL, incl, 31);
+    const unsigned v_total = total & 0xFFFFu, t_total = total >> 16;
+    // what a vertex needs of its cell: the code, its first vertex (< 416)
+    // and its base corner in the block (< 729); a triangle: the code, the
+    // first vertex and its first triangle (< 384)
+    const unsigned v_cell = code | (v_first << 8) |
+                            ((unsigned)march_corner_index(lx, ly, lz) << 17);
+    const unsigned t_cell = code | (v_first << 8) | (t_first << 17);
+    for (unsigned v0 = 0; v0 < v_total; v0 += 32) {
+      const unsigned v = v0 + lane;
+      const int o = v < v_total ? v_own[v] : 0;
+      const unsigned o_cell = __shfl_sync(FULL, v_cell, o);
+      if (v < v_total) {
+        const int corner = (int)(o_cell >> 17);
+        const unsigned ends = mesh_vertex_corners(
+            vert_corners, o_cell & 0xFFu, (int)(v - ((o_cell >> 8) & 0x1FFu)));
+        const unsigned c0 = ends & 0xFu, c1 = ends >> 4;
+        float pos[3];
+        unsigned hi, lo;
+        unsigned long long key;
+        mesh_vertex(tx * MARCH_TILE + corner % MARCH_SPAN,
+                    ty * MARCH_TILE + corner / MARCH_SPAN % MARCH_SPAN,
+                    tz * MARCH_TILE + corner / (MARCH_SPAN * MARCH_SPAN), c0,
+                    c1, block[corner + mesh_corner_offset(c0)],
+                    block[corner + mesh_corner_offset(c1)], frame, pos, &hi,
+                    &lo, &key);
+        const long long at = vertex_at + v;
+        vertices[3 * at] = pos[0];
+        vertices[3 * at + 1] = pos[1];
+        vertices[3 * at + 2] = pos[2];
+        key_hi[at] = hi;
+        key_lo[at] = lo;
+        sort_keys[at] = key;
+      }
+    }
+    for (unsigned t0 = 0; t0 < t_total; t0 += 32) {
+      const unsigned t = t0 + lane;
+      const int o = t < t_total ? t_own[t] : 0;
+      const unsigned o_cell = __shfl_sync(FULL, t_cell, o);
+      if (t < t_total) {
+        const unsigned o_code = o_cell & 0xFFu;
+        const int base = (int)(vertex_at + ((o_cell >> 8) & 0x1FFu));
+        const int k = 3 * (int)(t - (o_cell >> 17));
+        int* out = indices + index_at + 3 * t;
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          out[m] = base + mesh_index_vertex(index_table, o_code, k + m);
+      }
+    }
+    __syncwarp();  // the owner maps are rewritten by the next batch
+    vertex_at += v_total;
+    index_at += 3 * t_total;
+  }
+}
+
 int tiles_an_axis(int b) { return (b - 1 + MARCH_TILE - 1) / MARCH_TILE; }
 
-bool bad_block(int b, int rx, int ry, int rz) {
-  return b < 2 || b > 1024 || rx < 0 || ry < 0 || rz < 0 || rx > b - 1 ||
+// A block the kernels cannot take: 2 <= b <= max_b corners an axis
+// (classify and the mesh emission: MESH_MAX_CORNERS; the codes emission:
+// 1024, its flat cell ids u32), a region inside it.
+bool bad_block(int b, int rx, int ry, int rz, int max_b) {
+  return b < 2 || b > max_b || rx < 0 || ry < 0 || rz < 0 || rx > b - 1 ||
          ry > b - 1 || rz > b - 1;
 }
 
@@ -625,7 +811,8 @@ extern "C" int march_classify_launch(const float* field, int b, int rx,
                                      unsigned long long* scan_state,
                                      int* list, long long* totals,
                                      void* stream) {
-  if (bad_block(b, rx, ry, rz)) return (int)cudaErrorInvalidValue;
+  if (bad_block(b, rx, ry, rz, MESH_MAX_CORNERS))
+    return (int)cudaErrorInvalidValue;
   const int g = tiles_an_axis(b);
   const int segments = march_segments(g);
   const int nrows = g * g * segments;
@@ -654,12 +841,42 @@ extern "C" int march_emit_launch(const float* field, int b, int rx, int ry,
                                  int rz, const int* list, int march_tiles,
                                  long long m, long long vertices, int* image,
                                  void* stream) {
-  if (bad_block(b, rx, ry, rz) || march_tiles < 0 || m < 0 || vertices < 0)
+  if (bad_block(b, rx, ry, rz, 1024) || march_tiles < 0 || m < 0 ||
+      vertices < 0)
     return (int)cudaErrorInvalidValue;
   if (march_tiles == 0) return (int)cudaSuccess;
   march_emit_kernel<<<(march_tiles + EMIT_WARPS - 1) / EMIT_WARPS,
                       EMIT_THREADS, 0, (cudaStream_t)stream>>>(
       field, b, tiles_an_axis(b), rx, ry, rz,
       reinterpret_cast<const int4*>(list), march_tiles, m, vertices, image);
+  return (int)cudaGetLastError();
+}
+
+// march_emit_mesh_launch: the unwelded mesh of the block (b <=
+// MESH_MAX_CORNERS corners an axis, cell origin (ox, oy, oz) >= 0) from
+// the scan's list of `march_tiles` rows: for each of the totals' vertices
+// its position (3 floats) in `vertices`, its key halves in key_hi and
+// key_lo, its compact sort key (axis_bits an axis) in sort_keys, and for
+// each triangle index its int32 vertex in `indices`. No rows launch
+// nothing.
+extern "C" int march_emit_mesh_launch(const float* field, int b, int rx,
+                                      int ry, int rz, long long ox,
+                                      long long oy, long long oz,
+                                      int axis_bits, const int* list,
+                                      int march_tiles, float* vertices,
+                                      unsigned* key_hi, unsigned* key_lo,
+                                      unsigned long long* sort_keys,
+                                      int* indices, void* stream) {
+  if (bad_block(b, rx, ry, rz, MESH_MAX_CORNERS) || march_tiles < 0 ||
+      ox < 0 || oy < 0 || oz < 0 || axis_bits < 1 || 3 * axis_bits + 1 > 64)
+    return (int)cudaErrorInvalidValue;
+  if (march_tiles == 0) return (int)cudaSuccess;
+  const MeshFrame frame{{2 * rx, 2 * ry, 2 * rz}, {2 * ox, 2 * oy, 2 * oz},
+                        axis_bits};
+  march_emit_mesh_kernel<<<(march_tiles + MESH_WARPS - 1) / MESH_WARPS,
+                           MESH_THREADS, 0, (cudaStream_t)stream>>>(
+      field, b, tiles_an_axis(b), rx, ry, rz, frame,
+      reinterpret_cast<const int4*>(list), march_tiles, vertices, key_hi,
+      key_lo, sort_keys, indices);
   return (int)cudaGetLastError();
 }

@@ -237,10 +237,13 @@ MARCH_FN unsigned march_segment_tiles(unsigned x) { return x & 0xFFFFu; }
 MARCH_FN unsigned march_segment_candidates(unsigned x) { return x >> 16; }
 
 // The slots of the occupied-tile list the scan writes, a row of four ints
-// per tile with an occupied cell, in tile order.
+// per tile with an occupied cell, in tile order: the tile, and the cells,
+// vertices and triangle indices of the tiles before it (the codes
+// emission reads the first three, the mesh emission all four).
 #define MARCH_LIST_TILE 0
 #define MARCH_LIST_CELL_BASE 1
 #define MARCH_LIST_VERTEX_BASE 2
+#define MARCH_LIST_INDEX_BASE 3
 #define MARCH_LIST_WIDTH 4
 
 // The totals the scan writes, int64 each. They are also the counts its

@@ -1,6 +1,6 @@
 """The per-block device step: binning (kernels) -> MLS field (kernel) ->
-canonical faces and skeleton points (kernels) -> marching (kernels in
-codes mode) -> one readback
+canonical faces and skeleton points (kernels) -> marching, weld and pack
+(kernels) -> one readback
 (port of mlsgpu_tpu/ops/block.py: `block_step_body`, `block_step_staged`,
 the packed and codes layouts and their host decoders).
 
@@ -10,9 +10,12 @@ Three readback modes, as in the JAX package:
   rebuilds and welds the mesh natively (_native.rebuild_block);
 - "packed": marching emits the mesh, the device welds it (ops/weld.py) and
   quantizes it into one image (PackFormat); the host decodes it
-  (_native.unpack_readback);
+  (_native.unpack_readback); on the card by the classify and scan kernels,
+  the mesh emission, the weld's sort and compaction and the pack kernel
+  (ops/mesh_cuda.py);
 - "raw": the welded arrays themselves (the mode a device filter needs: its
-  vertices leave the cell-edge lattice the packed layout encodes).
+  vertices leave the cell-edge lattice the packed layout encodes); on the
+  card the same kernels, the pack kernel remapping the triangles alone.
 
 PyTorch runs eagerly, so the step is a plain function; every output is
 sized from its true count, so no cap can overflow and no retry is needed.
@@ -29,8 +32,8 @@ import torch
 
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 
-from mlsgpu_tpu_torch.ops import (binning_cuda, marching, marching_cuda, mls,
-                                  mls_cuda, seam_cuda, weld)
+from mlsgpu_tpu_torch.ops import (binning_cuda, marching, marching_cuda,
+                                  mesh_cuda, mls, mls_cuda, seam_cuda, weld)
 
 
 #: Order of the scalars inside BlockResult.counts (the JAX package's order).
@@ -187,7 +190,10 @@ def resolve_readback(requested: str, levels: int, subsampling: int) -> str:
 
 
 def _u32_to_words(u32: torch.Tensor) -> torch.Tensor:
-    """int64 tensor of u32 values -> int32 words with the same bits."""
+    """int64 tensor of u32 values -> int32 words with the same bits (int32
+    words, as the card's weld keeps its keys, are returned as they are)."""
+    if u32.dtype == torch.int32:
+        return u32
     return torch.where(u32 >= 1 << 31, u32 - (1 << 32), u32).to(torch.int32)
 
 
@@ -332,12 +338,17 @@ def block_step(splats: torch.Tensor, valid: torch.Tensor,
         return BlockResult(packed=packed, counts=counts, readback="codes",
                            fmt=codes_format(levels, subsampling))
 
-    n_occ = int(n_occ)
+    # the kernels on the card (their two syncs: the totals with n_occ,
+    # then the welded counts), the plain chain on the CPU
+    on_card = field.device.type == "cuda"
     with stage("marching"):
-        mesh = marching.generate_mesh(field, region_cells, cell_origin)
+        mesh = mesh_cuda.generate_mesh(field, region_cells, cell_origin,
+                                       n_occ if on_card else None)
+    n_occ = mesh.n_occ if on_card else int(n_occ)
     with stage("weld"):
-        welded = weld.weld(mesh.vertices, mesh.key_hi, mesh.key_lo,
-                           mesh.triangles)
+        welded = mesh_cuda.weld(mesh)
+        if readback == "raw":
+            welded = mesh_cuda.welded_mesh(welded)
     counts = np.array([welded.num_vertices, welded.first_external,
                        welded.num_indices, 0, mesh.num_cells,
                        mesh.num_vertices, n_occ, mesh.num_tiles], np.int64)
@@ -353,7 +364,7 @@ def block_step(splats: torch.Tensor, valid: torch.Tensor,
                          "axis is too large for the packed readback; use "
                          "--readback raw")
     with stage("pack"):
-        packed = pack_readback(welded, cell_origin, fmt)
+        packed = mesh_cuda.pack_readback(welded, cell_origin, fmt)
     return BlockResult(packed=packed, counts=counts, readback="packed",
                        fmt=fmt)
 

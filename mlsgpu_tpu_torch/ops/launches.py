@@ -2,9 +2,10 @@
 
 Each wrapper calls `count(name)` where it launches its kernel and nowhere
 else (ops/mls_cuda.py, ops/seam_cuda.py, ops/binning_cuda.py,
-ops/marching_cuda.py). A worker process sends back what it counted for a
-block (`since`), and the parent `add`s it (pipeline/workers.py). `reset`
-before a run counts that run's launches alone.
+ops/marching_cuda.py, ops/mesh_cuda.py). A worker process sends back what
+it counted for a block (`since`), and the parent `add`s it
+(pipeline/workers.py). `reset` before a run counts that run's launches
+alone.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ KERNELS = {
     "march_classify": "marching.classifyLaunches",
     "march_scan": "marching.scanLaunches",
     "march_emit": "marching.emitLaunches",
+    "march_emit_mesh": "marching.emitMeshLaunches",
+    "weld_sort_histogram": "weld.sortHistogramLaunches",
+    "weld_sort_pass": "weld.sortPassLaunches",
+    "weld_compact": "weld.compactLaunches",
+    "pack_readback": "pack.launches",
 }
 
 _counts = dict.fromkeys(KERNELS, 0)

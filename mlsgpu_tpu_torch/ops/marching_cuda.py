@@ -42,6 +42,11 @@ ROW_TILES = 8
 TOTALS = ("cells", "vertices", "indices", "candidates", "tiles")
 #: Row segments a tile of the scan (a CTA: csrc/marching.cuh).
 SCAN_ROWS = 256
+#: The most corners an axis the codes readback's kernels take (flat cell
+#: ids fit u32), and the mesh readbacks' (classify, scan and the mesh
+#: emission: the packed layout's 2^13 limit, csrc/mesh.cuh).
+CODES_MAX_CORNERS = 1 << 10
+MESH_MAX_CORNERS = 1 << 13
 
 
 def segment_rows(g: int) -> int:
@@ -85,13 +90,14 @@ def _check_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"marching kernels need CUDA tensors, got {t.device}")
 
 
-def _check_field(field: torch.Tensor, region_cells: Sequence[int]
+def _check_field(field: torch.Tensor, region_cells: Sequence[int],
+                 max_corners: int = CODES_MAX_CORNERS
                  ) -> Tuple[int, Tuple[int, int, int]]:
     b = field.shape[0] if field.dim() == 3 else -1
     mls_cuda._check("field", field, torch.float32, (b, b, b))
-    if not 2 <= b <= 1 << 10:
-        raise ValueError(f"{b} corners an axis: the kernels take 2-1024 "
-                         "(flat cell ids fit u32)")
+    if not 2 <= b <= max_corners:
+        raise ValueError(f"{b} corners an axis: the kernels take "
+                         f"2-{max_corners}")
     region = tuple(int(v) for v in region_cells)
     if len(region) != 3 or not all(0 <= v <= b - 1 for v in region):
         raise ValueError(f"region {region} outside a block of {b - 1} "
@@ -99,14 +105,16 @@ def _check_field(field: torch.Tensor, region_cells: Sequence[int]
     return b, region
 
 
-def launch_classify(field: torch.Tensor, region_cells: Sequence[int]
+def launch_classify(field: torch.Tensor, region_cells: Sequence[int],
+                    max_corners: int = CODES_MAX_CORNERS
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The classify and scan kernels on a CUDA field (one C call, a launch
-    of each), without synchronising: (the occupied-tile list (g^3, 4)
-    int32, the totals (TOTALS order) int64), both on the device."""
+    """The classify and scan kernels on a CUDA field of up to max_corners
+    corners an axis (one C call, a launch of each), without synchronising:
+    (the occupied-tile list (g^3, 4) int32: tile, cell, vertex and index
+    bases, the totals (TOTALS order) int64), both on the device."""
     _check_cuda(field)
     dev = field.device
-    b, region = _check_field(field, region_cells)
+    b, region = _check_field(field, region_cells, max_corners)
     g = -(-(b - 1) // marching.TILE)
     records = torch.empty((g ** 3, 2), dtype=torch.int32, device=dev)
     rows = torch.empty((segment_rows(g), 4), dtype=torch.int32, device=dev)
@@ -130,18 +138,21 @@ def launch_classify(field: torch.Tensor, region_cells: Sequence[int]
 
 
 def classify(field: torch.Tensor, region_cells: Sequence[int],
-             n_occ: Optional[torch.Tensor] = None) -> Marched:
+             n_occ: Optional[torch.Tensor] = None,
+             max_corners: int = CODES_MAX_CORNERS) -> Marched:
     """The block's occupied tiles and counts on a CUDA field:
     launch_classify, then the totals copied to pinned host memory, and
     n_occ (an int32 device scalar, such as the field kernel's occupied
-    tiles) beside them when given, with one wait on the current stream."""
+    tiles) beside them when given, with one wait on the current stream.
+    max_corners: MESH_MAX_CORNERS for the mesh readbacks, whose int32
+    index bases also hold the triangle indices below 2^31."""
     _check_cuda(field)
     dev = field.device
     if n_occ is not None:
         mls_cuda._check("n_occ", n_occ, torch.int32, ())
         if n_occ.device != dev:
             raise ValueError(f"n_occ on {n_occ.device}, field on {dev}")
-    tile_list, totals = launch_classify(field, region_cells)
+    tile_list, totals = launch_classify(field, region_cells, max_corners)
     with torch.cuda.device(dev):
         # the int64 totals as int32 pairs, then n_occ
         host = torch.empty(2 * len(TOTALS) + 1, dtype=torch.int32,
@@ -150,10 +161,12 @@ def classify(field: torch.Tensor, region_cells: Sequence[int],
         if n_occ is not None:
             host[-1:].copy_(n_occ.view(1), non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
-    t = dict(zip(TOTALS, host[:-1].view(torch.int64).tolist()))
-    if t["vertices"] >= 1 << 31:
-        raise ValueError(f"{t['vertices']} vertices: the kernels' vertex "
-                         "bases are int32")
+    t = dict(zip(TOTALS, (int(v) for v in host[:-1].view(torch.int64)
+                          .numpy())))
+    if t["vertices"] >= 1 << 31 or (max_corners > CODES_MAX_CORNERS
+                                    and t["indices"] >= 1 << 31):
+        raise ValueError(f"{t['vertices']} vertices, {t['indices']} "
+                         "indices: the kernels' bases are int32")
     return Marched(
         counts=MarchCounts(t["cells"], t["vertices"], t["indices"],
                            t["candidates"]),
@@ -214,6 +227,14 @@ def vertex_end_offsets() -> np.ndarray:
     return np.where(tables.VERT_TABLE >= 0, e[..., 0] | e[..., 1] << 8, 0)
 
 
+def vertex_corners() -> np.ndarray:
+    """(256, MAX_CELL_VERTICES) VERT_CORNERS table: for each local vertex,
+    the corner ids at the ends of its edge (EDGES[VERT_TABLE]), c0 | c1 <<
+    4; 0 past the code's vertices."""
+    e = tables.EDGES[np.maximum(tables.VERT_TABLE, 0)]
+    return np.where(tables.VERT_TABLE >= 0, e[..., 0] | e[..., 1] << 4, 0)
+
+
 def tables_header() -> str:
     """csrc/marching_tables.h as ops/tables.py gives it."""
     def rows(a: np.ndarray, per_line: int) -> str:
@@ -230,6 +251,7 @@ def tables_header() -> str:
         "",
         f"#define MARCH_NUM_EDGES {tables.NUM_EDGES}",
         f"#define MARCH_MAX_CELL_VERTICES {tables.MAX_CELL_VERTICES}",
+        f"#define MARCH_MAX_CELL_INDICES {tables.MAX_CELL_INDICES}",
         "",
         "// EDGES: the corner ids at the ends of each edge.",
         "#define MARCH_EDGES_INIT { \\", rows(tables.EDGES, 10) + "}",
@@ -247,6 +269,15 @@ def tables_header() -> str:
         "// vertices.",
         "#define MARCH_END_OFFSETS_INIT { \\",
         rows(vertex_end_offsets(), 1) + "}",
+        "",
+        "// INDEX_TABLE: the local vertex of each triangle index of each",
+        "// code, -1 past its indices.",
+        "#define MARCH_INDEX_INIT { \\", rows(tables.INDEX_TABLE, 1) + "}",
+        "",
+        "// VERT_CORNERS: the corner ids at the ends of each local vertex's",
+        "// edge, c0 | c1 << 4 (EDGES[VERT_TABLE]), 0 past its vertices.",
+        "#define MARCH_VERT_CORNERS_INIT { \\",
+        rows(vertex_corners(), 1) + "}",
         ""])
 
 

@@ -12,9 +12,12 @@ stage's key, sort (histogram and pass), entry, bounds and segment
 kernels (csrc/binning.cu with csrc/binning.cuh, called from
 ops/binning_cuda.py) and the codes path's classify, scan and emit kernels
 (csrc/marching.cu with csrc/marching.cuh, called from
-ops/marching_cuda.py); the sort's passes and the scan share the look-back
-scan of csrc/scan.cuh. One nvcc call compiles the four
-sources for sm_90a on first use into
+ops/marching_cuda.py), and the packed and raw readbacks' mesh emission
+(csrc/marching.cu), weld and pack kernels (csrc/mesh.cu with
+csrc/mesh.cuh, called from ops/mesh_cuda.py); binning's sort and the
+weld's share csrc/radix_sort.cuh, and the sorts' passes, the scan and the
+weld's compaction the look-back scan of csrc/scan.cuh. One nvcc call
+compiles the five sources for sm_90a on first use into
 `mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source or a
 header is newer);
 the kernels are called through their plain C entry points with ctypes, on
@@ -39,11 +42,11 @@ from mlsgpu_tpu_torch.utils import native_build
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", name)
            for name in ("mls_field.cu", "seam_moments.cu", "binning.cu",
-                        "marching.cu")]
+                        "marching.cu", "mesh.cu")]
 #: Headers the sources include: the library is rebuilt when one is newer.
 HEADERS = [os.path.join(_PKG, "csrc", name)
            for name in ("binning.cuh", "marching.cuh", "marching_tables.h",
-                        "scan.cuh")]
+                        "mesh.cuh", "radix_sort.cuh", "scan.cuh")]
 LIBRARY_NAME = "libmls_field.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -156,6 +159,17 @@ def load():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ptr] + [ctypes.c_int] * 4 + [ptr, ctypes.c_int,
                                                          i64, i64, ptr, ptr])
+            fn = lib.march_emit_mesh_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ptr] + [ctypes.c_int] * 4 + [i64] * 3
+                           + [ctypes.c_int, ptr, ctypes.c_int] + [ptr] * 6)
+            fn = lib.weld_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr, i64, ctypes.c_int] + [ptr] * 13
+            fn = lib.pack_readback_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ptr] * 3 + [i64] + [ptr] * 2 + [i64] * 4
+                           + [ctypes.c_int] * 2 + [ptr, ptr])
             _lib = lib
         return _lib
 

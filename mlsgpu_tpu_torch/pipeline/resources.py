@@ -17,6 +17,9 @@ from mlsgpu_tpu_torch.utils.errors import InvalidOption
 from mlsgpu_tpu_torch.ops.binning_cuda import sort_scratch_words
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
 from mlsgpu_tpu_torch.ops.marching_cuda import scan_state_words, segment_rows
+from mlsgpu_tpu_torch.ops.mesh_cuda import (axis_bits, key_bits,
+                                            weld_scratch_words,
+                                            weld_work_words)
 from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
                                                uses_processes)
 
@@ -66,11 +69,12 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     kernels' path; "cpu": the plain versions'). `seam_reserve`: the seam
     kernels' local memory reserve on the card (seam_local_reserve). On
     the card binning holds the radix sort's buffers, then the gather's
-    (`binning`; torch.sort's on the CPU), and the codes readback marches
-    and packs in the marching kernels,
-    whose buffers `marching_kernels` counts; the packed and raw readbacks
-    and the CPU march with the plain versions (`marching_dense` or
-    `marching_tiled`, `emission`)."""
+    (`binning`; torch.sort's on the CPU), and every readback marches and
+    packs in kernels: `marching_kernels` counts the codes readback's
+    buffers, and the packed and raw readbacks' with `weld_kernels` and
+    `pack_kernels`; the CPU marches, welds and packs with the plain
+    versions (`marching_dense` or `marching_tiled`, `emission`, `mesh`,
+    `weld`, `pack`)."""
     b = 1 << cfg.device_shift  # corners of one device dispatch
     cells = (b - 1) ** 3
     n = cfg.max_device_splats
@@ -113,6 +117,7 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
     # surface).
     occ = int(cells * SURFACE_CELL_SHARE)
     verts = 4 * occ
+    g = -(-(b - 1) // TILE)
     if device_type == "cuda" and readback == "codes":
         # the marching kernels' buffers (ops/marching_cuda.py), nothing
         # more: an 8-byte record a tile, a 16-byte record a row segment of
@@ -120,11 +125,36 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
         # a tile of segments), the occupied-tile list (4 int32 a tile), the
         # totals, and the codes image (an id word and a code byte an
         # occupied cell, a t16 halfword a vertex)
-        g = -(-(b - 1) // TILE)
         usage["marching_kernels"] = (
             g ** 3 * (8 + 16) + segment_rows(g) * 16
             + scan_state_words(g) * I64 + 5 * I64
             + 4 * (occ + -(-occ // 4) + -(-verts // 2)))
+    elif device_type == "cuda":
+        # the mesh readbacks' kernels (ops/mesh_cuda.py), each buffer as
+        # the caching allocator may count it, at most 3 triangle indices a
+        # vertex (36 a cell of 13 at most): classify's and the scan's
+        # buffers (as codes'), the emission's vertices (3 f32), key halves
+        # (2 int32), compact sort keys (int64) and int32 indices; the
+        # weld's sorted keys and permutation (int64), the sort's work
+        # buffer and scratch, the welded vertices and key halves, the remap
+        # and the totals; then the packed image (u32 indices at most, 4
+        # u16 words a vertex) or raw's remapped int32 triangles
+        indices = 3 * verts
+        bits = key_bits(axis_bits(b))
+        usage["marching_kernels"] = (
+            _block(g ** 3 * 8) + _block(segment_rows(g) * 16)
+            + _block(scan_state_words(g) * I64) + _block(g ** 3 * 16)
+            + _block(5 * I64) + _block(verts * 3 * F32)
+            + 2 * _block(verts * 4) + _block(verts * I64)
+            + _block(indices * 4))
+        usage["weld_kernels"] = (
+            2 * _block(verts * I64) + _block(4 * weld_work_words(verts, bits))
+            + _block(I64 * weld_scratch_words(verts, bits))
+            + _block(verts * 3 * F32) + 3 * _block(verts * 4)
+            + _block(2 * I64))
+        usage["pack_kernels"] = _block(
+            4 * (indices + 2 * verts + 1) if readback == "packed"
+            else 4 * indices)
     else:
         if b > TILED_ABOVE:
             # tiled classification: the NaN-padded field copy, the
@@ -142,7 +172,7 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
         # emitted vertex its producer, rank, edge and t.
         usage["emission"] = (occ * (4 * I64 + 8 * F32)
                              + verts * (4 * I64 + F32))
-    if readback != "codes":
+    if readback != "codes" and device_type != "cuda":
         # mesh mode: f32 vertices, (hi, lo) keys and ~2 triangles of three
         # int64 indices per vertex; the weld's sort key, order, first-mask,
         # new ids and remap; the welded copies (~half the vertices)

@@ -21,6 +21,15 @@ card.
 Prints the card's name and power limit, then one line `MARCHING {json}`
 per root and level count: the kernels' ms and, from the stage's output,
 the cells, vertices and listed tiles.
+
+Then, on the same field, the packed readback's stage as the root's block
+step runs it: where the tree has ops/mesh_cuda.py, its kernels
+(`mesh_image`: classify and scan, the mesh emission, the weld's sort and
+compaction, the pack kernel; two syncs) host-paced, each kernel alone (the
+median of its kernel events; the sort's pass kernel summed over its
+passes a call) and their sum; else its plain chain; and in every tree the
+plain chain (marching.generate_mesh -> weld.weld -> block.pack_readback)
+host-paced. One line `MESH {json}` per root and level count.
 """
 
 from __future__ import annotations
@@ -38,6 +47,11 @@ import torch
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 KERNELS = ("march_classify_kernel", "march_scan_kernel", "march_emit_kernel")
+#: The packed stage's kernels (ops/mesh_cuda.py).
+MESH_KERNELS = ("march_classify_kernel", "march_scan_kernel",
+                "march_emit_mesh_kernel", "weld_sort_histogram_kernel",
+                "weld_sort_pass_kernel", "weld_compact_kernel",
+                "pack_readback_kernel")
 
 
 def timing_helpers():
@@ -112,7 +126,51 @@ def run_root(label: str, root: str, splats: int, levels_list, reps: int):
                                reps)
         out.update({f"{k}_ms": v for k, v in alone.items()})
         print("MARCHING " + json.dumps(out), flush=True)
-        del field, marched
+        del marched
+        print("MESH " + json.dumps(mesh_stage(
+            label, levels, field, region, origin, cfg.subsampling, reps,
+            timing)), flush=True)
+        del field
+
+
+def mesh_stage(label, levels, field, region, origin, subsampling, reps,
+               timing) -> dict:
+    """The packed stage of this process's tree on a block's field: its
+    kernels where it has them (each alone, their sum, the stage
+    host-paced), else its plain chain; and the plain chain host-paced."""
+    from mlsgpu_tpu_torch.ops import block, marching, weld
+
+    def plain():
+        m = marching.generate_mesh(field, region, origin)
+        w = weld.weld(m.vertices, m.key_hi, m.key_lo, m.triangles)
+        return block.pack_readback(w, origin, block.pack_format(
+            levels, subsampling, w.num_vertices))
+
+    out = {"root": label, "levels": levels, "reps": reps,
+           "plain_chain_ms": timing.event_ms(plain, reps)}
+    try:
+        from mlsgpu_tpu_torch.ops import mesh_cuda
+    except ImportError:      # a tree before the mesh kernels
+        out.update(path="plain", stage_host_paced_ms=out["plain_chain_ms"])
+        return out
+    stage = lambda: mesh_cuda.mesh_image(  # noqa: E731
+        field, region, origin, levels, subsampling)
+    res = stage()
+    passes = mesh_cuda.sort_passes(mesh_cuda.key_bits(res.mesh.axis_bits))
+    out.update(path="kernels", vertices=res.mesh.num_vertices,
+               welded=res.welded.num_vertices,
+               indices=res.mesh.num_indices, sort_passes=passes,
+               index_mode=res.fmt.index_mode,
+               stage_host_paced_ms=timing.event_ms(stage, reps))
+    events = timing.trace_events(stage, reps)
+    alone = kernel_medians(events, [k for k in MESH_KERNELS
+                                    if k != "weld_sort_pass_kernel"], reps)
+    alone["weld_sort_pass_kernel"] = timing.kernel_event_ms(
+        events, ("weld_sort_pass_kernel",), reps, passes)
+    out.update({f"{k}_ms": alone[k] for k in MESH_KERNELS})
+    known = [v for v in alone.values() if v is not None]
+    out["kernels_ms"] = sum(known) if len(known) == len(alone) else None
+    return out
 
 
 def main(argv=None) -> int:

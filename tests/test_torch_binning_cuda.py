@@ -951,15 +951,18 @@ def test_wrappers_raise_for_a_device_they_cannot_take(call):
 
 
 def test_one_nvcc_call_builds_the_binning_kernels(tmp_path, monkeypatch):
-    """One nvcc command for sm_90a names the four sources; the library
+    """One nvcc command for sm_90a names the five sources; the library
     is rebuilt when a header (binning.cuh, marching.cuh, marching_tables.h,
-    scan.cuh), which no command line names, is newer."""
+    mesh.cuh, radix_sort.cuh, scan.cuh), which no command line names, is
+    newer."""
     cmd = mls_cuda.build_command(["nvcc"], "lib.so")
     assert [os.path.basename(a) for a in cmd if a.endswith(".cu")] == [
-        "mls_field.cu", "seam_moments.cu", "binning.cu", "marching.cu"]
+        "mls_field.cu", "seam_moments.cu", "binning.cu", "marching.cu",
+        "mesh.cu"]
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert [os.path.basename(h) for h in mls_cuda.HEADERS] == [
-        "binning.cuh", "marching.cuh", "marching_tables.h", "scan.cuh"]
+        "binning.cuh", "marching.cuh", "marching_tables.h", "mesh.cuh",
+        "radix_sort.cuh", "scan.cuh"]
     assert all(os.path.isfile(h) for h in mls_cuda.HEADERS)
     log = tmp_path / "calls.log"
     stub = tmp_path / "stub.py"

@@ -506,6 +506,8 @@ extern "C" long long host_scan(const unsigned* rows, int nrows, int b,
         unsigned long long cells = bt[MARCH_TOTAL_CELLS] + at[MARCH_TOTAL_CELLS];
         unsigned long long vertices =
             bt[MARCH_TOTAL_VERTICES] + at[MARCH_TOTAL_VERTICES];
+        unsigned long long indices =
+            bt[MARCH_TOTAL_INDICES] + at[MARCH_TOTAL_INDICES];
         const int t0 = (r / segments) * g + (r % segments) * MARCH_ROW_TILES;
         const int n = imin(MARCH_ROW_TILES, g - (r % segments) * MARCH_ROW_TILES);
         for (int j = 0; j < n; ++j) {
@@ -517,10 +519,11 @@ extern "C" long long host_scan(const unsigned* rows, int nrows, int b,
           row[MARCH_LIST_TILE] = t0 + j;
           row[MARCH_LIST_CELL_BASE] = (int)cells;
           row[MARCH_LIST_VERTEX_BASE] = (int)vertices;
-          row[3] = 0;
+          row[MARCH_LIST_INDEX_BASE] = (int)indices;
           row_at += 1;
           cells += c;
           vertices += march_tile_vertices(y);
+          indices += march_tile_indices(y);
         }
       }
       for (int k = 0; k < K; ++k) at[k] += v[k];
@@ -924,15 +927,17 @@ def random_records(b, occupied, seed):
 
 def plain_scan(records, count_candidates):
     """The scan's list (occupied tiles in order: tile, cell base, vertex
-    base, 0) and totals (marching_cuda.TOTALS order) from the tile
-    records, in numpy."""
+    base, index base) and totals (marching_cuda.TOTALS order) from the
+    tile records, in numpy."""
     cells = (records[:, 0] & 0xFFFF).astype(np.int64)
     vertices = (records[:, 1] & 0xFFFF).astype(np.int64)
+    indices = (records[:, 1] >> 16).astype(np.int64)
     occ = np.flatnonzero(cells)
     lst = np.zeros((len(occ), marching_cuda.LIST_WIDTH), np.int64)
     lst[:, 0] = occ
     lst[:, 1] = np.cumsum(cells[occ]) - cells[occ]
     lst[:, 2] = np.cumsum(vertices[occ]) - vertices[occ]
+    lst[:, 3] = np.cumsum(indices[occ]) - indices[occ]
     cand = int((records[:, 0] >> 16).astype(np.int64).sum())
     totals = [int(cells.sum()), int(vertices.sum()),
               int((records[:, 1] >> 16).astype(np.int64).sum()),
@@ -1072,8 +1077,10 @@ def test_card_codes_estimate_counts_the_kernels_buffers(levels):
     """pipeline/resources.py on the card's codes readback counts the
     marching kernels' buffers (tile and segment records, the scan's state,
     the list, the totals, the image) and not the plain path's
-    classification and emission temporaries; the CPU and the card's packed
-    and raw readbacks, which march plainly, keep the plain figures."""
+    classification and emission temporaries; the card's packed and raw
+    readbacks count their kernels' buffers (tests/test_torch_mesh_cuda.py
+    holds their sizes) and no plain term; the CPU keeps the plain
+    figures in every readback."""
     from mlsgpu_tpu_torch.pipeline import resources
     from mlsgpu_tpu_torch.tools import cloud
     cfg = cloud.bench_config(0.03, levels)
@@ -1090,11 +1097,19 @@ def test_card_codes_estimate_counts_the_kernels_buffers(levels):
     plain = ("marching_tiled" if b > marching.TILED_ABOVE
              else "marching_dense")
     assert plain not in card and "emission" not in card
-    for device, readback in (("cpu", "codes"), ("cuda", "packed"),
-                             ("cuda", "raw")):
-        usage = resources.estimate_block_usage(cfg, readback, device)
+    mesh_plain = ("mesh", "weld", "pack")
+    for readback in ("codes", "packed", "raw"):
+        usage = resources.estimate_block_usage(cfg, readback, "cpu")
         assert "marching_kernels" not in usage
         assert usage[plain] > 0 and usage["emission"] > 0
+        assert all((k in usage) == (readback != "codes"
+                                    and (k != "pack" or readback == "packed"))
+                   for k in mesh_plain)
+    for readback in ("packed", "raw"):
+        usage = resources.estimate_block_usage(cfg, readback, "cuda")
+        assert usage["marching_kernels"] > card["marching_kernels"]
+        assert usage["weld_kernels"] > 0 and usage["pack_kernels"] > 0
+        assert not {plain, "emission", *mesh_plain} & set(usage)
     cpu = resources.estimate_block_usage(cfg, "codes", "cpu")
     assert card["marching_kernels"] < cpu[plain] + cpu["emission"]
     assert card["total"] == sum(v for k, v in card.items() if k != "total")
@@ -1194,22 +1209,23 @@ def every_tile_field(b, dev):
 
 
 def plain_list(cm, b):
-    """The scan's list (tile, cell base, vertex base, 0) of a block's
-    plain codes (marching.generate_codes): the tiles of its occupied cells
-    in order, each tile's first cell and the vertices before it."""
+    """The scan's list (tile, cell base, vertex base, index base) of a
+    block's plain codes (marching.generate_codes): the tiles of its
+    occupied cells in order, each tile's first cell and the vertices and
+    triangle indices before it."""
     nc = b - 1
     g = -(-nc // marching.TILE)
     ids = cm.cell_ids
     t = marching.TILE
     tile = ((ids // (nc * nc) // t) * g + ids // nc % nc // t) * g \
         + ids % nc // t
-    nv = torch.as_tensor(tables.COUNT_TABLE[:, 0], device=ids.device)[
+    counts = torch.as_tensor(tables.COUNT_TABLE, device=ids.device)[
         cm.cell_codes]
-    vbase = torch.cumsum(nv, 0) - nv
+    base = torch.cumsum(counts, 0) - counts
     first = torch.ones_like(tile, dtype=torch.bool)
     first[1:] = tile[1:] != tile[:-1]
     at = first.nonzero().squeeze(1)
-    return torch.stack([tile[at], at, vbase[at], torch.zeros_like(at)],
+    return torch.stack([tile[at], at, base[at, 0], base[at, 1]],
                        1).to(torch.int32)
 
 

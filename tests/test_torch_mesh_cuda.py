@@ -1,0 +1,1310 @@
+"""The packed and raw readbacks' kernels (ops/mesh_cuda.py: csrc/marching.cu's
+mesh emission, csrc/mesh.cu's weld and pack).
+
+On the CPU: the kernels' arithmetic (csrc/mesh.cuh with marching.cuh and
+radix_sort.cuh) built for the host with g++ -ffp-contract=off, with host
+loops that run the kernels as the card does: the scan's list (tile, cell,
+vertex and index bases) by a plain loop over the tiles; the mesh emission
+a listed tile a warp, its occupied cells ranked, then 32 at a time, their
+vertices and triangles spread a lane each through two owner maps; the
+weld's radix sort tile by tile (32- or 64-bit keys between passes, the
+look-back in both orders); the compaction a tile of 2,048 sorted keys a
+CTA, 8 a thread, with its look-back in both orders; the pack a thread a
+welded vertex and a triangle. Held bit for bit to the plain chain
+`marching.generate_mesh` -> `weld.weld` -> `block.pack_readback` (the
+unwelded vertices, keys and triangles; the welded vertices, keys,
+triangles and counts; the image in every index mode and both vertex-word
+widths) on fields made from a numpy seed: a sphere, region edges that are
+not multiples of 8, a block of 10 tiles an axis, dense noise, exact 0.0
+and -0.0 corners, subnormal differences, an origin near the keys' 21-bit
+limit, the tiled rule's candidate tiles (marching.TILED_ABOVE lowered),
+a block with no surface and one-cell blocks whose vertices all lie on the
+region's faces; and to the JAX package's `generate(emit="mesh")`, `weld`
+and `_pack_readback` on two of them. Also: the compact key's order and
+equalities against the global (hi, lo) keys at origins near 2^20, the
+header's new tables, the weld's scratch sizes, the wrappers on CPU tensors
+(the plain chain, no launch) and the block step's packed and raw
+branches there. On the card (marker `cuda`): the kernels bit for bit the
+plain chain at 256^3 and 512^3 (and with 43-bit keys), on two streams at
+once, their launches and syncs, and the memory estimate above a stage's
+peak.
+
+Only the JAX comparison imports jax, inside its tests: the card's machine
+has none (and runs the `cuda` tests alone), and there an installed package
+named `tests` also shadows `tests.oracle`.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from mlsgpu_tpu_torch.ops import (block, launches, marching, marching_cuda,
+                                  mesh_cuda, tables, weld)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "mlsgpu_tpu_torch", "csrc")
+
+#: The mesh readbacks' kernels' names in ops/launches.py.
+MESH = ("march_classify", "march_scan", "march_emit_mesh",
+        "weld_sort_histogram", "weld_sort_pass", "weld_compact",
+        "pack_readback")
+#: Every packed layout: (index mode, vertex words).
+FORMATS = [(mode, vw) for mode in mesh_cuda.INDEX_MODES for vw in (3, 4)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# --- fields -------------------------------------------------------------------
+
+def sphere_field(b, center, radius):
+    g = np.arange(b, dtype=np.float64)
+    zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+    d = np.sqrt((xx - center[0]) ** 2 + (yy - center[1]) ** 2
+                + (zz - center[2]) ** 2) - radius
+    return d.astype(np.float32)
+
+
+def field_case(name):
+    """(field (B, B, B) f32 [z, y, x], region (x, y, z) cells, cell origin
+    (x, y, z)) of a test case, from a numpy seed."""
+    rng = np.random.default_rng(47)
+    if name == "sphere":
+        return sphere_field(32, (15.5, 15.3, 15.8), 9.0), (31, 31, 31), \
+            (0, 0, 0)
+    if name == "open":
+        # the surface leaves the region: external vertices on its faces
+        f = sphere_field(40, (30.0, 12.0, 20.0), 14.0)
+        f[rng.random(f.shape) < 0.01] = np.nan
+        return f, (35, 39, 30), (64, 32, 8)
+    if name == "region_edges":
+        f = sphere_field(20, (12.0, 6.0, 9.5), 7.0)
+        f[rng.random(f.shape) < 0.02] = np.nan
+        return f, (13, 19, 7), (3, 5, 7)
+    if name == "wide":
+        # 10 tiles an axis
+        f = sphere_field(76, (40.0, 33.0, 37.0), 29.0)
+        f[rng.random(f.shape) < 0.01] = np.nan
+        return f, (75, 70, 61), (1000, 200, 30)
+    if name == "noise":
+        # a dense random field: most cells cut, many vertices a cell
+        f = rng.normal(size=(40, 40, 40)).astype(np.float32)
+        f[rng.random(f.shape) < 0.05] = np.nan
+        return f, (39, 33, 38), (8, 16, 24)
+    if name == "zeros":
+        # exact 0.0 and -0.0 beside small values of both signs
+        vals = np.float32([0.0, -0.0, 0.5, -0.5, 1e-3, -1e-3, 2.0, -2.0])
+        return rng.choice(vals, size=(16, 16, 16)), (15, 14, 13), (5, 6, 7)
+    if name == "subnormal":
+        tiny = np.float32([1e-45, 3e-45, 1e-42, 7e-41, 1.1754942e-38,
+                           1e-38, 0.0])
+        big = np.float32([1.0, 3e38, 1e-30])
+        mags = np.concatenate([tiny] * 3 + [big])
+        f = rng.choice(mags, size=(24, 24, 24)) * rng.choice(
+            np.float32([-1.0, 1.0]), size=(24, 24, 24))
+        return f.astype(np.float32), (23, 23, 23), (0, 0, 0)
+    if name == "far_origin":
+        # the doubled global coordinates up to 2^21 - 2: the keys' last bits
+        f = sphere_field(37, (18.0, 16.5, 19.2), 12.5)
+        o = (1 << 20) - 37
+        return f, (36, 36, 36), (o, o - 5, o)
+    if name == "no_surface":
+        return (rng.random((16, 16, 16)) + 0.5).astype(np.float32), \
+            (15, 15, 15), (0, 0, 0)
+    raise KeyError(name)
+
+
+CASES = ("sphere", "open", "region_edges", "wide", "noise", "zeros",
+         "subnormal", "far_origin", "no_surface")
+
+
+# --- the kernels' arithmetic, built for the host ------------------------------
+
+# The kernels' bodies as host loops over mesh.cuh: the scan's list by a
+# loop over the tiles (what march_scan_kernel writes, which
+# tests/test_torch_marching_cuda.py holds to its own emulation); the mesh
+# emission a listed tile (a warp) at a time, its lanes in loops; the
+# weld's sort and compaction tile by tile, their look-backs in ticket
+# order or from the last tile; the pack a thread at a time.
+_HARNESS = r"""
+#include <math.h>
+#include <string.h>
+
+#include <algorithm>
+#include <vector>
+
+#include "mesh.cuh"
+#include "radix_sort.cuh"
+#include "scan.cuh"
+
+extern "C" int host_max_indices() { return MARCH_MAX_CELL_INDICES; }
+
+extern "C" void host_mesh_tables(int* index, int* corners) {
+  for (int c = 0; c < 256; ++c) {
+    for (int i = 0; i < MARCH_MAX_CELL_INDICES; ++i)
+      index[c * MARCH_MAX_CELL_INDICES + i] =
+          mesh_index_vertex(&march_index_h[0][0], c, i);
+    for (int j = 0; j < MARCH_MAX_CELL_VERTICES; ++j)
+      corners[c * MARCH_MAX_CELL_VERTICES + j] =
+          (int)mesh_vertex_corners(&march_vert_corners_h[0][0], c, j);
+  }
+}
+
+extern "C" long long host_weld_scratch_words(long long n, int bits) {
+  return mesh_weld_scratch_words(n, bits);
+}
+
+extern "C" long long host_weld_work_words(long long n, int bits) {
+  return mesh_weld_work_words(n, bits);
+}
+
+extern "C" long long host_index_words(int mode, long long ni) {
+  return mesh_index_words(mode, ni);
+}
+
+// mesh_keys for n doubled block-local coordinates (x, y, z) each.
+extern "C" void host_keys(const int* k, long long n, int rx, int ry, int rz,
+                          long long ox, long long oy, long long oz,
+                          int axis_bits, unsigned* hi, unsigned* lo,
+                          unsigned long long* sort) {
+  const MeshFrame f{{2 * rx, 2 * ry, 2 * rz}, {2 * ox, 2 * oy, 2 * oz},
+                    axis_bits};
+  for (long long i = 0; i < n; ++i)
+    mesh_keys(k + 3 * i, f, hi + i, lo + i, sort + i);
+}
+
+static float corner(const float* field, int b, int x, int y, int z) {
+  return x < b && y < b && z < b ? field[((long long)z * b + y) * b + x] : NAN;
+}
+
+static int tiles_an_axis(int b) { return (b - 1 + MARCH_TILE - 1) / MARCH_TILE; }
+
+// The scan's list (a row of tile, cell base, vertex base, index base for
+// each tile with an occupied cell, in tile order) and totals (cells,
+// vertices, indices, candidate tiles if count_candidates else 0, listed
+// tiles) by a plain loop over the tiles' cells.
+extern "C" void host_list(const float* field, int b, int rx, int ry, int rz,
+                          int count_candidates, int* list,
+                          long long* totals) {
+  const int g = tiles_an_axis(b);
+  long long cells = 0, vertices = 0, indices = 0, cand = 0, rows = 0;
+  for (int t = 0; t < g * g * g; ++t) {
+    const int tx = t % g, ty = t / g % g, tz = t / (g * g);
+    long long c = 0, v = 0, i = 0;
+    bool finite = false;
+    for (int lz = 0; lz < MARCH_TILE; ++lz)
+      for (int ly = 0; ly < MARCH_TILE; ++ly)
+        for (int lx = 0; lx < MARCH_TILE; ++lx) {
+          const int x = tx * MARCH_TILE + lx, y = ty * MARCH_TILE + ly,
+                    z = tz * MARCH_TILE + lz;
+          finite = finite || isfinite(corner(field, b, x, y, z));
+          float cv[8];
+          for (int k = 0; k < 8; ++k)
+            cv[k] = corner(field, b, x + (k & 1), y + ((k >> 1) & 1),
+                           z + (k >> 2));
+          const unsigned code = march_code(cv);
+          if (!march_occupied(cv, code, x < rx && y < ry && z < rz)) continue;
+          ++c;
+          v += march_vertex_count(code);
+          i += march_index_count(code);
+        }
+    cand += finite;
+    if (c == 0) continue;
+    int* row = list + MARCH_LIST_WIDTH * rows++;
+    row[0] = t;
+    row[1] = (int)cells;
+    row[2] = (int)vertices;
+    row[3] = (int)indices;
+    cells += c;
+    vertices += v;
+    indices += i;
+  }
+  totals[0] = cells;
+  totals[1] = vertices;
+  totals[2] = indices;
+  totals[3] = count_candidates ? cand : 0;
+  totals[4] = rows;
+}
+
+// march_emit_mesh_kernel, a listed tile (a warp) at a time, its lanes in
+// loops.
+extern "C" void host_emit_mesh(const float* field, int b, int rx, int ry,
+                               int rz, long long ox, long long oy,
+                               long long oz, int axis_bits, const int* list,
+                               int march_tiles, float* vertices,
+                               unsigned* key_hi, unsigned* key_lo,
+                               unsigned long long* sort_keys, int* indices) {
+  const int g = tiles_an_axis(b);
+  const MeshFrame frame{{2 * rx, 2 * ry, 2 * rz}, {2 * ox, 2 * oy, 2 * oz},
+                        axis_bits};
+  float block[MARCH_TILE_CORNERS];
+  unsigned bits[MARCH_SPAN * MARCH_SPAN];
+  unsigned short cell_l[MARCH_TILE_CELLS];
+  unsigned char v_own[32 * MARCH_MAX_CELL_VERTICES];
+  unsigned char t_own[32 * MARCH_MAX_CELL_INDICES / 3];
+  for (int r = 0; r < march_tiles; ++r) {
+    const int* row = list + MARCH_LIST_WIDTH * r;
+    const int t = row[0];
+    const int tx = t % g, ty = (t / g) % g, tz = t / (g * g);
+    for (int k = 0; k < MARCH_TILE_CORNERS; ++k)
+      block[k] = corner(field, b, tx * MARCH_TILE + k % MARCH_SPAN,
+                        ty * MARCH_TILE + k / MARCH_SPAN % MARCH_SPAN,
+                        tz * MARCH_TILE + k / (MARCH_SPAN * MARCH_SPAN));
+    for (int k = 0; k < MARCH_SPAN * MARCH_SPAN; ++k) {
+      unsigned v = 0;
+      for (int x = 0; x < MARCH_SPAN; ++x) {
+        const float c = block[k * MARCH_SPAN + x];
+        v |= (march_sign_bit(c) << x) | (march_finite_bit(c) << (16 + x));
+      }
+      bits[k] = v;
+    }
+    unsigned at = 0;
+    for (int lane = 0; lane < MARCH_TILE_CELLS / 32; ++lane) {
+      const int lz = lane / 2, ly0 = 4 * (lane % 2);
+      unsigned sign[8], fin[8];
+      for (int dz = 0; dz < 2; ++dz)
+        for (int dy = 0; dy < 2; ++dy) {
+          unsigned rows4[4];
+          for (int i = 0; i < 4; ++i)
+            rows4[i] = bits[(lz + dz) * MARCH_SPAN + ly0 + dy + i];
+          for (int dx = 0; dx < 2; ++dx) {
+            sign[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, dx);
+            fin[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, 16 + dx);
+          }
+        }
+      int nx = rx - tx * MARCH_TILE;
+      nx = nx < 0 ? 0 : nx > MARCH_TILE ? MARCH_TILE : nx;
+      const unsigned byte = (1u << nx) - 1u;
+      unsigned region = 0;
+      for (int i = 0; i < 4; ++i)
+        if (ty * MARCH_TILE + ly0 + i < ry) region |= byte << (8 * i);
+      if (tz * MARCH_TILE + lz >= rz) region = 0;
+      const unsigned occ = march_word_occupied(sign, fin, region);
+      for (int x = 0; x < 32; ++x)
+        if ((occ >> x) & 1u) cell_l[at++] = (unsigned short)(32 * lane + x);
+    }
+    const unsigned tile_cells = at;
+    long long vertex_at = (unsigned)row[2], index_at = (unsigned)row[3];
+    for (unsigned first = 0; first < tile_cells; first += 32) {
+      unsigned code[32], l[32], v_first[32], t_first[32];
+      unsigned v_total = 0, t_total = 0;
+      for (int lane = 0; lane < 32; ++lane) {
+        const unsigned i = first + lane;
+        l[lane] = i < tile_cells ? cell_l[i] : 0;
+        const int row0 = l[lane] / 64 * MARCH_SPAN + l[lane] / 8 % 8,
+                  row1 = row0 + MARCH_SPAN;
+        code[lane] = i < tile_cells
+                         ? march_rows_code(bits[row0], bits[row0 + 1],
+                                           bits[row1], bits[row1 + 1],
+                                           l[lane] % 8)
+                         : 0;
+        const unsigned nv = i < tile_cells ? march_vertex_count(code[lane]) : 0;
+        const unsigned nt =
+            i < tile_cells ? march_index_count(code[lane]) / 3 : 0;
+        v_first[lane] = v_total;
+        t_first[lane] = t_total;
+        march_spread_vertices(v_own, v_total, nv, lane);
+        for (unsigned k = 0; k < nt; ++k)
+          t_own[t_total + k] = (unsigned char)lane;
+        v_total += nv;
+        t_total += nt;
+      }
+      for (unsigned v = 0; v < v_total; ++v) {
+        const int o = v_own[v];
+        const int corner_at = march_corner_index(l[o] % 8, l[o] / 8 % 8,
+                                                 l[o] / 64);
+        const unsigned ends = mesh_vertex_corners(
+            &march_vert_corners_h[0][0], code[o], (int)(v - v_first[o]));
+        const unsigned c0 = ends & 0xFu, c1 = ends >> 4;
+        float pos[3];
+        const long long at_v = vertex_at + v;
+        mesh_vertex(tx * MARCH_TILE + (int)(l[o] % 8),
+                    ty * MARCH_TILE + (int)(l[o] / 8 % 8),
+                    tz * MARCH_TILE + (int)(l[o] / 64), c0, c1,
+                    block[corner_at + mesh_corner_offset(c0)],
+                    block[corner_at + mesh_corner_offset(c1)], frame, pos,
+                    key_hi + at_v, key_lo + at_v, sort_keys + at_v);
+        for (int a = 0; a < 3; ++a) vertices[3 * at_v + a] = pos[a];
+      }
+      for (unsigned t = 0; t < t_total; ++t) {
+        const int o = t_own[t];
+        const int base = (int)(vertex_at + v_first[o]);
+        const int k = 3 * (int)(t - t_first[o]);
+        for (int m = 0; m < 3; ++m)
+          indices[index_at + 3 * t + m] =
+              base + mesh_index_vertex(&march_index_h[0][0], code[o], k + m);
+      }
+      vertex_at += v_total;
+      index_at += 3 * t_total;
+    }
+  }
+}
+
+// scan_lookback on the host: SCAN_WINDOW words a round, below tile 0 an
+// inclusive 0.
+static unsigned long long lookback(const unsigned long long* words,
+                                   int stride, long long tile) {
+  unsigned long long sum = 0, w[SCAN_WINDOW];
+  long long next = tile - 1;
+  while (next >= 0) {
+    for (int i = 0; i < SCAN_WINDOW; ++i)
+      w[i] = next - i >= 0 ? words[(next - i) * stride]
+                           : scan_word(SCAN_INCLUSIVE, 0ULL);
+    bool done;
+    next -= scan_window_step(w, SCAN_WINDOW, sum, &done);
+    if (done) break;
+  }
+  return sum;
+}
+
+// sort_pass_body's warp ranking: the lanes whose digit and validity equal
+// lane l's.
+static unsigned match_digit(const unsigned* d, const bool* valid, int lane) {
+  unsigned peers = 0;
+  for (int l = 0; l < 32; ++l)
+    peers |= (unsigned)(valid[l] == valid[lane] &&
+                        (!valid[l] || d[l] == d[lane])) << l;
+  return peers;
+}
+
+// The weld's sort (weld_sort: histogram, then each pass's tiles as its
+// kernel runs them, warps and lanes written out) with K keys between
+// passes. Every tile first publishes its aggregates, then the tiles look
+// back in ticket order or, `descending`, from the last.
+template <typename K>
+static int weld_sort(const long long* keys, long long n, int bits,
+                     int descending, long long* sorted, long long* perm) {
+  const SortPlan plan = sort_plan(bits, 0u);
+  const int R = SORT_RADIX, W = SORT_THREADS / 32;
+  const int I = sort_items(sizeof(K)), T = sort_tile_keys(sizeof(K));
+  std::vector<unsigned> hist(plan.passes * R, 0u);
+  std::vector<K> kin(n), kout(n);
+  std::vector<int> iin(n), iout(n);
+  for (long long e = 0; e < n; ++e) {
+    kin[e] = (K)keys[e];
+    iin[e] = (int)e;
+    for (int p = 0; p < plan.passes; ++p)
+      ++hist[p * R + sort_digit(kin[e], plan.shift[p], plan.bits[p])];
+  }
+  const long long tiles = sort_tiles(n, sizeof(K));
+  std::vector<unsigned long long> status(tiles * R);
+  std::vector<std::vector<unsigned short>> rank(tiles), warp_count(tiles);
+  std::vector<std::vector<unsigned>> count(tiles);
+  for (int p = 0; p < plan.passes; ++p) {
+    const int shift = plan.shift[p], pbits = plan.bits[p];
+    std::fill(status.begin(), status.end(), 0ULL);
+    for (long long tile = 0; tile < tiles; ++tile) {
+      const long long first = tile * T;
+      const int tile_n = (int)std::min((long long)T, n - first);
+      rank[tile].assign(T, 0);
+      warp_count[tile].assign(W * R, 0);
+      unsigned short* wc = warp_count[tile].data();
+      for (int w = 0; w < W; ++w)
+        for (int i = 0; i < I; ++i) {
+          unsigned d[32], c[32];
+          bool valid[32];
+          for (int l = 0; l < 32; ++l) {
+            const int t = w * 32 * I + 32 * i + l;
+            valid[l] = t < tile_n;
+            d[l] = sort_digit(valid[l] ? kin[first + t] : (K)0, shift, pbits);
+          }
+          unsigned peers[32];
+          for (int l = 0; l < 32; ++l) {
+            peers[l] = match_digit(d, valid, l);
+            c[l] = valid[l] ? wc[w * R + d[l]] : 0u;
+            const unsigned before =
+                __builtin_popcount(peers[l] & ((1u << l) - 1u));
+            rank[tile][w * 32 * I + 32 * i + l] =
+                (unsigned short)(c[l] + before);
+          }
+          for (int l = 0; l < 32; ++l)
+            if (valid[l] &&
+                __builtin_popcount(peers[l] & ((1u << l) - 1u)) == 0)
+              wc[w * R + d[l]] =
+                  (unsigned short)(c[l] + __builtin_popcount(peers[l]));
+        }
+      count[tile].assign(R, 0u);
+      for (int d = 0; d < R; ++d) {
+        unsigned run = 0;
+        for (int w = 0; w < W; ++w) {
+          const unsigned c = wc[w * R + d];
+          wc[w * R + d] = (unsigned short)run;
+          run += c;
+        }
+        count[tile][d] = run;
+        status[tile * R + d] =
+            scan_word(tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, run);
+      }
+    }
+    for (long long k = 0; k < tiles; ++k) {
+      const long long tile = descending ? tiles - 1 - k : k;
+      const long long first = tile * T;
+      const int tile_n = (int)std::min((long long)T, n - first);
+      std::vector<int> shift_out(R), digit_start(R);
+      unsigned excl0 = 0, excl1 = 0;
+      for (int d = 0; d < R; ++d) {
+        unsigned long long below = 0;
+        if (tile > 0) {
+          below = lookback(status.data() + d, R, tile);
+          status[tile * R + d] =
+              scan_word(SCAN_INCLUSIVE, below + count[tile][d]);
+        }
+        shift_out[d] = (int)(excl1 + below) - (int)excl0;
+        digit_start[d] = (int)excl0;
+        excl0 += count[tile][d];
+        excl1 += hist[p * R + d];
+      }
+      std::vector<K> staged_keys(T);
+      std::vector<int> staged_idx(T);
+      for (int t = 0; t < tile_n; ++t) {
+        const int w = t / (32 * I);
+        const unsigned d = sort_digit(kin[first + t], shift, pbits);
+        const int at =
+            digit_start[d] + warp_count[tile][w * R + d] + rank[tile][t];
+        staged_keys[at] = kin[first + t];
+        staged_idx[at] = iin[first + t];
+      }
+      for (int t = 0; t < tile_n; ++t) {
+        const K k2 = staged_keys[t];
+        const int at = shift_out[sort_digit(k2, shift, pbits)] + t;
+        kout[at] = k2;
+        iout[at] = staged_idx[t];
+      }
+    }
+    std::swap(kin, kout);
+    std::swap(iin, iout);
+  }
+  for (long long e = 0; e < n; ++e) {
+    sorted[e] = (long long)kin[e];
+    perm[e] = iin[e];
+  }
+  return plan.passes;
+}
+
+// The sort as weld_launch picks it: 32-bit keys between passes up to 32
+// bits, else 64-bit. Returns the passes.
+extern "C" int host_weld_sort(const long long* keys, long long n, int bits,
+                              int descending, long long* sorted,
+                              long long* perm) {
+  return mesh_sort_key_bytes(bits) == 4
+             ? weld_sort<unsigned>(keys, n, bits, descending, sorted, perm)
+             : weld_sort<unsigned long long>(keys, n, bits, descending,
+                                             sorted, perm);
+}
+
+// weld_compact_kernel, a tile (a CTA) at a time, its threads in loops:
+// every tile's aggregates first, then the look-backs in ticket order or
+// from the last tile, then each tile's writes, the totals from the last.
+extern "C" void host_weld_compact(const long long* sorted,
+                                  const long long* perm, long long n,
+                                  int ext_bit, const float* vertices,
+                                  const unsigned* key_hi,
+                                  const unsigned* key_lo, int descending,
+                                  float* out_vertices, unsigned* out_hi,
+                                  unsigned* out_lo, int* remap,
+                                  long long* totals) {
+  const int C = MESH_WELD_COUNTS;
+  const long long tiles = (n + MESH_WELD_TILE - 1) / MESH_WELD_TILE;
+  std::vector<unsigned> starts(tiles * MESH_WELD_THREADS),
+      internal(tiles * MESH_WELD_THREADS), sum(tiles * C, 0u);
+  std::vector<unsigned long long> status(tiles * C), base(tiles * C);
+  for (long long tile = 0; tile < tiles; ++tile)
+    for (int th = 0; th < MESH_WELD_THREADS; ++th) {
+      const long long first = tile * MESH_WELD_TILE + th * MESH_WELD_ITEMS;
+      unsigned s = 0, in = 0;
+      long long prev = first > 0 && first <= n ? sorted[first - 1] : 0;
+      for (int i = 0; i < MESH_WELD_ITEMS; ++i) {
+        const long long e = first + i;
+        const long long key = e < n ? sorted[e] : 0;
+        if (e < n && (e == 0 || key != prev)) {
+          s |= 1u << i;
+          if (((key >> ext_bit) & 1LL) == 0) in |= 1u << i;
+        }
+        prev = key;
+      }
+      starts[tile * MESH_WELD_THREADS + th] = s;
+      internal[tile * MESH_WELD_THREADS + th] = in;
+      sum[tile * C] += __builtin_popcount(s);
+      sum[tile * C + 1] += __builtin_popcount(in);
+    }
+  for (long long tile = 0; tile < tiles; ++tile)
+    for (int k = 0; k < C; ++k)
+      status[tile * C + k] = scan_word(
+          tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, sum[tile * C + k]);
+  for (long long i = 0; i < tiles; ++i) {
+    const long long tile = descending ? tiles - 1 - i : i;
+    for (int k = 0; k < C; ++k) {
+      base[tile * C + k] = tile == 0 ? 0 : lookback(status.data() + k, C, tile);
+      status[tile * C + k] =
+          scan_word(SCAN_INCLUSIVE, base[tile * C + k] + sum[tile * C + k]);
+    }
+  }
+  for (long long tile = 0; tile < tiles; ++tile) {
+    unsigned at = 0;  // the CTA's exclusive sum of run starts
+    for (int th = 0; th < MESH_WELD_THREADS; ++th) {
+      const long long first = tile * MESH_WELD_TILE + th * MESH_WELD_ITEMS;
+      const unsigned s = starts[tile * MESH_WELD_THREADS + th];
+      long long id = (long long)(base[tile * C] + at) - 1;
+      for (int i = 0; i < MESH_WELD_ITEMS; ++i) {
+        const long long e = first + i;
+        if (e >= n) break;
+        const long long p = perm[e];
+        if ((s >> i) & 1u) {
+          ++id;
+          for (int a = 0; a < 3; ++a) out_vertices[3 * id + a] = vertices[3 * p + a];
+          out_hi[id] = key_hi[p];
+          out_lo[id] = key_lo[p];
+        }
+        remap[p] = (int)id;
+      }
+      at += __builtin_popcount(s);
+    }
+  }
+  for (int k = 0; k < C; ++k)
+    totals[k] = tiles == 0 ? 0
+                           : (long long)(base[(tiles - 1) * C + k] +
+                                         sum[(tiles - 1) * C + k]);
+}
+
+// pack_readback_kernel, a thread at a time (nw = 0 for MESH_INDEX_RAW).
+extern "C" void host_pack(const float* vertices, const unsigned* key_hi,
+                          const unsigned* key_lo, long long nw,
+                          const int* triangles, const int* remap,
+                          long long nt, long long ox, long long oy,
+                          long long oz, int mode, int vertex_words,
+                          int* out) {
+  const long long org2[3] = {2 * ox, 2 * oy, 2 * oz};
+  const long long iw = mode == MESH_INDEX_RAW ? 0 : mesh_index_words(mode, 3 * nt);
+  unsigned short* half = (unsigned short*)out;
+  unsigned short* vertex_half = half + 2 * iw;
+  if (mode == MESH_INDEX_RAW) nw = 0;
+  if (nw + nt > 0 && mode != MESH_INDEX_RAW) {
+    if (mode == MESH_INDEX_U16 && (3 * nt) % 2 == 1) half[3 * nt] = 0;
+    if ((nw * vertex_words) % 2 == 1) vertex_half[nw * vertex_words] = 0;
+  }
+  for (long long i = 0; i < nw; ++i) {
+    unsigned short w[4];
+    mesh_vertex_words(vertices + 3 * i, key_hi[i], key_lo[i], org2,
+                      vertex_words, w);
+    for (int k = 0; k < vertex_words; ++k) vertex_half[i * vertex_words + k] = w[k];
+  }
+  for (long long t = 0; t < nt; ++t) {
+    int idx[3];
+    for (int m = 0; m < 3; ++m) idx[m] = remap[triangles[3 * t + m]];
+    if (mode == MESH_INDEX_U16) {
+      for (int m = 0; m < 3; ++m) half[3 * t + m] = (unsigned short)(idx[m] & 0xFFFF);
+    } else if (mode == MESH_INDEX_U21X3) {
+      unsigned w0, w1;
+      mesh_u21x3(idx[0], idx[1], idx[2], &w0, &w1);
+      out[2 * t] = (int)w0;
+      out[2 * t + 1] = (int)w1;
+    } else {
+      for (int m = 0; m < 3; ++m) out[3 * t + m] = idx[m];
+    }
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """mesh.cuh built for the host (g++ -ffp-contract=off: no FMA, as the
+    kernels' _rn intrinsics), loaded with ctypes."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        pytest.skip("no C++ compiler to build mesh.cuh for the host")
+    d = tmp_path_factory.mktemp("mesh_host")
+    (d / "harness.cpp").write_text(_HARNESS)
+    so = str(d / "libharness.so")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I", CSRC, "-o", so,
+                    str(d / "harness.cpp")], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_max_indices.restype = i32
+    lib.host_mesh_tables.argtypes = [p, p]
+    for name in ("host_weld_scratch_words", "host_weld_work_words"):
+        getattr(lib, name).restype = i64
+        getattr(lib, name).argtypes = [i64, i32]
+    lib.host_index_words.restype = i64
+    lib.host_index_words.argtypes = [i32, i64]
+    lib.host_keys.argtypes = [p, i64] + [i32] * 3 + [i64] * 3 + [i32, p, p, p]
+    lib.host_list.argtypes = [p] + [i32] * 5 + [p, p]
+    lib.host_emit_mesh.argtypes = ([p] + [i32] * 4 + [i64] * 3
+                                   + [i32, p, i32] + [p] * 5)
+    lib.host_weld_sort.restype = i32
+    lib.host_weld_sort.argtypes = [p, i64, i32, i32, p, p]
+    lib.host_weld_compact.argtypes = [p, p, i64, i32, p, p, p, i32] + [p] * 5
+    lib.host_pack.argtypes = ([p] * 3 + [i64] + [p] * 2 + [i64] * 4
+                              + [i32] * 2 + [p])
+    return lib
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def host_chain(lib, field, region, origin, axes=None, descending=False):
+    """The kernels run on the host as the wrappers run them on the card:
+    the list and totals, the mesh emission, the weld's sort and
+    compaction. Returns a dict of numpy arrays and counts; `axes`: the
+    compact key's bits an axis (by default mesh_cuda.axis_bits)."""
+    field = np.ascontiguousarray(field, np.float32)
+    b = field.shape[0]
+    g = -(-(b - 1) // marching.TILE)
+    tile_list = np.full((g ** 3, marching_cuda.LIST_WIDTH), -1, np.int32)
+    totals = np.empty(len(marching_cuda.TOTALS), np.int64)
+    lib.host_list(_ptr(field), b, *region, int(b > marching.TILED_ABOVE),
+                  _ptr(tile_list), _ptr(totals))
+    t = dict(zip(marching_cuda.TOTALS, totals.tolist()))
+    n, ni = t["vertices"], t["indices"]
+    axes = mesh_cuda.axis_bits(b) if axes is None else axes
+    bits = mesh_cuda.key_bits(axes)
+    # poisoned: a slot the emission leaves unwritten shows
+    vertices = np.full((n, 3), np.nan, np.float32)
+    hi = np.full(n, 0xDEADBEEF, np.uint32)
+    lo = np.full(n, 0xDEADBEEF, np.uint32)
+    keys = np.full(n, -1, np.int64)
+    tris = np.full((ni // 3, 3), -1, np.int32)
+    lib.host_emit_mesh(_ptr(field), b, *region, *origin, axes,
+                       _ptr(tile_list), t["tiles"], _ptr(vertices), _ptr(hi),
+                       _ptr(lo), _ptr(keys), _ptr(tris))
+    assert keys.min(initial=0) >= 0 and (n == 0 or keys.max() < 1 << bits)
+    sorted_keys = np.empty(n, np.int64)
+    perm = np.empty(n, np.int64)
+    passes = lib.host_weld_sort(_ptr(keys), n, bits, int(descending),
+                                _ptr(sorted_keys), _ptr(perm))
+    assert passes == mesh_cuda.sort_passes(bits)
+    out_v = np.full((n, 3), np.nan, np.float32)
+    out_hi = np.full(n, 0xDEADBEEF, np.uint32)
+    out_lo = np.full(n, 0xDEADBEEF, np.uint32)
+    remap = np.full(n, -1, np.int32)
+    wt = np.empty(2, np.int64)
+    lib.host_weld_compact(_ptr(sorted_keys), _ptr(perm), n, bits - 1,
+                          _ptr(vertices), _ptr(hi), _ptr(lo), int(descending),
+                          _ptr(out_v), _ptr(out_hi), _ptr(out_lo),
+                          _ptr(remap), _ptr(wt))
+    nw, fe = (int(v) for v in wt)
+    return dict(totals=t, vertices=vertices, key_hi=hi, key_lo=lo,
+                sort_keys=keys, triangles=tris, sorted=sorted_keys, perm=perm,
+                welded_vertices=out_v[:nw], welded_hi=out_hi[:nw],
+                welded_lo=out_lo[:nw], remap=remap, num_welded=nw,
+                first_external=fe, tile_list=tile_list[:t["tiles"]])
+
+
+def host_pack(lib, chain, origin, mode, vertex_words):
+    """The pack kernel on the host: the image of a PackFormat (mode in
+    mesh_cuda.INDEX_MODES), or (mode None) raw's remapped triangles."""
+    nw, nt = chain["num_welded"], chain["triangles"].shape[0]
+    if mode is None:
+        out = np.full((nt, 3), -1, np.int32)
+        code = mesh_cuda.INDEX_RAW
+    else:
+        fmt = block.PackFormat(mode, vertex_words, 13)
+        out = np.full(fmt.total_words(3 * nt, nw), -1, np.int32)
+        code = mesh_cuda.INDEX_MODES.index(mode)
+    lib.host_pack(_ptr(chain["welded_vertices"]), _ptr(chain["welded_hi"]),
+                  _ptr(chain["welded_lo"]), nw, _ptr(chain["triangles"]),
+                  _ptr(chain["remap"]), nt, *origin, code, vertex_words,
+                  _ptr(out))
+    return out
+
+
+def plain_chain(field, region, origin):
+    mesh = marching.generate_mesh(torch.as_tensor(field), region, origin)
+    welded = weld.weld(mesh.vertices, mesh.key_hi, mesh.key_lo,
+                       mesh.triangles)
+    return mesh, welded
+
+
+def _bits(a) -> np.ndarray:
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+def assert_chain_is_plain(lib, chain, mesh, welded, origin):
+    """Every array and count of the host chain bit for bit the plain
+    chain's, and the pack kernel's image the plain one in every layout."""
+    t = chain["totals"]
+    assert (t["cells"], t["vertices"], t["indices"], t["candidates"]) == (
+        mesh.num_cells, mesh.num_vertices, mesh.num_indices, mesh.num_tiles)
+    np.testing.assert_array_equal(_bits(chain["vertices"]),
+                                  _bits(mesh.vertices))
+    np.testing.assert_array_equal(chain["key_hi"].astype(np.int64),
+                                  mesh.key_hi.numpy())
+    np.testing.assert_array_equal(chain["key_lo"].astype(np.int64),
+                                  mesh.key_lo.numpy())
+    np.testing.assert_array_equal(chain["triangles"], mesh.triangles.numpy())
+    assert (chain["num_welded"], chain["first_external"]) == (
+        welded.num_vertices, welded.first_external)
+    np.testing.assert_array_equal(_bits(chain["welded_vertices"]),
+                                  _bits(welded.vertices))
+    np.testing.assert_array_equal(chain["welded_hi"].astype(np.int64),
+                                  welded.key_hi.numpy())
+    np.testing.assert_array_equal(chain["welded_lo"].astype(np.int64),
+                                  welded.key_lo.numpy())
+    np.testing.assert_array_equal(host_pack(lib, chain, origin, None, 0),
+                                  welded.triangles.numpy())
+    for mode, vw in FORMATS:
+        fmt = block.PackFormat(mode, vw, 13)
+        np.testing.assert_array_equal(
+            host_pack(lib, chain, origin, mode, vw),
+            block.pack_readback(welded, origin, fmt).numpy())
+
+
+def test_header_mesh_tables_are_tables_py(host):
+    """marching_tables.h's INDEX_TABLE and VERT_CORNERS (the corner ids at
+    the ends of each local vertex's edge, c0 | c1 << 4) as the host build
+    reads them are ops/tables.py's."""
+    assert host.host_max_indices() == tables.MAX_CELL_INDICES
+    index = np.empty((256, tables.MAX_CELL_INDICES), np.int32)
+    corners = np.empty((256, tables.MAX_CELL_VERTICES), np.int32)
+    host.host_mesh_tables(_ptr(index), _ptr(corners))
+    np.testing.assert_array_equal(index, tables.INDEX_TABLE)
+    e = tables.EDGES[np.maximum(tables.VERT_TABLE, 0)]
+    want = np.where(tables.VERT_TABLE >= 0, e[..., 0] | e[..., 1] << 4, 0)
+    np.testing.assert_array_equal(corners, want)
+    np.testing.assert_array_equal(corners, marching_cuda.vertex_corners())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_host_build_equals_the_plain_chain(host, case):
+    """The emission, weld and pack kernels on the host against the plain
+    generate_mesh -> weld -> pack_readback, bit for bit: unwelded
+    vertices, keys and triangles, welded arrays and counts, raw's
+    triangles and the image in every index mode and vertex width."""
+    field, region, origin = field_case(case)
+    chain = host_chain(host, field, region, origin)
+    mesh, welded = plain_chain(field, region, origin)
+    assert_chain_is_plain(host, chain, mesh, welded, origin)
+    if case == "no_surface":
+        assert mesh.num_vertices == 0 and chain["num_welded"] == 0
+    else:
+        assert chain["num_welded"] > 50
+    if case == "open":
+        assert 0 < chain["first_external"] < chain["num_welded"]
+
+
+@pytest.mark.parametrize("axes", [12, 14])
+@pytest.mark.parametrize("case", ["noise", "wide"])
+def test_host_build_with_wide_keys_and_reversed_lookbacks(host, case, axes):
+    """The same with compact keys of 37 and 43 bits (64-bit keys between
+    the sort's 5 or 6 passes, a block of 2048^3 and 8192^3 corners) and
+    every look-back walked from the last tile."""
+    field, region, origin = field_case(case)
+    chain = host_chain(host, field, region, origin, axes=axes,
+                       descending=True)
+    assert mesh_cuda.sort_passes(mesh_cuda.key_bits(axes)) == (5 if axes == 12
+                                                              else 6)
+    mesh, welded = plain_chain(field, region, origin)
+    assert_chain_is_plain(host, chain, mesh, welded, origin)
+
+
+def test_host_build_with_tiled_candidates(host, monkeypatch):
+    """Above marching.TILED_ABOVE corners an axis the counts carry the
+    candidate tiles (lowered here, rather than a > 256^3 field built)."""
+    monkeypatch.setattr(marching, "TILED_ABOVE", 32)
+    field, region, origin = field_case("wide")
+    chain = host_chain(host, field, region, origin)
+    mesh, welded = plain_chain(field, region, origin)
+    assert mesh.num_tiles > 0
+    assert_chain_is_plain(host, chain, mesh, welded, origin)
+
+
+def test_one_cell_blocks_with_every_vertex_on_the_faces(host):
+    """One-cell blocks (2 corners an axis, a region of one cell) whose body
+    diagonal is not cut: every vertex lies on the region's faces, so the
+    weld's internal vertices are none (first_external 0), over every sign
+    pattern with corners 0 and 7 alike."""
+    rng = np.random.default_rng(5)
+    seen = 0
+    for code in range(256):
+        if ((code >> 0) & 1) != ((code >> 7) & 1) or code in (0, 255):
+            continue
+        f = np.array([(1.0 if (code >> v) & 1 else -1.0)
+                      * (0.25 + rng.random()) for v in range(8)], np.float32)
+        field = f.reshape(2, 2, 2)   # [z, y, x]: corner v = x + 2y + 4z
+        origin = (7, 100, 3)
+        chain = host_chain(host, field, (1, 1, 1), origin)
+        mesh, welded = plain_chain(field, (1, 1, 1), origin)
+        assert_chain_is_plain(host, chain, mesh, welded, origin)
+        assert chain["num_welded"] > 0 and chain["first_external"] == 0
+        assert (chain["welded_hi"] >> 31 == 1).all()
+        seen += 1
+    assert seen == 126
+
+
+def test_compact_key_order_is_the_global_keys(host):
+    """The compact keys (ext, kz, ky, kx) of block-local doubled
+    coordinates sort and tie as the global (hi, lo) keys that weld.weld
+    sorts (its sign-flipped int64), at origins up to the 21-bit limit
+    (2^20 - b cells, doubled 2^21 - 2b) and small ones, with external
+    vertices on every face."""
+    rng = np.random.default_rng(12)
+    for b, origin in ((256, ((1 << 20) - 256,) * 3),
+                      (512, ((1 << 20) - 512, 3, (1 << 20) - 700)),
+                      (8192, ((1 << 20) - 8192, 0, 12345)),
+                      (37, (0, 0, 0))):
+        axes = mesh_cuda.axis_bits(b)
+        region = tuple(int(v) for v in rng.integers(1, b, 3))
+        n = 20000
+        k = rng.integers(0, 2 * (b - 1) + 1, size=(n, 3)).astype(np.int32)
+        k[: n // 4] = k[rng.integers(0, n, n // 4)]   # many equal keys
+        for a in range(3):                            # on each face
+            k[n // 4 + a * 100: n // 4 + a * 100 + 50, a] = 0
+            k[n // 4 + a * 100 + 50: n // 4 + a * 100 + 100, a] = \
+                2 * region[a]
+        hi, lo = np.empty(n, np.uint32), np.empty(n, np.uint32)
+        sort = np.empty(n, np.uint64)
+        host.host_keys(_ptr(k), n, *region, *origin, axes, _ptr(hi),
+                       _ptr(lo), _ptr(sort))
+        assert int(sort.max()) < 1 << mesh_cuda.key_bits(axes)
+        g = k.astype(np.int64) + 2 * np.asarray(origin, np.int64)
+        assert g.max() < 1 << mesh_cuda.KEY_AXIS_BITS
+        ext = ((k == 0) | (k == 2 * np.asarray(region))).any(axis=1)
+        assert ((hi >> 31) == ext).all() and ext.sum() > 300
+        glob = (hi.astype(np.uint64) << np.uint64(32)) | lo
+        np.testing.assert_array_equal(
+            glob, (ext.astype(np.uint64) << np.uint64(63))
+            | (g[:, 2].astype(np.uint64) << np.uint64(42))
+            | (g[:, 1].astype(np.uint64) << np.uint64(21))
+            | g[:, 0].astype(np.uint64))
+        skey = torch.as_tensor(glob.view(np.int64)) ^ torch.iinfo(
+            torch.int64).min
+        want = torch.sort(skey, stable=True).indices.numpy()
+        got = np.argsort(sort, kind="stable")
+        np.testing.assert_array_equal(got, want)
+        same_g = glob[want][1:] == glob[want][:-1]
+        same_c = sort[got][1:] == sort[got][:-1]
+        np.testing.assert_array_equal(same_c, same_g)
+
+
+@pytest.mark.parametrize("bits", [7, 28, 31, 34, 43])
+def test_weld_scratch_is_the_headers(host, bits):
+    """mesh_cuda's scratch and work sizes (the card's allocations, and
+    the memory estimate's) are mesh.cuh's."""
+    for n in (1, 2047, 2048, 2049, 100_000, 4_000_001):
+        assert mesh_cuda.weld_scratch_words(n, bits) == \
+            host.host_weld_scratch_words(n, bits)
+        assert mesh_cuda.weld_work_words(n, bits) == \
+            host.host_weld_work_words(n, bits)
+    for mode in range(3):
+        fmt = block.PackFormat(mesh_cuda.INDEX_MODES[mode], 3, 8)
+        assert host.host_index_words(mode, 3 * 777) == fmt.index_words(3 * 777)
+
+
+# --- against the JAX package --------------------------------------------------
+
+CAPS = dict(cell_cap=1 << 14, vertex_cap=1 << 16, index_cap=3 << 16)
+VERTEX_CAPS = {"u16": 1 << 16, "u21x3": 1 << 20, "u32": 1 << 22}
+_JAX: dict = {}
+
+
+def _jax_chain(name):
+    """The JAX package's generate(emit="mesh") and weld of a field, once a
+    module."""
+    if name not in _JAX:
+        import functools
+
+        import jax
+        import jax.numpy as jnp
+        from mlsgpu_tpu.ops import marching as jmarch
+        from mlsgpu_tpu.ops import weld as jweld
+        field, region, origin = field_case(name)
+        m = jax.jit(functools.partial(jmarch.generate, **CAPS))(
+            jnp.asarray(field), jnp.asarray(region, jnp.int32),
+            jnp.asarray(origin, jnp.int32))
+        assert int(m.num_vertices) <= CAPS["vertex_cap"]
+        w = jweld.weld(m.vertices, m.key_hi, m.key_lo, m.triangles,
+                       m.num_vertices, m.num_indices)
+        _JAX[name] = (m, w)
+    return _JAX[name]
+
+
+@pytest.mark.parametrize("name", ["sphere", "open"])
+def test_host_build_equals_the_jax_mesh_and_weld(host, name):
+    """The host chain's unwelded and welded arrays and counts are the JAX
+    package's generate(emit="mesh") and weld live prefixes, bit for bit."""
+    field, region, origin = field_case(name)
+    m, w = _jax_chain(name)
+    chain = host_chain(host, field, region, origin)
+    nv, ni, nw = int(m.num_vertices), int(m.num_indices), int(w.num_vertices)
+    assert (chain["totals"]["vertices"], chain["totals"]["indices"],
+            chain["totals"]["cells"]) == (nv, ni, int(m.num_cells))
+    np.testing.assert_array_equal(_bits(chain["vertices"]),
+                                  np.asarray(m.vertices)[:nv].view(np.uint32))
+    np.testing.assert_array_equal(chain["key_hi"], np.asarray(m.key_hi)[:nv])
+    np.testing.assert_array_equal(chain["key_lo"], np.asarray(m.key_lo)[:nv])
+    np.testing.assert_array_equal(chain["triangles"],
+                                  np.asarray(m.triangles)[:ni // 3])
+    assert (chain["num_welded"], chain["first_external"]) == (
+        nw, int(w.first_external))
+    np.testing.assert_array_equal(_bits(chain["welded_vertices"]),
+                                  np.asarray(w.vertices)[:nw].view(np.uint32))
+    np.testing.assert_array_equal(chain["welded_hi"], np.asarray(w.key_hi)[:nw])
+    np.testing.assert_array_equal(chain["welded_lo"], np.asarray(w.key_lo)[:nw])
+    np.testing.assert_array_equal(host_pack(host, chain, origin, None, 0),
+                                  np.asarray(w.triangles)[:ni // 3])
+
+
+@pytest.mark.parametrize("mode,levels", [(mode, levels)
+                                         for mode in mesh_cuda.INDEX_MODES
+                                         for levels in (3, 7)])
+def test_host_pack_equals_the_jax_image(host, mode, levels):
+    """The pack kernel's image on the host is the JAX package's
+    _pack_readback live prefix, halfword for halfword (its pad halfwords
+    hold the JAX image's padding rows, which nothing reads)."""
+    import jax
+    import jax.numpy as jnp
+    from mlsgpu_tpu.ops import block as jblock
+    field, region, origin = field_case("open")
+    _, w = _jax_chain("open")
+    jfmt = jblock.pack_format(levels, 3, VERTEX_CAPS[mode])
+    assert jfmt.index_mode == mode
+    jimg = np.asarray(jax.jit(jblock._pack_readback,
+                              static_argnums=(2, 3, 4))(
+        w, jnp.asarray(origin, jnp.int32), jfmt, VERTEX_CAPS[mode],
+        CAPS["index_cap"]))
+    chain = host_chain(host, field, region, origin)
+    img = host_pack(host, chain, origin, mode, jfmt.vertex_words).view(
+        np.uint32)
+    fmt = block.PackFormat(*jfmt)
+    ni, nv = chain["totals"]["indices"], chain["num_welded"]
+    iw = fmt.index_words(ni)
+    live = np.zeros(2 * len(img), bool)
+    live[:2 * iw] = True
+    if mode == "u16":
+        live[ni:2 * iw] = False
+    live[2 * iw:2 * iw + nv * fmt.vertex_words] = True
+    np.testing.assert_array_equal(img.view(np.uint16)[live],
+                                  jimg[:len(img)].view(np.uint16)[live])
+
+
+# --- the wrappers on the CPU --------------------------------------------------
+
+def test_wrappers_on_cpu_take_the_plain_chain():
+    """On CPU tensors generate_mesh, weld, pack_readback, welded_mesh and
+    mesh_image are the plain functions' results, and launch nothing."""
+    field, region, origin = field_case("open")
+    before = launches.counts()
+    f = torch.as_tensor(field)
+    mesh = mesh_cuda.generate_mesh(f, region, origin)
+    want_mesh, want_welded = plain_chain(field, region, origin)
+    for a, b in zip(mesh[:4], want_mesh[:4]):
+        assert torch.equal(a, b)
+    welded = mesh_cuda.weld(mesh)
+    assert isinstance(welded, weld.WeldedMesh)
+    assert mesh_cuda.welded_mesh(welded) is welded
+    for a, b in zip(welded, want_welded):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+    img = mesh_cuda.mesh_image(f, region, origin, 3, 3)
+    assert img.fmt == block.pack_format(3, 3, welded.num_vertices)
+    assert torch.equal(img.image, block.pack_readback(want_welded, origin,
+                                                      img.fmt))
+    assert launches.since(before) == dict.fromkeys(launches.KERNELS, 0)
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_take():
+    """A device other than the CPU and CUDA raises; so do an origin whose
+    doubled coordinates pass the keys' 21 bits, a negative one, and a
+    plain mesh or weld handed to the card's kernels."""
+    field, region, origin = field_case("sphere")
+    with pytest.raises(ValueError, match="meta"):
+        mesh_cuda.generate_mesh(torch.empty((4, 4, 4), device="meta"),
+                                (3, 3, 3), (0, 0, 0))
+    mesh_cuda._check_origin(((1 << 20) - 32,) * 3, 32)
+    for bad in (((1 << 20) - 31, 0, 0), (0, -1, 0)):
+        with pytest.raises(ValueError, match="21 bits"):
+            mesh_cuda._check_origin(bad, 32)
+    assert mesh_cuda.axis_bits(256) == 9 and mesh_cuda.axis_bits(512) == 10
+    assert mesh_cuda.key_bits(9) == 28 and mesh_cuda.key_bits(14) == 43
+    mesh, welded = plain_chain(field, region, origin)
+    meta = welded._replace(vertices=torch.empty((1, 3), device="meta"))
+    with pytest.raises(ValueError, match="card result"):
+        mesh_cuda.pack_readback(meta, origin, block.PackFormat("u16", 3, 8))
+
+
+@pytest.mark.parametrize("readback", ["packed", "raw"])
+def test_block_step_mesh_branch_on_cpu(readback):
+    """The packed and raw branches of block_step on the CPU: the counts in
+    COUNTS_FIELDS order with n_occ from the field, the plain image or the
+    plain welded arrays."""
+    rng = np.random.default_rng(9)
+    v = rng.normal(size=(3000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    s = np.zeros((3000, 8), np.float32)
+    s[:, 0:3] = 14.0 + 9.0 * v
+    s[:, 3] = 1.5
+    s[:, 4:7] = v
+    s[:, 7] = 1.0
+    sp, va = torch.as_tensor(s), torch.ones(3000, dtype=torch.bool)
+    res = block.block_step(sp, va, (31, 31, 31), (0, 0, 0), 0.0, levels=3,
+                           subsampling=3, readback=readback)
+    field, n_occ = block.block_field(sp, va, (31, 31, 31), (0, 0, 0), 0.0,
+                                     levels=3, subsampling=3)
+    mesh, welded = plain_chain(field.numpy(), (31, 31, 31), (0, 0, 0))
+    assert res.counts.tolist() == [
+        welded.num_vertices, welded.first_external, welded.num_indices, 0,
+        mesh.num_cells, mesh.num_vertices, int(n_occ), mesh.num_tiles]
+    assert welded.num_vertices > 1000
+    if readback == "packed":
+        fmt = block.pack_format(3, 3, welded.num_vertices)
+        assert res.fmt == fmt
+        assert torch.equal(res.packed, block.pack_readback(welded, (0, 0, 0),
+                                                           fmt))
+    else:
+        for a, b in zip(res.mesh, welded):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b)
+
+
+def test_card_mesh_estimate_counts_the_kernels_buffers():
+    """The card's packed and raw estimates (pipeline/resources.py) count
+    the kernels' buffers, each as the caching allocator may count it:
+    classify's and the scan's, the emission's arrays, the weld's sort and
+    compaction buffers (mesh_cuda's scratch sizes) and the image or raw's
+    triangles."""
+    from mlsgpu_tpu_torch.pipeline import resources
+    from mlsgpu_tpu_torch.tools import cloud
+    blk = resources._block
+    for levels in (6, 7):
+        cfg = cloud.bench_config(0.03, levels)
+        b = 1 << cfg.device_shift
+        g = -(-(b - 1) // marching.TILE)
+        verts = 4 * int((b - 1) ** 3 * resources.SURFACE_CELL_SHARE)
+        bits = mesh_cuda.key_bits(mesh_cuda.axis_bits(b))
+        for readback in ("packed", "raw"):
+            u = resources.estimate_block_usage(cfg, readback, "cuda")
+            assert u["marching_kernels"] == (
+                blk(8 * g ** 3) + blk(16 * marching_cuda.segment_rows(g))
+                + blk(8 * marching_cuda.scan_state_words(g))
+                + blk(16 * g ** 3) + blk(40) + blk(12 * verts)
+                + 2 * blk(4 * verts) + blk(8 * verts) + blk(12 * verts))
+            assert u["weld_kernels"] == (
+                2 * blk(8 * verts)
+                + blk(4 * mesh_cuda.weld_work_words(verts, bits))
+                + blk(8 * mesh_cuda.weld_scratch_words(verts, bits))
+                + blk(12 * verts) + 3 * blk(4 * verts) + blk(16))
+            assert u["pack_kernels"] == blk(
+                4 * (3 * verts + 2 * verts + 1) if readback == "packed"
+                else 12 * verts)
+
+
+# --- on the card --------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the mesh kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def card_field(b, dev, seed=0):
+    """A (b, b, b) field on the card like a block's MLS field: a signed
+    distance to a bumpy sphere in a shell of defined corners, NaN outside
+    it, with NaN holes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.arange(b, dtype=torch.float32, device=dev)
+    z, y, x = torch.meshgrid(g, g, g, indexing="ij")
+    c = b / 2.0
+    r = torch.sqrt((x - c) ** 2 + (y - 0.9 * c) ** 2 + (z - 1.1 * c) ** 2)
+    d = r - 0.4 * b + 2.0 * torch.sin(x / 5.0) * torch.cos(y / 7.0)
+    d = torch.where(d.abs() < 6.0, d, torch.full_like(d, float("nan")))
+    holes = torch.rand(d.shape, generator=gen, device=dev) < 0.002
+    return torch.where(holes, torch.full_like(d, float("nan")), d)
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """Key halves as int64 u32 values on the CPU."""
+    return t.cpu().to(torch.int64) & 0xFFFFFFFF
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.cpu().view(torch.int32),
+                                              b.cpu().view(torch.int32))
+
+
+def assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
+                         origin):
+    assert (mesh.num_cells, mesh.num_vertices, mesh.num_indices,
+            mesh.num_tiles) == (want_mesh.num_cells, want_mesh.num_vertices,
+                                want_mesh.num_indices, want_mesh.num_tiles)
+    assert _same_bits(mesh.vertices, want_mesh.vertices)
+    assert torch.equal(_words(mesh.key_hi), want_mesh.key_hi.cpu())
+    assert torch.equal(_words(mesh.key_lo), want_mesh.key_lo.cpu())
+    assert torch.equal(mesh.triangles.cpu().long(), want_mesh.triangles.cpu())
+    assert (welded.num_vertices, welded.first_external,
+            welded.num_indices) == (want_welded.num_vertices,
+                                    want_welded.first_external,
+                                    want_welded.num_indices)
+    assert _same_bits(welded.vertices, want_welded.vertices)
+    assert torch.equal(_words(welded.key_hi), want_welded.key_hi.cpu())
+    assert torch.equal(_words(welded.key_lo), want_welded.key_lo.cpu())
+    assert torch.equal(raw.triangles.cpu().long(), want_welded.triangles.cpu())
+    for (mode, vw), img in images.items():
+        want = block.pack_readback(want_welded, origin,
+                                   block.PackFormat(mode, vw, 13))
+        assert img.shape == want.shape and torch.equal(img.cpu(), want.cpu())
+
+
+def card_chain(field, region, origin, n_occ=None, axes=None):
+    mesh = mesh_cuda.generate_mesh(field, region, origin, n_occ, axes)
+    welded = mesh_cuda.weld(mesh)
+    images = {(mode, vw): mesh_cuda.pack_readback(
+        welded, origin, block.PackFormat(mode, vw, 13))
+        for mode, vw in FORMATS}
+    return mesh, welded, mesh_cuda.welded_mesh(welded), images
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 512, 77, 300])
+def test_kernels_bit_for_bit_on_card(cuda_device, b):
+    """At 256^3 and 512^3 (28- and 31-bit keys, 4 sort passes) and at
+    sizes that are not multiples of a tile's 8 cells: the unwelded mesh,
+    the weld, raw's triangles and the image in every layout bit for bit
+    the plain chain's on the card; n_occ back with the totals; a launch of
+    each kernel (a pass kernel a digit, the pack kernel an image and raw's
+    remap)."""
+    field = card_field(b, cuda_device)
+    region = (b - 1, b // 2 + 3, b - 3)     # the surface leaves it on y
+    origin = (64, 2000, 7)
+    n_occ = torch.tensor(11, dtype=torch.int32, device=cuda_device)
+    before = launches.counts()
+    mesh, welded, raw, images = card_chain(field, region, origin, n_occ)
+    got = launches.since(before)
+    passes = mesh_cuda.sort_passes(mesh_cuda.key_bits(mesh.axis_bits))
+    assert [got[k] for k in MESH] == [1, 1, 1, 1, passes, 1,
+                                      len(FORMATS) + 1]
+    want_mesh = marching.generate_mesh(field, region, origin)
+    want_welded = weld.weld(want_mesh.vertices, want_mesh.key_hi,
+                            want_mesh.key_lo, want_mesh.triangles)
+    torch.cuda.synchronize()
+    assert mesh.n_occ == 11
+    assert want_welded.num_vertices > (50_000 if b >= 256 else 1_000)
+    assert 0 < want_welded.first_external < want_welded.num_vertices
+    assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
+                         origin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", [12, 14])
+def test_wide_keys_on_card(cuda_device, axes):
+    """Compact keys of 37 and 43 bits (as at 2048^3 and 8192^3 corners:
+    64-bit keys between the sort's 5 and 6 passes) weld a 256^3 block bit
+    for bit as the plain weld does."""
+    field = card_field(256, cuda_device, seed=3)
+    region, origin = (255, 250, 252), (5, 6, 7)
+    mesh, welded, raw, images = card_chain(field, region, origin, axes=axes)
+    want_mesh = marching.generate_mesh(field, region, origin)
+    want_welded = weld.weld(want_mesh.vertices, want_mesh.key_hi,
+                            want_mesh.key_lo, want_mesh.triangles)
+    assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
+                         origin)
+
+
+@pytest.mark.cuda
+def test_no_surface_on_card(cuda_device):
+    """A field without a cut cell: no vertex, an empty image, and no
+    launch past classify and scan."""
+    field = torch.full((64, 64, 64), float("nan"), device=cuda_device)
+    before = launches.counts()
+    mesh, welded, raw, images = card_chain(field, (63, 63, 63), (0, 0, 0))
+    assert [launches.since(before)[k] for k in MESH] == [1, 1, 0, 0, 0, 0, 0]
+    assert (mesh.num_vertices, welded.num_vertices, raw.triangles.shape) == (
+        0, 0, (0, 3))
+    assert all(img.numel() == 0 for img in images.values())
+
+
+@pytest.mark.cuda
+def test_two_streams_at_once_on_card(cuda_device):
+    """Two packed stages on two streams at once (their scans, sorts and
+    compactions each on its own state), each bit for bit its plain
+    chain."""
+    fields = [card_field(256, cuda_device, seed=s) for s in (1, 2)]
+    region, origin = (255, 255, 255), (0, 0, 0)
+    wants = []
+    for f in fields:
+        m = marching.generate_mesh(f, region, origin)
+        wants.append((m, weld.weld(m.vertices, m.key_hi, m.key_lo,
+                                   m.triangles)))
+    streams = [torch.cuda.Stream(cuda_device) for _ in fields]
+    torch.cuda.synchronize()
+    outs = [None, None]
+    for r in range(3):
+        for i, (f, s) in enumerate(zip(fields, streams)):
+            with torch.cuda.stream(s):
+                outs[i] = card_chain(f, region, origin)
+        torch.cuda.synchronize()
+        for (mesh, welded, raw, images), (wm, ww) in zip(outs, wants):
+            assert_card_is_plain(mesh, welded, raw, images, wm, ww, origin)
+
+
+@pytest.mark.cuda
+def test_launches_and_syncs_a_stage_on_card(cuda_device):
+    """A traced packed stage (mesh_image) issues classify, scan, the mesh
+    emission, the sort's histogram and four passes, the compaction and the
+    pack kernel, and at most two syncs (the totals, the welded counts)."""
+    import json
+    import tempfile
+    import torch.profiler as tp
+    from mlsgpu_tpu_torch.utils import step_profile
+    field = card_field(256, cuda_device)
+    region, origin = (255, 255, 255), (0, 0, 0)
+    mesh_cuda.mesh_image(field, region, origin, 6, 3)
+    torch.cuda.synchronize()
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with tp.record_function(step_profile.STEP):
+                mesh_cuda.mesh_image(field, region, origin, 6, 3)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            summary = step_profile.summarize(json.load(f))
+    assert summary["launches"] == 10
+    assert summary["sync_calls"] <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [6, 7])
+@pytest.mark.parametrize("readback", ["packed", "raw"])
+def test_mesh_estimate_holds_the_stage_on_card(cuda_device, levels,
+                                               readback):
+    """The card's packed and raw estimates (pipeline/resources.py) hold
+    what one stage allocates on a block's field at 256^3 and 512^3: the
+    peak of torch.cuda.max_memory_allocated above the field."""
+    from mlsgpu_tpu_torch.pipeline import resources
+    from mlsgpu_tpu_torch.tools import cloud
+    cfg = cloud.bench_config(0.03, levels)
+    b = 1 << cfg.device_shift
+    usage = resources.estimate_block_usage(cfg, readback, "cuda")
+    field = card_field(b, cuda_device)
+    region, origin = (b - 1,) * 3, (0, 0, 0)
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    mesh = mesh_cuda.generate_mesh(field, region, origin)
+    welded = mesh_cuda.weld(mesh)
+    if readback == "packed":
+        out = mesh_cuda.pack_readback(
+            welded, origin, block.pack_format(levels, 3,
+                                              welded.num_vertices)).numel()
+    else:
+        out = mesh_cuda.welded_mesh(welded).triangles.numel()
+    torch.cuda.synchronize(cuda_device)
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert mesh.num_vertices > 10_000 and out > 0
+    assert 0 < peak <= (usage["marching_kernels"] + usage["weld_kernels"]
+                        + usage["pack_kernels"])

@@ -138,5 +138,5 @@ def test_kernel_build_lock_six_processes_at_once(tmp_path):
     assert len(lines) == 1                         # built once, under lock
     assert [os.path.basename(a) for a in lines[0].split()[1:]] == [
         "mls_field.cu", "seam_moments.cu", "binning.cu",
-        "marching.cu"]  # one call
+        "marching.cu", "mesh.cu"]  # one call
     assert (tmp_path / "build" / "libmls_field.so").stat().st_size == 100000

@@ -101,7 +101,7 @@ def test_one_nvcc_call_builds_both_sources_for_sm_90a():
     sources = [a for a in cmd if a.endswith(".cu")]
     assert [a.replace("\\", "/").rsplit("/", 2)[-2:] for a in sources] == [
         ["csrc", "mls_field.cu"], ["csrc", "seam_moments.cu"],
-        ["csrc", "binning.cu"], ["csrc", "marching.cu"]]
+        ["csrc", "binning.cu"], ["csrc", "marching.cu"], ["csrc", "mesh.cu"]]
     assert all(os.path.isfile(a) for a in sources)
     i = cmd.index("-gencode")
     assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
