@@ -56,14 +56,16 @@ raises, exits non-zero and prints no result line:
      host-paced, each kernel's bound and the stage's (marching_bound)
      (marching_vs_plain); then the same field through the packed and raw
      readbacks' kernels (classify and scan, csrc/marching.cu's mesh
-     emission, csrc/mesh.cu's weld sort, compaction and pack) against the
-     plain generate_mesh -> weld -> pack_readback: the unwelded and welded
+     emission, csrc/mesh.cu's weld sort over the keys' top digits, group
+     kernel and pack) against the plain generate_mesh -> weld ->
+     pack_readback: the unwelded and welded
      arrays, the counts, raw's triangles and the image bit for bit, the
      packed stage host-paced, each kernel alone (profiler), the card's
      busy time, the launches and syncs of a traced stage (the kernels and
      at most two syncs: checked) beside the plain chain's, the plain chain
      host-paced, torch.unique and torch.sort of the compact keys, each
-     kernel's bound and the stage's (mesh_bound) (mesh_vs_plain);
+     kernel's bound, the weld whole's and the stage's (mesh_bound)
+     (mesh_vs_plain);
   4. the seam contract on the card, through the seam kernels: shared-face
      and T-junction corners of adjacent blocks bitwise equal, also where a
      face patch straddles the blocks' in-plane edge; both seam passes
@@ -306,14 +308,15 @@ MARCHING_KERNELS = (
 MARCHING = tuple(name for name, _, _ in MARCHING_KERNELS)
 # The packed and raw readbacks' kernels after classify and scan: (record
 # name, kernel function, what it replaces: generate(emit="mesh")'s
-# emission, the weld's sort and compaction, _pack_readback).
+# emission, the weld's sort over the keys' top digits and its group
+# kernel, _pack_readback).
 MESH_KERNELS = (
     ("march_emit_mesh", "march_emit_mesh_kernel",
      "mlsgpu_tpu/ops/marching.py:302"),
     ("weld_sort_histogram", "weld_sort_histogram_kernel",
      "mlsgpu_tpu/ops/weld.py:34"),
     ("weld_sort_pass", "weld_sort_pass_kernel", "mlsgpu_tpu/ops/weld.py:34"),
-    ("weld_compact", "weld_compact_kernel", "mlsgpu_tpu/ops/weld.py:34"),
+    ("weld_group", "weld_group_kernel", "mlsgpu_tpu/ops/weld.py:34"),
     ("pack_readback", "pack_readback_kernel",
      "mlsgpu_tpu/ops/block.py:205"))
 MESH = tuple(name for name, _, _ in MESH_KERNELS)
@@ -339,8 +342,8 @@ def check_launches(name: str, got: dict, blocks: int,
     kernel at least once per block with skeleton points, the classify and
     scan kernels at least once per codes or mesh block; the emit kernel at
     least once and at most once per codes block (not for a block without
-    an occupied cell); the mesh emission, the weld's histogram and
-    compaction and the pack kernel at least once and at most once per mesh
+    an occupied cell); the mesh emission, the weld's histogram and group
+    kernel and the pack kernel at least once and at most once per mesh
     block, as many of each (a block with vertices runs them all, the pack
     kernel for the image or raw's triangles), and a pass kernel or more
     per weld; a run without codes blocks launches no emit kernel, one
@@ -351,7 +354,7 @@ def check_launches(name: str, got: dict, blocks: int,
                 march_scan=codes_blocks + mesh_blocks,
                 march_emit=min(codes_blocks, 1),
                 **dict.fromkeys(MESH, min(mesh_blocks, 1)))
-    welds = got["weld_compact"]
+    welds = got["weld_group"]
     if any(got[k] < need[k] for k in KERNELS) or \
             got["march_emit"] > codes_blocks or \
             got["march_emit_mesh"] > mesh_blocks or \
@@ -1152,24 +1155,29 @@ def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
     cell of a listed tile, 8 a vertex (t's subtraction and division, three
     products and sums). The sort's histogram: the int64 keys in, `passes`
     x 256 int32 counts out. The sort ("weld_sort_pass", its passes, which
-    with the histogram make the sort): the int64 keys in, the sorted keys
-    and the int64 permutation out. Compaction: the sorted keys and the
-    permutation in, a welded vertex's 3 floats and 2 key halves in and out,
-    an int32 remap a vertex and the 2 totals out. Pack: a welded vertex's
+    with the histogram make the sort over the top digits): the int64 keys
+    in, the top-sorted keys (4 or 8 bytes) and int32 indices out. The
+    group kernel: those in, a welded vertex's 3 floats and 2 key halves in
+    and out, an int32 remap a vertex and the 3 totals out. The weld
+    whole ("weld", whatever implements it): the int64 keys in, 20 bytes a
+    welded vertex in and 20 out, the remap out. Pack: a welded vertex's
     3 floats and 2 key halves, the int32 triangle indices and the remap in,
     the image out; 5 operations a vertex (3 fractions, 1 - t, t's
     product). "stage": the field in and the image out, the operations of
     all. No integer work is counted."""
     listed = march_tiles * marching.TILE ** 3
+    kb = mesh_cuda.sort_key_bytes(mesh_cuda.key_bits(mesh_cuda.axis_bits(b)))
     if name == "march_emit_mesh":
         nbytes = 16 * march_tiles + 4 * listed + 28 * n + 4 * ni
         flops = 16 * listed + 8 * n
     elif name == "weld_sort_histogram":
         nbytes, flops = 8 * n + 4 * 256 * passes, 0
     elif name == "weld_sort_pass":
-        nbytes, flops = 24 * n, 0
-    elif name == "weld_compact":
-        nbytes, flops = 16 * n + 2 * 20 * nw + 4 * n + 16, 0
+        nbytes, flops = 8 * n + (kb + 4) * n, 0
+    elif name == "weld_group":
+        nbytes, flops = (kb + 4) * n + 2 * 20 * nw + 4 * n + 24, 0
+    elif name == "weld":
+        nbytes, flops = 8 * n + 2 * 20 * nw + 4 * n, 0
     elif name == "pack_readback":
         nbytes, flops = 20 * nw + 4 * ni + 4 * n + 4 * words, 5 * nw
     else:
@@ -1184,9 +1192,10 @@ def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
 def mesh_vs_plain(n, field, region, origin, n_occ, levels,
                   reps=REPS) -> list:
     """The packed and raw readbacks' kernels (ops/mesh_cuda.py: classify
-    and scan, the mesh emission, the weld's sort and compaction, the pack
-    kernel) against the plain chain marching.generate_mesh -> weld.weld ->
-    block.pack_readback on one block's field: the unwelded vertices, keys
+    and scan, the mesh emission, the weld's sort over the keys' top digits
+    and its group kernel, the pack kernel) against the plain chain
+    marching.generate_mesh -> weld.weld -> block.pack_readback on one
+    block's field: the unwelded vertices, keys
     and triangles, the welded vertices, keys and counts, raw's triangles
     and the packed image bit for bit, n_occ copied back with the totals.
     Then the packed stage (mesh_cuda.mesh_image) host-paced, each kernel
@@ -1196,7 +1205,8 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
     beside the plain chain's, the plain chain host-paced, the library
     yardsticks on the compact keys (torch.unique(sorted=True,
     return_inverse=True) and torch.sort(stable=True)), each kernel's bound
-    and the stage's (mesh_bound). Its launches are comparisons: callers
+    and the stage's (mesh_bound), and the weld's kernels together against
+    the bound of the weld whole. Its launches are comparisons: callers
     reset the counters after it. Returns a row per kernel."""
     b = field.shape[0]
     mesh = mesh_cuda.generate_mesh(field, region, origin, n_occ)
@@ -1263,6 +1273,8 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
                                    passes if name == "weld_sort_pass" else 1)
              for name, fn, _ in MESH_KERNELS}
     traced = {"kernels": pass_profile(call), "plain": pass_profile(plain, 1)}
+    # classify, scan, emission, histogram, a pass a top digit, the group
+    # kernel, pack: 9 at 256^3 and 512^3 (3 passes at 28 and 31 bits)
     if traced["kernels"]["launches"] != 6 + passes or \
             traced["kernels"]["sync_calls"] > 2:
         raise AssertionError(f"mesh kernels: {traced['kernels']} a call")
@@ -1289,9 +1301,16 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
             "share_of_bound": None if k_ms is None
             else bound["bound_ms"] / k_ms})
     known = [r["kernel_ms"] for r in rows if r["kernel_ms"] is not None]
+    welds = [r["kernel_ms"] for r in rows if r["name"].startswith("weld")]
+    weld_ms = None if None in welds else sum(welds)
+    weld_bound = mesh_bound("weld", b, march_tiles, nv, nw, ni, words,
+                            passes)
     stage = {"host_paced_ms": host_ms, "plain_ms": plain_ms,
              "kernels_ms": sum(known) if len(known) == len(rows) else None,
-             "library": library, "bound": stage_bound, "traced": traced}
+             "library": library, "bound": stage_bound, "traced": traced,
+             "weld": {"kernels_ms": weld_ms, "bound": weld_bound,
+                      "share_of_bound": None if weld_ms is None
+                      else weld_bound["bound_ms"] / weld_ms}}
     phase(n, f"mesh kernels vs plain at {b}^3 corners, region {region}: "
              f"unwelded, welded, raw and the {fmt.index_mode} image bit for "
              f"bit ({nv} vertices welded to {nw}, {ni} indices, "
@@ -2614,6 +2633,13 @@ def print_kernel_record(rows, seams, bins, marches, meshes,
             "stage_launches_syncs": {
                 path: [t["launches"], t["sync_calls"]]
                 for path, t in first["stage"]["traced"].items()}})
+        if name.startswith("weld"):
+            # the weld's kernels together against the weld whole's bound
+            whole = first["stage"]["weld"]
+            record[-1]["weld"] = {
+                "kernels_ms": whole["kernels_ms"],
+                "bound_ms": whole["bound"]["bound_ms"],
+                "share_of_bound": whole["share_of_bound"]}
     print(json.dumps({"kernels": record}))
 
 

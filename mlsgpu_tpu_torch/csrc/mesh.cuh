@@ -222,25 +222,143 @@ MESH_FN long long mesh_index_words(int mode, long long num_indices) {
                                     : num_indices;
 }
 
-// The weld's compaction (weld_compact_kernel): a CTA of MESH_WELD_THREADS
-// threads takes a ticketed tile of MESH_WELD_ITEMS sorted keys a thread;
-// two counts are scanned (the first of each run of equal keys, and those
-// of them internal).
+// --- the weld's plan -------------------------------------------------------
+//
+// The weld sorts the compact keys in two steps (mesh.cu): g global passes
+// of binning's pass body over the key's top 8 g bits only, then
+// weld_group_kernel, which takes the runs of equal top bits (key groups),
+// finishes each group's sort by the f = key_bits - 8 g free bits below
+// them in shared memory and compacts in the same pass. g is the least
+// number of passes for which no group the emission can produce exceeds
+// the group kernel's capacity. A group's keys share the top bits and so
+// the parity of every coordinate none of whose bits is free; a vertex is
+// the midpoint of one of a cell's 19 tetrahedra edges, so its doubled
+// coordinates are not all even, and its copies (one a cell holding the
+// edge: VERT_TABLE emits a cut edge's vertex once a cell) follow its odd
+// coordinates: a cube edge's midpoint (one odd) is shared by 4 cells, a
+// face diagonal's (two) by 2, the body diagonal's (three) by 1. Summed
+// over the free bits' values (ranges ignored, which only lowers it).
+// The capacity's limit is a budget of shared memory: a CTA holds its tile
+// and a capacity more of slots, 16 bytes each (three CTAs an SM at 1,024
+// keys, four at the 384 of 512^3). 28 bits (256^3) take g = 3 (4 free
+// bits, groups of at most 48 keys), 31 bits (512^3) g = 3 (7, 384), 34
+// and 37 bits g = 4, 43 bits g = 5. (g = 2 at 28 bits leaves groups of up
+// to 10,240 keys: 200 KB of shared memory, one CTA an SM, and on the H100
+// the group kernel took 0.108 ms at the densest 256^3 bucket against
+// 0.033 with the third pass, which costs 0.013.)
+#define MESH_WELD_MAX_CAPACITY 1024
+// The free bits a group kernel sorts in shared memory: the local word
+// holds them below the external flag (bit 31), in at most 4 local digits.
+#define MESH_WELD_MAX_FREE_BITS 30
+#define MESH_WELD_LOCAL_BITS 8
+// The group kernel: a CTA of MESH_WELD_THREADS threads takes a ticketed
+// tile of MESH_WELD_TILE positions of the top-sorted keys and owns every
+// group that starts in it; it marks and counts its range a round of
+// MESH_WELD_ITEMS consecutive positions a thread at a time; three counts
+// are scanned across tiles (welded vertices, those internal, groups past
+// the capacity).
 #define MESH_WELD_THREADS 256
-#define MESH_WELD_ITEMS 8
-#define MESH_WELD_TILE (MESH_WELD_THREADS * MESH_WELD_ITEMS)
-#define MESH_WELD_COUNTS 2
+#define MESH_WELD_TILE 2048
+#define MESH_WELD_ITEMS 9
+#define MESH_WELD_ROUND (MESH_WELD_THREADS * MESH_WELD_ITEMS)
+#define MESH_WELD_COUNTS 3
 
 // The weld's sort keys between passes: 4 bytes up to 32 bits, else 8.
 MESH_FN int mesh_sort_key_bytes(int key_bits) { return key_bits <= 32 ? 4 : 8; }
 
-MESH_FN int mesh_sort_passes(int key_bits) {
-  return (key_bits + SORT_DIGIT_BITS - 1) / SORT_DIGIT_BITS;
+// The free bits below g global passes' digits.
+MESH_FN int mesh_weld_free_bits(int key_bits, int passes) {
+  const int f = key_bits - SORT_DIGIT_BITS * passes;
+  return f > 0 ? f : 0;
 }
 
-// The weld's scratch, 64-bit words: the sort's (radix_sort.cuh), then the
-// compaction's ticket and a status word a count a tile, all but the
-// histograms cleared by the sort's histogram kernel.
+// The most keys of one group of `key_bits`-bit keys (3 axis bits + 1)
+// with f free bits (above): the free bits fill kx's bits, then ky's, then
+// kz's from the lowest; a coordinate with a free bit has either parity,
+// the others the parities the top bits fix.
+MESH_FN long long mesh_weld_group_bound(int key_bits, int free_bits) {
+  if (free_bits > 40) return 1LL << 42;   // past any capacity
+  const int a = (key_bits - 1) / 3;
+  int free_axes = 0, left = free_bits;
+  for (int i = 0; i < 3; ++i) {
+    if (left > 0) free_axes |= 1 << i;
+    left -= left < a ? left : a;
+  }
+  const int copies[4] = {0, 4, 2, 1};   // by odd coordinates
+  int per = 0;                           // patterns a free value takes
+  for (int i = 0; i < 3; ++i) per += (free_axes >> i) & 1;
+  long long best = 0;
+  for (int fixed = 0; fixed < 8; ++fixed) {
+    if (fixed & free_axes) continue;
+    long long keys = 0;
+    for (int odd = 0; odd < 8; ++odd) {
+      if ((odd & ~free_axes) != fixed) continue;
+      const int n_odd = (odd & 1) + ((odd >> 1) & 1) + ((odd >> 2) & 1);
+      keys += copies[n_odd] * ((1LL << free_bits) >> per);
+    }
+    best = keys > best ? keys : best;
+  }
+  return best;
+}
+
+// g: the least number of global passes whose groups fit the capacity.
+MESH_FN int mesh_sort_passes(int key_bits) {
+  int g = 1;
+  while (mesh_weld_group_bound(key_bits, mesh_weld_free_bits(key_bits, g)) >
+         MESH_WELD_MAX_CAPACITY)
+    ++g;
+  return g;
+}
+
+// The global passes' digits: bits [f, key_bits), SORT_DIGIT_BITS a pass
+// from the lowest (the last takes what is left). Valid for 1 <= passes
+// and SORT_DIGIT_BITS (passes - 1) < key_bits.
+static inline SortPlan mesh_weld_sort_plan(int key_bits, int passes) {
+  SortPlan plan{0u, passes, {}, {}};
+  const int f = mesh_weld_free_bits(key_bits, passes);
+  for (int p = 0; p < passes; ++p) {
+    plan.shift[p] = f + SORT_DIGIT_BITS * p;
+    const int left = key_bits - plan.shift[p];
+    plan.bits[p] = left < SORT_DIGIT_BITS ? left : SORT_DIGIT_BITS;
+  }
+  return plan;
+}
+
+// The group kernel's local digits of the free bits: as few as keep each
+// at most MESH_WELD_LOCAL_BITS bits, of equal width from bit 0 (the last
+// takes what is left): 12 bits are 2 of 6, 7 bits 1 of 7.
+MESH_FN int mesh_weld_local_digits(int free_bits) {
+  return (free_bits + MESH_WELD_LOCAL_BITS - 1) / MESH_WELD_LOCAL_BITS;
+}
+
+MESH_FN int mesh_weld_local_width(int free_bits) {
+  const int d = mesh_weld_local_digits(free_bits);
+  return d == 0 ? 0 : (free_bits + d - 1) / d;
+}
+
+// Local digit `digit` of a local word (its free bits from bit 0).
+MESH_FN unsigned mesh_weld_local_digit(unsigned word, int digit, int width,
+                                       int free_bits) {
+  const int shift = digit * width;
+  const int left = free_bits - shift;
+  const int bits = left < width ? left : width;
+  return (word >> shift) & ((1u << bits) - 1u);
+}
+
+// The group kernel's dynamic shared memory at a capacity: a local word
+// and an index a slot, twice (the local sort's two buffers), for the
+// tile and the last group's overhang; then a group's start a tile
+// position (and room for the range's end), and the groups that cross an
+// edge of a window of 32 slots (one an edge at most).
+static inline long long mesh_weld_shared_bytes(int capacity) {
+  const long long slots = MESH_WELD_TILE + capacity;
+  return 16 * slots + 2LL * (MESH_WELD_TILE + 2) + 2 * (slots / 32 + 2);
+}
+
+// The weld's scratch, 64-bit words: the sort's g passes
+// (radix_sort.cuh), then the group kernel's ticket and a status word a
+// count a tile, all but the histograms cleared by the sort's histogram
+// kernel.
 static inline long long mesh_weld_state_words(long long n) {
   return 1 + MESH_WELD_COUNTS * ((n + MESH_WELD_TILE - 1) / MESH_WELD_TILE);
 }
@@ -251,10 +369,15 @@ static inline long long mesh_weld_scratch_words(long long n, int key_bits) {
          mesh_weld_state_words(n);
 }
 
-// The weld's work buffer between the sort's passes, int32 words: a key
-// and an index a vertex.
+// The weld's work buffers, int32 words: the passes' outputs, a key and an
+// index a vertex each (a buffer an even count of words, so that the
+// second one's 64-bit keys stay aligned), two of them where a pass reads
+// another's.
+static inline long long mesh_weld_buffer_words(long long n, int key_bits) {
+  return ((mesh_sort_key_bytes(key_bits) / 4 + 1) * n + 1) / 2 * 2;
+}
+
 static inline long long mesh_weld_work_words(long long n, int key_bits) {
-  return mesh_sort_passes(key_bits) > 1
-             ? n * (mesh_sort_key_bytes(key_bits) / 4 + 1)
-             : 0;
+  return (mesh_sort_passes(key_bits) > 1 ? 2 : 1) *
+         mesh_weld_buffer_words(n, key_bits);
 }

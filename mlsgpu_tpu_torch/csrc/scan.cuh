@@ -1,6 +1,7 @@
 // A device-wide exclusive scan of integer counts in a single launch: the
-// decoupled look-back that march_scan_kernel (marching.cu) and the radix
-// sort's passes (binning.cu, bin_sort_pass_kernel) are built on.
+// decoupled look-back that march_scan_kernel (marching.cu), the radix
+// sort's passes (binning.cu, bin_sort_pass_kernel; mesh.cu) and the
+// weld's group kernel (mesh.cu) are built on.
 //
 // Each CTA of such a kernel takes a tile (a contiguous range of the items)
 // by ticket: thread 0 adds one to a counter of the launch (scan_ticket),
@@ -57,6 +58,10 @@
 // 0.118 with 8 (wider rounds load more words than the few rounds a
 // look-back takes need; 32 was slower still).
 #define SCAN_WINDOW 4
+// Predecessors a warp's look-back (scan_lookback_warp) reads a round, a
+// lane each: for a kernel with a few counts a tile, whose CTAs publish in
+// waves, so that a look-back walks back over many aggregates.
+#define SCAN_WARP_WINDOW 32
 
 SCAN_FN unsigned long long scan_word(unsigned flag, unsigned long long value) {
   return ((unsigned long long)flag << SCAN_VALUE_BITS) |
@@ -144,6 +149,41 @@ __device__ __forceinline__ unsigned long long scan_lookback(
     bool done;
     next -= scan_window_step(w, SCAN_WINDOW, sum, &done);
     if (done) break;
+  }
+  return sum;
+}
+
+// The exclusive prefix of `tile` for one count, as scan_lookback, by a
+// whole warp (every lane calls it and gets it): SCAN_WARP_WINDOW lower
+// tiles a round, a lane each, nearest first; a round takes its words
+// before the first empty one, up to and with the first inclusive prefix
+// (scan_window_step's rule), summed across the lanes.
+__device__ __forceinline__ unsigned long long scan_lookback_warp(
+    const unsigned long long* words, int stride, int tile) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long sum = 0;
+  int next = tile - 1;
+  while (next >= 0) {
+    const int p = next - lane;
+    const unsigned long long w =
+        p >= 0 ? scan_load(words + (long long)p * stride)
+               : scan_word(SCAN_INCLUSIVE, 0ULL);
+    const unsigned empty =
+        __ballot_sync(0xFFFFFFFFu, scan_flag(w) == SCAN_EMPTY);
+    const unsigned incl =
+        __ballot_sync(0xFFFFFFFFu, scan_flag(w) == SCAN_INCLUSIVE);
+    const unsigned before_empty =
+        empty ? (1u << (__ffs(empty) - 1)) - 1u : 0xFFFFFFFFu;
+    const unsigned upto_incl = incl ? ((incl & (0u - incl)) << 1) - 1u
+                                    : 0xFFFFFFFFu;
+    const unsigned take = before_empty & upto_incl;
+    unsigned long long v = (take >> lane) & 1u ? scan_value(w) : 0ULL;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    sum += v;
+    if (incl & take) break;
+    next -= __popc(take);
   }
   return sum;
 }

@@ -31,7 +31,7 @@ KERNELS = {
     "march_emit_mesh": "marching.emitMeshLaunches",
     "weld_sort_histogram": "weld.sortHistogramLaunches",
     "weld_sort_pass": "weld.sortPassLaunches",
-    "weld_compact": "weld.compactLaunches",
+    "weld_group": "weld.groupLaunches",
     "pack_readback": "pack.launches",
 }
 

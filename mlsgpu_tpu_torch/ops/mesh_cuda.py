@@ -10,9 +10,10 @@ first sync; their list row also carries each listed tile's index base),
 then `march_emit_mesh_kernel` (a warp a listed tile: each vertex's
 position, key halves and compact sort key, each triangle's three int32
 indices; csrc/mesh.cuh holds the arithmetic), bit for bit
-`marching.generate_mesh`; the weld's stable radix sort of the compact
-keys and `weld_compact_kernel` (one C call; the welded counts copied back
-with one wait, the second sync), bit for bit `weld.weld`; and
+`marching.generate_mesh`; the weld's radix sort of the compact keys over
+their top digits and `weld_group_kernel`, which finishes each key group's
+sort in shared memory and compacts (one C call; the welded counts copied
+back with one wait, the second sync), bit for bit `weld.weld`; and
 `pack_readback_kernel` (one launch over the welded vertices and the
 triangles), bit for bit `block.pack_readback`, or, for raw, the same
 kernel's remap of the triangles alone. Tensors on the CPU take those plain
@@ -29,6 +30,7 @@ overlap anyway.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -43,14 +45,20 @@ KEY_AXIS_BITS = 21
 INDEX_MODES = ("u16", "u21x3", "u32")
 INDEX_RAW = 3
 #: The radix sort's digits, CTA and tiles (csrc/radix_sort.cuh), and the
-#: weld compaction's tile and counts (csrc/mesh.cuh).
+#: weld's plan and group kernel (csrc/mesh.cuh): a vertex's copies by its
+#: odd doubled coordinates (a cube edge's midpoint, a face diagonal's, the
+#: body diagonal's), the group kernel's largest capacity and its tile,
+#: and its counts (welded, internal, groups past the capacity).
 SORT_DIGIT_BITS = 8
+SORT_MAX_PASSES = 6
 SORT_RADIX = 256
 SORT_THREADS = 256
+WELD_COPIES = (0, 4, 2, 1)
+WELD_MAX_CAPACITY = 1024
+WELD_MAX_FREE_BITS = 30
 WELD_TILE = 2048
-WELD_COUNTS = 2
-#: The most bits an axis of a compact key: 6 sort passes (SORT_MAX_PASSES)
-#: of 8 bits; 2^13 corners an axis take 14.
+WELD_COUNTS = 3
+#: The most bits an axis of a compact key: 2^13 corners an axis take 14.
 MAX_AXES = 15
 
 
@@ -112,15 +120,59 @@ def sort_key_bytes(bits: int) -> int:
     return 4 if bits <= 32 else 8
 
 
+def free_bits(bits: int, passes: int) -> int:
+    """The key bits below `passes` global 8-bit passes over the top."""
+    return max(bits - SORT_DIGIT_BITS * passes, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def group_bound(bits: int, free: int) -> int:
+    """The most keys the emission can put in one key group of `bits`-bit
+    keys with `free` free bits (mesh_weld_group_bound): the free bits fill
+    kx's, ky's, then kz's bits; a coordinate with a free bit takes either
+    parity, the others the top bits' parity; a position's copies follow
+    its odd coordinates (WELD_COPIES: the cells sharing its edge)."""
+    if free > 40:
+        return 1 << 42
+    a = (bits - 1) // 3
+    free_axes = [free > 0, free > a, free > 2 * a]
+    per = (1 << free) >> sum(free_axes)
+    best = 0
+    for fixed in range(8):
+        if any(fixed >> i & 1 and free_axes[i] for i in range(3)):
+            continue
+        keys = sum(WELD_COPIES[bin(odd).count("1")] * per
+                   for odd in range(8)
+                   if all(free_axes[i] or (odd >> i & 1) == (fixed >> i & 1)
+                          for i in range(3)))
+        best = max(best, keys)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
 def sort_passes(bits: int) -> int:
-    return -(-bits // SORT_DIGIT_BITS)
+    """g, the weld sort's global passes (mesh_sort_passes): the least whose
+    key groups fit the group kernel's largest capacity. 3 at 28 and 31
+    bits."""
+    g = 1
+    while group_bound(bits, free_bits(bits, g)) > WELD_MAX_CAPACITY:
+        g += 1
+    return g
+
+
+@functools.lru_cache(maxsize=None)
+def weld_plan(bits: int):
+    """(g, free bits, capacity C) of the weld of `bits`-bit keys."""
+    g = sort_passes(bits)
+    f = free_bits(bits, g)
+    return g, f, group_bound(bits, f)
 
 
 def weld_scratch_words(n: int, bits: int) -> int:
     """The weld's scratch for n vertices, int64 words
     (mesh_weld_scratch_words): each sort pass's histogram (SORT_RADIX
-    int32), ticket and status words a (tile, digit), then the
-    compaction's ticket and a status word a count a tile."""
+    int32), ticket and status words a (tile, digit), then the group
+    kernel's ticket and a status word a count a tile."""
     kb = sort_key_bytes(bits)
     tile = SORT_THREADS * (8 if kb == 8 else 16)
     pass_words = 1 + -(-n // tile) * SORT_RADIX
@@ -129,9 +181,11 @@ def weld_scratch_words(n: int, bits: int) -> int:
 
 
 def weld_work_words(n: int, bits: int) -> int:
-    """The weld sort's work buffer between passes, int32 words
-    (mesh_weld_work_words): a key and an index a vertex."""
-    return n * (sort_key_bytes(bits) // 4 + 1) if sort_passes(bits) > 1 else 0
+    """The weld sort's work buffers, int32 words (mesh_weld_work_words): a
+    key and an index a vertex (a buffer an even count of words), two
+    buffers where a pass reads another's."""
+    buffer = -(-(sort_key_bytes(bits) // 4 + 1) * n // 2) * 2
+    return (2 if sort_passes(bits) > 1 else 1) * buffer
 
 
 def _stream(dev: torch.device) -> int:
@@ -205,8 +259,10 @@ def generate_mesh(field: torch.Tensor, region_cells: Sequence[int],
 def weld(mesh: Union[marching.BlockMesh, CardMesh]
          ) -> Union[weld_ops.WeldedMesh, CardWeld]:
     """Weld an unwelded mesh: weld.weld for CPU tensors; for generate_mesh's
-    card mesh the weld's sort and compaction kernels (one C call), then the
-    welded counts copied back with one wait on the stream."""
+    card mesh the weld's sort over the keys' top digits and its group
+    kernel (one C call), then the welded counts copied back with one wait
+    on the stream. Raises where a key group is past the group kernel's
+    capacity (keys the emission cannot make)."""
     if mesh.vertices.device.type == "cpu":
         return weld_ops.weld(mesh.vertices, mesh.key_hi, mesh.key_lo,
                              mesh.triangles)
@@ -215,6 +271,11 @@ def weld(mesh: Union[marching.BlockMesh, CardMesh]
     dev = mesh.vertices.device
     n = mesh.num_vertices
     bits = key_bits(mesh.axis_bits)
+    passes, free, capacity = weld_plan(bits)
+    if passes > SORT_MAX_PASSES or free > WELD_MAX_FREE_BITS:
+        raise ValueError(f"{bits}-bit keys: the weld's plan of {passes} "
+                         f"passes and {free} free bits is past the kernels' "
+                         f"{SORT_MAX_PASSES} and {WELD_MAX_FREE_BITS}")
     out_vertices = torch.empty((n, 3), dtype=torch.float32, device=dev)
     out_hi = torch.empty(n, dtype=torch.int32, device=dev)
     out_lo = torch.empty(n, dtype=torch.int32, device=dev)
@@ -222,9 +283,7 @@ def weld(mesh: Union[marching.BlockMesh, CardMesh]
     if n == 0:
         return CardWeld(out_vertices, out_hi, out_lo, remap, mesh.triangles,
                         0, 0, mesh.num_indices)
-    sorted_keys = torch.empty(n, dtype=torch.int64, device=dev)
-    perm = torch.empty(n, dtype=torch.int64, device=dev)
-    work = torch.empty(max(weld_work_words(n, bits), 1), dtype=torch.int32,
+    work = torch.empty(weld_work_words(n, bits), dtype=torch.int32,
                        device=dev)
     scratch = torch.empty(weld_scratch_words(n, bits), dtype=torch.int64,
                           device=dev)
@@ -233,19 +292,22 @@ def weld(mesh: Union[marching.BlockMesh, CardMesh]
     with torch.cuda.device(dev):
         _raise_on(lib.weld_launch(
             mesh.sort_keys.data_ptr(), n, bits, mesh.vertices.data_ptr(),
-            mesh.key_hi.data_ptr(), mesh.key_lo.data_ptr(),
-            sorted_keys.data_ptr(), perm.data_ptr(), work.data_ptr(),
+            mesh.key_hi.data_ptr(), mesh.key_lo.data_ptr(), work.data_ptr(),
             scratch.data_ptr(), out_vertices.data_ptr(), out_hi.data_ptr(),
             out_lo.data_ptr(), remap.data_ptr(), totals.data_ptr(),
             _stream(dev)), "weld_launch")
         launches.count("weld_sort_histogram")
-        for _ in range(sort_passes(bits)):
+        for _ in range(passes):
             launches.count("weld_sort_pass")
-        launches.count("weld_compact")
+        launches.count("weld_group")
         host = torch.empty(WELD_COUNTS, dtype=torch.int64, pin_memory=True)
         host.copy_(totals, non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
-    nw, fe = (int(v) for v in host.numpy())
+    nw, fe, past = (int(v) for v in host.numpy())
+    if past:
+        raise RuntimeError(f"weld: {past} key groups of {bits}-bit keys "
+                           f"past the group kernel's {capacity} keys: more "
+                           f"copies of a key than the emission makes")
     return CardWeld(vertices=out_vertices[:nw], key_hi=out_hi[:nw],
                     key_lo=out_lo[:nw], remap=remap, unwelded=mesh.triangles,
                     num_vertices=nw, first_external=fe,

@@ -16,7 +16,7 @@ ops/marching_cuda.py), and the packed and raw readbacks' mesh emission
 (csrc/marching.cu), weld and pack kernels (csrc/mesh.cu with
 csrc/mesh.cuh, called from ops/mesh_cuda.py); binning's sort and the
 weld's share csrc/radix_sort.cuh, and the sorts' passes, the scan and the
-weld's compaction the look-back scan of csrc/scan.cuh. One nvcc call
+weld's group kernel the look-back scan of csrc/scan.cuh. One nvcc call
 compiles the five sources for sm_90a on first use into
 `mlsgpu_tpu_torch/_build/libmls_field.so` (rebuilt when a source or a
 header is newer);
@@ -165,7 +165,7 @@ def load():
                            + [ctypes.c_int, ptr, ctypes.c_int] + [ptr] * 6)
             fn = lib.weld_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ptr, i64, ctypes.c_int] + [ptr] * 13
+            fn.argtypes = [ptr, i64, ctypes.c_int] + [ptr] * 11
             fn = lib.pack_readback_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ptr] * 3 + [i64] + [ptr] * 2 + [i64] * 4

@@ -17,8 +17,8 @@ from mlsgpu_tpu_torch.utils.errors import InvalidOption
 from mlsgpu_tpu_torch.ops.binning_cuda import sort_scratch_words
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
 from mlsgpu_tpu_torch.ops.marching_cuda import scan_state_words, segment_rows
-from mlsgpu_tpu_torch.ops.mesh_cuda import (axis_bits, key_bits,
-                                            weld_scratch_words,
+from mlsgpu_tpu_torch.ops.mesh_cuda import (WELD_COUNTS, axis_bits,
+                                            key_bits, weld_scratch_words,
                                             weld_work_words)
 from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
                                                uses_processes)
@@ -135,9 +135,9 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
         # vertex (36 a cell of 13 at most): classify's and the scan's
         # buffers (as codes'), the emission's vertices (3 f32), key halves
         # (2 int32), compact sort keys (int64) and int32 indices; the
-        # weld's sorted keys and permutation (int64), the sort's work
-        # buffer and scratch, the welded vertices and key halves, the remap
-        # and the totals; then the packed image (u32 indices at most, 4
+        # weld's work buffers (the passes' keys and indices) and scratch,
+        # the welded vertices and key halves, the remap and the totals;
+        # then the packed image (u32 indices at most, 4
         # u16 words a vertex) or raw's remapped int32 triangles
         indices = 3 * verts
         bits = key_bits(axis_bits(b))
@@ -148,10 +148,10 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
             + 2 * _block(verts * 4) + _block(verts * I64)
             + _block(indices * 4))
         usage["weld_kernels"] = (
-            2 * _block(verts * I64) + _block(4 * weld_work_words(verts, bits))
+            _block(4 * weld_work_words(verts, bits))
             + _block(I64 * weld_scratch_words(verts, bits))
             + _block(verts * 3 * F32) + 3 * _block(verts * 4)
-            + _block(2 * I64))
+            + _block(WELD_COUNTS * I64))
         usage["pack_kernels"] = _block(
             4 * (indices + 2 * verts + 1) if readback == "packed"
             else 4 * indices)

@@ -24,10 +24,12 @@ the cells, vertices and listed tiles.
 
 Then, on the same field, the packed readback's stage as the root's block
 step runs it: where the tree has ops/mesh_cuda.py, its kernels
-(`mesh_image`: classify and scan, the mesh emission, the weld's sort and
-compaction, the pack kernel; two syncs) host-paced, each kernel alone (the
+(`mesh_image`: classify and scan, the mesh emission, the weld's sort over
+the keys' top digits and its group kernel (`weld_compact_kernel` in a tree
+before it), the pack kernel; two syncs) host-paced, each kernel alone (the
 median of its kernel events; the sort's pass kernel summed over its
-passes a call) and their sum; else its plain chain; and in every tree the
+passes a call), their sum and the weld's kernels' sum; else its plain
+chain; and in every tree the
 plain chain (marching.generate_mesh -> weld.weld -> block.pack_readback)
 host-paced. One line `MESH {json}` per root and level count.
 """
@@ -50,8 +52,10 @@ KERNELS = ("march_classify_kernel", "march_scan_kernel", "march_emit_kernel")
 #: The packed stage's kernels (ops/mesh_cuda.py).
 MESH_KERNELS = ("march_classify_kernel", "march_scan_kernel",
                 "march_emit_mesh_kernel", "weld_sort_histogram_kernel",
-                "weld_sort_pass_kernel", "weld_compact_kernel",
+                "weld_sort_pass_kernel", "weld_group_kernel",
                 "pack_readback_kernel")
+#: The weld's last kernel in a tree before the group kernel.
+OLD_WELD_KERNEL = "weld_compact_kernel"
 
 
 def timing_helpers():
@@ -163,13 +167,17 @@ def mesh_stage(label, levels, field, region, origin, subsampling, reps,
                index_mode=res.fmt.index_mode,
                stage_host_paced_ms=timing.event_ms(stage, reps))
     events = timing.trace_events(stage, reps)
-    alone = kernel_medians(events, [k for k in MESH_KERNELS
-                                    if k != "weld_sort_pass_kernel"], reps)
+    names = [k for k in MESH_KERNELS if k != "weld_sort_pass_kernel"]
+    if not any("weld_group_kernel" in e.get("name", "") for e in events):
+        names[names.index("weld_group_kernel")] = OLD_WELD_KERNEL
+    alone = kernel_medians(events, names, reps)
     alone["weld_sort_pass_kernel"] = timing.kernel_event_ms(
         events, ("weld_sort_pass_kernel",), reps, passes)
-    out.update({f"{k}_ms": alone[k] for k in MESH_KERNELS})
+    out.update({f"{k}_ms": v for k, v in alone.items()})
     known = [v for v in alone.values() if v is not None]
     out["kernels_ms"] = sum(known) if len(known) == len(alone) else None
+    welds = [v for k, v in alone.items() if k.startswith("weld")]
+    out["weld_kernels_ms"] = None if None in welds else sum(welds)
     return out
 
 

@@ -7,9 +7,11 @@ loops that run the kernels as the card does: the scan's list (tile, cell,
 vertex and index bases) by a plain loop over the tiles; the mesh emission
 a listed tile a warp, its occupied cells ranked, then 32 at a time, their
 vertices and triangles spread a lane each through two owner maps; the
-weld's radix sort tile by tile (32- or 64-bit keys between passes, the
-look-back in both orders); the compaction a tile of 2,048 sorted keys a
-CTA, 8 a thread, with its look-back in both orders; the pack a thread a
+weld's radix sort over the keys' top digits tile by tile (32- or 64-bit
+keys between passes, the look-back in both orders); the group kernel a
+tile of 2,048 top-sorted keys a CTA (its groups, the last one's overhang,
+the capacity check, each group's local digits as a warp ranks them, the
+run starts and the look-back in both orders); the pack a thread a
 welded vertex and a triangle. Held bit for bit to the plain chain
 `marching.generate_mesh` -> `weld.weld` -> `block.pack_readback` (the
 unwelded vertices, keys and triangles; the welded vertices, keys,
@@ -19,15 +21,22 @@ not multiples of 8, a block of 10 tiles an axis, dense noise, exact 0.0
 and -0.0 corners, subnormal differences, an origin near the keys' 21-bit
 limit, the tiled rule's candidate tiles (marching.TILED_ABOVE lowered),
 a block with no surface and one-cell blocks whose vertices all lie on the
-region's faces; and to the JAX package's `generate(emit="mesh")`, `weld`
-and `_pack_readback` on two of them. Also: the compact key's order and
+region's faces, a planar wall (every vertex on one kz, groups exactly at
+the group kernel's capacity); and to the JAX package's
+`generate(emit="mesh")`, `weld` and `_pack_readback` on two of them. The
+weld alone on made keys against the plain weld: every key a 4-fold
+duplicate, groups that straddle tiles, a group at the capacity, and one
+past it (counted, not welded). Also: the weld's plan (passes, free bits,
+capacity) at every key width against the largest group a block's edge
+midpoints can form, the compact key's order and
 equalities against the global (hi, lo) keys at origins near 2^20, the
 header's new tables, the weld's scratch sizes, the wrappers on CPU tensors
 (the plain chain, no launch) and the block step's packed and raw
 branches there. On the card (marker `cuda`): the kernels bit for bit the
-plain chain at 256^3 and 512^3 (and with 43-bit keys), on two streams at
-once, their launches and syncs, and the memory estimate above a stage's
-peak.
+plain chain at 256^3 and 512^3 (and with 43-bit keys, and on a planar
+wall), on two streams at once, a group at the capacity bit for bit and
+one past it raising, their launches and syncs, and the memory estimate
+above a stage's peak.
 
 Only the JAX comparison imports jax, inside its tests: the card's machine
 has none (and runs the `cuda` tests alone), and there an installed package
@@ -51,7 +60,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 #: The mesh readbacks' kernels' names in ops/launches.py.
 MESH = ("march_classify", "march_scan", "march_emit_mesh",
-        "weld_sort_histogram", "weld_sort_pass", "weld_compact",
+        "weld_sort_histogram", "weld_sort_pass", "weld_group",
         "pack_readback")
 #: Every packed layout: (index mode, vertex words).
 FORMATS = [(mode, vw) for mode in mesh_cuda.INDEX_MODES for vw in (3, 4)]
@@ -118,6 +127,13 @@ def field_case(name):
         f = sphere_field(37, (18.0, 16.5, 19.2), 12.5)
         o = (1 << 20) - 37
         return f, (36, 36, 36), (o, o - 5, o)
+    if name == "wall":
+        # a planar wall: every vertex on one kz, each key group (ext, kz,
+        # ky, kx >> 6 at 22-bit keys) up to its capacity less the region's
+        # faces
+        g = np.arange(40, dtype=np.float32)
+        f = np.broadcast_to((g - 20.37)[:, None, None], (40, 40, 40))
+        return np.ascontiguousarray(f), (39, 39, 39), (0, 0, 0)
     if name == "no_surface":
         return (rng.random((16, 16, 16)) + 0.5).astype(np.float32), \
             (15, 15, 15), (0, 0, 0)
@@ -125,7 +141,7 @@ def field_case(name):
 
 
 CASES = ("sphere", "open", "region_edges", "wide", "noise", "zeros",
-         "subnormal", "far_origin", "no_surface")
+         "subnormal", "far_origin", "wall", "no_surface")
 
 
 # --- the kernels' arithmetic, built for the host ------------------------------
@@ -134,7 +150,7 @@ CASES = ("sphere", "open", "region_edges", "wide", "noise", "zeros",
 # loop over the tiles (what march_scan_kernel writes, which
 # tests/test_torch_marching_cuda.py holds to its own emulation); the mesh
 # emission a listed tile (a warp) at a time, its lanes in loops; the
-# weld's sort and compaction tile by tile, their look-backs in ticket
+# weld's sort and group kernel tile by tile, their look-backs in ticket
 # order or from the last tile; the pack a thread at a time.
 _HARNESS = r"""
 #include <math.h>
@@ -350,18 +366,19 @@ extern "C" void host_emit_mesh(const float* field, int b, int rx, int ry,
   }
 }
 
-// scan_lookback on the host: SCAN_WINDOW words a round, below tile 0 an
-// inclusive 0.
+// scan_lookback on the host: `window` words a round (SCAN_WINDOW, or
+// scan_lookback_warp's SCAN_WARP_WINDOW), below tile 0 an inclusive 0.
 static unsigned long long lookback(const unsigned long long* words,
-                                   int stride, long long tile) {
-  unsigned long long sum = 0, w[SCAN_WINDOW];
+                                   int stride, long long tile,
+                                   int window = SCAN_WINDOW) {
+  unsigned long long sum = 0, w[SCAN_WARP_WINDOW];
   long long next = tile - 1;
   while (next >= 0) {
-    for (int i = 0; i < SCAN_WINDOW; ++i)
+    for (int i = 0; i < window; ++i)
       w[i] = next - i >= 0 ? words[(next - i) * stride]
                            : scan_word(SCAN_INCLUSIVE, 0ULL);
     bool done;
-    next -= scan_window_step(w, SCAN_WINDOW, sum, &done);
+    next -= scan_window_step(w, window, sum, &done);
     if (done) break;
   }
   return sum;
@@ -377,14 +394,15 @@ static unsigned match_digit(const unsigned* d, const bool* valid, int lane) {
   return peers;
 }
 
-// The weld's sort (weld_sort: histogram, then each pass's tiles as its
-// kernel runs them, warps and lanes written out) with K keys between
-// passes. Every tile first publishes its aggregates, then the tiles look
-// back in ticket order or, `descending`, from the last.
+// The weld's sort (weld_sort: the histogram of the top digits, then each
+// pass's tiles as its kernel runs them, warps and lanes written out) with
+// K keys between passes: keys in order by their top 8 g bits, stably.
+// Every tile first publishes its aggregates, then the tiles look back in
+// ticket order or, `descending`, from the last.
 template <typename K>
 static int weld_sort(const long long* keys, long long n, int bits,
                      int descending, long long* sorted, long long* perm) {
-  const SortPlan plan = sort_plan(bits, 0u);
+  const SortPlan plan = mesh_weld_sort_plan(bits, mesh_sort_passes(bits));
   const int R = SORT_RADIX, W = SORT_THREADS / 32;
   const int I = sort_items(sizeof(K)), T = sort_tile_keys(sizeof(K));
   std::vector<unsigned> hist(plan.passes * R, 0u);
@@ -502,41 +520,260 @@ extern "C" int host_weld_sort(const long long* keys, long long n, int bits,
                                              sorted, perm);
 }
 
-// weld_compact_kernel, a tile (a CTA) at a time, its threads in loops:
-// every tile's aggregates first, then the look-backs in ticket order or
-// from the last tile, then each tile's writes, the totals from the last.
-extern "C" void host_weld_compact(const long long* sorted,
-                                  const long long* perm, long long n,
-                                  int ext_bit, const float* vertices,
-                                  const unsigned* key_hi,
-                                  const unsigned* key_lo, int descending,
-                                  float* out_vertices, unsigned* out_hi,
-                                  unsigned* out_lo, int* remap,
-                                  long long* totals) {
-  const int C = MESH_WELD_COUNTS;
-  const long long tiles = (n + MESH_WELD_TILE - 1) / MESH_WELD_TILE;
-  std::vector<unsigned> starts(tiles * MESH_WELD_THREADS),
-      internal(tiles * MESH_WELD_THREADS), sum(tiles * C, 0u);
-  std::vector<unsigned long long> status(tiles * C), base(tiles * C);
-  for (long long tile = 0; tile < tiles; ++tile)
-    for (int th = 0; th < MESH_WELD_THREADS; ++th) {
-      const long long first = tile * MESH_WELD_TILE + th * MESH_WELD_ITEMS;
-      unsigned s = 0, in = 0;
-      long long prev = first > 0 && first <= n ? sorted[first - 1] : 0;
-      for (int i = 0; i < MESH_WELD_ITEMS; ++i) {
-        const long long e = first + i;
-        const long long key = e < n ? sorted[e] : 0;
-        if (e < n && (e == 0 || key != prev)) {
-          s |= 1u << i;
-          if (((key >> ext_bit) & 1LL) == 0) in |= 1u << i;
-        }
-        prev = key;
-      }
-      starts[tile * MESH_WELD_THREADS + th] = s;
-      internal[tile * MESH_WELD_THREADS + th] = in;
-      sum[tile * C] += __builtin_popcount(s);
-      sum[tile * C + 1] += __builtin_popcount(in);
+// The weld's plan of `bits`-bit keys: passes, free bits, the group bound,
+// local digits and their width.
+extern "C" void host_weld_plan(int bits, long long* out) {
+  const int g = mesh_sort_passes(bits);
+  const int f = mesh_weld_free_bits(bits, g);
+  const SortPlan plan = mesh_weld_sort_plan(bits, g);
+  out[0] = g;
+  out[1] = f;
+  out[2] = mesh_weld_group_bound(bits, f);
+  out[3] = mesh_weld_local_digits(f);
+  out[4] = mesh_weld_local_width(f);
+  out[5] = plan.shift[0];
+  out[6] = plan.shift[g - 1] + plan.bits[g - 1];
+  out[7] = mesh_weld_shared_bytes((int)out[2]);
+}
+
+// weld_local_digit: a warp's stable sort of the slots [s, e) by one local
+// digit, 32 slots at a time, its lanes in loops.
+static void local_digit(const unsigned* sw, const unsigned* si, unsigned* dw,
+                        unsigned* di, int s, int e, int digit, int width,
+                        int f) {
+  const int left = f - digit * width;
+  const int bins = 1 << std::min(left, width);
+  std::vector<unsigned> hist(bins, 0u);
+  for (int c = s; c < e; c += 32) {
+    unsigned d[32];
+    bool valid[32];
+    for (int l = 0; l < 32; ++l) {
+      valid[l] = c + l < e;
+      d[l] = valid[l] ? mesh_weld_local_digit(sw[c + l], digit, width, f) : 0u;
     }
+    for (int l = 0; l < 32; ++l) {
+      const unsigned peers = match_digit(d, valid, l);
+      if (valid[l] && (peers & ((1u << l) - 1u)) == 0u)
+        hist[d[l]] += __builtin_popcount(peers);
+    }
+  }
+  unsigned run = 0;
+  for (int b = 0; b < bins; ++b) {
+    const unsigned c = hist[b];
+    hist[b] = run;
+    run += c;
+  }
+  for (int c = s; c < e; c += 32) {
+    unsigned d[32], at[32], peers[32];
+    bool valid[32];
+    for (int l = 0; l < 32; ++l) {
+      valid[l] = c + l < e;
+      d[l] = valid[l] ? mesh_weld_local_digit(sw[c + l], digit, width, f) : 0u;
+    }
+    for (int l = 0; l < 32; ++l) {
+      peers[l] = match_digit(d, valid, l);
+      at[l] = valid[l] ? hist[d[l]] : 0u;
+    }
+    for (int l = 0; l < 32; ++l) {
+      if (!valid[l]) continue;
+      const unsigned before = __builtin_popcount(peers[l] & ((1u << l) - 1u));
+      if (before == 0u) hist[d[l]] = at[l] + __builtin_popcount(peers[l]);
+      dw[s + at[l] + before] = sw[c + l];
+      di[s + at[l] + before] = si[c + l];
+    }
+  }
+}
+
+// weld_warp_rank: the slots from `first`, a lane each, ranked within their
+// groups (`group[l]`, the lanes of lane l's group) by a ballot a free bit;
+// lanes in `mine` write their slot at the group's first plus the rank.
+// `written` counts the writes of each slot.
+static void warp_rank(const unsigned* sw, const unsigned* si, unsigned* dw,
+                      unsigned* di, int first, const unsigned* group,
+                      const bool* mine, int f, std::vector<int>& written) {
+  unsigned word[32], idx[32], equal[32], less[32];
+  for (int l = 0; l < 32; ++l) {
+    word[l] = mine[l] ? sw[first + l] : 0u;
+    idx[l] = mine[l] ? si[first + l] : 0u;
+    equal[l] = group[l];
+    less[l] = 0u;
+  }
+  for (int b = f - 1; b >= 0; --b) {
+    unsigned ones = 0u;
+    for (int l = 0; l < 32; ++l)
+      ones |= (unsigned)(mine[l] && ((word[l] >> b) & 1u)) << l;
+    for (int l = 0; l < 32; ++l) {
+      if ((word[l] >> b) & 1u) {
+        less[l] += __builtin_popcount(equal[l] & ~ones);
+        equal[l] &= ones;
+      } else {
+        equal[l] &= ~ones;
+      }
+    }
+  }
+  for (int l = 0; l < 32; ++l) {
+    if (!mine[l]) continue;
+    const int at = first + __builtin_ctz(group[l]) + (int)less[l] +
+                   __builtin_popcount(equal[l] & ((1u << l) - 1u));
+    dw[at] = word[l];
+    di[at] = idx[l];
+    ++written[at];
+  }
+}
+
+// weld_group_kernel, a tile (a CTA) at a time: its tile's words, indices
+// and group starts, the last group's overhang a chunk of
+// MESH_WELD_THREADS slots at a time, the capacity check, the sort (each
+// window of 32 slots ranking the groups inside it at once, a lane each,
+// then each group that crosses a window's edge: ranked at once up to 32
+// slots, else a local digit at a time; every slot of the range written
+// once, checked), then its range's run starts in slot order (the kernel's
+// rounds number them the same); every tile's aggregates first, then the
+// warp look-backs in ticket order or from the last tile, then each tile's
+// writes, the totals (welded, internal, groups past the capacity) from
+// the last. `sorted`, `perm`: the sort's top-sorted keys and indices.
+// Returns 0, or -1 where a slot was not written exactly once.
+template <typename K>
+static int weld_group(const long long* sorted, const long long* perm,
+                       long long n, int bits, int capacity, int descending,
+                       const float* vertices, const unsigned* key_hi,
+                       const unsigned* key_lo, float* out_vertices,
+                       unsigned* out_hi, unsigned* out_lo, int* remap,
+                       long long* totals) {
+  const int g = mesh_sort_passes(bits), f = mesh_weld_free_bits(bits, g);
+  const int nd = mesh_weld_local_digits(f), width = mesh_weld_local_width(f);
+  const int T = MESH_WELD_TILE, TH = MESH_WELD_THREADS, C = MESH_WELD_COUNTS;
+  const long long tiles = (n + T - 1) / T;
+  auto top = [&](long long e) { return (K)sorted[e] >> f; };
+  auto word = [&](long long e) {
+    const K k = (K)sorted[e];
+    const unsigned ext = (unsigned)(k >> (bits - 1)) & 1u;
+    return (unsigned)(k & (((K)1 << f) - (K)1)) | (ext << 31);
+  };
+  struct Range {
+    int lo = 0, hi = 0;
+    bool active = false;
+    std::vector<unsigned> words, order;
+    std::vector<char> starts;
+  };
+  std::vector<Range> range(tiles);
+  std::vector<unsigned long long> sum(tiles * C, 0ULL), status(tiles * C),
+      base(tiles * C);
+  for (long long tile = 0; tile < tiles; ++tile) {
+    Range& r = range[tile];
+    const long long t0 = tile * T;
+    const int tile_n = (int)std::min((long long)T, n - t0);
+    const int slots = T + capacity;
+    std::vector<unsigned> wa(slots), ia(slots), wb(slots), ib(slots);
+    std::vector<char> gstart(T, 0);
+    std::vector<int> groups;
+    for (int q = 0; q < tile_n; ++q) {
+      const long long p = t0 + q;
+      wa[q] = word(p);
+      ia[q] = (unsigned)perm[p];
+      gstart[q] = p == 0 || top(p) != top(p - 1);
+      if (gstart[q]) groups.push_back(q);
+    }
+    const int ng = (int)groups.size();
+    int overflow = 0;
+    if (ng > 0) {
+      r.lo = groups[0];
+      r.hi = tile_n;
+      if (t0 + tile_n < n) {
+        const int limit = groups[ng - 1] + capacity + 1;
+        const K lt = top(t0 + tile_n - 1);
+        for (int c = T;; c += TH) {
+          int count = 0;
+          for (int j = 0; j < TH; ++j) {
+            const int q = c + j;
+            const long long p = t0 + q;
+            const bool same = p < n && q < limit && top(p) == lt;
+            if (same) {
+              wa[q] = word(p);
+              ia[q] = (unsigned)perm[p];
+            }
+            count += same;
+          }
+          if (count < TH) {
+            r.hi = c + count;
+            break;
+          }
+        }
+      }
+    }
+    for (int k = 0; k < ng; ++k) {
+      const int e = k + 1 < ng ? groups[k + 1] : r.hi;
+      if (e - groups[k] > capacity) overflow = 1;
+    }
+    r.active = ng > 0 && overflow == 0;
+    std::vector<unsigned>& fw = nd % 2 ? wb : wa;
+    std::vector<unsigned>& fi = nd % 2 ? ib : ia;
+    if (r.active && nd > 0) {
+      std::vector<int> written(slots, 0);
+      const int lo = r.lo, hi = r.hi;
+      for (int j = lo >> 5; j <= (hi - 1) >> 5; ++j) {
+        unsigned group[32];
+        bool inside[32];
+        unsigned sw = 0u, next = 0u;
+        for (int b = 0; b < 32; ++b) {
+          if (j < T / 32) sw |= (unsigned)gstart[32 * j + b] << b;
+          if (j + 1 < T / 32 && b == 0) next = gstart[32 * (j + 1)];
+        }
+        for (int l = 0; l < 32; ++l) {
+          const int q = 32 * j + l;
+          const unsigned below = l == 31 ? 0xFFFFFFFFu : (2u << l) - 1u;
+          const unsigned upto = sw & below, above = sw & ~below;
+          const int gs = upto ? 31 - __builtin_clz(upto) : -1;
+          const int ge = above ? __builtin_ctz(above)
+                         : hi <= 32 * j + 32 ? hi - 32 * j
+                         : next ? 32 : 33;
+          inside[l] = q >= lo && q < hi && gs >= 0 && ge <= 32;
+          group[l] = inside[l] ? (ge == 32 ? 0xFFFFFFFFu : (1u << ge) - 1u) &
+                                     ~((1u << gs) - 1u)
+                               : 0u;
+        }
+        warp_rank(wa.data(), ia.data(), fw.data(), fi.data(), 32 * j, group,
+                  inside, f, written);
+      }
+      for (int k = 0; k < ng; ++k) {
+        const int s = groups[k], e = k + 1 < ng ? groups[k + 1] : r.hi;
+        if ((s >> 5) == ((e - 1) >> 5)) continue;   // inside a window
+        if (e - s <= 32) {
+          unsigned group[32];
+          bool mine[32];
+          for (int l = 0; l < 32; ++l) {
+            mine[l] = l < e - s;
+            group[l] = e - s == 32 ? 0xFFFFFFFFu : (1u << (e - s)) - 1u;
+          }
+          warp_rank(wa.data(), ia.data(), fw.data(), fi.data(), s, group,
+                    mine, f, written);
+          continue;
+        }
+        for (int d = 0; d < nd; ++d) {
+          if (d % 2 == 0)
+            local_digit(wa.data(), ia.data(), wb.data(), ib.data(), s, e, d,
+                        width, f);
+          else
+            local_digit(wb.data(), ib.data(), wa.data(), ia.data(), s, e, d,
+                        width, f);
+        }
+        for (int q = s; q < e; ++q) ++written[q];
+      }
+      for (int q = lo; q < hi; ++q)
+        if (written[q] != 1) return -1;
+    }
+    r.words = fw;
+    r.order = fi;
+    r.starts.assign(std::max(r.hi, 1), 0);
+    if (r.active)
+      for (int q = r.lo; q < r.hi; ++q) {
+        const bool start = (q < T && gstart[q]) || r.words[q] != r.words[q - 1];
+        r.starts[q] = start;
+        sum[tile * C] += start;
+        sum[tile * C + 1] += start && (r.words[q] >> 31) == 0u;
+      }
+    sum[tile * C + 2] = overflow;
+  }
   for (long long tile = 0; tile < tiles; ++tile)
     for (int k = 0; k < C; ++k)
       status[tile * C + k] = scan_word(
@@ -544,36 +781,49 @@ extern "C" void host_weld_compact(const long long* sorted,
   for (long long i = 0; i < tiles; ++i) {
     const long long tile = descending ? tiles - 1 - i : i;
     for (int k = 0; k < C; ++k) {
-      base[tile * C + k] = tile == 0 ? 0 : lookback(status.data() + k, C, tile);
+      base[tile * C + k] =
+          tile == 0 ? 0
+                    : lookback(status.data() + k, C, tile, SCAN_WARP_WINDOW);
       status[tile * C + k] =
           scan_word(SCAN_INCLUSIVE, base[tile * C + k] + sum[tile * C + k]);
     }
   }
   for (long long tile = 0; tile < tiles; ++tile) {
-    unsigned at = 0;  // the CTA's exclusive sum of run starts
-    for (int th = 0; th < MESH_WELD_THREADS; ++th) {
-      const long long first = tile * MESH_WELD_TILE + th * MESH_WELD_ITEMS;
-      const unsigned s = starts[tile * MESH_WELD_THREADS + th];
-      long long id = (long long)(base[tile * C] + at) - 1;
-      for (int i = 0; i < MESH_WELD_ITEMS; ++i) {
-        const long long e = first + i;
-        if (e >= n) break;
-        const long long p = perm[e];
-        if ((s >> i) & 1u) {
-          ++id;
-          for (int a = 0; a < 3; ++a) out_vertices[3 * id + a] = vertices[3 * p + a];
-          out_hi[id] = key_hi[p];
-          out_lo[id] = key_lo[p];
-        }
-        remap[p] = (int)id;
+    const Range& r = range[tile];
+    if (!r.active) continue;
+    long long id = (long long)base[tile * C] - 1;
+    for (int q = r.lo; q < r.hi; ++q) {
+      const long long v = r.order[q];
+      if (r.starts[q]) {
+        ++id;
+        for (int a = 0; a < 3; ++a) out_vertices[3 * id + a] = vertices[3 * v + a];
+        out_hi[id] = key_hi[v];
+        out_lo[id] = key_lo[v];
       }
-      at += __builtin_popcount(s);
+      remap[v] = (int)id;
     }
   }
   for (int k = 0; k < C; ++k)
-    totals[k] = tiles == 0 ? 0
-                           : (long long)(base[(tiles - 1) * C + k] +
-                                         sum[(tiles - 1) * C + k]);
+    totals[k] = (long long)(base[(tiles - 1) * C + k] + sum[(tiles - 1) * C + k]);
+  return 0;
+}
+
+extern "C" int host_weld_group(const long long* sorted, const long long* perm,
+                                long long n, int bits, int capacity,
+                                int descending, const float* vertices,
+                                const unsigned* key_hi,
+                                const unsigned* key_lo, float* out_vertices,
+                                unsigned* out_hi, unsigned* out_lo,
+                                int* remap, long long* totals) {
+  return mesh_sort_key_bytes(bits) == 4
+             ? weld_group<unsigned>(sorted, perm, n, bits, capacity,
+                                    descending, vertices, key_hi, key_lo,
+                                    out_vertices, out_hi, out_lo, remap,
+                                    totals)
+             : weld_group<unsigned long long>(sorted, perm, n, bits,
+                                              capacity, descending, vertices,
+                                              key_hi, key_lo, out_vertices,
+                                              out_hi, out_lo, remap, totals);
 }
 
 // pack_readback_kernel, a thread at a time (nw = 0 for MESH_INDEX_RAW).
@@ -644,7 +894,9 @@ def host(tmp_path_factory):
                                    + [i32, p, i32] + [p] * 5)
     lib.host_weld_sort.restype = i32
     lib.host_weld_sort.argtypes = [p, i64, i32, i32, p, p]
-    lib.host_weld_compact.argtypes = [p, p, i64, i32, p, p, p, i32] + [p] * 5
+    lib.host_weld_plan.argtypes = [i32, p]
+    lib.host_weld_group.restype = i32
+    lib.host_weld_group.argtypes = [p, p, i64] + [i32] * 3 + [p] * 8
     lib.host_pack.argtypes = ([p] * 3 + [i64] + [p] * 2 + [i64] * 4
                               + [i32] * 2 + [p])
     return lib
@@ -656,8 +908,8 @@ def _ptr(a: np.ndarray) -> int:
 
 def host_chain(lib, field, region, origin, axes=None, descending=False):
     """The kernels run on the host as the wrappers run them on the card:
-    the list and totals, the mesh emission, the weld's sort and
-    compaction. Returns a dict of numpy arrays and counts; `axes`: the
+    the list and totals, the mesh emission, the weld's sort and group
+    kernel. Returns a dict of numpy arrays and counts; `axes`: the
     compact key's bits an axis (by default mesh_cuda.axis_bits)."""
     field = np.ascontiguousarray(field, np.float32)
     b = field.shape[0]
@@ -680,26 +932,43 @@ def host_chain(lib, field, region, origin, axes=None, descending=False):
                        _ptr(tile_list), t["tiles"], _ptr(vertices), _ptr(hi),
                        _ptr(lo), _ptr(keys), _ptr(tris))
     assert keys.min(initial=0) >= 0 and (n == 0 or keys.max() < 1 << bits)
+    w = host_weld(lib, keys, vertices, hi, lo, bits, descending=descending)
+    assert w["past"] == 0
+    return dict(totals=t, vertices=vertices, key_hi=hi, key_lo=lo,
+                sort_keys=keys, triangles=tris,
+                tile_list=tile_list[:t["tiles"]], **w)
+
+
+def host_weld(lib, keys, vertices, hi, lo, bits, capacity=None,
+              descending=False):
+    """The weld's kernels on the host as weld_launch runs them: the sort
+    over the keys' top digits, then the group kernel (at the plan's
+    capacity, or `capacity`). Returns the top-sorted keys and indices, the
+    welded arrays, the remap and the totals (`past`: groups past the
+    capacity)."""
+    n = len(keys)
+    keys = np.ascontiguousarray(keys, np.int64)
+    passes, _, bound = mesh_cuda.weld_plan(bits)
     sorted_keys = np.empty(n, np.int64)
     perm = np.empty(n, np.int64)
-    passes = lib.host_weld_sort(_ptr(keys), n, bits, int(descending),
-                                _ptr(sorted_keys), _ptr(perm))
-    assert passes == mesh_cuda.sort_passes(bits)
+    assert lib.host_weld_sort(_ptr(keys), n, bits, int(descending),
+                              _ptr(sorted_keys), _ptr(perm)) == passes
     out_v = np.full((n, 3), np.nan, np.float32)
     out_hi = np.full(n, 0xDEADBEEF, np.uint32)
     out_lo = np.full(n, 0xDEADBEEF, np.uint32)
     remap = np.full(n, -1, np.int32)
-    wt = np.empty(2, np.int64)
-    lib.host_weld_compact(_ptr(sorted_keys), _ptr(perm), n, bits - 1,
-                          _ptr(vertices), _ptr(hi), _ptr(lo), int(descending),
-                          _ptr(out_v), _ptr(out_hi), _ptr(out_lo),
-                          _ptr(remap), _ptr(wt))
-    nw, fe = (int(v) for v in wt)
-    return dict(totals=t, vertices=vertices, key_hi=hi, key_lo=lo,
-                sort_keys=keys, triangles=tris, sorted=sorted_keys, perm=perm,
-                welded_vertices=out_v[:nw], welded_hi=out_hi[:nw],
-                welded_lo=out_lo[:nw], remap=remap, num_welded=nw,
-                first_external=fe, tile_list=tile_list[:t["tiles"]])
+    wt = np.zeros(mesh_cuda.WELD_COUNTS, np.int64)
+    if n:
+        assert lib.host_weld_group(
+            _ptr(sorted_keys), _ptr(perm), n, bits,
+            bound if capacity is None else capacity, int(descending),
+            _ptr(vertices), _ptr(hi), _ptr(lo), _ptr(out_v), _ptr(out_hi),
+            _ptr(out_lo), _ptr(remap), _ptr(wt)) == 0, \
+            "a slot of a group kernel's range not sorted exactly once"
+    nw, fe, past = (int(v) for v in wt)
+    return dict(sorted=sorted_keys, perm=perm, welded_vertices=out_v[:nw],
+                welded_hi=out_hi[:nw], welded_lo=out_lo[:nw], remap=remap,
+                num_welded=nw, first_external=fe, past=past)
 
 
 def host_pack(lib, chain, origin, mode, vertex_words):
@@ -793,19 +1062,30 @@ def test_host_build_equals_the_plain_chain(host, case):
         assert chain["num_welded"] > 50
     if case == "open":
         assert 0 < chain["first_external"] < chain["num_welded"]
+    if case == "wall":
+        # every vertex on one kz; the groups of even interior rows at the
+        # capacity less the z edge on the region's face kx = 0 (external,
+        # so in another group): 188 of 192
+        _, f, cap = mesh_cuda.weld_plan(mesh_cuda.key_bits(
+            mesh_cuda.axis_bits(field.shape[0])))
+        kz = chain["sort_keys"] >> (2 * mesh_cuda.axis_bits(field.shape[0]))
+        assert len(np.unique(kz & 0x7F)) == 1
+        sizes = np.unique(chain["sorted"] >> f, return_counts=True)[1]
+        assert sizes.max() == cap - 4
 
 
 @pytest.mark.parametrize("axes", [12, 14])
 @pytest.mark.parametrize("case", ["noise", "wide"])
 def test_host_build_with_wide_keys_and_reversed_lookbacks(host, case, axes):
     """The same with compact keys of 37 and 43 bits (64-bit keys between
-    the sort's 5 or 6 passes, a block of 2048^3 and 8192^3 corners) and
-    every look-back walked from the last tile."""
+    the sort's 4 and 5 passes over the top digits, 5 and 3 free bits for
+    the group kernel, a block of 2048^3 and 8192^3 corners) and every
+    look-back walked from the last tile."""
     field, region, origin = field_case(case)
     chain = host_chain(host, field, region, origin, axes=axes,
                        descending=True)
-    assert mesh_cuda.sort_passes(mesh_cuda.key_bits(axes)) == (5 if axes == 12
-                                                              else 6)
+    assert mesh_cuda.weld_plan(mesh_cuda.key_bits(axes)) == (
+        (4, 5, 96) if axes == 12 else (5, 3, 24))
     mesh, welded = plain_chain(field, region, origin)
     assert_chain_is_plain(host, chain, mesh, welded, origin)
 
@@ -901,6 +1181,197 @@ def test_weld_scratch_is_the_headers(host, bits):
     for mode in range(3):
         fmt = block.PackFormat(mesh_cuda.INDEX_MODES[mode], 3, 8)
         assert host.host_index_words(mode, 3 * 777) == fmt.index_words(3 * 777)
+
+
+def largest_group(bits: int) -> int:
+    """The most keys of one group that a block of the largest size with
+    `bits`-bit keys can hold, counted position by position on the plane
+    kz = 0 and kz = 1 (the groups never span two kz at these widths): the
+    copies of each edge midpoint by its odd coordinates."""
+    a = (bits - 1) // 3
+    _, f, _ = mesh_cuda.weld_plan(bits)
+    assert f <= 2 * a
+    kx = np.arange(2 ** a - 1)                  # doubled, 2 (b - 1) at most
+    ky = np.arange(2 ** (f - a) if f > a else 2)
+    best = 0
+    for kz in (0, 1):
+        odd = (kx[None, :] & 1) + (ky[:, None] & 1) + kz
+        copies = np.asarray(mesh_cuda.WELD_COPIES)[odd]
+        group = ((ky[:, None] << a) | kx[None, :]) >> f
+        best = max(best, int(np.bincount(group.ravel(),
+                                         copies.ravel()).max()))
+    return best
+
+
+@pytest.mark.parametrize("bits,passes", [(28, 3), (31, 3), (34, 4), (37, 4),
+                                         (43, 5)])
+def test_weld_plan_at_every_key_width(host, bits, passes):
+    """The weld's plan (mesh.cuh, mirrored by mesh_cuda): g global passes
+    over the top 8 g bits, the free bits below them, and the group
+    kernel's capacity C, the largest group those free bits allow. g is the
+    least that fits the kernel's largest capacity, C holds the largest
+    group a block's edge midpoints form (within the ranges' 1%), and the
+    kernel's shared memory at C lets three CTAs share an H100 SM."""
+    out = np.zeros(8, np.int64)
+    host.host_weld_plan(bits, _ptr(out))
+    g, f, cap = mesh_cuda.weld_plan(bits)
+    assert (g, f, cap) == tuple(out[:3]) and g == passes
+    assert f == bits - 8 * g and (out[5], out[6]) == (f, bits)
+    assert cap <= mesh_cuda.WELD_MAX_CAPACITY < mesh_cuda.group_bound(
+        bits, f + 8)
+    digits, width = out[3], out[4]
+    assert digits == -(-f // 8) and digits * width >= f and width <= 8
+    worst = largest_group(bits)
+    assert 0.99 * cap <= worst <= cap
+    assert 3 * (out[7] + 16 * 1024) <= 232_448
+
+
+@pytest.mark.parametrize("case", ["sphere", "noise", "open", "wall"])
+def test_emission_copies_follow_the_odd_coordinates(host, case):
+    """The group bound's premise on emitted meshes: a key's copies are at
+    most 4 with one odd doubled coordinate (a cube edge), 2 with two (a
+    face diagonal), 1 with three (the body diagonal), never all even."""
+    field, region, origin = field_case(case)
+    chain = host_chain(host, field, region, origin)
+    keys, counts = np.unique(chain["sort_keys"], return_counts=True)
+    a = mesh_cuda.axis_bits(field.shape[0])
+    odd = sum((keys >> (i * a)) & 1 for i in range(3))
+    assert (odd > 0).all()
+    assert (counts <= np.asarray(mesh_cuda.WELD_COPIES)[odd]).all()
+    assert counts.max() == 4
+
+
+def made_keys(k, region, origin, axes):
+    """mesh.cuh's mesh_keys in numpy: the key halves (u32 in int64) and
+    the compact sort keys of doubled block-local coordinates k (n, 3)."""
+    k = np.asarray(k, np.int64)
+    ext = ((k == 0) | (k == 2 * np.asarray(region))).any(axis=1)
+    g = k + 2 * np.asarray(origin, np.int64)
+    lo = (g[:, 0] | ((g[:, 1] & 0x7FF) << 21)) & 0xFFFFFFFF
+    hi = ((g[:, 1] >> 11) | (g[:, 2] << 10) | (ext.astype(np.int64) << 31)) \
+        & 0xFFFFFFFF
+    sort = ((ext.astype(np.int64) << (3 * axes)) | (k[:, 2] << (2 * axes))
+            | (k[:, 1] << axes) | k[:, 0])
+    return hi, lo, sort
+
+
+def made_case(name):
+    """(doubled coordinates (n, 3), region, origin, axes) of made keys at
+    31 bits (a 512^3 block's: groups (ext, kz, ky, kx >> 7), at most 384
+    keys), in a shuffled emission order: every key a 4-fold duplicate;
+    groups of 200-384 keys one after another, that straddle the group
+    kernel's tiles and carry a range past a round; a group of exactly
+    its capacity (a window of 128 kx on an odd ky and an even kz, each
+    position's copies by its odd coordinates) among small ones; and that
+    with one key more."""
+    rng = np.random.default_rng({"fourfold": 1, "straddle": 2,
+                                 "at_capacity": 3, "past_capacity": 3}[name])
+    region, origin, axes = (400, 410, 420), (40, 3000, 7), 10
+
+    def positions(n):
+        p = rng.integers(0, 1023, size=(n, 3))
+        return np.unique(p[(p & 1).any(axis=1)], axis=0)
+
+    def full_group(kz, ky):
+        kx = np.arange(128, 256)
+        copies = np.asarray(mesh_cuda.WELD_COPIES)[(kx & 1) + (ky & 1)
+                                                   + (kz & 1)]
+        g = np.stack([kx, np.full(128, ky), np.full(128, kz)], 1)
+        return np.repeat(g, copies, axis=0)
+
+    if name == "fourfold":
+        k = np.repeat(positions(3000), 4, axis=0)
+    elif name == "straddle":
+        # first six groups of 330 keys, so that the seventh (384) starts
+        # at slot 1,980 of the first tile and carries its range to 2,364
+        # slots; then groups of 200-384; then small ones (kz > 50)
+        parts = []
+        for j in range(30):
+            g = full_group(40, 2 * j + 1)
+            size = 330 if j < 6 else 384 if j == 6 else rng.integers(200, 385)
+            parts.append(g[rng.permutation(len(g))[:size]])
+        p = positions(1500)
+        k = np.concatenate(parts + [p[p[:, 2] > 50]])
+    else:
+        group = full_group(100, 201)
+        assert len(group) == mesh_cuda.weld_plan(31)[2] == 384
+        k = np.concatenate([group, np.repeat(positions(3000), 2, axis=0)])
+        if name == "past_capacity":
+            k = np.concatenate([k, group[:1]])
+    return k[rng.permutation(len(k))], region, origin, axes
+
+
+def made_weld(name):
+    """A made case's keys, a random vertex each (so a copy's position
+    shows which copy represents its key) and the plain weld of them, with
+    triangles (i, i, i) that carry its remap."""
+    k, region, origin, axes = made_case(name)
+    hi, lo, sort = made_keys(k, region, origin, axes)
+    n = len(k)
+    vertices = np.random.default_rng(7).random((n, 3)).astype(np.float32)
+    tris = torch.arange(n).repeat_interleave(3).reshape(n, 3)
+    want = weld.weld(torch.as_tensor(vertices), torch.as_tensor(hi),
+                     torch.as_tensor(lo), tris)
+    return vertices, hi, lo, sort, want
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name", ["fourfold", "straddle", "at_capacity",
+                                  "past_capacity"])
+def test_host_weld_of_made_keys(host, name, descending):
+    """The weld's kernels on the host on made 31-bit keys against the plain
+    weld, bit for bit (welded vertices, keys, counts and every vertex's
+    remap), the group kernel's look-backs in ticket order and from the
+    last tile; a group past the capacity counted (the wrapper raises on
+    it) and its CTA's range left unwritten."""
+    vertices, hi, lo, sort, want = made_weld(name)
+    bits = mesh_cuda.key_bits(10)
+    w = host_weld(host, sort, vertices, hi.astype(np.uint32),
+                  lo.astype(np.uint32), bits, descending=descending)
+    top = w["sorted"] >> mesh_cuda.weld_plan(bits)[1]
+    sizes = np.unique(top, return_counts=True)[1]
+    if name == "past_capacity":
+        assert w["past"] == 1 and sizes.max() == 385
+        return
+    assert w["past"] == 0
+    if name == "at_capacity":
+        assert sizes.max() == 384
+    if name == "straddle":
+        starts = np.flatnonzero(np.r_[True, top[1:] != top[:-1]])
+        ends = np.r_[starts[1:], len(top)]
+        tile = mesh_cuda.WELD_TILE
+        assert ((starts // tile) != ((ends - 1) // tile)).sum() >= 3
+        # a tile's range (its first group's start to its last group's
+        # end) past a round of the group kernel's marks (256 x 9 slots)
+        first = np.searchsorted(starts, np.arange(0, len(top), tile))
+        last = np.searchsorted(starts, np.arange(tile, len(top) + tile,
+                                                 tile)) - 1
+        ok = first <= last
+        assert (ends[last[ok]] - starts[first[ok]]).max() > 256 * 9
+    assert (w["num_welded"], w["first_external"]) == (
+        want.num_vertices, want.first_external)
+    assert 0 < want.first_external < want.num_vertices
+    np.testing.assert_array_equal(_bits(w["welded_vertices"]),
+                                  _bits(want.vertices))
+    np.testing.assert_array_equal(w["welded_hi"].astype(np.int64),
+                                  want.key_hi.numpy())
+    np.testing.assert_array_equal(w["welded_lo"].astype(np.int64),
+                                  want.key_lo.numpy())
+    np.testing.assert_array_equal(w["remap"], want.triangles[:, 0].numpy())
+
+
+def test_host_weld_counts_groups_past_a_smaller_capacity(host):
+    """The group kernel at a capacity below the plan's (the sphere's groups
+    against 4 keys) counts the groups past it instead of welding them; at
+    the plan's capacity it counts none."""
+    field, region, origin = field_case("sphere")
+    chain = host_chain(host, field, region, origin)
+    bits = mesh_cuda.key_bits(mesh_cuda.axis_bits(field.shape[0]))
+    args = (chain["sort_keys"], chain["vertices"], chain["key_hi"],
+            chain["key_lo"], bits)
+    assert host_weld(host, *args)["past"] == 0
+    small = host_weld(host, *args, capacity=4)
+    assert small["past"] > 0
 
 
 # --- against the JAX package --------------------------------------------------
@@ -1072,8 +1543,8 @@ def test_card_mesh_estimate_counts_the_kernels_buffers():
     """The card's packed and raw estimates (pipeline/resources.py) count
     the kernels' buffers, each as the caching allocator may count it:
     classify's and the scan's, the emission's arrays, the weld's sort and
-    compaction buffers (mesh_cuda's scratch sizes) and the image or raw's
-    triangles."""
+    group kernel's buffers (mesh_cuda's work and scratch sizes) and the
+    image or raw's triangles."""
     from mlsgpu_tpu_torch.pipeline import resources
     from mlsgpu_tpu_torch.tools import cloud
     blk = resources._block
@@ -1091,10 +1562,9 @@ def test_card_mesh_estimate_counts_the_kernels_buffers():
                 + blk(16 * g ** 3) + blk(40) + blk(12 * verts)
                 + 2 * blk(4 * verts) + blk(8 * verts) + blk(12 * verts))
             assert u["weld_kernels"] == (
-                2 * blk(8 * verts)
-                + blk(4 * mesh_cuda.weld_work_words(verts, bits))
+                blk(4 * mesh_cuda.weld_work_words(verts, bits))
                 + blk(8 * mesh_cuda.weld_scratch_words(verts, bits))
-                + blk(12 * verts) + 3 * blk(4 * verts) + blk(16))
+                + blk(12 * verts) + 3 * blk(4 * verts) + blk(24))
             assert u["pack_kernels"] == blk(
                 4 * (3 * verts + 2 * verts + 1) if readback == "packed"
                 else 12 * verts)
@@ -1169,7 +1639,7 @@ def card_chain(field, region, origin, n_occ=None, axes=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [256, 512, 77, 300])
 def test_kernels_bit_for_bit_on_card(cuda_device, b):
-    """At 256^3 and 512^3 (28- and 31-bit keys, 4 sort passes) and at
+    """At 256^3 and 512^3 (28- and 31-bit keys, 3 sort passes) and at
     sizes that are not multiples of a tile's 8 cells: the unwelded mesh,
     the weld, raw's triangles and the image in every layout bit for bit
     the plain chain's on the card; n_occ back with the totals; a launch of
@@ -1185,6 +1655,7 @@ def test_kernels_bit_for_bit_on_card(cuda_device, b):
     passes = mesh_cuda.sort_passes(mesh_cuda.key_bits(mesh.axis_bits))
     assert [got[k] for k in MESH] == [1, 1, 1, 1, passes, 1,
                                       len(FORMATS) + 1]
+    assert passes == 3
     want_mesh = marching.generate_mesh(field, region, origin)
     want_welded = weld.weld(want_mesh.vertices, want_mesh.key_hi,
                             want_mesh.key_lo, want_mesh.triangles)
@@ -1200,8 +1671,8 @@ def test_kernels_bit_for_bit_on_card(cuda_device, b):
 @pytest.mark.parametrize("axes", [12, 14])
 def test_wide_keys_on_card(cuda_device, axes):
     """Compact keys of 37 and 43 bits (as at 2048^3 and 8192^3 corners:
-    64-bit keys between the sort's 5 and 6 passes) weld a 256^3 block bit
-    for bit as the plain weld does."""
+    64-bit keys between the sort's 4 passes, 5 and 11 free bits) weld a
+    256^3 block bit for bit as the plain weld does."""
     field = card_field(256, cuda_device, seed=3)
     region, origin = (255, 250, 252), (5, 6, 7)
     mesh, welded, raw, images = card_chain(field, region, origin, axes=axes)
@@ -1210,6 +1681,64 @@ def test_wide_keys_on_card(cuda_device, axes):
                             want_mesh.key_lo, want_mesh.triangles)
     assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
                          origin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 512])
+def test_planar_wall_on_card(cuda_device, b):
+    """A planar wall (every vertex on one kz): key groups at exactly the
+    group kernel's capacity, 48 keys at 256^3 (28-bit keys, 4 free bits)
+    and 384 at 512^3 (31 bits, 7 free bits, groups sorted a local digit
+    at a time); bit for bit the plain chain."""
+    z = torch.arange(b, dtype=torch.float32, device=cuda_device)
+    field = (z - (b / 2 + 0.37))[:, None, None].expand(b, b, b).contiguous()
+    region, origin = (b - 1,) * 3, (0, 0, 0)
+    mesh, welded, raw, images = card_chain(field, region, origin)
+    want_mesh = marching.generate_mesh(field, region, origin)
+    want_welded = weld.weld(want_mesh.vertices, want_mesh.key_hi,
+                            want_mesh.key_lo, want_mesh.triangles)
+    assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
+                         origin)
+    _, f, cap = mesh_cuda.weld_plan(mesh_cuda.key_bits(mesh.axis_bits))
+    largest = int(torch.unique(mesh.sort_keys >> f,
+                               return_counts=True)[1].max())
+    assert largest == cap
+
+
+def made_card_mesh(vertices, hi, lo, sort, dev):
+    """A card mesh of made keys (made_weld), without triangles."""
+    n = len(sort)
+    word = lambda a: torch.as_tensor(  # noqa: E731
+        a.astype(np.uint32).view(np.int32), device=dev)
+    return mesh_cuda.CardMesh(
+        vertices=torch.as_tensor(vertices, device=dev), key_hi=word(hi),
+        key_lo=word(lo), triangles=torch.empty((0, 3), dtype=torch.int32,
+                                               device=dev),
+        num_cells=0, num_vertices=n, num_indices=0, num_tiles=0,
+        sort_keys=torch.as_tensor(sort, device=dev), axis_bits=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["straddle", "at_capacity",
+                                  "past_capacity"])
+def test_group_limit_on_card(cuda_device, name):
+    """The group kernel's limit on the card (made 31-bit keys): a group of
+    exactly its capacity (384 keys) welds bit for bit as the plain weld
+    does, every vertex's remap too; one key more raises instead of
+    returning a wrong weld."""
+    vertices, hi, lo, sort, want = made_weld(name)
+    mesh = made_card_mesh(vertices, hi, lo, sort, cuda_device)
+    if name == "past_capacity":
+        with pytest.raises(RuntimeError, match="past the group kernel"):
+            mesh_cuda.weld(mesh)
+        return
+    welded = mesh_cuda.weld(mesh)
+    assert (welded.num_vertices, welded.first_external) == (
+        want.num_vertices, want.first_external)
+    assert _same_bits(welded.vertices, want.vertices)
+    assert torch.equal(_words(welded.key_hi), want.key_hi)
+    assert torch.equal(_words(welded.key_lo), want.key_lo)
+    assert torch.equal(welded.remap.cpu().long(), want.triangles[:, 0])
 
 
 @pytest.mark.cuda
@@ -1228,7 +1757,7 @@ def test_no_surface_on_card(cuda_device):
 @pytest.mark.cuda
 def test_two_streams_at_once_on_card(cuda_device):
     """Two packed stages on two streams at once (their scans, sorts and
-    compactions each on its own state), each bit for bit its plain
+    group kernels each on its own state), each bit for bit its plain
     chain."""
     fields = [card_field(256, cuda_device, seed=s) for s in (1, 2)]
     region, origin = (255, 255, 255), (0, 0, 0)
@@ -1252,8 +1781,9 @@ def test_two_streams_at_once_on_card(cuda_device):
 @pytest.mark.cuda
 def test_launches_and_syncs_a_stage_on_card(cuda_device):
     """A traced packed stage (mesh_image) issues classify, scan, the mesh
-    emission, the sort's histogram and four passes, the compaction and the
-    pack kernel, and at most two syncs (the totals, the welded counts)."""
+    emission, the sort's histogram and three passes (28-bit keys), the
+    group kernel and the pack kernel, and at most two syncs (the totals,
+    the welded counts)."""
     import json
     import tempfile
     import torch.profiler as tp
@@ -1273,7 +1803,7 @@ def test_launches_and_syncs_a_stage_on_card(cuda_device):
         prof.export_chrome_trace(path)
         with open(path) as f:
             summary = step_profile.summarize(json.load(f))
-    assert summary["launches"] == 10
+    assert summary["launches"] == 9
     assert summary["sync_calls"] <= 2
 
 
