@@ -59,12 +59,15 @@ raises, exits non-zero and prints no result line:
      emission, csrc/mesh.cu's weld sort over the keys' top digits, group
      kernel and pack) against the plain generate_mesh -> weld ->
      pack_readback: the unwelded and welded
-     arrays, the counts, raw's triangles and the image bit for bit, the
+     arrays, the counts, raw's triangles and the image bit for bit (also
+     on fields of dense tiles at 256^3 and 301^3, every cell of a tile
+     occupied with 13 vertices: dense_tile_field), the
      packed stage host-paced, each kernel alone (profiler), the card's
      busy time, the launches and syncs of a traced stage (the kernels and
      at most two syncs: checked) beside the plain chain's, the plain chain
      host-paced, torch.unique and torch.sort of the compact keys, each
-     kernel's bound, the weld whole's and the stage's (mesh_bound)
+     kernel's bound (the compact keys at their sort width, and as int64
+     keys), the weld whole's and the stage's (mesh_bound)
      (mesh_vs_plain);
   4. the seam contract on the card, through the seam kernels: shared-face
      and T-junction corners of adjacent blocks bitwise equal, also where a
@@ -200,6 +203,7 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1143,41 +1147,47 @@ def marching_vs_plain(n, field, region, n_occ, reps=REPS) -> list:
 
 
 def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
-               ni: int, words: int, passes: int) -> dict:
+               ni: int, words: int, passes: int,
+               key_bytes: Optional[int] = None) -> dict:
     """The least time the card could take for a mesh readback kernel's
     work on these inputs (a (b, b, b) field, `march_tiles` listed tiles,
     n unwelded and nw welded vertices, ni triangle indices, an image of
     `words` words, a sort of `passes` passes): the larger of its bytes
     over the memory rate (each input read once, each output written once)
-    and its FP32 operations over the FP32 peak. Emission: the list rows
-    and the listed tiles' 8^3 corners in; a vertex's 3 floats, 2 key
-    halves and 8-byte sort key and an int32 an index out; 16 operations a
-    cell of a listed tile, 8 a vertex (t's subtraction and division, three
-    products and sums). The sort's histogram: the int64 keys in, `passes`
-    x 256 int32 counts out. The sort ("weld_sort_pass", its passes, which
-    with the histogram make the sort over the top digits): the int64 keys
-    in, the top-sorted keys (4 or 8 bytes) and int32 indices out. The
-    group kernel: those in, a welded vertex's 3 floats and 2 key halves in
-    and out, an int32 remap a vertex and the 3 totals out. The weld
-    whole ("weld", whatever implements it): the int64 keys in, 20 bytes a
-    welded vertex in and 20 out, the remap out. Pack: a welded vertex's
-    3 floats and 2 key halves, the int32 triangle indices and the remap in,
-    the image out; 5 operations a vertex (3 fractions, 1 - t, t's
-    product). "stage": the field in and the image out, the operations of
-    all. No integer work is counted."""
+    and its FP32 operations over the FP32 peak. The compact keys between
+    the emission and the weld take `key_bytes` each (by default their sort
+    width, mesh_cuda.sort_key_bytes: 4 at 28 and 31 bits; 8 gives the
+    yardstick of int64 keys, 28 bytes a vertex out of the emission, as the
+    bound was counted before the keys took 4). Emission: the list rows and the
+    listed tiles' 8^3 corners in; a vertex's 3 floats, 2 key halves and
+    compact key and an int32 an index out; 16 operations a cell of a
+    listed tile, 8 a vertex (t's subtraction and division, three products
+    and sums). The sort's histogram: the keys in, `passes` x 256 int32
+    counts out. The sort ("weld_sort_pass", its passes, which with the
+    histogram make the sort over the top digits): the keys in, the
+    top-sorted keys (their sort width) and int32 indices out. The group
+    kernel: those in, a welded vertex's 3 floats and 2 key halves in and
+    out, an int32 remap a vertex and the 3 totals out. The weld whole
+    ("weld", whatever implements it): the keys in, 20 bytes a welded
+    vertex in and 20 out, the remap out. Pack: a welded vertex's 3 floats
+    and 2 key halves, the int32 triangle indices and the remap in, the
+    image out; 5 operations a vertex (3 fractions, 1 - t, t's product).
+    "stage": the field in and the image out, the operations of all. No
+    integer work is counted."""
     listed = march_tiles * marching.TILE ** 3
     kb = mesh_cuda.sort_key_bytes(mesh_cuda.key_bits(mesh_cuda.axis_bits(b)))
+    ib = kb if key_bytes is None else key_bytes
     if name == "march_emit_mesh":
-        nbytes = 16 * march_tiles + 4 * listed + 28 * n + 4 * ni
+        nbytes = 16 * march_tiles + 4 * listed + (20 + ib) * n + 4 * ni
         flops = 16 * listed + 8 * n
     elif name == "weld_sort_histogram":
-        nbytes, flops = 8 * n + 4 * 256 * passes, 0
+        nbytes, flops = ib * n + 4 * 256 * passes, 0
     elif name == "weld_sort_pass":
-        nbytes, flops = 8 * n + (kb + 4) * n, 0
+        nbytes, flops = ib * n + (kb + 4) * n, 0
     elif name == "weld_group":
         nbytes, flops = (kb + 4) * n + 2 * 20 * nw + 4 * n + 24, 0
     elif name == "weld":
-        nbytes, flops = 8 * n + 2 * 20 * nw + 4 * n, 0
+        nbytes, flops = ib * n + 2 * 20 * nw + 4 * n, 0
     elif name == "pack_readback":
         nbytes, flops = 20 * nw + 4 * ni + 4 * n + 4 * words, 5 * nw
     else:
@@ -1189,26 +1199,14 @@ def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def mesh_vs_plain(n, field, region, origin, n_occ, levels,
-                  reps=REPS) -> list:
-    """The packed and raw readbacks' kernels (ops/mesh_cuda.py: classify
-    and scan, the mesh emission, the weld's sort over the keys' top digits
-    and its group kernel, the pack kernel) against the plain chain
-    marching.generate_mesh -> weld.weld -> block.pack_readback on one
-    block's field: the unwelded vertices, keys
-    and triangles, the welded vertices, keys and counts, raw's triangles
-    and the packed image bit for bit, n_occ copied back with the totals.
-    Then the packed stage (mesh_cuda.mesh_image) host-paced, each kernel
-    alone (one profiler trace's kernel events; the pass kernel's summed
-    over its passes), the stage's card busy time, launches and host syncs
-    (pass_profile; checked: the kernels alone and at most two syncs)
-    beside the plain chain's, the plain chain host-paced, the library
-    yardsticks on the compact keys (torch.unique(sorted=True,
-    return_inverse=True) and torch.sort(stable=True)), each kernel's bound
-    and the stage's (mesh_bound), and the weld's kernels together against
-    the bound of the weld whole. Its launches are comparisons: callers
-    reset the counters after it. Returns a row per kernel."""
-    b = field.shape[0]
+def mesh_chain_vs_plain(label, field, region, origin, levels, n_occ=None):
+    """The packed and raw readbacks' kernels on one field against the
+    plain chain marching.generate_mesh -> weld.weld -> block.pack_readback:
+    the unwelded vertices, keys and triangles, the welded vertices, keys
+    and counts, raw's triangles and the packed image bit for bit (n_occ
+    copied back with the totals where given). Returns the card's mesh,
+    weld and image format, the image's words and the largest |difference|
+    (0: bit for bit)."""
     mesh = mesh_cuda.generate_mesh(field, region, origin, n_occ)
     welded = mesh_cuda.weld(mesh)
     fmt = block.pack_format(levels, SUB, welded.num_vertices)
@@ -1218,20 +1216,22 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
     pw = weld.weld(pm.vertices, pm.key_hi, pm.key_lo, pm.triangles)
     want = block.pack_readback(pw, origin, fmt)
     torch.cuda.synchronize()
-    if mesh.n_occ != int(n_occ):
-        raise AssertionError(f"mesh kernels: n_occ {mesh.n_occ}, plain "
-                             f"{int(n_occ)}")
+    if n_occ is not None and mesh.n_occ != int(n_occ):
+        raise AssertionError(f"mesh kernels ({label}): n_occ {mesh.n_occ}, "
+                             f"plain {int(n_occ)}")
     counts = (mesh.num_cells, mesh.num_vertices, mesh.num_indices,
               mesh.num_tiles, welded.num_vertices, welded.first_external)
     plain_counts = (pm.num_cells, pm.num_vertices, pm.num_indices,
                     pm.num_tiles, pw.num_vertices, pw.first_external)
     if counts != plain_counts:
-        raise AssertionError(f"mesh kernels: counts {counts}, plain "
-                             f"{plain_counts}")
+        raise AssertionError(f"mesh kernels ({label}): counts {counts}, "
+                             f"plain {plain_counts}")
     u32 = lambda t: t.long() & 0xFFFFFFFF  # noqa: E731
-    _same_bits(mesh.vertices, pm.vertices, "mesh kernels: vertices")
-    _same_bits(welded.vertices, pw.vertices, "mesh kernels: welded vertices")
-    for got, ref, label in (
+    _same_bits(mesh.vertices, pm.vertices, f"mesh kernels ({label}): "
+               "vertices")
+    _same_bits(welded.vertices, pw.vertices, f"mesh kernels ({label}): "
+               "welded vertices")
+    for got, ref, what in (
             (u32(mesh.key_hi), pm.key_hi, "key_hi"),
             (u32(mesh.key_lo), pm.key_lo, "key_lo"),
             (mesh.triangles.long(), pm.triangles, "triangles"),
@@ -1240,18 +1240,72 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
             (raw.triangles.long(), pw.triangles, "welded triangles"),
             (img, want, f"the {fmt.index_mode} image")):
         if got.shape != ref.shape or not torch.equal(got, ref):
-            raise AssertionError(f"mesh kernels: {label} differ from the "
-                                 "plain chain's")
+            raise AssertionError(f"mesh kernels ({label}): {what} differ "
+                                 "from the plain chain's")
     err = max(_max_abs(mesh.vertices, pm.vertices),
               _max_abs(welded.vertices, pw.vertices), _max_abs(img, want))
+    return mesh, welded, fmt, int(img.numel()), err
+
+
+def dense_tile_field(b, dev, seed=0):
+    """A (b, b, b) field of positive values but for boxes whose sign
+    alternates corner by corner, so that every cell of their tiles is
+    occupied with the most vertices and triangles a cell has (13 and 12:
+    the mesh emission's owner maps at their worst): whole tiles at 256^3,
+    and at an odd b (corner rows not 16-byte aligned) tiles cut by the
+    field's end too. Its region and origin."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = 0.5 + torch.rand((b, b, b), generator=gen, device=dev)
+    g = torch.arange(b, device=dev)
+    alt = 1.0 - 2.0 * ((g[:, None, None] + g[None, :, None]
+                        + g[None, None, :]) % 2).float()
+    boxes = [(slice(8, 25), slice(16, 33), slice(40, 57))]
+    if b % 2:
+        boxes.append((slice(b - 21, b), slice(b - 13, b), slice(b - 30, b)))
+    for box in boxes:
+        f[box] *= alt[box]
+    return f, (b - 1, b - 1, b - 2), (3, 70, 1000)
+
+
+def mesh_vs_plain(n, field, region, origin, n_occ, levels, reps=REPS,
+                  dense=()) -> list:
+    """The packed and raw readbacks' kernels (ops/mesh_cuda.py: classify
+    and scan, the mesh emission, the weld's sort over the keys' top digits
+    and its group kernel, the pack kernel) against the plain chain on one
+    block's field, bit for bit (mesh_chain_vs_plain), and on the dense-tile
+    fields of each size in `dense` (dense_tile_field). Then on the block's
+    field the packed stage (mesh_cuda.mesh_image) host-paced, each kernel
+    alone (one profiler trace's kernel events; the pass kernel's summed
+    over its passes), the stage's card busy time, launches and host syncs
+    (pass_profile; checked: the kernels alone and at most two syncs)
+    beside the plain chain's, the plain chain host-paced, the library
+    yardsticks on the compact keys (torch.unique(sorted=True,
+    return_inverse=True) and torch.sort(stable=True)), each kernel's bound
+    and the stage's (mesh_bound), each kernel's share also of its bound
+    with int64 keys from the emission (mesh_bound's key_bytes=8), and the
+    weld's kernels together against the bound of the weld whole. Its
+    launches are comparisons: callers reset the counters after it.
+    Returns a row per kernel."""
+    b = field.shape[0]
+    for size in dense:
+        dfield, dregion, dorigin = dense_tile_field(size, field.device)
+        dmesh, dwelded, dfmt, _, _ = mesh_chain_vs_plain(
+            f"dense tiles {size}^3", dfield, dregion, dorigin, levels)
+        phase(n, f"mesh kernels vs plain on dense tiles at {size}^3 "
+                 f"corners: bit for bit ({dmesh.num_cells} cells, "
+                 f"{dmesh.num_vertices} vertices welded to "
+                 f"{dwelded.num_vertices}, {dmesh.num_indices} indices, "
+                 f"the {dfmt.index_mode} image)")
+        del dfield, dmesh, dwelded
+    mesh, welded, fmt, words, err = mesh_chain_vs_plain(
+        f"{b}^3", field, region, origin, levels, n_occ)
     nv, nw, ni = mesh.num_vertices, welded.num_vertices, mesh.num_indices
-    words = int(img.numel())
     passes = mesh_cuda.sort_passes(mesh_cuda.key_bits(mesh.axis_bits))
     marched = marching_cuda.classify(
         field, region, max_corners=marching_cuda.MESH_MAX_CORNERS)
     march_tiles = marched.march_tiles
     keys = mesh.sort_keys
-    del img, want, raw, pm, pw, marched
+    del marched
     call = lambda: mesh_cuda.mesh_image(  # noqa: E731
         field, region, origin, levels, SUB)
 
@@ -1278,17 +1332,19 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
     if traced["kernels"]["launches"] != 6 + passes or \
             traced["kernels"]["sync_calls"] > 2:
         raise AssertionError(f"mesh kernels: {traced['kernels']} a call")
-    stage_bound = mesh_bound("stage", b, march_tiles, nv, nw, ni, words,
-                             passes)
+    sizes = (b, march_tiles, nv, nw, ni, words, passes)
+    stage_bound = mesh_bound("stage", *sizes)
     rows = []
     for name, _, _ in MESH_KERNELS:
-        bound = mesh_bound(name, b, march_tiles, nv, nw, ni, words, passes)
+        bound = mesh_bound(name, *sizes)
+        wide = mesh_bound(name, *sizes, key_bytes=8)
         k_ms = alone[name]
         rows.append({
             "name": name, "corners": b, "cells": mesh.num_cells,
             "vertices": nv, "welded": nw, "first_external":
             welded.first_external, "indices": ni, "march_tiles": march_tiles,
             "key_bits": mesh_cuda.key_bits(mesh.axis_bits),
+            "key_bytes": keys.element_size(),
             "sort_passes": passes, "index_mode": fmt.index_mode,
             "vertex_words": fmt.vertex_words, "image_words": words,
             "max_abs_err": err, "bitwise_the_plain_chain": True,
@@ -1299,23 +1355,27 @@ def mesh_vs_plain(n, field, region, origin, n_occ, levels,
                            if name.startswith("weld") else None),
             "bound": bound,
             "share_of_bound": None if k_ms is None
-            else bound["bound_ms"] / k_ms})
+            else bound["bound_ms"] / k_ms,
+            "int64_key_bound_ms": wide["bound_ms"],
+            "share_of_int64_key_bound": None if k_ms is None
+            else wide["bound_ms"] / k_ms})
     known = [r["kernel_ms"] for r in rows if r["kernel_ms"] is not None]
     welds = [r["kernel_ms"] for r in rows if r["name"].startswith("weld")]
     weld_ms = None if None in welds else sum(welds)
-    weld_bound = mesh_bound("weld", b, march_tiles, nv, nw, ni, words,
-                            passes)
+    weld_bound = mesh_bound("weld", *sizes)
     stage = {"host_paced_ms": host_ms, "plain_ms": plain_ms,
              "kernels_ms": sum(known) if len(known) == len(rows) else None,
              "library": library, "bound": stage_bound, "traced": traced,
              "weld": {"kernels_ms": weld_ms, "bound": weld_bound,
                       "share_of_bound": None if weld_ms is None
-                      else weld_bound["bound_ms"] / weld_ms}}
+                      else weld_bound["bound_ms"] / weld_ms,
+                      "int64_key_bound_ms": mesh_bound(
+                          "weld", *sizes, key_bytes=8)["bound_ms"]}}
     phase(n, f"mesh kernels vs plain at {b}^3 corners, region {region}: "
              f"unwelded, welded, raw and the {fmt.index_mode} image bit for "
              f"bit ({nv} vertices welded to {nw}, {ni} indices, "
-             f"{march_tiles} tiles listed, {passes} sort passes); stage "
-             f"{json.dumps(stage)}")
+             f"{march_tiles} tiles listed, {passes} sort passes, "
+             f"{keys.element_size()}-byte keys); stage {json.dumps(stage)}")
     for row in rows:
         phase(n, f"{row['name']}: " + json.dumps(row))
         row["stage"] = stage
@@ -1360,7 +1420,8 @@ def phase3_kernel_vs_plain(src, info, b, dev) -> list:
                                           points, levels=LEVELS,
                                           subsampling=SUB)
     marches = marching_vs_plain(3, bfield, region, field_occ)
-    meshes = mesh_vs_plain(3, bfield, region, origin, field_occ, LEVELS)
+    meshes = mesh_vs_plain(3, bfield, region, origin, field_occ, LEVELS,
+                           dense=(256, 301))
     del bfield
     phase(3, f"bucket {b.num_splats} splats, {binned.entry_data.shape[0]} "
              f"entries, {tpa}^3 tiles, {n_occ} occupied, max tile total "

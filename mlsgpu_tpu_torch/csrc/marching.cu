@@ -81,14 +81,37 @@
 //     t16 are written as bytes and halfwords, never as a read-modify-write
 //     of the word; no atomics.
 //   * march_emit_mesh_kernel (generate(emit="mesh"), :302; plain
-//     mlsgpu_tpu_torch/ops/marching.py::generate_mesh): the same staging
-//     and ranking (emit_stage_tile, emit_rank_cells), 4 warps a CTA (its
-//     index and vertex-corner tables take 13 KB of shared memory), then
-//     32 occupied cells at a time: one warp scan of their vertex and
-//     triangle counts, two owner maps, a lane a vertex (3 floats, the key
-//     halves and the compact sort key, mesh.cuh) and a lane a triangle (3
-//     int32 indices at the tile's index base from the scan's list). It
-//     writes ~28 bytes a vertex and 4 an index, so those writes bound it.
+//     mlsgpu_tpu_torch/ops/marching.py::generate_mesh): it writes ~24
+//     bytes a vertex (3 floats, two key halves, a 4-byte compact key at 28
+//     and 31 key bits; 8 bytes above 32) and 4 an index, so those writes
+//     bound it; but on the H100 a warp a tile, its first design, spent 16
+//     us a tile at 256^3 on a chain of staging (6 us: 27 four-byte copies
+//     a lane, then the wait), ranking and two loops over ~400 vertices and
+//     ~300 triangles 32 at a time, one wave of ~14 warps an SM waiting on
+//     it. So a CTA of 128
+//     threads takes a listed tile (1,894 CTAs at 256^3, 8,887 at 512^3):
+//     threads 0-80 stage a corner row each at a pitch of 12 floats, as two
+//     16-byte cp.async and one 4-byte copy where the row starts 16-byte
+//     aligned (4-byte copies elsewhere, NaN past the field's end:
+//     classify's rule), and make its sign and finite bits as soon as their
+//     own copies land; after one barrier thread t takes the occupancy and
+//     codes of the cells 4t .. 4t + 3 from four row words, and one CTA
+//     scan of (cells, vertices | triangles << 16) ranks them and gives
+//     every occupied cell its first vertex and triangle in the tile, kept
+//     in a list in shared memory. Then 128 occupied cells at a time (a
+//     batch: one for the median tile of the bench cloud, four for a tile
+//     of 512 cells) a thread a cell marks its vertices and triangles in
+//     two owner maps sized for the batch's worst (1,664 and 1,536), and
+//     the batch's vertices and triangles go a thread each, consecutive
+//     threads to consecutive outputs: a word a thread for the key halves
+//     and keys, a 12-byte record a thread (three stores) for positions and
+//     triangles. Staging those records in shared memory to store them as
+//     16-byte vectors measured slower (0.0230-0.0237 ms against 0.0182 at
+//     256^3), as did copying the tables to shared memory a CTA (0.0269);
+//     the tables (VERT_CORNERS, INDEX_TABLE, COUNT_TABLE) are read through
+//     the read-only cache. 11.5 KB of shared memory and 40 registers a
+//     thread: 12 CTAs (48 warps) an SM; capping registers at 32 for 16
+//     CTAs measured slower (0.0193 ms).
 
 #include <cuda_runtime.h>
 
@@ -122,15 +145,19 @@ constexpr int CELL_WORDS = MARCH_TILE_CELLS / 32;   // a tile's cell words
 constexpr int ENDS = 256 * MARCH_MAX_CELL_VERTICES;
 constexpr int BATCH_VERTICES = 32 * MARCH_MAX_CELL_VERTICES;
 static_assert(EMIT_THREADS == 256, "a thread a code fills the table");
-// emit mesh: a warp a listed tile, fewer a CTA than emit (its tables take
-// 13 KB of shared memory): a lane a vertex and a lane a triangle
-constexpr int MESH_WARPS = 4;
-constexpr int MESH_THREADS = 32 * MESH_WARPS;
-constexpr int BATCH_TRIANGLES = 32 * MARCH_MAX_CELL_INDICES / 3;
-constexpr int INDEX_ENTRIES = 256 * MARCH_MAX_CELL_INDICES;
-constexpr int CORNER_ENTRIES = 256 * MARCH_MAX_CELL_VERTICES;
-static_assert(INDEX_ENTRIES % 4 == 0 && CORNER_ENTRIES % 4 == 0,
-              "the mesh tables copy as words");
+// emit mesh: a CTA a listed tile (mesh.cuh): its staged corners, a batch
+// of occupied cells a thread each, their vertices' and triangles' owner
+// maps
+constexpr int MESH_THREADS = MESH_EMIT_THREADS;
+constexpr int MESH_WARPS = MESH_THREADS / 32;
+constexpr int STAGED = MESH_STAGE_ROWS * MESH_STAGE_PITCH;
+constexpr int MESH_BATCH_VERTICES = MESH_THREADS * MARCH_MAX_CELL_VERTICES;
+constexpr int MESH_BATCH_TRIANGLES =
+    MESH_THREADS * MARCH_MAX_CELL_INDICES / 3;
+static_assert(MESH_THREADS * MESH_EMIT_CELLS == MARCH_TILE_CELLS,
+              "a thread 4 cells of the tile");
+static_assert(MESH_THREADS <= 256 && MESH_STAGE_ROWS <= MESH_THREADS,
+              "a batch's cell fits an owner byte; a thread a corner row");
 static_assert(ENDS % 2 == 0, "the END_OFFSETS table copies as words");
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
@@ -649,136 +676,187 @@ march_emit_kernel(const float* __restrict__ field, int b, int g, int rx,
   }
 }
 
-// A warp a listed tile, MESH_WARPS a CTA: march_emit_kernel's staging and
-// ranking, then 32 occupied cells at a time, a lane each: a warp scan of
-// their vertex and triangle counts, their vertices and triangles marked as
-// theirs in two owner maps, then the vertices a lane each (position, key
-// halves and compact sort key, mesh.cuh) and the triangles a lane each
-// (three int32 indices: the cell's first vertex + INDEX_TABLE). Vertex j
-// of a cell lands at the tile's vertex base + the cell's rank + j, as in
-// generate_mesh's emission order; index i of a cell at the tile's index
-// base + its rank + i.
+// A CTA a listed tile. Threads 0-80 stage its 9^3 corners by cp.async, a
+// corner row each at MESH_STAGE_PITCH floats (16-byte copies where the row
+// starts aligned), and make the row's sign and finite bits once their own
+// copies have landed; then thread t the occupancy and codes of the cells
+// 4 t .. 4 t + 3 (raster order) and their vertex and triangle counts; one
+// CTA scan of those gives every occupied cell its rank and its first
+// vertex and triangle in the tile, and the occupied cells go into a list
+// in shared memory. Then MESH_THREADS occupied cells at a time (a batch),
+// a thread each marks its vertices and triangles as its own in two owner
+// maps, and the batch's vertices and triangles are taken a thread each,
+// consecutive threads to consecutive outputs: a vertex's position, key
+// halves and compact sort key (SK: 4 bytes up to 32 key bits, else 8), a
+// triangle's three int32 indices. Vertex j of a cell lands at the tile's
+// vertex base + the cell's first vertex + j, as in generate_mesh's
+// emission order; index i of a cell at the tile's index base + 3 x its
+// first triangle + i. The tables are read through the read-only cache.
+template <typename SK>
 __global__ void __launch_bounds__(MESH_THREADS)
 march_emit_mesh_kernel(const float* __restrict__ field, int b, int g, int rx,
                        int ry, int rz, const __grid_constant__ MeshFrame frame,
-                       const int4* __restrict__ list, int march_tiles,
+                       const int4* __restrict__ list,
                        float* __restrict__ vertices,
                        unsigned* __restrict__ key_hi,
                        unsigned* __restrict__ key_lo,
-                       unsigned long long* __restrict__ sort_keys,
-                       int* __restrict__ indices) {
-  __shared__ float blocks[MESH_WARPS][MARCH_TILE_CORNERS];
-  __shared__ unsigned row_bits[MESH_WARPS][TILE_ROWS];
-  __shared__ unsigned short occupied[MESH_WARPS][MARCH_TILE_CELLS];
-  __shared__ unsigned char vertex_owner[MESH_WARPS][BATCH_VERTICES];
-  __shared__ unsigned char triangle_owner[MESH_WARPS][BATCH_TRIANGLES];
-  __shared__ __align__(4) signed char index_table[INDEX_ENTRIES];
-  __shared__ __align__(4) unsigned char vert_corners[CORNER_ENTRIES];
-  // a code's vertices | triangles << 8
-  __shared__ unsigned short counts[256];
+                       SK* __restrict__ sort_keys, int* __restrict__ indices) {
+  __shared__ __align__(16) float corners[STAGED];
+  __shared__ unsigned row_bits[MESH_STAGE_ROWS];
+  // the occupied cells in raster order: cell l | code << 9, and its first
+  // vertex | first triangle << 16 in the tile
+  __shared__ uint2 cells[MARCH_TILE_CELLS];
+  __shared__ unsigned char vertex_owner[MESH_BATCH_VERTICES];
+  __shared__ unsigned char triangle_owner[MESH_BATCH_TRIANGLES];
+  __shared__ unsigned warp_sums[2][MESH_WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * MESH_WARPS + warp;
-  float* block = blocks[warp];
-  int tx, ty, tz;
-  const int4 row = emit_stage_tile(field, b, g, list, r, march_tiles, lane,
-                                   block, tx, ty, tz);
-  for (int i = threadIdx.x; i < INDEX_ENTRIES / 4; i += MESH_THREADS)
-    reinterpret_cast<unsigned*>(index_table)[i] = __ldg(
-        reinterpret_cast<const unsigned*>(&march_index_d[0][0]) + i);
-  for (int i = threadIdx.x; i < CORNER_ENTRIES / 4; i += MESH_THREADS)
-    reinterpret_cast<unsigned*>(vert_corners)[i] = __ldg(
-        reinterpret_cast<const unsigned*>(&march_vert_corners_d[0][0]) + i);
-  for (int i = threadIdx.x; i < 256; i += MESH_THREADS)
-    counts[i] = (unsigned short)(march_vertex_count(i) |
-                                 ((march_index_count(i) / 3) << 8));
-  cp_async_wait<0>();
+  const int4 row = __ldg(&list[blockIdx.x]);
+  const int x0 = row.x % g * MARCH_TILE, y0 = row.x / g % g * MARCH_TILE,
+            z0 = row.x / (g * g) * MARCH_TILE;
+  // thread k < 81: corner row k = (z, y), two 16-byte copies and a 4-byte
+  // one where the row starts 16-byte aligned, else a 4-byte copy a corner
+  // (NaN past the field's end); once its own copies have landed, the row's
+  // sign and finite bits
+  if (threadIdx.x < MESH_STAGE_ROWS) {
+    const int k = threadIdx.x;
+    const int y = y0 + k % MARCH_SPAN, z = z0 + k / MARCH_SPAN;
+    const bool in = y < b && z < b;
+    const float* src = field + ((long long)z * b + y) * b + x0;
+    float* dst = corners + k * MESH_STAGE_PITCH;
+    const bool whole = in && x0 + 7 < b &&
+                       (reinterpret_cast<size_t>(src) & 15u) == 0u;
+    if (whole) {
+      cp_async16(dst, src);
+      cp_async16(dst + 4, src + 4);
+    }
+#pragma unroll
+    for (int x = 0; x < MARCH_SPAN; ++x) {
+      if (whole && x < 8) continue;
+      if (in && x0 + x < b)
+        cp_async4(dst + x, src + x);
+      else
+        dst[x] = nan_f();
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    unsigned s = march_sign_bit(dst[8]) << 8,
+             f = march_finite_bit(dst[8]) << 8;
+    corner_bits4(*reinterpret_cast<const float4*>(dst), 0, s, f);
+    corner_bits4(*reinterpret_cast<const float4*>(dst + 4), 4, s, f);
+    row_bits[k] = s | (f << 16);
+  }
   __syncthreads();
-  if (r >= march_tiles) return;
-  unsigned* bits = row_bits[warp];
-  unsigned short* cell_l = occupied[warp];
-  const unsigned tile_cells =
-      emit_rank_cells(block, bits, cell_l, lane, rx, ry, rz, tx, ty, tz);
-  long long vertex_at = (unsigned)row.z, index_at = (unsigned)row.w;
-  unsigned char* v_own = vertex_owner[warp];
-  unsigned char* t_own = triangle_owner[warp];
-  for (unsigned first = 0; first < tile_cells; first += 32) {
-    const unsigned i = first + lane;
-    const unsigned l = i < tile_cells ? cell_l[i] : 0u;
-    const int lx = l % MARCH_TILE, ly = l / MARCH_TILE % MARCH_TILE,
-              lz = l / (MARCH_TILE * MARCH_TILE);
-    const int row0 = lz * MARCH_SPAN + ly, row1 = row0 + MARCH_SPAN;
-    const unsigned code =
-        i < tile_cells ? march_rows_code(bits[row0], bits[row0 + 1],
-                                         bits[row1], bits[row1 + 1], lx)
-                       : 0u;
-    // vertices | triangles << 16 (a batch's sums stay below 2^16: 416 and
-    // 384), scanned at once
-    const unsigned c = i < tile_cells ? counts[code] : 0u;
-    const unsigned nv = c & 0xFFu, nt = c >> 8;
-    const unsigned both = nv | (nt << 16);
-    unsigned incl = both;
+
+  // thread t: the cells lx .. lx + 3 of row ly of cell plane lz
+  const int lz = threadIdx.x / 16, ly = threadIdx.x / 2 % MARCH_TILE,
+            lx = MESH_EMIT_CELLS * (threadIdx.x % 2);
+  const int ra = lz * MARCH_SPAN + ly, rb = ra + MARCH_SPAN;
+  const unsigned r00 = row_bits[ra], r10 = row_bits[ra + 1],
+                 r01 = row_bits[rb], r11 = row_bits[rb + 1];
+  const int nx = min(max(rx - x0, 0), MARCH_TILE);
+  const unsigned occ = mesh_quad_occupied(
+      r00, r10, r01, r11, lx,
+      y0 + ly < ry && z0 + lz < rz ? (1u << nx) - 1u : 0u);
+  // each cell's code and vertices | triangles << 16, and their sum
+  unsigned code[MESH_EMIT_CELLS], count[MESH_EMIT_CELLS], mine = 0u;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned o = __shfl_up_sync(FULL, incl, d);
-      if (lane >= d) incl += o;
-    }
-    const unsigned excl = incl - both;
-    const unsigned v_first = excl & 0xFFFFu, t_first = excl >> 16;
-    march_spread_vertices(v_own, v_first, nv, lane);
-    for (unsigned k = 0; k < nt; ++k) t_own[t_first + k] = (unsigned char)lane;
-    __syncwarp();
-    const unsigned total = __shfl_sync(FULL, incl, 31);
-    const unsigned v_total = total & 0xFFFFu, t_total = total >> 16;
-    // what a vertex needs of its cell: the code, its first vertex (< 416)
-    // and its base corner in the block (< 729); a triangle: the code, the
-    // first vertex and its first triangle (< 384)
-    const unsigned v_cell = code | (v_first << 8) |
-                            ((unsigned)march_corner_index(lx, ly, lz) << 17);
-    const unsigned t_cell = code | (v_first << 8) | (t_first << 17);
-    for (unsigned v0 = 0; v0 < v_total; v0 += 32) {
-      const unsigned v = v0 + lane;
-      const int o = v < v_total ? v_own[v] : 0;
-      const unsigned o_cell = __shfl_sync(FULL, v_cell, o);
-      if (v < v_total) {
-        const int corner = (int)(o_cell >> 17);
-        const unsigned ends = mesh_vertex_corners(
-            vert_corners, o_cell & 0xFFu, (int)(v - ((o_cell >> 8) & 0x1FFu)));
-        const unsigned c0 = ends & 0xFu, c1 = ends >> 4;
-        float pos[3];
-        unsigned hi, lo;
-        unsigned long long key;
-        mesh_vertex(tx * MARCH_TILE + corner % MARCH_SPAN,
-                    ty * MARCH_TILE + corner / MARCH_SPAN % MARCH_SPAN,
-                    tz * MARCH_TILE + corner / (MARCH_SPAN * MARCH_SPAN), c0,
-                    c1, block[corner + mesh_corner_offset(c0)],
-                    block[corner + mesh_corner_offset(c1)], frame, pos, &hi,
-                    &lo, &key);
-        const long long at = vertex_at + v;
-        vertices[3 * at] = pos[0];
-        vertices[3 * at + 1] = pos[1];
-        vertices[3 * at + 2] = pos[2];
-        key_hi[at] = hi;
-        key_lo[at] = lo;
-        sort_keys[at] = key;
-      }
-    }
-    for (unsigned t0 = 0; t0 < t_total; t0 += 32) {
-      const unsigned t = t0 + lane;
-      const int o = t < t_total ? t_own[t] : 0;
-      const unsigned o_cell = __shfl_sync(FULL, t_cell, o);
-      if (t < t_total) {
-        const unsigned o_code = o_cell & 0xFFu;
-        const int base = (int)(vertex_at + ((o_cell >> 8) & 0x1FFu));
-        const int k = 3 * (int)(t - (o_cell >> 17));
-        int* out = indices + index_at + 3 * t;
+  for (int j = 0; j < MESH_EMIT_CELLS; ++j) {
+    code[j] = march_rows_code(r00, r10, r01, r11, lx + j);
+    count[j] = (occ >> j) & 1u ? march_vertex_count(code[j]) |
+                                     ((march_index_count(code[j]) / 3) << 16)
+                               : 0u;
+    mine += count[j];
+  }
+  // the CTA's exclusive prefixes of the occupied cells and of mine
+  const unsigned mine_c = (unsigned)__popc(occ);
+  unsigned incl = mine, incl_c = mine_c;
 #pragma unroll
-        for (int m = 0; m < 3; ++m)
-          out[m] = base + mesh_index_vertex(index_table, o_code, k + m);
-      }
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned o = __shfl_up_sync(FULL, incl, d);
+    const unsigned oc = __shfl_up_sync(FULL, incl_c, d);
+    if (lane >= d) {
+      incl += o;
+      incl_c += oc;
     }
-    __syncwarp();  // the owner maps are rewritten by the next batch
-    vertex_at += v_total;
-    index_at += 3 * t_total;
+  }
+  if (lane == 31) {
+    warp_sums[0][warp] = incl;
+    warp_sums[1][warp] = incl_c;
+  }
+  __syncthreads();
+  unsigned total = 0u, n_cells = 0u, at = incl - mine, at_c = incl_c - mine_c;
+#pragma unroll
+  for (int w = 0; w < MESH_WARPS; ++w) {
+    const unsigned v = warp_sums[0][w], c = warp_sums[1][w];
+    total += v;
+    n_cells += c;
+    at += w < warp ? v : 0u;
+    at_c += w < warp ? c : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < MESH_EMIT_CELLS; ++j) {
+    if (!((occ >> j) & 1u)) continue;
+    cells[at_c++] = make_uint2(
+        (unsigned)(MESH_EMIT_CELLS * threadIdx.x + j) | (code[j] << 9), at);
+    at += count[j];
+  }
+  __syncthreads();
+
+  const long long vertex_at = (unsigned)row.z, index_at = (unsigned)row.w;
+  for (unsigned first = 0; first < n_cells; first += MESH_THREADS) {
+    // the batch's vertices and triangles in the tile: [base, end)
+    const unsigned base = cells[first].y;
+    const unsigned end =
+        first + MESH_THREADS < n_cells ? cells[first + MESH_THREADS].y : total;
+    const unsigned bv = base & 0xFFFFu, bt = base >> 16;
+    const unsigned nv = (end & 0xFFFFu) - bv, nt = (end >> 16) - bt;
+    const unsigned q = first + threadIdx.x;
+    if (q < n_cells) {
+      const unsigned from = cells[q].y;
+      const unsigned to = q + 1 < n_cells ? cells[q + 1].y : total;
+      for (unsigned v = (from & 0xFFFFu) - bv; v < (to & 0xFFFFu) - bv; ++v)
+        vertex_owner[v] = (unsigned char)threadIdx.x;
+      for (unsigned t = (from >> 16) - bt; t < (to >> 16) - bt; ++t)
+        triangle_owner[t] = (unsigned char)threadIdx.x;
+    }
+    __syncthreads();
+    for (unsigned v = threadIdx.x; v < nv; v += MESH_THREADS) {
+      const uint2 c = cells[first + vertex_owner[v]];
+      const unsigned l = c.x & 0x1FFu, code = c.x >> 9;
+      const unsigned ends =
+          mesh_vertex_corners(&march_vert_corners_d[0][0], code,
+                              (int)(bv + v - (c.y & 0xFFFFu)));
+      const unsigned c0 = ends & 0xFu, c1 = ends >> 4;
+      const int cx = (int)(l % MARCH_TILE),
+                cy = (int)(l / MARCH_TILE % MARCH_TILE),
+                cz = (int)(l / (MARCH_TILE * MARCH_TILE));
+      const int corner = mesh_staged_corner(cx, cy, cz);
+      float pos[3];
+      unsigned hi, lo;
+      unsigned long long key;
+      mesh_vertex(x0 + cx, y0 + cy, z0 + cz, c0, c1,
+                  corners[corner + mesh_staged_offset(c0)],
+                  corners[corner + mesh_staged_offset(c1)], frame, pos, &hi,
+                  &lo, &key);
+      const long long a = vertex_at + bv + v;
+      key_hi[a] = hi;
+      key_lo[a] = lo;
+      sort_keys[a] = (SK)key;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) vertices[3 * a + k] = pos[k];
+    }
+    for (unsigned t = threadIdx.x; t < nt; t += MESH_THREADS) {
+      const uint2 c = cells[first + triangle_owner[t]];
+      const unsigned code = c.x >> 9;
+      const int k = 3 * (int)(bt + t - (c.y >> 16));
+      const int first_vertex = (int)(vertex_at + (c.y & 0xFFFFu));
+      int* const out = indices + index_at + 3 * (long long)(bt + t);
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        out[m] = first_vertex +
+                 mesh_index_vertex(&march_index_d[0][0], code, k + m);
+    }
+    __syncthreads();  // the owner maps are rewritten by the next batch
   }
 }
 
@@ -856,27 +934,34 @@ extern "C" int march_emit_launch(const float* field, int b, int rx, int ry,
 // MESH_MAX_CORNERS corners an axis, cell origin (ox, oy, oz) >= 0) from
 // the scan's list of `march_tiles` rows: for each of the totals' vertices
 // its position (3 floats) in `vertices`, its key halves in key_hi and
-// key_lo, its compact sort key (axis_bits an axis) in sort_keys, and for
-// each triangle index its int32 vertex in `indices`. No rows launch
-// nothing.
+// key_lo, its compact sort key (axis_bits an axis) in sort_keys (4 bytes
+// each up to 32 key bits, mesh_sort_key_bytes, else 8), and for each
+// triangle index its int32 vertex in `indices`. No rows launch nothing.
 extern "C" int march_emit_mesh_launch(const float* field, int b, int rx,
                                       int ry, int rz, long long ox,
                                       long long oy, long long oz,
                                       int axis_bits, const int* list,
                                       int march_tiles, float* vertices,
                                       unsigned* key_hi, unsigned* key_lo,
-                                      unsigned long long* sort_keys,
-                                      int* indices, void* stream) {
+                                      void* sort_keys, int* indices,
+                                      void* stream) {
   if (bad_block(b, rx, ry, rz, MESH_MAX_CORNERS) || march_tiles < 0 ||
       ox < 0 || oy < 0 || oz < 0 || axis_bits < 1 || 3 * axis_bits + 1 > 64)
     return (int)cudaErrorInvalidValue;
   if (march_tiles == 0) return (int)cudaSuccess;
   const MeshFrame frame{{2 * rx, 2 * ry, 2 * rz}, {2 * ox, 2 * oy, 2 * oz},
                         axis_bits};
-  march_emit_mesh_kernel<<<(march_tiles + MESH_WARPS - 1) / MESH_WARPS,
-                           MESH_THREADS, 0, (cudaStream_t)stream>>>(
-      field, b, tiles_an_axis(b), rx, ry, rz, frame,
-      reinterpret_cast<const int4*>(list), march_tiles, vertices, key_hi,
-      key_lo, sort_keys, indices);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int g = tiles_an_axis(b);
+  const int4* rows = reinterpret_cast<const int4*>(list);
+  if (mesh_sort_key_bytes(3 * axis_bits + 1) == 4)
+    march_emit_mesh_kernel<unsigned><<<march_tiles, MESH_THREADS, 0, s>>>(
+        field, b, g, rx, ry, rz, frame, rows, vertices, key_hi, key_lo,
+        static_cast<unsigned*>(sort_keys), indices);
+  else
+    march_emit_mesh_kernel<unsigned long long>
+        <<<march_tiles, MESH_THREADS, 0, s>>>(
+            field, b, g, rx, ry, rz, frame, rows, vertices, key_hi, key_lo,
+            static_cast<unsigned long long*>(sort_keys), indices);
   return (int)cudaGetLastError();
 }

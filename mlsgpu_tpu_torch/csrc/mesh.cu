@@ -93,15 +93,18 @@ static_assert(G_TILE % G_THREADS == 0 && G_TILE % 1024 == 0,
 
 // --- the sort ----------------------------------------------------------
 
+// The emission writes the compact keys at their sort width (K: 4 bytes up
+// to 32 bits, mesh_sort_key_bytes), so the histogram and the first pass
+// read them as K.
 template <typename K>
 __global__ void __launch_bounds__(SORT_THREADS)
-weld_sort_histogram_kernel(const long long* __restrict__ keys, int n,
+weld_sort_histogram_kernel(const K* __restrict__ keys, int n,
                            const __grid_constant__ SortPlan plan,
                            unsigned* __restrict__ hist,
                            unsigned long long* __restrict__ state,
                            long long state_words) {
-  sort_histogram_body<K, SortIdentity<K>>(keys, n, plan, hist, state,
-                                          state_words);
+  sort_histogram_body<K, SortIdentity<K>, K>(keys, n, plan, hist, state,
+                                             state_words);
 }
 
 template <typename K, bool FIRST>
@@ -112,18 +115,18 @@ weld_sort_pass_kernel(const void* __restrict__ keys_in,
                       const unsigned* __restrict__ hist,
                       unsigned long long* state, void* __restrict__ keys_out,
                       void* __restrict__ idx_out) {
-  sort_pass_body<K, SortIdentity<K>, FIRST, false>(
+  sort_pass_body<K, SortIdentity<K>, FIRST, false, K>(
       keys_in, idx_in, n, plan, pass, hist, state, keys_out, idx_out);
 }
 
-// The sort's launches on the stream: a memset of the histograms, the
-// histogram kernel (which also clears `extra_words` words of state after
-// the passes'), then a pass kernel a top digit, each writing K keys and
-// int32 indices into one of the work buffers (`buffer` int32 words each):
-// the last into the first buffer, the one before it into the second, and
-// so on back, so that no pass reads what it writes.
+// The sort's launches on the stream, on n keys of K each: a memset of the
+// histograms, the histogram kernel (which also clears `extra_words` words
+// of state after the passes'), then a pass kernel a top digit, each
+// writing K keys and int32 indices into one of the work buffers (`buffer`
+// int32 words each): the last into the first buffer, the one before it
+// into the second, and so on back, so that no pass reads what it writes.
 template <typename K>
-cudaError_t weld_sort(const long long* keys, int n, const SortPlan& plan,
+cudaError_t weld_sort(const K* keys, int n, const SortPlan& plan,
                       int* work, long long buffer,
                       unsigned long long* scratch, long long extra_words,
                       cudaStream_t s) {
@@ -692,7 +695,8 @@ unsigned int blocks_for(long long items) {
 }  // namespace
 
 // weld_launch: the weld of n unwelded vertices (0 < n < 2^31) by their
-// compact sort keys of key_bits bits (the external flag the top one): the
+// compact sort keys of key_bits bits (the external flag the top one; 4
+// bytes each up to 32 bits, else 8: mesh_sort_key_bytes): the
 // sort's global passes over the top digits (mesh_sort_passes) into
 // `work`, then the group kernel at the plan's capacity
 // (mesh_weld_group_bound of the free bits): the welded vertices (3 floats
@@ -702,7 +706,7 @@ unsigned int blocks_for(long long items) {
 // int64: the weld is valid only where the last is 0). `work`:
 // mesh_weld_work_words int32 words, `scratch`: mesh_weld_scratch_words
 // 64-bit words (mesh.cuh).
-extern "C" int weld_launch(const long long* sort_keys, long long n,
+extern "C" int weld_launch(const void* sort_keys, long long n,
                            int key_bits, const float* vertices,
                            const unsigned* key_hi, const unsigned* key_lo,
                            int* work, unsigned long long* scratch,
@@ -725,11 +729,12 @@ extern "C" int weld_launch(const long long* sort_keys, long long n,
   unsigned long long* group_state =
       scratch + sort_scratch_words(n, passes, kb);
   cudaError_t err =
-      kb == 4 ? weld_sort<unsigned>(sort_keys, (int)n, plan, work, buffer,
-                                    scratch, state_words, s)
-              : weld_sort<unsigned long long>(sort_keys, (int)n, plan, work,
-                                              buffer, scratch, state_words,
-                                              s);
+      kb == 4 ? weld_sort<unsigned>(static_cast<const unsigned*>(sort_keys),
+                                    (int)n, plan, work, buffer, scratch,
+                                    state_words, s)
+              : weld_sort<unsigned long long>(
+                    static_cast<const unsigned long long*>(sort_keys), (int)n,
+                    plan, work, buffer, scratch, state_words, s);
   if (err != cudaSuccess) return (int)err;
   const WeldShape shape{key_bits, free_bits, capacity,
                         mesh_weld_local_digits(free_bits),

@@ -89,24 +89,66 @@ MESH_FN float mesh_div(float a, float b) {
 
 // The corners at the ends of local vertex j's edge of a code, c0 | c1 <<
 // 4 (VERT_CORNERS: EDGES[VERT_TABLE]), from `table` (march_vert_corners_h,
-// or the kernel's copy in shared memory).
+// or on the card march_vert_corners_d through the read-only cache).
 MESH_FN unsigned mesh_vertex_corners(const unsigned char* table,
                                      unsigned code, int j) {
+#ifdef __CUDA_ARCH__
+  return __ldg(table + code * MARCH_MAX_CELL_VERTICES + j);
+#else
   return table[code * MARCH_MAX_CELL_VERTICES + j];
-}
-
-// Where corner c (bit a its offset along axis a) lies in a tile's (9, 9,
-// 9) corner block [z, y, x] from the cell's base corner.
-MESH_FN int mesh_corner_offset(unsigned c) {
-  return (int)(c & 1u) + MARCH_SPAN * (int)((c >> 1) & 1u) +
-         MARCH_SPAN * MARCH_SPAN * (int)(c >> 2);
+#endif
 }
 
 // The local vertex of triangle index i (< the code's index count) of a
-// code, from `table` (march_index_h, or the kernel's copy).
+// code, from `table` (march_index_h, or on the card march_index_d through
+// the read-only cache).
 MESH_FN int mesh_index_vertex(const signed char* table, unsigned code,
                               int i) {
+#ifdef __CUDA_ARCH__
+  return __ldg(table + code * MARCH_MAX_CELL_INDICES + i);
+#else
   return table[code * MARCH_MAX_CELL_INDICES + i];
+#endif
+}
+
+// --- the emission's tile: a CTA a listed tile (marching.cu) ---------------
+//
+// The tile's (9, 9, 9) corners are staged [z, y, x] with a corner row at a
+// pitch of MESH_STAGE_PITCH floats, so that a row starts 16-byte aligned:
+// two 16-byte copies and a 4-byte one fill it, and its thread reads it
+// back as two float4 and a float.
+#define MESH_STAGE_PITCH 12
+#define MESH_STAGE_ROWS (MARCH_SPAN * MARCH_SPAN)
+// A CTA of MESH_EMIT_THREADS threads: thread t ranks and counts the tile's
+// cells 4 t .. 4 t + 3 (MESH_EMIT_CELLS a thread; raster order), then the
+// occupied cells are taken MESH_EMIT_THREADS at a time (a batch, a thread
+// a cell), and a batch's vertices and triangles a thread each.
+#define MESH_EMIT_THREADS 128
+#define MESH_EMIT_CELLS 4
+
+// Where corner (x, y, z) of a tile's staged block lies, and corner c (bit a
+// its offset along axis a) of a cell from the cell's base corner.
+MESH_FN int mesh_staged_corner(int x, int y, int z) {
+  return (z * MARCH_SPAN + y) * MESH_STAGE_PITCH + x;
+}
+
+MESH_FN int mesh_staged_offset(unsigned c) {
+  return (int)(c & 1u) + MESH_STAGE_PITCH * (int)((c >> 1) & 1u) +
+         MARCH_SPAN * MESH_STAGE_PITCH * (int)(c >> 2);
+}
+
+// The occupied cells x = lx .. lx + 3 of a tile's cell row, bit x - lx
+// (march_occupied), from the four corner rows (dy, dz) = (0, 0), (1, 0),
+// (0, 1), (1, 1) below and beside them, each held as sign bits 0-8 and
+// finite bits 16-24, and the region's cells of the row (bit x).
+MESH_FN unsigned mesh_quad_occupied(unsigned r00, unsigned r10, unsigned r01,
+                                    unsigned r11, int lx, unsigned region) {
+  const unsigned s_or = (r00 | r10 | r01 | r11) & 0x1FFu;
+  const unsigned s_and = r00 & r10 & r01 & r11 & 0x1FFu;
+  const unsigned fin = (r00 & r10 & r01 & r11) >> 16;
+  const unsigned any = s_or | (s_or >> 1), all = s_and & (s_and >> 1);
+  const unsigned occ = fin & (fin >> 1) & any & ~all & region;
+  return (occ >> lx) & 0xFu;
 }
 
 // What places a block's vertices and keys: the region's doubled top (2

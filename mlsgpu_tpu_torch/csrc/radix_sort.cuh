@@ -10,7 +10,8 @@
 // bit length). Each stage's kernels are thin __global__ wrappers, so its
 // kernels keep names of their own in a profiler trace.
 //
-// A sort reads int64 keys and maps each to its sort key (Map::in), keeps
+// A sort reads its input keys (In: int64 by default; the weld reads its
+// keys at their sort width) and maps each to its sort key (Map::in), keeps
 // the sort keys (K, unsigned or unsigned long long) and int32 indices
 // between passes, and writes int64 keys (mapped back, Map::out) and the
 // int64 permutation: equal keys keep their input order, so the result is
@@ -117,9 +118,9 @@ __device__ __forceinline__ unsigned sort_match_digit(unsigned d, bool valid) {
 // scan state (`state`: the passes' tickets and status words, and whatever
 // later kernel of the stage asked for it): it runs just before them on
 // the stream.
-template <typename K, typename Map>
+template <typename K, typename Map, typename In = long long>
 __device__ __forceinline__ void sort_histogram_body(
-    const long long* __restrict__ keys, int n, const SortPlan& plan,
+    const In* __restrict__ keys, int n, const SortPlan& plan,
     unsigned* __restrict__ hist, unsigned long long* __restrict__ state,
     long long state_words) {
   __shared__ unsigned counts[SORT_MAX_PASSES][SORT_RADIX];
@@ -170,8 +171,10 @@ __device__ __forceinline__ void sort_histogram_body(
 // threads to consecutive places. FIRST: the int64 keys in (Map::in), their
 // index e the entry; else the K keys and int32 indices of the pass
 // before. LAST: the int64 keys (Map::out) and the int64 permutation out;
-// else K keys and int32 indices for the next pass.
-template <typename K, typename Map, bool FIRST, bool LAST>
+// else K keys and int32 indices for the next pass. In: the input keys'
+// type when FIRST.
+template <typename K, typename Map, bool FIRST, bool LAST,
+          typename In = long long>
 __device__ __forceinline__ void sort_pass_body(
     const void* __restrict__ keys_in, const int* __restrict__ idx_in, int n,
     const SortPlan& plan, int pass, const unsigned* __restrict__ hist,
@@ -209,7 +212,7 @@ __device__ __forceinline__ void sort_pass_body(
     const int t = own + 32 * i;
     const bool valid = t < tile_n;
     if (FIRST) {
-      key[i] = valid ? Map::in(__ldg(static_cast<const long long*>(keys_in) +
+      key[i] = valid ? Map::in(__ldg(static_cast<const In*>(keys_in) +
                                      first + t),
                                plan.top)
                      : (K)0;

@@ -7,9 +7,11 @@ Tensors on a CUDA device take the kernel path: the codes path's classify
 and scan kernels (ops/marching_cuda.py: one C call, the totals and n_occ
 copied to pinned host memory with one wait on the stream, the stage's
 first sync; their list row also carries each listed tile's index base),
-then `march_emit_mesh_kernel` (a warp a listed tile: each vertex's
-position, key halves and compact sort key, each triangle's three int32
-indices; csrc/mesh.cuh holds the arithmetic), bit for bit
+then `march_emit_mesh_kernel` (a CTA a listed tile, one CTA scan of its
+cells' counts for their bases, a thread a vertex and a thread a triangle:
+each vertex's position, key halves and compact sort key (4 bytes up to
+32 key bits), each triangle's three int32 indices; csrc/mesh.cuh holds
+the arithmetic), bit for bit
 `marching.generate_mesh`; the weld's radix sort of the compact keys over
 their top digits and `weld_group_kernel`, which finishes each key group's
 sort in shared memory and compacts (one C call; the welded counts copied
@@ -65,8 +67,8 @@ MAX_AXES = 15
 class CardMesh(NamedTuple):
     """`generate_mesh`'s unwelded mesh on the card: marching.BlockMesh's
     fields (key halves as int32 words, triangles int32), then the compact
-    sort keys, their bits an axis, and n_occ as copied back with the
-    totals (None when not given)."""
+    sort keys (at their sort width, `key_dtype`), their bits an axis, and
+    n_occ as copied back with the totals (None when not given)."""
     vertices: torch.Tensor    # (n, 3) f32 block-local grid coords
     key_hi: torch.Tensor      # (n,) int32 words: ext<<31 | z<<10 | y>>11
     key_lo: torch.Tensor      # (n,) int32 words: (y & 0x7FF)<<21 | x
@@ -75,7 +77,8 @@ class CardMesh(NamedTuple):
     num_vertices: int
     num_indices: int
     num_tiles: int
-    sort_keys: torch.Tensor   # (n,) int64: (ext, kz, ky, kx) block-local
+    sort_keys: torch.Tensor   # (n,) (ext, kz, ky, kx) block-local: int32
+                              # words up to 32 key bits, else int64
     axis_bits: int
     n_occ: Optional[int] = None
 
@@ -118,6 +121,12 @@ def key_bits(axes: int) -> int:
 def sort_key_bytes(bits: int) -> int:
     """The weld sort's key bytes between passes (csrc/mesh.cuh)."""
     return 4 if bits <= 32 else 8
+
+
+def key_dtype(bits: int) -> torch.dtype:
+    """The compact keys' dtype on the card: int32 words (the u32 bits)
+    where the sort keeps 4 bytes, else int64."""
+    return torch.int32 if sort_key_bytes(bits) == 4 else torch.int64
 
 
 def free_bits(bits: int, passes: int) -> int:
@@ -237,7 +246,7 @@ def generate_mesh(field: torch.Tensor, region_cells: Sequence[int],
     vertices = torch.empty((n, 3), dtype=torch.float32, device=dev)
     key_hi = torch.empty(n, dtype=torch.int32, device=dev)
     key_lo = torch.empty(n, dtype=torch.int32, device=dev)
-    sort_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    sort_keys = torch.empty(n, dtype=key_dtype(key_bits(axes)), device=dev)
     triangles = torch.empty((ni // 3, 3), dtype=torch.int32, device=dev)
     if marched.march_tiles > 0:
         lib = mls_cuda.load()
@@ -271,6 +280,11 @@ def weld(mesh: Union[marching.BlockMesh, CardMesh]
     dev = mesh.vertices.device
     n = mesh.num_vertices
     bits = key_bits(mesh.axis_bits)
+    if mesh.sort_keys.dtype != key_dtype(bits) or \
+            mesh.sort_keys.shape != (n,):
+        raise ValueError(f"{bits}-bit keys: the weld takes {n} keys of "
+                         f"{key_dtype(bits)}, not {mesh.sort_keys.dtype} "
+                         f"{tuple(mesh.sort_keys.shape)}")
     passes, free, capacity = weld_plan(bits)
     if passes > SORT_MAX_PASSES or free > WELD_MAX_FREE_BITS:
         raise ValueError(f"{bits}-bit keys: the weld's plan of {passes} "

@@ -18,7 +18,8 @@ from mlsgpu_tpu_torch.ops.binning_cuda import sort_scratch_words
 from mlsgpu_tpu_torch.ops.marching import TILE, TILED_ABOVE
 from mlsgpu_tpu_torch.ops.marching_cuda import scan_state_words, segment_rows
 from mlsgpu_tpu_torch.ops.mesh_cuda import (WELD_COUNTS, axis_bits,
-                                            key_bits, weld_scratch_words,
+                                            key_bits, sort_key_bytes,
+                                            weld_scratch_words,
                                             weld_work_words)
 from mlsgpu_tpu_torch.pipeline.workers import (WORKER_CONTEXT_BYTES,
                                                uses_processes)
@@ -134,7 +135,8 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
         # the caching allocator may count it, at most 3 triangle indices a
         # vertex (36 a cell of 13 at most): classify's and the scan's
         # buffers (as codes'), the emission's vertices (3 f32), key halves
-        # (2 int32), compact sort keys (int64) and int32 indices; the
+        # (2 int32), compact sort keys (4 bytes up to 32 key bits, else 8)
+        # and int32 indices; the
         # weld's work buffers (the passes' keys and indices) and scratch,
         # the welded vertices and key halves, the remap and the totals;
         # then the packed image (u32 indices at most, 4
@@ -145,7 +147,7 @@ def estimate_block_usage(cfg: ReconstructConfig, readback: str = "codes",
             _block(g ** 3 * 8) + _block(segment_rows(g) * 16)
             + _block(scan_state_words(g) * I64) + _block(g ** 3 * 16)
             + _block(5 * I64) + _block(verts * 3 * F32)
-            + 2 * _block(verts * 4) + _block(verts * I64)
+            + 2 * _block(verts * 4) + _block(verts * sort_key_bytes(bits))
             + _block(indices * 4))
         usage["weld_kernels"] = (
             _block(4 * weld_work_words(verts, bits))

@@ -5,9 +5,12 @@ On the CPU: the kernels' arithmetic (csrc/mesh.cuh with marching.cuh and
 radix_sort.cuh) built for the host with g++ -ffp-contract=off, with host
 loops that run the kernels as the card does: the scan's list (tile, cell,
 vertex and index bases) by a plain loop over the tiles; the mesh emission
-a listed tile a warp, its occupied cells ranked, then 32 at a time, their
-vertices and triangles spread a lane each through two owner maps; the
-weld's radix sort over the keys' top digits tile by tile (32- or 64-bit
+a listed tile a CTA (its corners staged a row a thread, a thread's four
+cells counted, one scan of the tile's counts, then batches of 128
+occupied cells whose vertices and triangles go a thread each through two
+owner maps: every position and index word written once, checked; 4-byte
+compact keys up to 32 bits); the weld's radix sort over the keys'
+top digits tile by tile (reading the keys at that width, 32- or 64-bit
 keys between passes, the look-back in both orders); the group kernel a
 tile of 2,048 top-sorted keys a CTA (its groups, the last one's overhang,
 the capacity check, each group's local digits as a warp ranks them, the
@@ -22,7 +25,10 @@ and -0.0 corners, subnormal differences, an origin near the keys' 21-bit
 limit, the tiled rule's candidate tiles (marching.TILED_ABOVE lowered),
 a block with no surface and one-cell blocks whose vertices all lie on the
 region's faces, a planar wall (every vertex on one kz, groups exactly at
-the group kernel's capacity); and to the JAX package's
+the group kernel's capacity), dense tiles (every cell occupied with 13
+vertices and 12 triangles) at 256^3 and at 77^3 (rows not 16-byte
+aligned), keys of 31 and 34 bits (either side of the 4-byte switch);
+and to the JAX package's
 `generate(emit="mesh")`, `weld` and `_pack_readback` on two of them. The
 weld alone on made keys against the plain weld: every key a 4-fold
 duplicate, groups that straddle tiles, a group at the capacity, and one
@@ -33,8 +39,9 @@ equalities against the global (hi, lo) keys at origins near 2^20, the
 header's new tables, the weld's scratch sizes, the wrappers on CPU tensors
 (the plain chain, no launch) and the block step's packed and raw
 branches there. On the card (marker `cuda`): the kernels bit for bit the
-plain chain at 256^3 and 512^3 (and with 43-bit keys, and on a planar
-wall), on two streams at once, a group at the capacity bit for bit and
+plain chain at 256^3 and 512^3 (and with 31- to 43-bit keys, on a planar
+wall and on dense tiles at 256^3 and 301^3), on two streams at once, a
+group at the capacity bit for bit and
 one past it raising, their launches and syncs, and the memory estimate
 above a stage's peak.
 
@@ -137,7 +144,37 @@ def field_case(name):
     if name == "no_surface":
         return (rng.random((16, 16, 16)) + 0.5).astype(np.float32), \
             (15, 15, 15), (0, 0, 0)
+    if name in ("dense", "dense_odd"):
+        return dense_field(256 if name == "dense" else 77, rng)
     raise KeyError(name)
+
+
+def dense_field(b, rng):
+    """A (b, b, b) field of positive values but for blocks whose sign
+    alternates corner by corner, each cell of them occupied with the
+    most vertices and triangles a cell has (13 and 12): whole tiles of
+    512 such cells (at 256^3: the tiles 1-2 along z, 2-3 along y, 5-6 along
+    x, the next tile's cells beside them half cut), and at an odd b
+    (unaligned corner rows) tiles cut by the field's end. Its region, its
+    origin."""
+    f = (0.5 + rng.random((b, b, b))).astype(np.float32)
+    z, y, x = np.ogrid[:b, :b, :b]
+    alt = np.where((x + y + z) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    boxes = [(slice(8, 25), slice(16, 33), slice(40, 57))]
+    if b % 2:
+        boxes.append((slice(b - 21, b), slice(b - 13, b), slice(b - 30, b)))
+    for box in boxes:
+        f[box] = np.abs(f[box]) * alt[box]
+    return f, (b - 1, b - 1, b - 2), (3, 70, 1000)
+
+
+def tile_sizes(chain):
+    """The listed tiles' occupied cells, vertices and indices (from the
+    scan's list and totals)."""
+    t, rows = chain["totals"], chain["tile_list"].astype(np.int64)
+    ends = [t["cells"], t["vertices"], t["indices"]]
+    sizes = np.diff(np.vstack([rows[:, 1:], [ends]]), axis=0)
+    return sizes[:, 0], sizes[:, 1], sizes[:, 2]
 
 
 CASES = ("sphere", "open", "region_edges", "wide", "noise", "zeros",
@@ -252,118 +289,128 @@ extern "C" void host_list(const float* field, int b, int rx, int ry, int rz,
   totals[4] = rows;
 }
 
-// march_emit_mesh_kernel, a listed tile (a warp) at a time, its lanes in
-// loops.
-extern "C" void host_emit_mesh(const float* field, int b, int rx, int ry,
-                               int rz, long long ox, long long oy,
-                               long long oz, int axis_bits, const int* list,
-                               int march_tiles, float* vertices,
-                               unsigned* key_hi, unsigned* key_lo,
-                               unsigned long long* sort_keys, int* indices) {
-  const int g = tiles_an_axis(b);
+// march_emit_mesh_kernel, a listed tile (a CTA) at a time, its threads in
+// loops: the corners staged at MESH_STAGE_PITCH floats a row (NaN past the
+// field's end), a thread a corner row's bits, thread t the occupancy
+// (mesh_quad_occupied), codes and counts of the cells 4 t .. 4 t + 3, the
+// CTA's exclusive prefixes and the occupied cells' list; then batches of
+// MESH_EMIT_THREADS occupied cells, their owner maps, the vertices and
+// triangles a thread each. The sort keys are 4 bytes each up to 32 key
+// bits, else 8. Returns 0, or -1 where a position or index word was not
+// written exactly once.
+extern "C" int host_emit_mesh(const float* field, int b, int rx, int ry,
+                              int rz, long long ox, long long oy,
+                              long long oz, int axis_bits, const int* list,
+                              int march_tiles, float* vertices,
+                              unsigned* key_hi, unsigned* key_lo,
+                              void* sort_keys, int* indices,
+                              long long num_vertices, long long num_indices) {
+  const int g = tiles_an_axis(b), T = MESH_EMIT_THREADS;
   const MeshFrame frame{{2 * rx, 2 * ry, 2 * rz}, {2 * ox, 2 * oy, 2 * oz},
                         axis_bits};
-  float block[MARCH_TILE_CORNERS];
-  unsigned bits[MARCH_SPAN * MARCH_SPAN];
-  unsigned short cell_l[MARCH_TILE_CELLS];
-  unsigned char v_own[32 * MARCH_MAX_CELL_VERTICES];
-  unsigned char t_own[32 * MARCH_MAX_CELL_INDICES / 3];
+  const bool narrow = mesh_sort_key_bytes(3 * axis_bits + 1) == 4;
+  float staged[MESH_STAGE_ROWS * MESH_STAGE_PITCH];
+  unsigned bits[MESH_STAGE_ROWS];
+  unsigned cells_x[MARCH_TILE_CELLS], cells_y[MARCH_TILE_CELLS];
+  unsigned char v_own[T * MARCH_MAX_CELL_VERTICES];
+  unsigned char t_own[T * MARCH_MAX_CELL_INDICES / 3];
+  std::vector<int> v_written(3 * num_vertices, 0), i_written(num_indices, 0);
   for (int r = 0; r < march_tiles; ++r) {
     const int* row = list + MARCH_LIST_WIDTH * r;
-    const int t = row[0];
-    const int tx = t % g, ty = (t / g) % g, tz = t / (g * g);
-    for (int k = 0; k < MARCH_TILE_CORNERS; ++k)
-      block[k] = corner(field, b, tx * MARCH_TILE + k % MARCH_SPAN,
-                        ty * MARCH_TILE + k / MARCH_SPAN % MARCH_SPAN,
-                        tz * MARCH_TILE + k / (MARCH_SPAN * MARCH_SPAN));
-    for (int k = 0; k < MARCH_SPAN * MARCH_SPAN; ++k) {
+    const int x0 = row[0] % g * MARCH_TILE, y0 = row[0] / g % g * MARCH_TILE,
+              z0 = row[0] / (g * g) * MARCH_TILE;
+    for (int k = 0; k < MESH_STAGE_ROWS; ++k) {
+      const int y = y0 + k % MARCH_SPAN, z = z0 + k / MARCH_SPAN;
+      for (int x = 0; x < MARCH_SPAN; ++x)
+        staged[k * MESH_STAGE_PITCH + x] =
+            y < b && z < b && x0 + x < b
+                ? field[((long long)z * b + y) * b + x0 + x]
+                : NAN;
+    }
+    for (int k = 0; k < MESH_STAGE_ROWS; ++k) {
       unsigned v = 0;
       for (int x = 0; x < MARCH_SPAN; ++x) {
-        const float c = block[k * MARCH_SPAN + x];
+        const float c = staged[k * MESH_STAGE_PITCH + x];
         v |= (march_sign_bit(c) << x) | (march_finite_bit(c) << (16 + x));
       }
       bits[k] = v;
     }
-    unsigned at = 0;
-    for (int lane = 0; lane < MARCH_TILE_CELLS / 32; ++lane) {
-      const int lz = lane / 2, ly0 = 4 * (lane % 2);
-      unsigned sign[8], fin[8];
-      for (int dz = 0; dz < 2; ++dz)
-        for (int dy = 0; dy < 2; ++dy) {
-          unsigned rows4[4];
-          for (int i = 0; i < 4; ++i)
-            rows4[i] = bits[(lz + dz) * MARCH_SPAN + ly0 + dy + i];
-          for (int dx = 0; dx < 2; ++dx) {
-            sign[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, dx);
-            fin[dx + 2 * dy + 4 * dz] = march_row_bytes(rows4, 16 + dx);
-          }
-        }
-      int nx = rx - tx * MARCH_TILE;
+    // the threads' cells and the CTA's exclusive scan, in thread order
+    unsigned at = 0, n_cells = 0;
+    for (int t = 0; t < T; ++t) {
+      const int lz = t / 16, ly = t / 2 % MARCH_TILE,
+                lx = MESH_EMIT_CELLS * (t % 2);
+      const int ra = lz * MARCH_SPAN + ly, rb = ra + MARCH_SPAN;
+      int nx = rx - x0;
       nx = nx < 0 ? 0 : nx > MARCH_TILE ? MARCH_TILE : nx;
-      const unsigned byte = (1u << nx) - 1u;
-      unsigned region = 0;
-      for (int i = 0; i < 4; ++i)
-        if (ty * MARCH_TILE + ly0 + i < ry) region |= byte << (8 * i);
-      if (tz * MARCH_TILE + lz >= rz) region = 0;
-      const unsigned occ = march_word_occupied(sign, fin, region);
-      for (int x = 0; x < 32; ++x)
-        if ((occ >> x) & 1u) cell_l[at++] = (unsigned short)(32 * lane + x);
+      const unsigned occ = mesh_quad_occupied(
+          bits[ra], bits[ra + 1], bits[rb], bits[rb + 1], lx,
+          y0 + ly < ry && z0 + lz < rz ? (1u << nx) - 1u : 0u);
+      for (int j = 0; j < MESH_EMIT_CELLS; ++j) {
+        if (!((occ >> j) & 1u)) continue;
+        const unsigned code = march_rows_code(bits[ra], bits[ra + 1], bits[rb],
+                                              bits[rb + 1], lx + j);
+        cells_x[n_cells] = (unsigned)(MESH_EMIT_CELLS * t + j) | (code << 9);
+        cells_y[n_cells++] = at;
+        at += march_vertex_count(code) | ((march_index_count(code) / 3) << 16);
+      }
     }
-    const unsigned tile_cells = at;
-    long long vertex_at = (unsigned)row[2], index_at = (unsigned)row[3];
-    for (unsigned first = 0; first < tile_cells; first += 32) {
-      unsigned code[32], l[32], v_first[32], t_first[32];
-      unsigned v_total = 0, t_total = 0;
-      for (int lane = 0; lane < 32; ++lane) {
-        const unsigned i = first + lane;
-        l[lane] = i < tile_cells ? cell_l[i] : 0;
-        const int row0 = l[lane] / 64 * MARCH_SPAN + l[lane] / 8 % 8,
-                  row1 = row0 + MARCH_SPAN;
-        code[lane] = i < tile_cells
-                         ? march_rows_code(bits[row0], bits[row0 + 1],
-                                           bits[row1], bits[row1 + 1],
-                                           l[lane] % 8)
-                         : 0;
-        const unsigned nv = i < tile_cells ? march_vertex_count(code[lane]) : 0;
-        const unsigned nt =
-            i < tile_cells ? march_index_count(code[lane]) / 3 : 0;
-        v_first[lane] = v_total;
-        t_first[lane] = t_total;
-        march_spread_vertices(v_own, v_total, nv, lane);
-        for (unsigned k = 0; k < nt; ++k)
-          t_own[t_total + k] = (unsigned char)lane;
-        v_total += nv;
-        t_total += nt;
+    const unsigned total = at;
+    const long long vertex_at = (unsigned)row[2], index_at = (unsigned)row[3];
+    for (unsigned first = 0; first < n_cells; first += T) {
+      const unsigned base = cells_y[first];
+      const unsigned end = first + T < n_cells ? cells_y[first + T] : total;
+      const unsigned bv = base & 0xFFFFu, bt = base >> 16;
+      const unsigned nv = (end & 0xFFFFu) - bv, nt = (end >> 16) - bt;
+      for (unsigned q = first; q < first + T && q < n_cells; ++q) {
+        const unsigned from = cells_y[q];
+        const unsigned to = q + 1 < n_cells ? cells_y[q + 1] : total;
+        for (unsigned v = (from & 0xFFFFu) - bv; v < (to & 0xFFFFu) - bv; ++v)
+          v_own[v] = (unsigned char)(q - first);
+        for (unsigned t = (from >> 16) - bt; t < (to >> 16) - bt; ++t)
+          t_own[t] = (unsigned char)(q - first);
       }
-      for (unsigned v = 0; v < v_total; ++v) {
-        const int o = v_own[v];
-        const int corner_at = march_corner_index(l[o] % 8, l[o] / 8 % 8,
-                                                 l[o] / 64);
+      for (unsigned v = 0; v < nv; ++v) {
+        const unsigned cx_ = cells_x[first + v_own[v]];
+        const unsigned cy_ = cells_y[first + v_own[v]];
+        const unsigned l = cx_ & 0x1FFu, code = cx_ >> 9;
         const unsigned ends = mesh_vertex_corners(
-            &march_vert_corners_h[0][0], code[o], (int)(v - v_first[o]));
+            &march_vert_corners_h[0][0], code, (int)(bv + v - (cy_ & 0xFFFFu)));
         const unsigned c0 = ends & 0xFu, c1 = ends >> 4;
-        float pos[3];
-        const long long at_v = vertex_at + v;
-        mesh_vertex(tx * MARCH_TILE + (int)(l[o] % 8),
-                    ty * MARCH_TILE + (int)(l[o] / 8 % 8),
-                    tz * MARCH_TILE + (int)(l[o] / 64), c0, c1,
-                    block[corner_at + mesh_corner_offset(c0)],
-                    block[corner_at + mesh_corner_offset(c1)], frame, pos,
-                    key_hi + at_v, key_lo + at_v, sort_keys + at_v);
-        for (int a = 0; a < 3; ++a) vertices[3 * at_v + a] = pos[a];
+        const int cx = l % 8, cy = l / 8 % 8, cz = l / 64;
+        const int corner = mesh_staged_corner(cx, cy, cz);
+        unsigned long long key;
+        const long long a = vertex_at + bv + v;
+        mesh_vertex(x0 + cx, y0 + cy, z0 + cz, c0, c1,
+                    staged[corner + mesh_staged_offset(c0)],
+                    staged[corner + mesh_staged_offset(c1)], frame,
+                    vertices + 3 * a, key_hi + a, key_lo + a, &key);
+        if (narrow)
+          static_cast<unsigned*>(sort_keys)[a] = (unsigned)key;
+        else
+          static_cast<unsigned long long*>(sort_keys)[a] = key;
+        for (int k = 0; k < 3; ++k) ++v_written[3 * a + k];
       }
-      for (unsigned t = 0; t < t_total; ++t) {
-        const int o = t_own[t];
-        const int base = (int)(vertex_at + v_first[o]);
-        const int k = 3 * (int)(t - t_first[o]);
-        for (int m = 0; m < 3; ++m)
-          indices[index_at + 3 * t + m] =
-              base + mesh_index_vertex(&march_index_h[0][0], code[o], k + m);
+      for (unsigned t = 0; t < nt; ++t) {
+        const unsigned cx_ = cells_x[first + t_own[t]];
+        const unsigned cy_ = cells_y[first + t_own[t]];
+        const int k = 3 * (int)(bt + t - (cy_ >> 16));
+        const int first_vertex = (int)(vertex_at + (cy_ & 0xFFFFu));
+        const long long at = index_at + 3 * (long long)(bt + t);
+        for (int m = 0; m < 3; ++m) {
+          indices[at + m] = first_vertex +
+                            mesh_index_vertex(&march_index_h[0][0], cx_ >> 9,
+                                              k + m);
+          ++i_written[at + m];
+        }
       }
-      vertex_at += v_total;
-      index_at += 3 * t_total;
     }
   }
+  for (int w : v_written)
+    if (w != 1) return -1;
+  for (int w : i_written)
+    if (w != 1) return -1;
+  return 0;
 }
 
 // scan_lookback on the host: `window` words a round (SCAN_WINDOW, or
@@ -395,12 +442,13 @@ static unsigned match_digit(const unsigned* d, const bool* valid, int lane) {
 }
 
 // The weld's sort (weld_sort: the histogram of the top digits, then each
-// pass's tiles as its kernel runs them, warps and lanes written out) with
-// K keys between passes: keys in order by their top 8 g bits, stably.
+// pass's tiles as its kernel runs them, warps and lanes written out) of K
+// keys, K keys between passes: keys in order by their top 8 g bits,
+// stably.
 // Every tile first publishes its aggregates, then the tiles look back in
 // ticket order or, `descending`, from the last.
 template <typename K>
-static int weld_sort(const long long* keys, long long n, int bits,
+static int weld_sort(const K* keys, long long n, int bits,
                      int descending, long long* sorted, long long* perm) {
   const SortPlan plan = mesh_weld_sort_plan(bits, mesh_sort_passes(bits));
   const int R = SORT_RADIX, W = SORT_THREADS / 32;
@@ -409,7 +457,7 @@ static int weld_sort(const long long* keys, long long n, int bits,
   std::vector<K> kin(n), kout(n);
   std::vector<int> iin(n), iout(n);
   for (long long e = 0; e < n; ++e) {
-    kin[e] = (K)keys[e];
+    kin[e] = keys[e];
     iin[e] = (int)e;
     for (int p = 0; p < plan.passes; ++p)
       ++hist[p * R + sort_digit(kin[e], plan.shift[p], plan.bits[p])];
@@ -509,15 +557,17 @@ static int weld_sort(const long long* keys, long long n, int bits,
   return plan.passes;
 }
 
-// The sort as weld_launch picks it: 32-bit keys between passes up to 32
-// bits, else 64-bit. Returns the passes.
-extern "C" int host_weld_sort(const long long* keys, long long n, int bits,
+// The sort as weld_launch picks it: 32-bit keys in and between passes up
+// to 32 bits, else 64-bit. Returns the passes.
+extern "C" int host_weld_sort(const void* keys, long long n, int bits,
                               int descending, long long* sorted,
                               long long* perm) {
   return mesh_sort_key_bytes(bits) == 4
-             ? weld_sort<unsigned>(keys, n, bits, descending, sorted, perm)
-             : weld_sort<unsigned long long>(keys, n, bits, descending,
-                                             sorted, perm);
+             ? weld_sort<unsigned>(static_cast<const unsigned*>(keys), n,
+                                   bits, descending, sorted, perm)
+             : weld_sort<unsigned long long>(
+                   static_cast<const unsigned long long*>(keys), n, bits,
+                   descending, sorted, perm);
 }
 
 // The weld's plan of `bits`-bit keys: passes, free bits, the group bound,
@@ -890,8 +940,9 @@ def host(tmp_path_factory):
     lib.host_index_words.argtypes = [i32, i64]
     lib.host_keys.argtypes = [p, i64] + [i32] * 3 + [i64] * 3 + [i32, p, p, p]
     lib.host_list.argtypes = [p] + [i32] * 5 + [p, p]
+    lib.host_emit_mesh.restype = i32
     lib.host_emit_mesh.argtypes = ([p] + [i32] * 4 + [i64] * 3
-                                   + [i32, p, i32] + [p] * 5)
+                                   + [i32, p, i32] + [p] * 5 + [i64] * 2)
     lib.host_weld_sort.restype = i32
     lib.host_weld_sort.argtypes = [p, i64, i32, i32, p, p]
     lib.host_weld_plan.argtypes = [i32, p]
@@ -904,6 +955,12 @@ def host(tmp_path_factory):
 
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
+
+
+def key_dtype(bits: int):
+    """The compact keys' numpy dtype at `bits` bits: the emission writes
+    them, and the weld reads them, 4 bytes each up to 32 bits, else 8."""
+    return np.uint32 if mesh_cuda.sort_key_bytes(bits) == 4 else np.int64
 
 
 def host_chain(lib, field, region, origin, axes=None, descending=False):
@@ -926,11 +983,13 @@ def host_chain(lib, field, region, origin, axes=None, descending=False):
     vertices = np.full((n, 3), np.nan, np.float32)
     hi = np.full(n, 0xDEADBEEF, np.uint32)
     lo = np.full(n, 0xDEADBEEF, np.uint32)
-    keys = np.full(n, -1, np.int64)
+    keys = np.full(n, -1, key_dtype(bits))
     tris = np.full((ni // 3, 3), -1, np.int32)
-    lib.host_emit_mesh(_ptr(field), b, *region, *origin, axes,
-                       _ptr(tile_list), t["tiles"], _ptr(vertices), _ptr(hi),
-                       _ptr(lo), _ptr(keys), _ptr(tris))
+    assert lib.host_emit_mesh(_ptr(field), b, *region, *origin, axes,
+                              _ptr(tile_list), t["tiles"], _ptr(vertices),
+                              _ptr(hi), _ptr(lo), _ptr(keys), _ptr(tris), n,
+                              ni) == 0, \
+        "a position or index word not written exactly once"
     assert keys.min(initial=0) >= 0 and (n == 0 or keys.max() < 1 << bits)
     w = host_weld(lib, keys, vertices, hi, lo, bits, descending=descending)
     assert w["past"] == 0
@@ -947,7 +1006,7 @@ def host_weld(lib, keys, vertices, hi, lo, bits, capacity=None,
     welded arrays, the remap and the totals (`past`: groups past the
     capacity)."""
     n = len(keys)
-    keys = np.ascontiguousarray(keys, np.int64)
+    keys = np.ascontiguousarray(keys, key_dtype(bits))
     passes, _, bound = mesh_cuda.weld_plan(bits)
     sorted_keys = np.empty(n, np.int64)
     perm = np.empty(n, np.int64)
@@ -1086,6 +1145,41 @@ def test_host_build_with_wide_keys_and_reversed_lookbacks(host, case, axes):
                        descending=True)
     assert mesh_cuda.weld_plan(mesh_cuda.key_bits(axes)) == (
         (4, 5, 96) if axes == 12 else (5, 3, 24))
+    mesh, welded = plain_chain(field, region, origin)
+    assert_chain_is_plain(host, chain, mesh, welded, origin)
+
+
+@pytest.mark.parametrize("case", ["dense", "dense_odd"])
+def test_host_build_on_dense_tiles(host, case):
+    """Tiles whose 512 cells are all occupied with 13 vertices and 12
+    triangles each (a batch's owner maps at their worst: 128 cells, 1,664
+    vertices, 1,536 triangles), at 256^3 and at 77^3 (corner rows not
+    16-byte aligned, tiles cut by the field's end): the host build bit for
+    bit the plain chain, every position and index word written once."""
+    field, region, origin = field_case(case)
+    chain = host_chain(host, field, region, origin)
+    mesh, welded = plain_chain(field, region, origin)
+    assert_chain_is_plain(host, chain, mesh, welded, origin)
+    cells, verts, indices = tile_sizes(chain)
+    full = cells == marching.TILE ** 3
+    assert full.sum() >= 8
+    assert (verts[full] == 512 * tables.MAX_CELL_VERTICES).all()
+    assert (indices[full] == 512 * tables.MAX_CELL_INDICES).all()
+
+
+@pytest.mark.parametrize("axes", [10, 11])
+@pytest.mark.parametrize("case", ["noise", "dense_odd"])
+def test_host_build_either_side_of_the_key_width_switch(host, case, axes):
+    """Compact keys of 31 bits (as at 512^3: 4 bytes each from the
+    emission to the weld's passes) and 34 bits (as at 1024^3: 8 bytes).
+    3 axes + 1 bits are never 32 or 33, so these are the widths on either
+    side of the switch: the same welded mesh on both sides, bit for bit the
+    plain chain's."""
+    field, region, origin = field_case(case)
+    chain = host_chain(host, field, region, origin, axes=axes)
+    bits = mesh_cuda.key_bits(axes)
+    assert (bits, chain["sort_keys"].itemsize) == (
+        (31, 4) if axes == 10 else (34, 8))
     mesh, welded = plain_chain(field, region, origin)
     assert_chain_is_plain(host, chain, mesh, welded, origin)
 
@@ -1487,8 +1581,9 @@ def test_wrappers_on_cpu_take_the_plain_chain():
 
 def test_wrappers_refuse_what_the_kernels_cannot_take():
     """A device other than the CPU and CUDA raises; so do an origin whose
-    doubled coordinates pass the keys' 21 bits, a negative one, and a
-    plain mesh or weld handed to the card's kernels."""
+    doubled coordinates pass the keys' 21 bits, a negative one, a plain
+    mesh or weld handed to the card's kernels, and compact keys not at
+    their sort width (int64 at 28 bits, int32 at 34)."""
     field, region, origin = field_case("sphere")
     with pytest.raises(ValueError, match="meta"):
         mesh_cuda.generate_mesh(torch.empty((4, 4, 4), device="meta"),
@@ -1503,6 +1598,19 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     meta = welded._replace(vertices=torch.empty((1, 3), device="meta"))
     with pytest.raises(ValueError, match="card result"):
         mesh_cuda.pack_readback(meta, origin, block.PackFormat("u16", 3, 8))
+    for axes, dtype in ((9, torch.int64), (11, torch.int32)):
+        card = mesh_cuda.CardMesh(
+            vertices=torch.empty((5, 3), device="meta"),
+            key_hi=torch.empty(5, dtype=torch.int32, device="meta"),
+            key_lo=torch.empty(5, dtype=torch.int32, device="meta"),
+            triangles=torch.empty((0, 3), dtype=torch.int32, device="meta"),
+            num_cells=2, num_vertices=5, num_indices=0, num_tiles=1,
+            sort_keys=torch.empty(5, dtype=dtype, device="meta"),
+            axis_bits=axes)
+        with pytest.raises(ValueError, match="the weld takes 5 keys"):
+            mesh_cuda.weld(card)
+    assert mesh_cuda.key_dtype(31) == torch.int32
+    assert mesh_cuda.key_dtype(34) == torch.int64
 
 
 @pytest.mark.parametrize("readback", ["packed", "raw"])
@@ -1542,7 +1650,8 @@ def test_block_step_mesh_branch_on_cpu(readback):
 def test_card_mesh_estimate_counts_the_kernels_buffers():
     """The card's packed and raw estimates (pipeline/resources.py) count
     the kernels' buffers, each as the caching allocator may count it:
-    classify's and the scan's, the emission's arrays, the weld's sort and
+    classify's and the scan's, the emission's arrays (the compact keys at
+    their sort width, 4 bytes at 28 and 31 bits), the weld's sort and
     group kernel's buffers (mesh_cuda's work and scratch sizes) and the
     image or raw's triangles."""
     from mlsgpu_tpu_torch.pipeline import resources
@@ -1554,13 +1663,14 @@ def test_card_mesh_estimate_counts_the_kernels_buffers():
         g = -(-(b - 1) // marching.TILE)
         verts = 4 * int((b - 1) ** 3 * resources.SURFACE_CELL_SHARE)
         bits = mesh_cuda.key_bits(mesh_cuda.axis_bits(b))
+        assert mesh_cuda.sort_key_bytes(bits) == 4
         for readback in ("packed", "raw"):
             u = resources.estimate_block_usage(cfg, readback, "cuda")
             assert u["marching_kernels"] == (
                 blk(8 * g ** 3) + blk(16 * marching_cuda.segment_rows(g))
                 + blk(8 * marching_cuda.scan_state_words(g))
                 + blk(16 * g ** 3) + blk(40) + blk(12 * verts)
-                + 2 * blk(4 * verts) + blk(8 * verts) + blk(12 * verts))
+                + 2 * blk(4 * verts) + blk(4 * verts) + blk(12 * verts))
             assert u["weld_kernels"] == (
                 blk(4 * mesh_cuda.weld_work_words(verts, bits))
                 + blk(8 * mesh_cuda.weld_scratch_words(verts, bits))
@@ -1684,6 +1794,43 @@ def test_wide_keys_on_card(cuda_device, axes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 301])
+def test_dense_tiles_on_card(cuda_device, b):
+    """Tiles whose 512 cells are all occupied with 13 vertices and 12
+    triangles each (the emission's owner maps at their worst), at 256^3
+    and at 301^3 (corner rows not 16-byte aligned, tiles cut by the
+    field's end): bit for bit the plain chain."""
+    field, region, origin = (field_case("dense") if b == 256 else
+                             dense_field(b, np.random.default_rng(8)))
+    field = torch.as_tensor(field, device=cuda_device)
+    mesh, welded, raw, images = card_chain(field, region, origin)
+    want_mesh = marching.generate_mesh(field, region, origin)
+    want_welded = weld.weld(want_mesh.vertices, want_mesh.key_hi,
+                            want_mesh.key_lo, want_mesh.triangles)
+    assert want_mesh.num_vertices >= 8 * 512 * tables.MAX_CELL_VERTICES
+    assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
+                         origin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", [10, 11])
+def test_key_width_switch_on_card(cuda_device, axes):
+    """Compact keys of 31 bits (int32 words from the emission to the
+    weld's passes) and 34 bits (int64): a 256^3 block welds bit for bit as
+    the plain weld does on either side of the switch."""
+    field = card_field(256, cuda_device, seed=5)
+    region, origin = (255, 251, 255), (9, 8, 7)
+    mesh, welded, raw, images = card_chain(field, region, origin, axes=axes)
+    assert mesh.sort_keys.dtype == (torch.int32 if axes == 10
+                                    else torch.int64)
+    want_mesh = marching.generate_mesh(field, region, origin)
+    want_welded = weld.weld(want_mesh.vertices, want_mesh.key_hi,
+                            want_mesh.key_lo, want_mesh.triangles)
+    assert_card_is_plain(mesh, welded, raw, images, want_mesh, want_welded,
+                         origin)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [256, 512])
 def test_planar_wall_on_card(cuda_device, b):
     """A planar wall (every vertex on one kz): key groups at exactly the
@@ -1706,7 +1853,8 @@ def test_planar_wall_on_card(cuda_device, b):
 
 
 def made_card_mesh(vertices, hi, lo, sort, dev):
-    """A card mesh of made keys (made_weld), without triangles."""
+    """A card mesh of made keys (made_weld), without triangles: 31-bit
+    keys, int32 words as the emission writes them."""
     n = len(sort)
     word = lambda a: torch.as_tensor(  # noqa: E731
         a.astype(np.uint32).view(np.int32), device=dev)
@@ -1715,7 +1863,8 @@ def made_card_mesh(vertices, hi, lo, sort, dev):
         key_lo=word(lo), triangles=torch.empty((0, 3), dtype=torch.int32,
                                                device=dev),
         num_cells=0, num_vertices=n, num_indices=0, num_tiles=0,
-        sort_keys=torch.as_tensor(sort, device=dev), axis_bits=10)
+        sort_keys=torch.as_tensor(sort, device=dev).to(
+            mesh_cuda.key_dtype(mesh_cuda.key_bits(10))), axis_bits=10)
 
 
 @pytest.mark.cuda
