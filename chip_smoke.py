@@ -798,6 +798,22 @@ def segment_key_sectors(sorted_keys, starts, lens) -> int:
     return int(torch.unique(pos // 4).numel())   # 4 int64 keys a sector
 
 
+def sort_passes_floor(n: int, passes: int, in_bytes: int, key_bytes: int,
+                      out_bytes: int) -> dict:
+    """The radix sort's passes' floor on these inputs: every pass reads and
+    writes every key and index at its width over the memory rate. The
+    first pass reads `in_bytes` a key (the input keys; the index is the
+    key's place), a pass between reads and writes a `key_bytes` key and an
+    int32 index, the last writes `out_bytes` a key. Beside the sort's
+    bound, which counts its input and output once, it is what the passes
+    must move as they are built."""
+    between = key_bytes + 4
+    nbytes = sum(n * ((in_bytes if p == 0 else between)
+                      + (out_bytes if p == passes - 1 else between))
+                 for p in range(passes))
+    return {"bytes": nbytes, "ms": nbytes / HBM_RATE * 1e3}
+
+
 def binning_bound(name: str, n: int, tiles: int, levels: int,
                   key_sectors: int = 0, nodes: int = 0,
                   passes: int = 0) -> dict:
@@ -820,7 +836,10 @@ def binning_bound(name: str, n: int, tiles: int, levels: int,
     compares, which the table has no rate for). Bounds (the first of the
     segments' kernels): the same key sectors in, the `nodes` + 1 int32
     bounds out. Integer work (the Morton interleave, the shifts) is not
-    counted."""
+    counted. The sort's rows also give the passes' floor
+    (sort_passes_floor: int64 keys in, 32-bit keys and int32 indices
+    between passes, int64 keys and permutation out) where `passes` is
+    given."""
     if name == "bin_keys":
         nbytes, flops = n * (16 + 1 + 64), 56 * n
     elif name in ("bin_sort", "bin_sort_pass"):
@@ -834,9 +853,12 @@ def binning_bound(name: str, n: int, tiles: int, levels: int,
     else:
         nbytes, flops = 32 * key_sectors + 2 * 4 * tiles * levels, 0
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    return {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
-            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    out = {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
+           "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    if name in ("bin_sort", "bin_sort_pass") and passes:
+        out["passes_floor"] = sort_passes_floor(8 * n, passes, 8, 4, 16)
+    return out
 
 
 def _max_abs(got, ref) -> float:
@@ -971,7 +993,8 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
     by_name = {r["name"]: r for r in rows}
     parts = [by_name["bin_sort_histogram"]["kernel_ms"],
              by_name["bin_sort_pass"]["kernel_ms"]]
-    sort_bound = binning_bound("bin_sort", nsp, tpa ** 3, levels)
+    sort_bound = binning_bound("bin_sort", nsp, tpa ** 3, levels,
+                               passes=passes)
     sort_row = {
         "passes": passes, "launches_a_call": 1 + passes,
         "call_host_paced_ms": by_name["bin_sort_pass"]["host_paced_ms"],
@@ -979,6 +1002,7 @@ def binning_vs_plain(n, sp, va, origin, min_s, max_s, reps=REPS) -> list:
         "kernels_ms": None if None in parts else sum(parts),
         "torch_sort_ms": by_name["bin_sort_pass"]["library_ms"],
         "bound_ms": sort_bound["bound_ms"], "bound_bytes": sort_bound["bytes"],
+        "passes_floor": sort_bound["passes_floor"],
         "traced": pass_profile(sort), "torch_sort_traced":
         pass_profile(library_sort)}
     k_ms = sort_row["kernels_ms"] or sort_row["call_device_ms"]
@@ -1173,7 +1197,9 @@ def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
     and 2 key halves, the int32 triangle indices and the remap in, the
     image out; 5 operations a vertex (3 fractions, 1 - t, t's product).
     "stage": the field in and the image out, the operations of all. No
-    integer work is counted."""
+    integer work is counted. The sort's passes' row also gives the passes'
+    floor (sort_passes_floor: the keys in at their width, the sort keys
+    and int32 indices between passes and out)."""
     listed = march_tiles * marching.TILE ** 3
     kb = mesh_cuda.sort_key_bytes(mesh_cuda.key_bits(mesh_cuda.axis_bits(b)))
     ib = kb if key_bytes is None else key_bytes
@@ -1194,9 +1220,12 @@ def mesh_bound(name: str, b: int, march_tiles: int, n: int, nw: int,
         nbytes = 4 * b ** 3 + 4 * words
         flops = 16 * (b - 1) ** 3 + 8 * n + 5 * nw
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    return {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
-            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    out = {"bytes": nbytes, "flops": flops, "ops_ms": t_ops,
+           "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    if name == "weld_sort_pass":
+        out["passes_floor"] = sort_passes_floor(n, passes, ib, kb, kb + 4)
+    return out
 
 
 def mesh_chain_vs_plain(label, field, region, origin, levels, n_occ=None):

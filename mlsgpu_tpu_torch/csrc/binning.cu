@@ -42,11 +42,19 @@
 //     reads the keys once and counts every pass's digits (shared-memory
 //     counts, a warp's equal digits added once, then one global add a
 //     digit a CTA); it also clears the passes' scan state. Then a kernel a
-//     pass, a CTA a ticketed tile of 4,096 keys: it ranks its keys by
-//     digit stably in shared memory (match.any finds a warp's lanes of
-//     equal digit), publishes its digit counts and looks back for the
-//     lower tiles' (scan.cuh), stages the tile in digit order and writes
-//     it out coalesced. Keys travel as 32-bit mapped keys and indices as int32
+//     pass, a CTA a ticketed tile of 4,096 keys (radix_sort.cuh): at 256^3
+//     the tiles run in one wave, so a CTA's chain of dependent steps, not
+//     bytes, sets a pass's time. It loads its keys while it takes its
+//     ticket (tile blockIdx.x's, reloaded where the ticket differs), ranks
+//     them by digit stably in shared memory (match.any finds a warp's
+//     lanes of equal digit), publishes its digit counts and finds the
+//     lower tiles' (scan.cuh): a pass of about one wave (at most 256
+//     tiles; 162 at 256^3) on two levels (32-bit words; a group's first
+//     tile over the groups of 16 tiles below, the others from their
+//     group's prefix and lower tiles, one round), a larger one (757 at
+//     512^3) by the decoupled look-back, which holds fewer registers; it
+//     stages the tile in digit order and writes it out coalesced. Keys
+//     travel as 32-bit mapped keys and indices as int32
 //     between the passes (8N < 2^31); the first pass reads the int64
 //     keys, the last writes the int64 sorted keys and permutation. The
 //     counts are integers, so the result is torch.sort(stable=True)'s bit
@@ -198,7 +206,7 @@ bin_sort_histogram_kernel(const long long* __restrict__ keys, int n,
                                             state_words);
 }
 
-template <bool FIRST, bool LAST>
+template <bool FIRST, bool LAST, bool GROUPED>
 __global__ void __launch_bounds__(SORT_THREADS)
 bin_sort_pass_kernel(const void* __restrict__ keys_in,
                      const int* __restrict__ idx_in, int n,
@@ -206,8 +214,17 @@ bin_sort_pass_kernel(const void* __restrict__ keys_in,
                      const unsigned* __restrict__ hist,
                      unsigned long long* state, void* __restrict__ keys_out,
                      void* __restrict__ idx_out) {
-  sort_pass_body<unsigned, BinNodeMap, FIRST, LAST>(
+  sort_pass_body<unsigned, BinNodeMap, FIRST, LAST, GROUPED>(
       keys_in, idx_in, n, plan, pass, hist, state, keys_out, idx_out);
+}
+
+// The pass kernel for the first and last passes and the look-back.
+template <bool GROUPED>
+auto bin_sort_pass(bool first, bool last) {
+  return first ? (last ? bin_sort_pass_kernel<true, true, GROUPED>
+                       : bin_sort_pass_kernel<true, false, GROUPED>)
+               : (last ? bin_sort_pass_kernel<false, true, GROUPED>
+                       : bin_sort_pass_kernel<false, false, GROUPED>);
 }
 
 bool bad_shifts(int min_shift, int max_shift) {
@@ -279,10 +296,8 @@ extern "C" int bin_sort_launch(const long long* keys, long long n,
     const bool to_work = !last && (plan.passes - 2 - p) % 2 == 0;
     void* out_keys = to_work ? static_cast<void*>(work) : sorted;
     void* out_idx = to_work ? static_cast<void*>(work + n) : perm;
-    auto kernel = first ? (last ? bin_sort_pass_kernel<true, true>
-                                : bin_sort_pass_kernel<true, false>)
-                        : (last ? bin_sort_pass_kernel<false, true>
-                                : bin_sort_pass_kernel<false, false>);
+    auto kernel = sort_grouped(tiles) ? bin_sort_pass<true>(first, last)
+                                      : bin_sort_pass<false>(first, last);
     kernel<<<tiles, SORT_THREADS, 0, s>>>(in_keys, in_idx, (int)n, plan, p,
                                           hist, state + p * pass_words,
                                           out_keys, out_idx);

@@ -30,8 +30,11 @@
 //     and 31 bits, 256^3 and 512^3; 4-5 at 34-43), each reading and
 //     writing every key and index in device memory (32-bit keys between
 //     passes, 64-bit above 32 bits; int32 indices), a tile of 4,096 keys
-//     a CTA (2,048 with 64-bit keys). The histogram kernel counts those g
-//     digits and clears the passes' and the group kernel's scan state.
+//     a CTA (2,048 with 64-bit keys), on binning's pass body (its keys
+//     in flight while it takes its ticket; the two-level look-back of
+//     scan.cuh for 190 tiles at 256^3, the decoupled one for 1,180 at
+//     512^3). The histogram kernel counts those g digits and clears the
+//     passes' and the group kernel's scan state.
 //   * weld_group_kernel: a CTA a ticketed tile of 2,048 positions of the
 //     top-sorted keys; it owns every group that starts in the tile and
 //     reads on past the tile's end to that group's end, its keys (as local
@@ -107,7 +110,7 @@ weld_sort_histogram_kernel(const K* __restrict__ keys, int n,
                                              state_words);
 }
 
-template <typename K, bool FIRST>
+template <typename K, bool FIRST, bool GROUPED>
 __global__ void __launch_bounds__(SORT_THREADS)
 weld_sort_pass_kernel(const void* __restrict__ keys_in,
                       const int* __restrict__ idx_in, int n,
@@ -115,7 +118,7 @@ weld_sort_pass_kernel(const void* __restrict__ keys_in,
                       const unsigned* __restrict__ hist,
                       unsigned long long* state, void* __restrict__ keys_out,
                       void* __restrict__ idx_out) {
-  sort_pass_body<K, SortIdentity<K>, FIRST, false, K>(
+  sort_pass_body<K, SortIdentity<K>, FIRST, false, GROUPED, K>(
       keys_in, idx_in, n, plan, pass, hist, state, keys_out, idx_out);
 }
 
@@ -149,8 +152,11 @@ cudaError_t weld_sort(const K* keys, int n, const SortPlan& plan,
     K* out_keys = reinterpret_cast<K*>(work + ((plan.passes - 1 - p) % 2) *
                                                   buffer);
     int* out_idx = reinterpret_cast<int*>(out_keys + n);
-    auto kernel = p == 0 ? weld_sort_pass_kernel<K, true>
-                         : weld_sort_pass_kernel<K, false>;
+    const bool grouped = sort_grouped(tiles);
+    auto kernel = p == 0 ? (grouped ? weld_sort_pass_kernel<K, true, true>
+                                    : weld_sort_pass_kernel<K, true, false>)
+                         : (grouped ? weld_sort_pass_kernel<K, false, true>
+                                    : weld_sort_pass_kernel<K, false, false>);
     kernel<<<tiles, SORT_THREADS, 0, s>>>(in_keys, in_idx, n, plan, p, hist,
                                           state + p * pass_words, out_keys,
                                           out_idx);

@@ -1,9 +1,9 @@
 // A stable LSD radix sort of integer keys with their permutation, in
 // digits of at most SORT_DIGIT_BITS bits: a histogram kernel that counts
 // every pass's digits (and clears the passes' scan state), then a kernel a
-// pass on the single-launch look-back scan of scan.cuh. The kernels'
-// bodies live here as device functions so that two stages share them:
-// binning's sort of the node keys (binning.cu: bin_sort_histogram_kernel,
+// pass on a look-back scan of scan.cuh. The kernels' bodies live
+// here as device functions so that two stages share them: binning's sort
+// of the node keys (binning.cu: bin_sort_histogram_kernel,
 // bin_sort_pass_kernel, 32-bit keys between passes) and the weld's sort of
 // the compact vertex keys (mesh.cu: weld_sort_histogram_kernel,
 // weld_sort_pass_kernel, 32- or 64-bit keys between passes by the keys'
@@ -16,7 +16,23 @@
 // between passes, and writes int64 keys (mapped back, Map::out) and the
 // int64 permutation: equal keys keep their input order, so the result is
 // torch.sort(stable=True)'s bit for bit whatever the CTAs' timing (the
-// counts are integers).
+// counts are integers, and each key's place follows from the counts and
+// the order of the items alone: sort_pass_body).
+//
+// What bounds a pass on the H100: not its bytes (8-24 a key, 1.6-4.8 us
+// at 256^3) but one CTA's chain of dependent steps, since at a block's
+// sizes every tile runs in one wave or a few (a clock64 probe of the
+// design before this one, a decoupled look-back for every pass: a CTA
+// 8.5-9.5 us at 256^3; the ticket 0.5 and then the keys' loads 0.8-1.6,
+// the look-back over the wave 2.3-2.7; the latest tiles,
+// whose look-backs walk furthest, ending ~3 us after the first). So a
+// pass loads its keys while it takes its ticket, and a pass of about one
+// wave looks back on two levels (scan.cuh); a pass of many waves keeps the
+// decoupled look-back, whose later waves find inclusive prefixes at once
+// and which leaves more CTAs an SM. A ranking with no warp barrier between
+// items (each run's first lane taking its places by an atomic add and
+// handing them on by a shuffle, after a counting sweep that published the
+// counts before the ranking) measured slower and was taken out.
 //
 // The plan and the scratch sizes are plain host-compilable code, so the
 // g++ host builds of the tests check them.
@@ -74,15 +90,32 @@ SORT_FN constexpr int sort_tile_keys(int key_bytes) {
   return SORT_THREADS * sort_items(key_bytes);
 }
 
+// A pass of at most SORT_GROUPED_TILES tiles runs in about one wave of
+// CTAs (two a 132-SM H100's SM: the sort's 162-190 tiles at 256^3) and
+// takes the two-level look-back (scan.cuh); a larger one, whose later
+// waves find their lower tiles' inclusive prefixes at once, the decoupled
+// look-back, with fewer registers and so more CTAs an SM (sort_pass_body).
+#define SORT_GROUPED_TILES 256
+
 // The tiles of n keys, and the 64-bit words of a sort's scratch: the
 // passes' histograms (SORT_RADIX 32-bit counts each, two a word), then for
-// each pass its ticket and a status word a (tile, digit) (scan.cuh).
+// each pass its ticket and its look-back's words (scan.cuh): a 64-bit
+// status word a (tile, digit), or, for the two-level look-back, 32-bit
+// words (two a 64-bit word) a (tile, digit) and two a (group of
+// SCAN_GROUP tiles, digit).
 static inline long long sort_tiles(long long n, int key_bytes) {
   return (n + sort_tile_keys(key_bytes) - 1) / sort_tile_keys(key_bytes);
 }
 
+SORT_FN bool sort_grouped(long long tiles) {
+  return tiles <= SORT_GROUPED_TILES;
+}
+
 static inline long long sort_pass_words(long long n, int key_bytes) {
-  return 1 + sort_tiles(n, key_bytes) * SORT_RADIX;
+  const long long tiles = sort_tiles(n, key_bytes);
+  const long long groups = (tiles + SCAN_GROUP - 1) / SCAN_GROUP;
+  return 1 + (sort_grouped(tiles) ? (tiles + 2 * groups) * (SORT_RADIX / 2)
+                                  : tiles * SORT_RADIX);
 }
 
 static inline long long sort_scratch_words(long long n, int passes,
@@ -115,7 +148,7 @@ __device__ __forceinline__ unsigned sort_match_digit(unsigned d, bool valid) {
 // zero before), a CTA SORT_THREADS * SORT_HIST_ITEMS keys: counts in
 // shared memory (a warp's equal digits added once, by their first lane),
 // then one global add a digit. It also clears `state_words` words of
-// scan state (`state`: the passes' tickets and status words, and whatever
+// scan state (`state`: the passes' tickets and look-back words, and whatever
 // later kernel of the stage asked for it): it runs just before them on
 // the stream.
 template <typename K, typename Map, typename In = long long>
@@ -160,20 +193,26 @@ __device__ __forceinline__ void sort_histogram_body(
 // SORT_THREADS * ITEMS keys taken by ticket (scan.cuh). Warp w holds the
 // keys [w * 32 * ITEMS, (w + 1) * 32 * ITEMS) of the tile, item i of lane
 // l the key 32 i + l of them, so a warp's items in item order are its keys
-// in order. It ranks them item by item (the lanes of equal digit by
+// in order. The keys of tile blockIdx.x, the ticket a CTA mostly takes,
+// are loaded while it takes its ticket, and reloaded where the ticket
+// differs. It ranks them item by item (the lanes of equal digit by
 // match.any, counted per warp in shared memory), so a key's rank in the
 // tile is the tile's keys of lower digit, those of its digit in lower
-// warps, and those before it in its warp. Thread d then publishes the
-// tile's count of digit d and looks back for the count of digit d in the
-// lower tiles; with the digit's base from the histogram, that is where
-// the tile's keys of digit d start in the output. The tile is staged in
-// shared memory in digit order and written out from there, consecutive
-// threads to consecutive places. FIRST: the int64 keys in (Map::in), their
-// index e the entry; else the K keys and int32 indices of the pass
-// before. LAST: the int64 keys (Map::out) and the int64 permutation out;
-// else K keys and int32 indices for the next pass. In: the input keys'
-// type when FIRST.
-template <typename K, typename Map, bool FIRST, bool LAST,
+// warps, and those before it in its warp: stable from the items' order
+// alone. Thread d then publishes the tile's count of digit d and finds the
+// count of digit d in the lower tiles: GROUPED (sort_grouped), by the
+// two-level look-back, a group's first tile over the groups below before
+// it stages its keys (publishing the group's prefix), any other tile after
+// (from that prefix and its group's lower tiles' counts, one round); else
+// by the decoupled look-back (scan_lookback). With the digit's base from
+// the histogram, that is where the tile's keys of digit d start in the
+// output. The tile is staged in shared memory in digit order and written
+// out from there, consecutive threads to consecutive places. FIRST: the
+// int64 keys in (Map::in), their index e the entry; else the K keys and
+// int32 indices of the pass before. LAST: the int64 keys (Map::out) and
+// the int64 permutation out; else K keys and int32 indices for the next
+// pass. In: the input keys' type when FIRST.
+template <typename K, typename Map, bool FIRST, bool LAST, bool GROUPED,
           typename In = long long>
 __device__ __forceinline__ void sort_pass_body(
     const void* __restrict__ keys_in, const int* __restrict__ idx_in, int n,
@@ -194,35 +233,40 @@ __device__ __forceinline__ void sort_pass_body(
   // where the tile's keys of a digit start in the staged tile
   __shared__ unsigned short digit_start[SORT_RADIX];
   __shared__ unsigned scan_shared[2 * 33];
-  const int tile = scan_ticket(state);
-  unsigned long long* const status = state + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int shift = plan.shift[pass], bits = plan.bits[pass];
-  const long long first = (long long)tile * TILE;
-  const int tile_n = (int)min((long long)TILE, n - first);
+  const int own = warp * 32 * ITEMS + lane;
   for (int w = 0; w < WARPS; ++w) warp_count[w][threadIdx.x] = 0;
-  __syncthreads();
 
-  // the warp's keys, in order
+  // the warp's keys, in order: tile blockIdx.x's in flight while the
+  // ticket is taken (its barrier also orders the clearing above)
   K key[ITEMS];
   int idx[ITEMS];
-  const int own = warp * 32 * ITEMS + lane;
+  const auto load = [&](int t0) {
+    const long long first = (long long)t0 * TILE;
+    const int tile_n = (int)min((long long)TILE, n - first);
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int t = own + 32 * i;
-    const bool valid = t < tile_n;
-    if (FIRST) {
-      key[i] = valid ? Map::in(__ldg(static_cast<const In*>(keys_in) +
-                                     first + t),
-                               plan.top)
-                     : (K)0;
-      idx[i] = (int)(first + t);
-    } else {
-      key[i] = valid ? __ldg(static_cast<const K*>(keys_in) + first + t)
-                     : (K)0;
-      idx[i] = valid ? __ldg(idx_in + first + t) : 0;
+    for (int i = 0; i < ITEMS; ++i) {
+      const int t = own + 32 * i;
+      const bool valid = t < tile_n;
+      if (FIRST) {
+        key[i] = valid ? Map::in(__ldg(static_cast<const In*>(keys_in) +
+                                       first + t),
+                                 plan.top)
+                       : (K)0;
+        idx[i] = (int)(first + t);
+      } else {
+        key[i] = valid ? __ldg(static_cast<const K*>(keys_in) + first + t)
+                       : (K)0;
+        idx[i] = valid ? __ldg(idx_in + first + t) : 0;
+      }
     }
-  }
+  };
+  load(blockIdx.x);
+  const int tile = scan_ticket(state);
+  if (tile != (int)blockIdx.x) load(tile);
+  const int shift = plan.shift[pass], bits = plan.bits[pass];
+  const int tile_n = (int)min((long long)TILE, n - (long long)tile * TILE);
+
   // ranks in the warp, item by item
   const unsigned below_me = (1u << lane) - 1u;
   unsigned short rank[ITEMS];
@@ -241,7 +285,8 @@ __device__ __forceinline__ void sort_pass_body(
   }
   __syncthreads();
 
-  // thread d: the warps' prefixes of digit d and the tile's count
+  // thread d: the warps' prefixes of digit d and the tile's count,
+  // published
   const int d = threadIdx.x;
   unsigned count = 0;
   for (int w = 0; w < WARPS; ++w) {
@@ -249,18 +294,39 @@ __device__ __forceinline__ void sort_pass_body(
     warp_count[w][d] = (unsigned short)count;
     count += c;
   }
-  unsigned long long* word = status + (long long)tile * SORT_RADIX + d;
-  scan_publish(word, tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, count);
+  // the look-back's words (sort_pass_words): the decoupled look-back's
+  // status words, or the two-level one's counts, group sums and group
+  // prefixes
+  const long long tiles = ((long long)n + TILE - 1) / TILE;
+  unsigned long long* const status = state + 1;
+  unsigned* const tile_counts = reinterpret_cast<unsigned*>(state + 1);
+  unsigned* const group_sums = tile_counts + tiles * SORT_RADIX;
+  unsigned* const group_excl =
+      group_sums + (tiles + SCAN_GROUP - 1) / SCAN_GROUP * SORT_RADIX;
+  unsigned long long* const word = status + (long long)tile * SORT_RADIX + d;
+  if (GROUPED)
+    scan_publish_in_group(tile_counts + d, group_sums + d, SORT_RADIX, tile,
+                          count);
+  else
+    scan_publish(word, tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, count);
   // the tile's digit starts, and the digits' starts in the output
   const unsigned v[2] = {count, __ldg(&hist[pass * SORT_RADIX + d])};
   unsigned excl[2], total[2];
   scan_cta<2>(v, excl, total, scan_shared);
+  // the count of digit d in the lower tiles: all of it now (decoupled; a
+  // group's first tile, which publishes it as the group's), or after the
+  // staging (the group's other tiles, which gives the first the time)
+  const int g = tile / SCAN_GROUP;
+  const bool in_group = GROUPED && tile % SCAN_GROUP != 0;
   unsigned long long below = 0;
-  if (tile > 0) {
+  if (GROUPED && !in_group && g > 0) {
+    below = scan_lookback_group(group_excl + d, group_sums + d, SORT_RADIX, g);
+    scan_store32(group_excl + (long long)g * SORT_RADIX + d,
+                 scan_excl_word((unsigned)below));
+  } else if (!GROUPED && tile > 0) {
     below = scan_lookback(status + d, SORT_RADIX, tile);
     scan_publish(word, SCAN_INCLUSIVE, below + count);
   }
-  shift_out[d] = (int)(excl[1] + below) - (int)excl[0];
   digit_start[d] = (unsigned short)excl[0];
   __syncthreads();
   // stage the tile in digit order (warp_count now holds each warp's
@@ -273,6 +339,10 @@ __device__ __forceinline__ void sort_pass_body(
     staged_keys[at] = key[i];
     staged_idx[at] = idx[i];
   }
+  if (in_group)
+    below = scan_lookback_in_group(tile_counts + d, group_excl + d,
+                                   SORT_RADIX, tile);
+  shift_out[d] = (int)(excl[1] + below) - (int)excl[0];
   __syncthreads();
   for (int t = threadIdx.x; t < tile_n; t += SORT_THREADS) {
     const K k = staged_keys[t];

@@ -1,7 +1,9 @@
 // A device-wide exclusive scan of integer counts in a single launch: the
-// decoupled look-back that march_scan_kernel (marching.cu), the radix
-// sort's passes (binning.cu, bin_sort_pass_kernel; mesh.cu) and the
-// weld's group kernel (mesh.cu) are built on.
+// decoupled look-back that march_scan_kernel (marching.cu), the weld's
+// group kernel (mesh.cu) and the radix sort's passes of many waves are
+// built on, and the two-level look-back of the sort's passes of about one
+// wave (radix_sort.cuh: binning.cu's bin_sort_pass_kernel, mesh.cu's
+// weld_sort_pass_kernel).
 //
 // Each CTA of such a kernel takes a tile (a contiguous range of the items)
 // by ticket: thread 0 adds one to a counter of the launch (scan_ticket),
@@ -20,9 +22,36 @@
 // unsigned integers: the results are exact and do not depend on the
 // order in which the CTAs run.
 //
+// When every tile of a launch runs at once and publishes at about the same
+// moment (one wave: the radix sort's 162-190 tiles at 256^3 on 132 SMs),
+// such a look-back walks the wave: tile t meets an inclusive prefix only
+// about t / 8 rounds back (on the H100 up to 11 rounds at 256^3, 2.3-2.7 us
+// a pass, and the latest tiles end ~3 us after the first). The two-level
+// look-back (scan_lookback_group, scan_lookback_in_group) is for such a
+// launch: consecutive tickets form groups of SCAN_GROUP tiles; a tile
+// publishes its count once, as a 32-bit word (scan_count_word), and adds
+// it, tagged with a one in the top byte, into its group's 32-bit sum word
+// (scan_group_add), so a group's sum is complete once every tile of it has
+// published. The first tile of each group g > 0 finds the group's
+// exclusive prefix over the groups below (nearest first,
+// SCAN_GROUP_WINDOW a round, each group its complete sum, or its
+// published exclusive prefix plus its sum, which ends the walk) and
+// publishes it (scan_excl_word); every other tile reads that word and the
+// counts of its group's lower tiles, all at once, one round. Its words are
+// 32-bit (the counts of a tile and a group are small; a prefix is below
+// 2^31), and only the first tiles of the groups look further back (64-bit
+// words, up to 31 a round, took as long as the walk: their L2 bytes). A
+// tile waits only on lower tickets: its group's lower tiles and first
+// tile, and (a first tile) the tiles and first tiles of the groups below.
+// It holds more registers than scan_lookback, so that a launch of many
+// waves, whose later waves find inclusive prefixes at once, keeps the
+// decoupled look-back (radix_sort.cuh picks by the tiles).
+//
 // The flag and the value share one word, written and read whole (a
-// 64-bit relaxed store and load at GPU scope), so a reader never sees a
-// flag with another state's value, and nothing else needs a fence: what
+// 64-bit relaxed store and load at GPU scope; the two-level look-back's
+// 32-bit words likewise, a value plus one or a group's tile count beside
+// its sum), so a reader never sees a flag with another state's value, and
+// nothing else needs a fence: what
 // the tiles write besides (the scan's list, the sort's keys) is read by
 // later kernels on the stream.
 //
@@ -35,9 +64,9 @@
 // call. (Tagging each word with a call epoch would need the state to
 // persist across calls, one copy a stream, and the ticket reset anyway.)
 //
-// The packing and the look-back's window step are plain host-compilable
-// code, so the g++ host builds of the tests check them and emulate the
-// kernels' scans tile by tile.
+// The packing, the look-back's window step and the group words are plain
+// host-compilable code, so the g++ host builds of the tests check them and
+// emulate the kernels' scans tile by tile.
 
 #pragma once
 
@@ -62,6 +91,16 @@
 // lane each: for a kernel with a few counts a tile, whose CTAs publish in
 // waves, so that a look-back walks back over many aggregates.
 #define SCAN_WARP_WINDOW 32
+// The two-level look-back's groups: SCAN_GROUP consecutive tiles (a tile
+// loads its group's lower tiles' counts at once, SCAN_GROUP - 1 at most),
+// and the groups a round of a first tile's look-back over groups reads.
+#define SCAN_GROUP 16
+#define SCAN_GROUP_WINDOW 8
+// A group's sum word: its tiles' counts below bit SCAN_GROUP_SHIFT (a
+// sort's tile holds at most 4,096 keys, so a group's sum is below 2^17),
+// the number of tiles that added theirs above it.
+#define SCAN_GROUP_SHIFT 24
+#define SCAN_GROUP_MASK ((1u << SCAN_GROUP_SHIFT) - 1u)
 
 SCAN_FN unsigned long long scan_word(unsigned flag, unsigned long long value) {
   return ((unsigned long long)flag << SCAN_VALUE_BITS) |
@@ -95,6 +134,32 @@ SCAN_FN int scan_window_step(const unsigned long long* words, int n,
     }
   }
   return n;
+}
+
+// The two-level look-back's 32-bit words, zero while empty: a tile's count
+// and a group's exclusive prefix (below 2^31), each published as itself
+// plus one.
+SCAN_FN unsigned scan_count_word(unsigned count) { return count + 1u; }
+SCAN_FN unsigned scan_excl_word(unsigned prefix) { return prefix + 1u; }
+
+// What a tile adds to its group's sum word: its count, and one tile.
+SCAN_FN unsigned scan_group_add(unsigned count) {
+  return (1u << SCAN_GROUP_SHIFT) + count;
+}
+
+// A group below the reader's as a first tile's look-back takes it
+// (scan_window_step's words): empty until all SCAN_GROUP tiles have added
+// their counts to its sum word; then its exclusive prefix plus its sum as
+// an inclusive prefix where its first tile has published the former
+// (`excl`), else its sum as an aggregate. Group 0's exclusive prefix is 0
+// without a word (`first`).
+SCAN_FN unsigned long long scan_group_status(unsigned excl, unsigned sum,
+                                             bool first) {
+  if ((sum >> SCAN_GROUP_SHIFT) != SCAN_GROUP) return scan_word(SCAN_EMPTY, 0);
+  const unsigned long long s = sum & SCAN_GROUP_MASK;
+  if (first) return scan_word(SCAN_INCLUSIVE, s);
+  return excl != 0u ? scan_word(SCAN_INCLUSIVE, excl - 1ULL + s)
+                    : scan_word(SCAN_AGGREGATE, s);
 }
 
 #if defined(__CUDACC__)
@@ -186,6 +251,81 @@ __device__ __forceinline__ unsigned long long scan_lookback_warp(
     next -= __popc(take);
   }
   return sum;
+}
+
+__device__ __forceinline__ unsigned scan_load32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void scan_store32(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Publish a tile's count for the two-level look-back: its count word
+// (counts[tile * stride]) and its share of its group's sum word
+// (sums[g * stride]; one atomic add, in any order).
+__device__ __forceinline__ void scan_publish_in_group(unsigned* counts,
+                                                      unsigned* sums,
+                                                      int stride, int tile,
+                                                      unsigned count) {
+  scan_store32(counts + (long long)tile * stride, scan_count_word(count));
+  atomicAdd(sums + (long long)(tile / SCAN_GROUP) * stride,
+            scan_group_add(count));
+}
+
+// The exclusive prefix of group g > 0 for one count (the sum of every
+// count in the groups below), by its first tile's thread alone: the groups
+// below nearest first, SCAN_GROUP_WINDOW a round (their exclusive and sum
+// words loaded together: excl[q * stride], sums[q * stride]), spinning on
+// a round whose nearest untaken group is not complete. The caller
+// publishes it (scan_excl_word).
+__device__ __forceinline__ unsigned long long scan_lookback_group(
+    const unsigned* excl, const unsigned* sums, int stride, int g) {
+  unsigned long long sum = 0, w[SCAN_GROUP_WINDOW];
+  int next = g - 1;  // the nearest lower group not yet taken
+  bool done = false;
+  while (!done) {
+#pragma unroll
+    for (int i = 0; i < SCAN_GROUP_WINDOW; ++i) {
+      const int q = next - i;
+      w[i] = q >= 0 ? scan_group_status(
+                          q > 0 ? scan_load32(excl + (long long)q * stride)
+                                : 0u,
+                          scan_load32(sums + (long long)q * stride), q == 0)
+                    : scan_word(SCAN_INCLUSIVE, 0ULL);
+    }
+    next -= scan_window_step(w, SCAN_GROUP_WINDOW, sum, &done);
+  }
+  return sum;
+}
+
+// The exclusive prefix of `tile` for one count, by the calling thread
+// alone, where the tile is not the first of its group: its group's
+// exclusive prefix (excl[g * stride], 0 for group 0) plus the counts of its
+// group's lower tiles (counts[p * stride]), all loaded at once, spinning on
+// each word until it is published.
+__device__ __forceinline__ unsigned long long scan_lookback_in_group(
+    const unsigned* counts, const unsigned* excl, int stride, int tile) {
+  const int g = tile / SCAN_GROUP, r = tile - g * SCAN_GROUP;
+  const unsigned* const e = excl + (long long)g * stride;
+  unsigned x = g > 0 ? scan_load32(e) : 1u, w[SCAN_GROUP - 1];
+#pragma unroll
+  for (int i = 0; i < SCAN_GROUP - 1; ++i)
+    w[i] = i < r ? scan_load32(counts + (long long)(tile - 1 - i) * stride)
+                 : 1u;
+  unsigned long long sum = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_GROUP - 1; ++i) {
+    while (w[i] == 0u)
+      w[i] = scan_load32(counts + (long long)(tile - 1 - i) * stride);
+    sum += w[i] - 1u;
+  }
+  while (x == 0u) x = scan_load32(e);
+  return sum + (x - 1u);
 }
 
 // An exclusive scan of K counts across the CTA's threads (at most 32

@@ -88,14 +88,30 @@ def splat_keys(splats: torch.Tensor, valid: torch.Tensor, cell_origin,
 #: (csrc/binning.cuh).
 SORT_TILE = 4096
 SORT_RADIX = 256
+#: Tiles a group of the passes' two-level look-back (csrc/scan.cuh), and
+#: the most tiles of a pass that takes it (csrc/radix_sort.cuh).
+SCAN_GROUP = 16
+SORT_GROUPED_TILES = 256
+
+
+def sort_pass_words(n: int, tile: int) -> int:
+    """A pass's scan state for n keys in tiles of `tile` keys, int64 words
+    (radix_sort.cuh's sort_pass_words): its ticket, then a status word a
+    (tile, digit), or, for a pass of at most SORT_GROUPED_TILES tiles (the
+    two-level look-back), 32-bit words, two a 64-bit word: a count a
+    (tile, digit), a sum and an exclusive prefix a (group, digit)."""
+    tiles = -(-n // tile)
+    if tiles <= SORT_GROUPED_TILES:
+        return 1 + (tiles + 2 * -(-tiles // SCAN_GROUP)) * (SORT_RADIX // 2)
+    return 1 + tiles * SORT_RADIX
 
 
 def sort_scratch_words(n: int, min_shift: int, max_shift: int) -> int:
     """The sort's scratch for n keys, int64 words
-    (bin_sort_scratch_words): each pass's histogram (SORT_RADIX int32),
-    its ticket and a status word a (tile, digit)."""
+    (bin_sort_scratch_words): each pass's histogram (SORT_RADIX int32) and
+    its scan state (sort_pass_words)."""
     passes = len(binning.sort_digits(min_shift, max_shift))
-    return passes * (SORT_RADIX // 2 + 1 + -(-n // SORT_TILE) * SORT_RADIX)
+    return passes * (SORT_RADIX // 2 + sort_pass_words(n, SORT_TILE))
 
 
 def sort_keys(keys: torch.Tensor, min_shift: int, max_shift: int

@@ -37,7 +37,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
-from mlsgpu_tpu_torch.ops import launches, marching, marching_cuda, mls_cuda
+from mlsgpu_tpu_torch.ops import (binning_cuda, launches, marching,
+                                  marching_cuda, mls_cuda)
 from mlsgpu_tpu_torch.ops import weld as weld_ops
 
 #: Bits an axis of the global weld keys (marching.generate_mesh's scheme).
@@ -180,11 +181,11 @@ def weld_plan(bits: int):
 def weld_scratch_words(n: int, bits: int) -> int:
     """The weld's scratch for n vertices, int64 words
     (mesh_weld_scratch_words): each sort pass's histogram (SORT_RADIX
-    int32), ticket and status words a (tile, digit), then the group
+    int32) and scan state (binning_cuda.sort_pass_words), then the group
     kernel's ticket and a status word a count a tile."""
     kb = sort_key_bytes(bits)
     tile = SORT_THREADS * (8 if kb == 8 else 16)
-    pass_words = 1 + -(-n // tile) * SORT_RADIX
+    pass_words = binning_cuda.sort_pass_words(n, tile)
     return (sort_passes(bits) * (SORT_RADIX // 2 + pass_words)
             + 1 + WELD_COUNTS * -(-n // WELD_TILE))
 

@@ -267,21 +267,129 @@ extern "C" int host_window_step(const unsigned long long* words, int n,
   return taken;
 }
 
+// scan_lookback_group on the host, every group sum complete: the groups
+// below g nearest first, SCAN_GROUP_WINDOW a round, each its exclusive
+// prefix plus its sum where its first tile has published the former, else
+// its sum. Counts the rounds in *rounds.
+static unsigned long long group_lookback(const unsigned* excl,
+                                         const unsigned* sums, int stride,
+                                         long long g, int* rounds) {
+  unsigned long long sum = 0, w[SCAN_GROUP_WINDOW];
+  long long next = g - 1;
+  bool done = false;
+  *rounds = 0;
+  while (!done) {
+    for (int i = 0; i < SCAN_GROUP_WINDOW; ++i) {
+      const long long q = next - i;
+      w[i] = q >= 0 ? scan_group_status(q > 0 ? excl[q * stride] : 0u,
+                                        sums[q * stride], q == 0)
+                    : scan_word(SCAN_INCLUSIVE, 0ULL);
+    }
+    next -= scan_window_step(w, SCAN_GROUP_WINDOW, sum, &done);
+    ++*rounds;
+  }
+  return sum;
+}
+
+// scan_lookback_in_group on the host: the group's exclusive prefix (0 for
+// group 0) plus its lower tiles' counts; -1 where a word it needs is not
+// yet published (the card would wait on it).
+static long long in_group_lookback(const unsigned* counts,
+                                   const unsigned* excl, int stride,
+                                   long long tile) {
+  const long long g = tile / SCAN_GROUP;
+  const int r = (int)(tile - g * SCAN_GROUP);
+  const unsigned x = g > 0 ? excl[g * stride] : 1u;
+  if (x == 0u) return -1;
+  long long sum = x - 1u;
+  for (int i = 0; i < r; ++i) {
+    const unsigned w = counts[(tile - 1 - i) * stride];
+    if (w == 0u) return -1;
+    sum += w - 1u;
+  }
+  return sum;
+}
+
+// A tile's exclusive prefix for one count by the two-level look-back
+// (sort_pass_body): a group's first tile looks back over the groups below
+// and publishes the group's prefix, any other tile adds its group's lower
+// tiles' counts to that prefix. -1 as in_group_lookback.
+static long long two_level(const unsigned* counts, const unsigned* sums,
+                           unsigned* excl, int stride, long long tile,
+                           int* rounds) {
+  const long long g = tile / SCAN_GROUP;
+  *rounds = 0;
+  if (tile % SCAN_GROUP != 0) return in_group_lookback(counts, excl, stride,
+                                                       tile);
+  if (g == 0) return 0;
+  const unsigned long long b = group_lookback(excl, sums, stride, g, rounds);
+  excl[g * stride] = scan_excl_word((unsigned)b);
+  return (long long)b;
+}
+
+// The order in which a pass's tiles look back on the host: in ticket order,
+// or, `descending`, from the last; for the two-level look-back (`grouped`)
+// the groups' first tiles from the last first (each walking every group
+// sum below it), then the others.
+static std::vector<long long> lookback_order(long long tiles, int descending,
+                                             bool grouped) {
+  std::vector<long long> order;
+  for (int first = 1; first >= 0; --first)
+    for (long long k = 0; k < tiles; ++k) {
+      const long long t = descending ? tiles - 1 - k : k;
+      if (!descending || !grouped ||
+          (t % SCAN_GROUP == 0) == (first == 1))
+        order.push_back(t);
+    }
+  order.resize(tiles);
+  return order;
+}
+
 // scan_lookback on the host: SCAN_WINDOW words a round, below tile 0 an
 // inclusive 0.
 static unsigned long long lookback(const unsigned long long* words,
-                                   int stride, int tile) {
+                                   int stride, long long tile) {
   unsigned long long sum = 0, w[SCAN_WINDOW];
-  int next = tile - 1;
+  long long next = tile - 1;
   while (next >= 0) {
     for (int i = 0; i < SCAN_WINDOW; ++i)
-      w[i] = next - i >= 0 ? words[(long long)(next - i) * stride]
+      w[i] = next - i >= 0 ? words[(next - i) * stride]
                            : scan_word(SCAN_INCLUSIVE, 0ULL);
     bool done;
     next -= scan_window_step(w, SCAN_WINDOW, sum, &done);
     if (done) break;
   }
   return sum;
+}
+
+// The two-level scan of `tiles` tiles' counts as a pass runs it: every
+// tile publishes (its count word, its group's sum), then the tiles look
+// back in lookback_order, in ticket order or from the last. excl: each
+// tile's exclusive prefix; rounds: a first tile's look-back's rounds (0
+// for the others). Returns -1 where a tile read an unpublished word.
+extern "C" int host_grouped_scan(const unsigned* counts, int tiles,
+                                 int descending, unsigned long long* excl,
+                                 int* rounds) {
+  const int groups = (tiles + SCAN_GROUP - 1) / SCAN_GROUP;
+  std::vector<unsigned> words(tiles), sums(groups, 0u), gx(groups, 0u);
+  for (int t = 0; t < tiles; ++t) {
+    words[t] = scan_count_word(counts[t]);
+    sums[t / SCAN_GROUP] += scan_group_add(counts[t]);
+  }
+  for (long long t : lookback_order(tiles, descending, true)) {
+    const long long b = two_level(words.data(), sums.data(), gx.data(), 1, t,
+                                  &rounds[t]);
+    if (b < 0) return -1;
+    excl[t] = (unsigned long long)b;
+  }
+  return 0;
+}
+
+extern "C" int host_sort_grouped(long long tiles) { return sort_grouped(tiles); }
+
+extern "C" unsigned long long host_group_status(unsigned excl, unsigned sum,
+                                                int first) {
+  return scan_group_status(excl, sum, first != 0);
 }
 
 // match_digit (a match.any on the card): the lanes whose digit and
@@ -301,12 +409,14 @@ static unsigned match_digit(const unsigned* d, const bool* valid, int lane,
 
 // bin_sort_launch: the histogram kernel's counts, then each pass's tiles
 // as its kernel runs them, warps and lanes written out. Every tile first
-// publishes its aggregates (as if all ran at once), then the tiles look
-// back in ascending ticket order or, `descending`, from the last (each
-// walking every aggregate down to tile 0).
+// publishes its counts (as if all ran at once), then the tiles look back
+// in lookback_order, in ticket order or from the last: on two levels
+// where `grouped` (-1: as the launcher picks, sort_grouped), else
+// decoupled (each walking every aggregate below it from the last).
+// Returns -1 where a tile read an unpublished word.
 extern "C" int host_sort(const long long* keys, long long n, int min_shift,
-                         int max_shift, int descending, long long* sorted,
-                         long long* perm) {
+                         int max_shift, int descending, int grouped_mode,
+                         long long* sorted, long long* perm) {
   const BinSortPlan plan = bin_sort_plan(min_shift, max_shift);
   const int R = BIN_SORT_RADIX, W = BIN_SORT_THREADS / 32;
   const int I = BIN_SORT_ITEMS, T = BIN_SORT_TILE;
@@ -320,11 +430,18 @@ extern "C" int host_sort(const long long* keys, long long n, int min_shift,
       ++hist[p * R + bin_sort_digit(kin[e], plan.shift[p], plan.bits[p])];
   }
   const long long tiles = bin_sort_tiles(n);
+  const long long groups = (tiles + SCAN_GROUP - 1) / SCAN_GROUP;
+  const bool grouped =
+      grouped_mode < 0 ? sort_grouped(tiles) : grouped_mode == 1;
+  std::vector<unsigned> words(tiles * R), sums(groups * R), gx(groups * R);
   std::vector<unsigned long long> status(tiles * R);
   std::vector<std::vector<unsigned short>> rank(tiles), warp_count(tiles);
   std::vector<std::vector<unsigned>> count(tiles);
   for (int p = 0; p < plan.passes; ++p) {
     const int shift = plan.shift[p], bits = plan.bits[p];
+    std::fill(words.begin(), words.end(), 0u);
+    std::fill(sums.begin(), sums.end(), 0u);
+    std::fill(gx.begin(), gx.end(), 0u);
     std::fill(status.begin(), status.end(), 0ULL);
     // ranking and aggregates, every tile
     for (long long tile = 0; tile < tiles; ++tile) {
@@ -361,21 +478,27 @@ extern "C" int host_sort(const long long* keys, long long n, int min_shift,
           run += c;
         }
         count[tile][d] = run;
+        words[tile * R + d] = scan_count_word(run);
+        sums[tile / SCAN_GROUP * R + d] += scan_group_add(run);
         status[tile * R + d] =
             scan_word(tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, run);
       }
     }
     // look-back, staging and the write-out, tile by tile
-    for (long long k = 0; k < tiles; ++k) {
-      const long long tile = descending ? tiles - 1 - k : k;
+    for (long long tile : lookback_order(tiles, descending, grouped)) {
       const long long first = tile * T;
       const int tile_n = (int)std::min((long long)T, n - first);
       std::vector<int> shift_out(R), digit_start(R);
       unsigned excl0 = 0, excl1 = 0;
       for (int d = 0; d < R; ++d) {
-        unsigned long long below = 0;
-        if (tile > 0) {
-          below = lookback(status.data() + d, R, (int)tile);
+        int rounds;
+        long long below = 0;
+        if (grouped) {
+          below = two_level(words.data() + d, sums.data() + d, gx.data() + d,
+                            R, tile, &rounds);
+          if (below < 0) return -1;
+        } else if (tile > 0) {
+          below = (long long)lookback(status.data() + d, R, tile);
           status[tile * R + d] =
               scan_word(SCAN_INCLUSIVE, below + count[tile][d]);
         }
@@ -470,7 +593,13 @@ def host(tmp_path_factory):
     lib.host_window_step.restype = i32
     lib.host_window_step.argtypes = [p, i32, p, p]
     lib.host_sort.restype = i32
-    lib.host_sort.argtypes = [p, i64, i32, i32, i32, p, p]
+    lib.host_sort.argtypes = [p, i64, i32, i32, i32, i32, p, p]
+    lib.host_sort_grouped.restype = i32
+    lib.host_sort_grouped.argtypes = [i64]
+    lib.host_grouped_scan.restype = i32
+    lib.host_grouped_scan.argtypes = [p, i32, i32, p, p]
+    lib.host_group_status.restype = u64
+    lib.host_group_status.argtypes = [u32, u32, i32]
     return lib
 
 
@@ -703,18 +832,28 @@ def test_host_build_tile_nodes_equal_the_plain_queries(host):
 #: sort_case's key sets: (levels, kind, entries): one pass at 3 levels,
 #: two at 4 and 6, three at 7, four at 9 and 11. "mixed" is node keys of
 #: every level with a third invalid, "valid" none invalid, "invalid" all,
-#: "ties" three distinct keys, "splats" the keys of edge_cloud("sphere").
-#: 4,096 keys make a tile of the sort's passes: the sizes hold one tile,
-#: a tile and one key, several tiles and a last short one.
+#: "ties" three distinct keys, "splats" the keys of edge_cloud("sphere"),
+#: "one_digit" every key of one digit in the first pass (multiples of
+#: 256), "spread" every low digit in every warp's 512 keys. 4,096 keys
+#: make a tile of the sort's passes: the sizes hold one tile, a tile and
+#: one key either side, several tiles and a last short one, and a group
+#: of 16 tiles (the two-level look-back's, csrc/scan.cuh) and one more
+#: tile, two groups and one more.
 SORT_CASES = {
     "l3_mixed": (3, "mixed", 20000),
     "l4_mixed": (4, "mixed", 9000),
     "l6_mixed": (6, "mixed", 3 * 4096 + 1),
     "l6_valid": (6, "valid", 4096),
+    "l6_below_a_tile": (6, "mixed", 4095),
+    "l6_above_a_tile": (6, "mixed", 4097),
     "l6_invalid": (6, "invalid", 9001),
     "l6_ties": (6, "ties", 10000),
+    "l6_one_digit": (6, "one_digit", 3 * 4096 + 7),
+    "l6_spread": (6, "spread", 2 * 4096 + 512),
     "l6_splats": (6, "splats", None),
+    "l6_group_and_a_tile": (6, "mixed", 16 * 4096 + 1),
     "l7_mixed": (7, "mixed", 20011),
+    "l7_two_groups_and_a_tile": (7, "mixed", 32 * 4096 + 1),
     "l9_mixed": (9, "mixed", 20000),
     "l11_mixed": (11, "mixed", 20000),
     "empty": (6, "mixed", 0),
@@ -741,6 +880,11 @@ def sort_keys_of(levels, kind, m):
     top = binning.node_count(min_s, max_s)
     if kind == "ties":
         keys = rng.choice(np.array([7, top - 1, binning.INVALID_KEY]), m)
+    elif kind == "one_digit":
+        keys = 256 * rng.integers(0, top // 256, size=m)
+    elif kind == "spread":
+        keys = (np.arange(m) * 37 % 256
+                + 256 * rng.integers(0, top // 256, size=m))
     else:
         keys = rng.integers(0, top, size=m)
         if kind == "mixed":
@@ -814,20 +958,105 @@ def test_window_step_takes_aggregates_up_to_an_inclusive_prefix(host, words,
     assert (taken, total.value, bool(done.value)) == want
 
 
+#: The two-level look-back's group (csrc/scan.cuh's SCAN_GROUP).
+GROUP = binning_cuda.SCAN_GROUP
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("tiles", [1, GROUP - 1, GROUP, GROUP + 1,
+                                   2 * GROUP + 1, 11 * GROUP + 3])
+def test_two_level_lookback_is_the_exclusive_scan(host, tiles, descending):
+    """The two-level look-back on the host (every tile published first:
+    its count word and its group's sum) gives each tile the exclusive
+    prefix of the counts: in ticket order (a group's first tile meets the
+    group below's published prefix: one round), or from the last (the
+    groups' first tiles first, each walking every group sum below it, 8 a
+    round), every other tile from its group's prefix and its lower tiles'
+    counts."""
+    rng = np.random.default_rng(tiles)
+    counts = rng.integers(0, 4097, size=tiles).astype(np.uint32)
+    counts[rng.random(tiles) < 0.2] = 0
+    excl = np.empty(tiles, np.uint64)
+    rounds = np.empty(tiles, np.int32)
+    assert host.host_grouped_scan(_ptr(counts), tiles, int(descending),
+                                  _ptr(excl), _ptr(rounds)) == 0
+    want = np.concatenate([[0], np.cumsum(counts.astype(np.uint64))[:-1]])
+    np.testing.assert_array_equal(excl, want)
+    g = np.arange(tiles) // GROUP
+    first = (np.arange(tiles) % GROUP == 0) & (g > 0)
+    assert (rounds[~first] == 0).all()
+    want_rounds = -(-g // 8) if descending else np.ones_like(g)
+    np.testing.assert_array_equal(rounds[first], want_rounds[first])
+
+
+def test_passes_of_one_wave_take_the_two_level_lookback(host):
+    """radix_sort.cuh's sort_grouped: a pass of at most 256 tiles (the
+    sort's 162-190 at 256^3) takes the two-level look-back, a larger one
+    (757-1,180 at 512^3) the decoupled look-back; binning_cuda's scratch
+    follows it."""
+    for tiles in (1, 162, 190, 256, 257, 757, 1180):
+        assert host.host_sort_grouped(tiles) == int(
+            tiles <= binning_cuda.SORT_GROUPED_TILES)
+
+
+def test_group_words_need_every_tile_or_the_prefix(host):
+    """A group's sum counts for a look-back only once all SCAN_GROUP tiles
+    have added theirs: as an aggregate, or with the group's published
+    exclusive prefix (one more than the prefix) as an inclusive prefix;
+    group 0's prefix is 0 without a word."""
+    add = lambda c: (1 << 24) + c  # noqa: E731
+    full = sum(add(c) for c in range(GROUP))
+    part = full - add(GROUP - 1)
+    agg, incl = 1 << 62, 2 << 62
+    total = sum(range(GROUP))
+    assert host.host_group_status(0, full, 0) == agg | total
+    assert host.host_group_status(1001, full, 0) == incl | (1000 + total)
+    assert host.host_group_status(0, full, 1) == incl | total
+    for x, first in ((0, 0), (1001, 0), (0, 1)):
+        assert host.host_group_status(x, part, first) == 0
+        assert host.host_group_status(x, 0, first) == 0
+
+
+@pytest.mark.parametrize("levels,per_key", [(6, 40), (7, 56)])
+def test_sort_rows_give_the_passes_floor(levels, per_key):
+    """chip_smoke's sort rows keep their bound (the int64 keys in, keys
+    and permutation out: 24 bytes an entry) and add the passes' floor:
+    the first pass 8 bytes in and 8 out, a pass between 8 and 8, the last
+    8 in and 16 out (int64 keys and permutation); and the weld's passes'
+    row, 4-byte keys at 256^3: 4 in and 8 out, then 8 and 8."""
+    import chip_smoke
+    n = 82_937
+    passes = len(binning.sort_digits(3, levels + 2))
+    for name in ("bin_sort", "bin_sort_pass"):
+        b = chip_smoke.binning_bound(name, n, 1, levels, passes=passes)
+        assert b["bytes"] == 24 * 8 * n
+        assert b["passes_floor"]["bytes"] == per_key * 8 * n
+        assert b["passes_floor"]["ms"] > b["bound_ms"]
+    w = chip_smoke.mesh_bound("weld_sort_pass", 256, 0, 776_917, 0, 0, 0, 3)
+    assert w["bytes"] == 12 * 776_917
+    assert w["passes_floor"]["bytes"] == (12 + 16 + 16) * 776_917
+
+
+@pytest.mark.parametrize("lookback", ["launcher", "decoupled", "two_level"])
 @pytest.mark.parametrize("descending", [False, True])
 @pytest.mark.parametrize("case", list(SORT_CASES))
-def test_host_build_sort_equals_torch_sort(host, case, descending):
+def test_host_build_sort_equals_torch_sort(host, case, descending, lookback):
     """The sort's kernels run on the host tile by tile (their ranking a
-    warp at a time, the look-back over aggregates, the staging and the
-    write-out) give torch.sort(stable=True)'s keys and permutation; the
-    tiles looked back in ticket order and in reverse (every tile walks
-    every aggregate below it)."""
+    warp at a time, the look-back, the staging and the write-out) give
+    torch.sort(stable=True)'s keys and permutation, with the look-back
+    the launcher picks and with each of the two forced (the decoupled one,
+    every tile walking every aggregate below it from the last; the
+    two-level one, every group's first tile walking every group sum below
+    it from the last); the tiles looked back in ticket order and in
+    reverse."""
     keys, min_s, max_s = sort_case(case)
     want_k, want_p = torch.sort(torch.as_tensor(keys), stable=True)
     got_k = np.empty(len(keys), np.int64)
     got_p = np.empty(len(keys), np.int64)
+    mode = {"launcher": -1, "decoupled": 0, "two_level": 1}[lookback]
     passes = host.host_sort(_ptr(keys), len(keys), min_s, max_s,
-                            int(descending), _ptr(got_k), _ptr(got_p))
+                            int(descending), mode, _ptr(got_k), _ptr(got_p))
+    assert passes >= 0, "a tile read an unpublished word"
     assert passes == len(binning.sort_digits(min_s, max_s))
     np.testing.assert_array_equal(got_k, want_k.numpy())
     np.testing.assert_array_equal(got_p, want_p.numpy())
@@ -1163,13 +1392,18 @@ def test_segment_kernels_bit_for_bit_on_edge_cases_on_card(cuda_device,
 
 #: The sort's card cases: (levels, kind, keys) as sort_keys_of makes them
 #: (one key, a tile of the passes (4,096 keys) and one key either side, a
-#: prime count, 4 to 11 levels (two to four passes), all keys invalid,
-#: heavy ties), and
+#: group of the two-level look-back (16 tiles) and one key either side,
+#: two groups and a tile, a prime count, 4 to 11 levels (two to four
+#: passes), all keys invalid, heavy ties, every key of one digit, every
+#: digit in every warp), and
 #: the densest bucket of the 2M bench cloud at 6 levels (256^3 corners,
 #: 663,496 entries) and at 7 (512^3, 3,098,216).
 CARD_SORT_CASES = [
     (6, "mixed", 1), (6, "mixed", 4095), (6, "mixed", 4096),
-    (6, "mixed", 4097), (6, "mixed", 999_983), (7, "mixed", 999_983),
+    (6, "mixed", 4097), (6, "mixed", 16 * 4096 - 1),
+    (6, "mixed", 16 * 4096 + 1), (7, "mixed", 32 * 4096 + 1),
+    (6, "one_digit", 100_003), (6, "spread", 100_352),
+    (6, "mixed", 999_983), (7, "mixed", 999_983),
     (7, "mixed", 4097), (8, "mixed", 999_983), (9, "mixed", 999_983),
     (11, "mixed", 999_983), (4, "mixed", 50_000), (6, "invalid", 100_003),
     (6, "ties", 300_007), (7, "valid", 5 * 4096), (6, "bucket", None),

@@ -431,6 +431,84 @@ static unsigned long long lookback(const unsigned long long* words,
   return sum;
 }
 
+// scan_lookback_group on the host, every group sum complete: the groups
+// below g nearest first, SCAN_GROUP_WINDOW a round, each its exclusive
+// prefix plus its sum where its first tile has published the former, else
+// its sum. Counts the rounds in *rounds.
+static unsigned long long group_lookback(const unsigned* excl,
+                                         const unsigned* sums, int stride,
+                                         long long g, int* rounds) {
+  unsigned long long sum = 0, w[SCAN_GROUP_WINDOW];
+  long long next = g - 1;
+  bool done = false;
+  *rounds = 0;
+  while (!done) {
+    for (int i = 0; i < SCAN_GROUP_WINDOW; ++i) {
+      const long long q = next - i;
+      w[i] = q >= 0 ? scan_group_status(q > 0 ? excl[q * stride] : 0u,
+                                        sums[q * stride], q == 0)
+                    : scan_word(SCAN_INCLUSIVE, 0ULL);
+    }
+    next -= scan_window_step(w, SCAN_GROUP_WINDOW, sum, &done);
+    ++*rounds;
+  }
+  return sum;
+}
+
+// scan_lookback_in_group on the host: the group's exclusive prefix (0 for
+// group 0) plus its lower tiles' counts; -1 where a word it needs is not
+// yet published (the card would wait on it).
+static long long in_group_lookback(const unsigned* counts,
+                                   const unsigned* excl, int stride,
+                                   long long tile) {
+  const long long g = tile / SCAN_GROUP;
+  const int r = (int)(tile - g * SCAN_GROUP);
+  const unsigned x = g > 0 ? excl[g * stride] : 1u;
+  if (x == 0u) return -1;
+  long long sum = x - 1u;
+  for (int i = 0; i < r; ++i) {
+    const unsigned w = counts[(tile - 1 - i) * stride];
+    if (w == 0u) return -1;
+    sum += w - 1u;
+  }
+  return sum;
+}
+
+// A tile's exclusive prefix for one count by the two-level look-back
+// (sort_pass_body): a group's first tile looks back over the groups below
+// and publishes the group's prefix, any other tile adds its group's lower
+// tiles' counts to that prefix. -1 as in_group_lookback.
+static long long two_level(const unsigned* counts, const unsigned* sums,
+                           unsigned* excl, int stride, long long tile,
+                           int* rounds) {
+  const long long g = tile / SCAN_GROUP;
+  *rounds = 0;
+  if (tile % SCAN_GROUP != 0) return in_group_lookback(counts, excl, stride,
+                                                       tile);
+  if (g == 0) return 0;
+  const unsigned long long b = group_lookback(excl, sums, stride, g, rounds);
+  excl[g * stride] = scan_excl_word((unsigned)b);
+  return (long long)b;
+}
+
+// The order in which a pass's tiles look back on the host: in ticket order,
+// or, `descending`, from the last; for the two-level look-back (`grouped`)
+// the groups' first tiles from the last first (each walking every group
+// sum below it), then the others.
+static std::vector<long long> lookback_order(long long tiles, int descending,
+                                             bool grouped) {
+  std::vector<long long> order;
+  for (int first = 1; first >= 0; --first)
+    for (long long k = 0; k < tiles; ++k) {
+      const long long t = descending ? tiles - 1 - k : k;
+      if (!descending || !grouped ||
+          (t % SCAN_GROUP == 0) == (first == 1))
+        order.push_back(t);
+    }
+  order.resize(tiles);
+  return order;
+}
+
 // sort_pass_body's warp ranking: the lanes whose digit and validity equal
 // lane l's.
 static unsigned match_digit(const unsigned* d, const bool* valid, int lane) {
@@ -445,11 +523,14 @@ static unsigned match_digit(const unsigned* d, const bool* valid, int lane) {
 // pass's tiles as its kernel runs them, warps and lanes written out) of K
 // keys, K keys between passes: keys in order by their top 8 g bits,
 // stably.
-// Every tile first publishes its aggregates, then the tiles look back in
-// ticket order or, `descending`, from the last.
+// Every tile first publishes its counts (as if all ran at once), then the
+// tiles look back in lookback_order, in ticket order or from the last: on
+// two levels where `grouped_mode` says so (-1: as the launcher picks,
+// sort_grouped), else decoupled. Returns -1 where a tile read an
+// unpublished word.
 template <typename K>
-static int weld_sort(const K* keys, long long n, int bits,
-                     int descending, long long* sorted, long long* perm) {
+static int weld_sort(const K* keys, long long n, int bits, int descending,
+                     int grouped_mode, long long* sorted, long long* perm) {
   const SortPlan plan = mesh_weld_sort_plan(bits, mesh_sort_passes(bits));
   const int R = SORT_RADIX, W = SORT_THREADS / 32;
   const int I = sort_items(sizeof(K)), T = sort_tile_keys(sizeof(K));
@@ -463,11 +544,18 @@ static int weld_sort(const K* keys, long long n, int bits,
       ++hist[p * R + sort_digit(kin[e], plan.shift[p], plan.bits[p])];
   }
   const long long tiles = sort_tiles(n, sizeof(K));
+  const long long groups = (tiles + SCAN_GROUP - 1) / SCAN_GROUP;
+  const bool grouped =
+      grouped_mode < 0 ? sort_grouped(tiles) : grouped_mode == 1;
+  std::vector<unsigned> words(tiles * R), sums(groups * R), gx(groups * R);
   std::vector<unsigned long long> status(tiles * R);
   std::vector<std::vector<unsigned short>> rank(tiles), warp_count(tiles);
   std::vector<std::vector<unsigned>> count(tiles);
   for (int p = 0; p < plan.passes; ++p) {
     const int shift = plan.shift[p], pbits = plan.bits[p];
+    std::fill(words.begin(), words.end(), 0u);
+    std::fill(sums.begin(), sums.end(), 0u);
+    std::fill(gx.begin(), gx.end(), 0u);
     std::fill(status.begin(), status.end(), 0ULL);
     for (long long tile = 0; tile < tiles; ++tile) {
       const long long first = tile * T;
@@ -508,20 +596,26 @@ static int weld_sort(const K* keys, long long n, int bits,
           run += c;
         }
         count[tile][d] = run;
+        words[tile * R + d] = scan_count_word(run);
+        sums[tile / SCAN_GROUP * R + d] += scan_group_add(run);
         status[tile * R + d] =
             scan_word(tile == 0 ? SCAN_INCLUSIVE : SCAN_AGGREGATE, run);
       }
     }
-    for (long long k = 0; k < tiles; ++k) {
-      const long long tile = descending ? tiles - 1 - k : k;
+    for (long long tile : lookback_order(tiles, descending, grouped)) {
       const long long first = tile * T;
       const int tile_n = (int)std::min((long long)T, n - first);
       std::vector<int> shift_out(R), digit_start(R);
       unsigned excl0 = 0, excl1 = 0;
       for (int d = 0; d < R; ++d) {
-        unsigned long long below = 0;
-        if (tile > 0) {
-          below = lookback(status.data() + d, R, tile);
+        int rounds;
+        long long below = 0;
+        if (grouped) {
+          below = two_level(words.data() + d, sums.data() + d, gx.data() + d,
+                            R, tile, &rounds);
+          if (below < 0) return -1;
+        } else if (tile > 0) {
+          below = (long long)lookback(status.data() + d, R, tile);
           status[tile * R + d] =
               scan_word(SCAN_INCLUSIVE, below + count[tile][d]);
         }
@@ -560,14 +654,15 @@ static int weld_sort(const K* keys, long long n, int bits,
 // The sort as weld_launch picks it: 32-bit keys in and between passes up
 // to 32 bits, else 64-bit. Returns the passes.
 extern "C" int host_weld_sort(const void* keys, long long n, int bits,
-                              int descending, long long* sorted,
-                              long long* perm) {
+                              int descending, int grouped_mode,
+                              long long* sorted, long long* perm) {
   return mesh_sort_key_bytes(bits) == 4
              ? weld_sort<unsigned>(static_cast<const unsigned*>(keys), n,
-                                   bits, descending, sorted, perm)
+                                   bits, descending, grouped_mode, sorted,
+                                   perm)
              : weld_sort<unsigned long long>(
                    static_cast<const unsigned long long*>(keys), n, bits,
-                   descending, sorted, perm);
+                   descending, grouped_mode, sorted, perm);
 }
 
 // The weld's plan of `bits`-bit keys: passes, free bits, the group bound,
@@ -944,7 +1039,7 @@ def host(tmp_path_factory):
     lib.host_emit_mesh.argtypes = ([p] + [i32] * 4 + [i64] * 3
                                    + [i32, p, i32] + [p] * 5 + [i64] * 2)
     lib.host_weld_sort.restype = i32
-    lib.host_weld_sort.argtypes = [p, i64, i32, i32, p, p]
+    lib.host_weld_sort.argtypes = [p, i64, i32, i32, i32, p, p]
     lib.host_weld_plan.argtypes = [i32, p]
     lib.host_weld_group.restype = i32
     lib.host_weld_group.argtypes = [p, p, i64] + [i32] * 3 + [p] * 8
@@ -1010,7 +1105,7 @@ def host_weld(lib, keys, vertices, hi, lo, bits, capacity=None,
     passes, _, bound = mesh_cuda.weld_plan(bits)
     sorted_keys = np.empty(n, np.int64)
     perm = np.empty(n, np.int64)
-    assert lib.host_weld_sort(_ptr(keys), n, bits, int(descending),
+    assert lib.host_weld_sort(_ptr(keys), n, bits, int(descending), -1,
                               _ptr(sorted_keys), _ptr(perm)) == passes
     out_v = np.full((n, 3), np.nan, np.float32)
     out_hi = np.full(n, 0xDEADBEEF, np.uint32)
@@ -1261,6 +1356,34 @@ def test_compact_key_order_is_the_global_keys(host):
         same_g = glob[want][1:] == glob[want][:-1]
         same_c = sort[got][1:] == sort[got][:-1]
         np.testing.assert_array_equal(same_c, same_g)
+
+
+@pytest.mark.parametrize("lookback", ["decoupled", "two_level"])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("bits,n", [(28, 16 * 4096 + 1), (31, 33 * 4096 + 5),
+                                    (34, 16 * 2048 - 1),
+                                    (43, 33 * 2048 + 1)])
+def test_host_weld_sort_across_groups(host, bits, n, descending, lookback):
+    """The weld's sort on the host (its passes as their kernels run them,
+    each look-back forced, in ticket order and from the last tile) over
+    random keys of `bits` bits, 4-byte keys up to 32 bits and 8-byte
+    above, at sizes a group of 16 tiles (4,096 keys a tile, 2,048 with
+    8-byte keys) and a tile either side of it, and two groups and a tile:
+    the keys in order by their top 8 g bits, equal top bits in their
+    input order (numpy's stable sort)."""
+    rng = np.random.default_rng(bits)
+    keys = rng.integers(0, 1 << bits, size=n, dtype=np.uint64)
+    keys[rng.random(n) < 0.3] = keys[0]          # a large run of ties
+    keys = keys.astype(key_dtype(bits))
+    passes, f, _ = mesh_cuda.weld_plan(bits)
+    got_k = np.empty(n, np.int64)
+    got_p = np.empty(n, np.int64)
+    assert host.host_weld_sort(_ptr(keys), n, bits, int(descending),
+                               int(lookback == "two_level"), _ptr(got_k),
+                               _ptr(got_p)) == passes
+    want = np.argsort(keys.astype(np.uint64) >> np.uint64(f), kind="stable")
+    np.testing.assert_array_equal(got_p, want)
+    np.testing.assert_array_equal(got_k, keys[want].astype(np.int64))
 
 
 @pytest.mark.parametrize("bits", [7, 28, 31, 34, 43])
@@ -1852,9 +1975,10 @@ def test_planar_wall_on_card(cuda_device, b):
     assert largest == cap
 
 
-def made_card_mesh(vertices, hi, lo, sort, dev):
-    """A card mesh of made keys (made_weld), without triangles: 31-bit
-    keys, int32 words as the emission writes them."""
+def made_card_mesh(vertices, hi, lo, sort, dev, axes=10):
+    """A card mesh of made keys (made_weld), without triangles: keys of
+    `axes` bits an axis (31-bit keys by default), at the width the
+    emission writes them."""
     n = len(sort)
     word = lambda a: torch.as_tensor(  # noqa: E731
         a.astype(np.uint32).view(np.int32), device=dev)
@@ -1864,7 +1988,40 @@ def made_card_mesh(vertices, hi, lo, sort, dev):
                                                device=dev),
         num_cells=0, num_vertices=n, num_indices=0, num_tiles=0,
         sort_keys=torch.as_tensor(sort, device=dev).to(
-            mesh_cuda.key_dtype(mesh_cuda.key_bits(10))), axis_bits=10)
+            mesh_cuda.key_dtype(mesh_cuda.key_bits(axes))), axis_bits=axes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", [10, 14])
+def test_weld_across_sort_groups_on_card(cuda_device, axes):
+    """Made keys of 31 bits (4-byte keys, tiles of 4,096) and 43 bits
+    (8-byte keys, tiles of 2,048), ~75,000 of them in a shuffled order
+    with 1-4 copies a position: the sort's passes run 19 and 37 tiles,
+    past one and two groups of the two-level look-back (16 tiles); the
+    weld bit for bit the plain weld's, every vertex's remap too."""
+    rng = np.random.default_rng(axes)
+    region, origin = (400, 410, 420), (40, 3000, 7)
+    p = rng.integers(0, 800, size=(40_000, 3))
+    p = np.unique(p[(p & 1).any(axis=1)], axis=0)
+    k = np.repeat(p, rng.integers(1, 5, size=len(p)), axis=0)
+    k = k[rng.permutation(len(k))]
+    hi, lo, sort = made_keys(k, region, origin, axes)
+    n = len(k)
+    tile = 4096 if mesh_cuda.sort_key_bytes(mesh_cuda.key_bits(axes)) == 4 \
+        else 2048
+    assert -(-n // tile) > (16 if axes == 10 else 32)
+    vertices = rng.random((n, 3)).astype(np.float32)
+    want = weld.weld(torch.as_tensor(vertices), torch.as_tensor(hi),
+                     torch.as_tensor(lo),
+                     torch.arange(n).repeat_interleave(3).reshape(n, 3))
+    welded = mesh_cuda.weld(made_card_mesh(vertices, hi, lo, sort,
+                                           cuda_device, axes))
+    assert (welded.num_vertices, welded.first_external) == (
+        want.num_vertices, want.first_external)
+    assert _same_bits(welded.vertices, want.vertices)
+    assert torch.equal(_words(welded.key_hi), want.key_hi)
+    assert torch.equal(_words(welded.key_lo), want.key_lo)
+    assert torch.equal(welded.remap.cpu().long(), want.triangles[:, 0])
 
 
 @pytest.mark.cuda
