@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 import time
@@ -153,7 +154,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "variable MLSGPU_PROFILE_STEPS=DIR instead: each "
                         "worker writes a trace of its steps 3-6 and their "
                         "split into dispatch, sync wait and card busy time "
-                        "to DIR/<worker>.<pid>.json (utils/step_profile.py)")
+                        "to DIR/<worker>.<pid>.json (utils/step_profile.py). "
+                        "With --timeplot FILE too, the run first launches a "
+                        "short spin kernel on the card at the "
+                        "time.monotonic() it writes to DIR/anchor.json, so "
+                        "that the trace and the timeplot's spans can be put "
+                        "on one clock")
     o.add_argument("--statistics-file", help="write statistics to file")
     o.add_argument("--statistics-device", action="store_true",
                    help="time each device stage (binning/MLS/marching/weld) "
@@ -225,18 +231,39 @@ def distributed_problem(args) -> Optional[str]:
     return None
 
 
+def _anchor(trace_dir: str, device) -> None:
+    """Launch torch's spin kernel (`spin_kernel`, a microsecond) on the idle
+    card `device` and write the time.monotonic() of its launch to
+    DIR/anchor.json: the kernel's start in the trace is that time on the
+    timeplot's clock."""
+    import torch
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        launched = time.monotonic()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    with open(os.path.join(trace_dir, "anchor.json"), "w") as f:
+        json.dump({"kernel": "spin_kernel", "device": str(device),
+                   "monotonic": launched}, f)
+
+
 @contextlib.contextmanager
-def _profile(trace_dir: Optional[str], devices):
+def _profile(trace_dir: Optional[str], devices, anchor: bool = False):
     """--profile: a torch.profiler trace of the run, written as a Chrome
-    trace into the directory."""
+    trace into the directory; with `anchor` (--timeplot given too) it
+    starts with _anchor on the first card."""
     if not trace_dir:
         yield
         return
     import torch.profiler as tp
     acts = [tp.ProfilerActivity.CPU]
-    if any(d.type == "cuda" for d in devices):
+    cards = [d for d in devices if d.type == "cuda"]
+    if cards:
         acts.append(tp.ProfilerActivity.CUDA)
     with tp.profile(activities=acts) as prof:
+        if anchor and cards:
+            _anchor(trace_dir, cards[0])
         yield
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "trace.json")
@@ -340,7 +367,8 @@ def _run(args, cfg: ReconstructConfig, entered: float) -> int:
                                 max_radius=cfg.max_radius,
                                 reader_type=args.reader)
             try:
-                with DiskUsage(), _profile(args.profile, devices):
+                with DiskUsage(), _profile(args.profile, devices,
+                                           anchor=bool(cfg.timeplot)):
                     if transport is not None:
                         outputs = multihost.reconstruct_distributed(
                             source, cfg, args.output_file, transport,

@@ -300,14 +300,17 @@ def block_step(splats: torch.Tensor, valid: torch.Tensor,
                boundary_factor: float, points: Optional[torch.Tensor] = None,
                *, levels: int, subsampling: int, fit_shape: str = "sphere",
                readback: str = "codes", device_filter=None,
-               stage: Optional[Callable[[str], object]] = None
-               ) -> BlockResult:
+               stage: Optional[Callable[[str], object]] = None,
+               sync: Callable[[], contextlib.AbstractContextManager]
+               = contextlib.nullcontext) -> BlockResult:
     """Reconstruct one block on the tensors' device into a readback.
 
     readback: "codes", "packed" or "raw" (resolve "auto" first with
     resolve_readback). device_filter: a vertex transform (pipeline/
     mesh_filter.py) applied to the welded block-local vertices; it needs
-    readback "raw". stage: see block_field (block_step_staged)."""
+    readback "raw". stage: see block_field (block_step_staged). sync: a
+    context wrapped around each host wait on the card (one on the codes
+    path, two on the others; the streamer's `sync` span)."""
     if readback not in READBACK_MODES:
         raise ValueError(f"unknown readback mode {readback!r}")
     if device_filter is not None and readback != "raw":
@@ -323,7 +326,8 @@ def block_step(splats: torch.Tensor, valid: torch.Tensor,
         if field.device.type == "cuda":
             # the kernels; their one copy of the totals brings n_occ too
             with stage("marching"):
-                marched = marching_cuda.classify(field, region_cells, n_occ)
+                marched = marching_cuda.classify(field, region_cells, n_occ,
+                                                 sync=sync)
             with stage("pack"):
                 packed = marching_cuda.emit(marched)
             c, n_occ = marched.counts, marched.n_occ
@@ -343,10 +347,10 @@ def block_step(splats: torch.Tensor, valid: torch.Tensor,
     on_card = field.device.type == "cuda"
     with stage("marching"):
         mesh = mesh_cuda.generate_mesh(field, region_cells, cell_origin,
-                                       n_occ if on_card else None)
+                                       n_occ if on_card else None, sync=sync)
     n_occ = mesh.n_occ if on_card else int(n_occ)
     with stage("weld"):
-        welded = mesh_cuda.weld(mesh)
+        welded = mesh_cuda.weld(mesh, sync=sync)
         if readback == "raw":
             welded = mesh_cuda.welded_mesh(welded)
     counts = np.array([welded.num_vertices, welded.first_external,

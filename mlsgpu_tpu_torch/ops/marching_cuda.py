@@ -24,8 +24,9 @@ generated from ops/tables.py by `python -m mlsgpu_tpu_torch.ops.marching_cuda`.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,13 +140,16 @@ def launch_classify(field: torch.Tensor, region_cells: Sequence[int],
 
 def classify(field: torch.Tensor, region_cells: Sequence[int],
              n_occ: Optional[torch.Tensor] = None,
-             max_corners: int = CODES_MAX_CORNERS) -> Marched:
+             max_corners: int = CODES_MAX_CORNERS,
+             sync: Callable[[], contextlib.AbstractContextManager]
+             = contextlib.nullcontext) -> Marched:
     """The block's occupied tiles and counts on a CUDA field:
     launch_classify, then the totals copied to pinned host memory, and
     n_occ (an int32 device scalar, such as the field kernel's occupied
-    tiles) beside them when given, with one wait on the current stream.
-    max_corners: MESH_MAX_CORNERS for the mesh readbacks, whose int32
-    index bases also hold the triangle indices below 2^31."""
+    tiles) beside them when given, with one wait on the current stream,
+    inside `sync()`. max_corners: MESH_MAX_CORNERS for the mesh
+    readbacks, whose int32 index bases also hold the triangle indices
+    below 2^31."""
     _check_cuda(field)
     dev = field.device
     if n_occ is not None:
@@ -160,7 +164,8 @@ def classify(field: torch.Tensor, region_cells: Sequence[int],
         host[:-1].view(torch.int64).copy_(totals, non_blocking=True)
         if n_occ is not None:
             host[-1:].copy_(n_occ.view(1), non_blocking=True)
-        torch.cuda.current_stream(dev).synchronize()
+        with sync():
+            torch.cuda.current_stream(dev).synchronize()
     t = dict(zip(TOTALS, (int(v) for v in host[:-1].view(torch.int64)
                           .numpy())))
     if t["vertices"] >= 1 << 31 or (max_corners > CODES_MAX_CORNERS

@@ -32,8 +32,9 @@ overlap anyway.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -220,14 +221,17 @@ def _check_origin(cell_origin: Sequence[int], b: int):
 def generate_mesh(field: torch.Tensor, region_cells: Sequence[int],
                   cell_origin: Sequence[int],
                   n_occ: Optional[torch.Tensor] = None,
-                  axes: Optional[int] = None
+                  axes: Optional[int] = None,
+                  sync: Callable[[], contextlib.AbstractContextManager]
+                  = contextlib.nullcontext
                   ) -> Union[marching.BlockMesh, CardMesh]:
     """The unwelded mesh of a (B, B, B) field [z, y, x] (NaN = undefined):
     marching.generate_mesh for a CPU tensor; for a CUDA tensor the
     classify and scan kernels (the totals and n_occ, an int32 device
-    scalar, copied back with one wait) and the mesh emission kernel.
-    axes: the compact key's bits an axis, by default axis_bits(B); more
-    (up to MAX_AXES) weld as a larger block's keys would."""
+    scalar, copied back with one wait, inside `sync()`) and the mesh
+    emission kernel. axes: the compact key's bits an axis, by default
+    axis_bits(B); more (up to MAX_AXES) weld as a larger block's keys
+    would."""
     if field.device.type == "cpu":
         return marching.generate_mesh(field, region_cells, cell_origin)
     if field.device.type != "cuda":
@@ -240,7 +244,7 @@ def generate_mesh(field: torch.Tensor, region_cells: Sequence[int],
                          f"needs {axis_bits(b)}-{MAX_AXES}")
     marched = marching_cuda.classify(
         field, region_cells, n_occ,
-        max_corners=marching_cuda.MESH_MAX_CORNERS)
+        max_corners=marching_cuda.MESH_MAX_CORNERS, sync=sync)
     c = marched.counts
     dev = field.device
     n, ni = c.num_vertices, c.num_indices
@@ -266,13 +270,15 @@ def generate_mesh(field: torch.Tensor, region_cells: Sequence[int],
                     n_occ=marched.n_occ)
 
 
-def weld(mesh: Union[marching.BlockMesh, CardMesh]
+def weld(mesh: Union[marching.BlockMesh, CardMesh],
+         sync: Callable[[], contextlib.AbstractContextManager]
+         = contextlib.nullcontext
          ) -> Union[weld_ops.WeldedMesh, CardWeld]:
     """Weld an unwelded mesh: weld.weld for CPU tensors; for generate_mesh's
     card mesh the weld's sort over the keys' top digits and its group
     kernel (one C call), then the welded counts copied back with one wait
-    on the stream. Raises where a key group is past the group kernel's
-    capacity (keys the emission cannot make)."""
+    on the stream, inside `sync()`. Raises where a key group is past the
+    group kernel's capacity (keys the emission cannot make)."""
     if mesh.vertices.device.type == "cpu":
         return weld_ops.weld(mesh.vertices, mesh.key_hi, mesh.key_lo,
                              mesh.triangles)
@@ -317,7 +323,8 @@ def weld(mesh: Union[marching.BlockMesh, CardMesh]
         launches.count("weld_group")
         host = torch.empty(WELD_COUNTS, dtype=torch.int64, pin_memory=True)
         host.copy_(totals, non_blocking=True)
-        torch.cuda.current_stream(dev).synchronize()
+        with sync():
+            torch.cuda.current_stream(dev).synchronize()
     nw, fe, past = (int(v) for v in host.numpy())
     if past:
         raise RuntimeError(f"weld: {past} key groups of {bits}-bit keys "

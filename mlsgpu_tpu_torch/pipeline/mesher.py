@@ -35,6 +35,7 @@ from mlsgpu_tpu_torch.core.grid import Grid
 from mlsgpu_tpu_torch.io.ply import PlyWriter
 from mlsgpu_tpu_torch.io.spill import SpillStore
 from mlsgpu_tpu_torch.utils import logging as log
+from mlsgpu_tpu_torch.utils import timeplot
 from mlsgpu_tpu_torch.utils.errors import StateError
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 from mlsgpu_tpu_torch.utils.union_find import UnionFind
@@ -293,6 +294,7 @@ class OOCMesher:
     def _eager_loop(self) -> None:
         e = self._eager
         t_eager = self._stats.variable("write.eager")
+        plot = timeplot.Worker("eager_write")
         while True:
             item = e["queue"].get()
             if item is None:
@@ -307,11 +309,11 @@ class OOCMesher:
                 if predicted is None or len(predicted) == 0:
                     self._write_records(cpath, [rec], [None],
                                         rec.num_vertices, rec.num_triangles,
-                                        e["writer_factory"])
+                                        e["writer_factory"], plot)
                 else:
                     remap, nv, nt = self._eager_pass_a(rec, predicted)
                     self._write_records(cpath, [rec], [remap], nv, nt,
-                                        e["writer_factory"])
+                                        e["writer_factory"], plot)
                 e["written"][coords] = cpath
             except BaseException as ex:  # fall back to the classic rewrite
                 log.warning(f"eager write of chunk {coords} failed "
@@ -562,12 +564,17 @@ class OOCMesher:
 
     def write(self, path: str, writer_factory=None, comments=None,
               split_size: int = 0, progress=None,
-              pruned_override: Optional[set] = None) -> List[str]:
+              pruned_override: Optional[set] = None,
+              plot: Optional[timeplot.Worker] = None) -> List[str]:
         """Final output pass (src/mesher.cpp:763-852). One PLY per chunk when
         there are multiple chunks (--split), else a single file.
 
         pruned_override supplies an externally-computed pruned clump-root
-        set (the distributed path computes it globally across hosts)."""
+        set (the distributed path computes it globally across hosts).
+        plot: the timeplot worker of the caller's thread (a `driver` of
+        its own by default), whose actions `write.passA`, `write.verts`
+        and `write.tris` time the passes."""
+        plot = plot or timeplot.Worker("driver")
         self._eager_finish()
         self._finalize()
         writer_factory = self._make_factory(writer_factory, comments)
@@ -595,11 +602,13 @@ class OOCMesher:
                 if self._eager is not None:
                     self._stats.counter("write.eagerDirty").add(1)
                 self._write_chunk(cpath, [rec],
-                                  pruned, writer_factory, comments, progress)
+                                  pruned, writer_factory, comments, progress,
+                                  plot)
                 outputs.append(cpath)
         else:
             self._write_chunk(path, [self.chunks[c] for c in chunk_ids],
-                              pruned, writer_factory, comments, progress)
+                              pruned, writer_factory, comments, progress,
+                              plot)
             outputs.append(path)
         return outputs
 
@@ -628,7 +637,7 @@ class OOCMesher:
     STREAM_RECORDS = 1 << 20
 
     def _write_chunk(self, path, recs, pruned,
-                     writer_factory, comments, progress) -> None:
+                     writer_factory, comments, progress, plot) -> None:
         """Stream the chunk's spill segments into the output PLY with bounded
         memory (the reference's final write loop, src/mesher.cpp:763-852:
         temp-file readers + AsyncWriter double-buffering). Two passes: one
@@ -653,43 +662,44 @@ class OOCMesher:
         remaps: List[np.ndarray] = []
         nv_total = 0
         nt_total = 0
-        t_pass_a = self._stats.timer("write.passA")
-        t_pass_a.__enter__()
-        for rec in recs:
-            remap = np.full(rec.num_vertices, 0xFFFFFFFF, dtype=np.uint32)
-            for pos, raw in self._iter_segments(rec.vert_segments, self._verts,
-                                                self.VREC, 4,
-                                                self.STREAM_RECORDS):
-                out = (nat.write_pass_a(raw, self.clumps._parent, pruned_arr,
-                                        nv_total) if use_native else None)
-                if out is not None:
-                    kept, rm = out
-                    remap[pos:pos + len(raw)] = rm
-                    nv_total += kept
-                    continue
-                keep = keep_mask(raw[:, 3])
-                ids = nv_total + np.cumsum(keep, dtype=np.int64) - 1
-                remap[pos:pos + len(raw)][keep] = ids[keep].astype(np.uint32)
-                nv_total += int(keep.sum())
-            remaps.append(remap)
-            if pruned_arr is not None:
-                for pos, raw in self._iter_segments(rec.tri_segments,
-                                                    self._tris, self.TREC, 3,
-                                                    self.STREAM_RECORDS):
-                    cnt = (nat.count_tris_kept(raw, remap)
+        with timeplot.Action("write.passA", plot,
+                             self._stats.timer("write.passA")):
+            for rec in recs:
+                remap = np.full(rec.num_vertices, 0xFFFFFFFF, dtype=np.uint32)
+                for pos, raw in self._iter_segments(
+                        rec.vert_segments, self._verts, self.VREC, 4,
+                        self.STREAM_RECORDS):
+                    out = (nat.write_pass_a(raw, self.clumps._parent,
+                                            pruned_arr, nv_total)
                            if use_native else None)
-                    if cnt is None:
-                        cnt = int((remap[raw[:, 0]] != 0xFFFFFFFF).sum())
-                    nt_total += cnt
-            else:
-                nt_total += rec.num_triangles
-        t_pass_a.__exit__(None, None, None)
+                    if out is not None:
+                        kept, rm = out
+                        remap[pos:pos + len(raw)] = rm
+                        nv_total += kept
+                        continue
+                    keep = keep_mask(raw[:, 3])
+                    ids = nv_total + np.cumsum(keep, dtype=np.int64) - 1
+                    remap[pos:pos + len(raw)][keep] = \
+                        ids[keep].astype(np.uint32)
+                    nv_total += int(keep.sum())
+                remaps.append(remap)
+                if pruned_arr is not None:
+                    for pos, raw in self._iter_segments(
+                            rec.tri_segments, self._tris, self.TREC, 3,
+                            self.STREAM_RECORDS):
+                        cnt = (nat.count_tris_kept(raw, remap)
+                               if use_native else None)
+                        if cnt is None:
+                            cnt = int((remap[raw[:, 0]] != 0xFFFFFFFF).sum())
+                        nt_total += cnt
+                else:
+                    nt_total += rec.num_triangles
 
         self._write_records(path, recs, remaps, nv_total, nt_total,
-                            writer_factory, progress)
+                            writer_factory, plot, progress)
 
     def _write_records(self, path, recs, remaps, nv_total, nt_total,
-                       writer_factory, progress=None) -> None:
+                       writer_factory, plot, progress=None) -> None:
         """Pass B: stream the records of `recs` through their remaps into
         the output PLY with bounded memory (AsyncWriter double-buffering,
         the reference's src/async_io.h:41-148). `remaps[i] is None` means
@@ -724,72 +734,76 @@ class OOCMesher:
             t_verts = self._stats.variable("write.verts")
             t_tris = self._stats.variable("write.tris")
             for rec, remap in zip(recs, remaps):
-                tsec = time.monotonic()
-                for pos, raw in self._iter_segments(
-                        rec.vert_segments, self._verts, self.VREC, 4,
-                        self.STREAM_RECORDS):
-                    rm = (remap[pos:pos + len(raw)] if remap is not None
-                          else np.arange(pos, pos + len(raw), dtype=np.uint32))
-                    if use_native:
-                        # fill the pool buffer directly (no intermediate
-                        # bytes object; the writer backends take buffers)
-                        buf = aw.get(len(raw) * 12)
-                        n = nat.write_verts_into(
-                            raw, rm, ext_lo, spacing, reference, buf)
-                        if n >= 0:
-                            aw.push(writer._writer,
-                                    writer.vertex_byte_offset(vpos), buf, n)
-                            vpos += n // 12
+                with timeplot.Action("write.verts", plot, t_verts):
+                    for pos, raw in self._iter_segments(
+                            rec.vert_segments, self._verts, self.VREC, 4,
+                            self.STREAM_RECORDS):
+                        rm = (remap[pos:pos + len(raw)] if remap is not None
+                              else np.arange(pos, pos + len(raw),
+                                             dtype=np.uint32))
+                        if use_native:
+                            # fill the pool buffer directly (no intermediate
+                            # bytes object; the writer backends take buffers)
+                            buf = aw.get(len(raw) * 12)
+                            n = nat.write_verts_into(
+                                raw, rm, ext_lo, spacing, reference, buf)
+                            if n >= 0:
+                                aw.push(writer._writer,
+                                        writer.vertex_byte_offset(vpos),
+                                        buf, n)
+                                vpos += n // 12
+                                continue
+                            aw._free.put(buf)  # library vanished mid-run
+                        keep = rm != 0xFFFFFFFF
+                        verts = raw[keep, 0:3].view(np.float32)
+                        world = np.ascontiguousarray(
+                            (verts + ext_lo) * spacing + reference,
+                            dtype="<f4")
+                        push(writer.vertex_byte_offset(vpos), world.tobytes())
+                        vpos += len(world)
+                with timeplot.Action("write.tris", plot, t_tris):
+                    for pos, raw in self._iter_segments(
+                            rec.tri_segments, self._tris, self.TREC, 3,
+                            self.STREAM_RECORDS):
+                        if remap is None:
+                            # identity: indices are already final; just add
+                            # the PLY list-length byte
+                            trec = np.empty(
+                                (len(raw), PlyWriter.TRIANGLE_SIZE),
+                                dtype=np.uint8)
+                            trec[:, 0] = 3
+                            trec[:, 1:] = (raw.astype("<u4").view(np.uint8)
+                                           .reshape(len(raw), 12))
+                            push(writer.triangle_byte_offset(tpos),
+                                 trec.tobytes())
+                            tpos += len(raw)
+                            if progress is not None:
+                                progress += len(raw)
                             continue
-                        aw._free.put(buf)  # library vanished mid-run
-                    keep = rm != 0xFFFFFFFF
-                    verts = raw[keep, 0:3].view(np.float32)
-                    world = np.ascontiguousarray(
-                        (verts + ext_lo) * spacing + reference, dtype="<f4")
-                    push(writer.vertex_byte_offset(vpos), world.tobytes())
-                    vpos += len(world)
-                t_verts.add(time.monotonic() - tsec)
-                tsec = time.monotonic()
-                for pos, raw in self._iter_segments(
-                        rec.tri_segments, self._tris, self.TREC, 3,
-                        self.STREAM_RECORDS):
-                    if remap is None:
-                        # identity: indices are already final; just add the
-                        # PLY list-length byte
-                        trec = np.empty((len(raw), PlyWriter.TRIANGLE_SIZE),
+                        if use_native:
+                            buf = aw.get(len(raw) * PlyWriter.TRIANGLE_SIZE)
+                            n = nat.write_tris_into(raw, remap, buf)
+                            if n >= 0:
+                                aw.push(writer._writer,
+                                        writer.triangle_byte_offset(tpos),
+                                        buf, n)
+                                ntk = n // PlyWriter.TRIANGLE_SIZE
+                                tpos += ntk
+                                if progress is not None:
+                                    progress += ntk
+                                continue
+                            aw._free.put(buf)
+                        keep = remap[raw[:, 0]] != 0xFFFFFFFF
+                        tris = remap[raw[keep].astype(np.int64)]
+                        trec = np.empty((len(tris), PlyWriter.TRIANGLE_SIZE),
                                         dtype=np.uint8)
                         trec[:, 0] = 3
-                        trec[:, 1:] = (raw.astype("<u4").view(np.uint8)
-                                       .reshape(len(raw), 12))
+                        trec[:, 1:] = (tris.astype("<u4").view(np.uint8)
+                                       .reshape(len(tris), 12))
                         push(writer.triangle_byte_offset(tpos), trec.tobytes())
-                        tpos += len(raw)
+                        tpos += len(tris)
                         if progress is not None:
-                            progress += len(raw)
-                        continue
-                    if use_native:
-                        buf = aw.get(len(raw) * PlyWriter.TRIANGLE_SIZE)
-                        n = nat.write_tris_into(raw, remap, buf)
-                        if n >= 0:
-                            aw.push(writer._writer,
-                                    writer.triangle_byte_offset(tpos), buf, n)
-                            ntk = n // PlyWriter.TRIANGLE_SIZE
-                            tpos += ntk
-                            if progress is not None:
-                                progress += ntk
-                            continue
-                        aw._free.put(buf)
-                    keep = remap[raw[:, 0]] != 0xFFFFFFFF
-                    tris = remap[raw[keep].astype(np.int64)]
-                    trec = np.empty((len(tris), PlyWriter.TRIANGLE_SIZE),
-                                    dtype=np.uint8)
-                    trec[:, 0] = 3
-                    trec[:, 1:] = (tris.astype("<u4").view(np.uint8)
-                                   .reshape(len(tris), 12))
-                    push(writer.triangle_byte_offset(tpos), trec.tobytes())
-                    tpos += len(tris)
-                    if progress is not None:
-                        progress += len(tris)
-                t_tris.add(time.monotonic() - tsec)
+                            progress += len(tris)
         finally:
             aw.stop()
             writer.close()

@@ -13,6 +13,7 @@ mesh_filter.py, _native/).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import List, Optional
@@ -115,10 +116,10 @@ def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
     coordinates (mlsgpu_tpu/pipeline/reconstruct.py:240-309): codes are
     rebuilt and welded natively, a packed image is unpacked natively, raw
     arrays get the block origin added and their 63-bit weld keys joined.
-    A run calls it on the streamer's decode stage (stream_blocks(decode=))."""
+    A run calls it on the streamer's decode stage (stream_blocks(decode=)),
+    whose `decode` action records its thread CPU time."""
     stats = get_registry()
     origin = bucket.cell_lo.astype(np.int64)
-    t_cpu = time.thread_time()
     with stats.timer("readback.decode"):
         if result.readback == "codes":
             verts, tris, keys, fe = _native.rebuild_block(
@@ -136,9 +137,21 @@ def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
             verts = verts + origin.astype(np.float32)
             keys = (((hi.astype(np.int64) & 0x7FFFFFFF) << 32)
                     | lo.astype(np.int64))
-    stats.variable("readback.decodeCpu").add(time.thread_time() - t_cpu)
     return BlockInput(chunk_id=bucket.chunk_id, vertices=verts,
                       first_external=fe, ext_keys=keys, triangles=tris)
+
+
+@contextlib.contextmanager
+def process_cpu(phase: str):
+    """The process's CPU time over a phase of the run, every thread's
+    (time.process_time), as `<phase>.cpu` seconds beside the phase's
+    `<phase>.time`."""
+    t0 = time.process_time()
+    try:
+        yield
+    finally:
+        get_registry().variable(f"{phase}.cpu").add(time.process_time()
+                                                    - t0)
 
 
 def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
@@ -154,26 +167,33 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
     triangles)` run on each block's decoded mesh in global grid coordinates
     (mesh_filter.MeshFilterChain). device_filter: a device vertex filter
     (mesh_filter.DeviceFilterChain) run inside the block step; it makes the
-    readback raw (prepare_run resolves the mode once)."""
+    readback raw (prepare_run resolves the mode once).
+
+    The phases are actions of the timeplot worker `driver`: `blob_pass`,
+    `bucketing` and `write` (its `write.passA`, `write.verts` and
+    `write.tris` nested); pass 1 is the streamer's and the mesher's."""
     devices, readback = prepare_run(cfg, device, device_filter)
     stats = get_registry()
+    driver = timeplot.Worker("driver")
     show_progress = cfg.progress if show_progress is None else show_progress
     # Worker processes (a run of more than one worker) start now, beside
     # the blob pass and bucketing; they stop with pass 1 or on any error.
     group = start_stream_workers(cfg, devices, readback, device_filter)
     try:
-        with stats.timer("pass0.time"):
+        with process_cpu("pass0"), timeplot.Action(
+                "blob_pass", driver, stats.timer("pass0.time")):
             info = blobs_mod.compute_blobs(source, cfg.fit_grid,
                                            cfg.micro_cells,
                                            mem_budget=cfg.mem_blobs)
 
         chunk_cells = output_chunk_cells(cfg)
         max_splats = min(cfg.max_device_splats, cfg.mem_bucket_splats // 32)
-        buckets = bucket_mod.make_buckets(
-            info, cfg.device_block_cells, cfg.micro_cells,
-            max_splats=max_splats, chunk_cells=chunk_cells,
-            max_split=cfg.max_split)
-        misc.malloc_trim()
+        with process_cpu("bucket"), timeplot.Action("bucketing", driver):
+            buckets = bucket_mod.make_buckets(
+                info, cfg.device_block_cells, cfg.micro_cells,
+                max_splats=max_splats, chunk_cells=chunk_cells,
+                max_split=cfg.max_split)
+            misc.malloc_trim()
 
         mesher = mesher or OOCMesher(info.grid, prune=cfg.fit_prune,
                                      reorder_budget=cfg.mem_reorder)
@@ -192,12 +212,13 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
         progress = (ProgressDisplay(total, label="reconstructing")
                     if show_progress else NullProgress())
 
-        with stats.timer("pass1.time"):
+        with stats.timer("pass1.time"), process_cpu("pass1"):
             mesher_worker = timeplot.Worker("mesher")
 
             def consume(bucket, block):
                 with timeplot.Action("mesher", mesher_worker,
-                                     stats.variable("mesher.time")):
+                                     stats.variable("mesher.time"),
+                                     stats.variable("mesher.cpu")):
                     if filters is not None:
                         v, t = filters(block.vertices, block.triangles)
                         block = BlockInput(
@@ -220,9 +241,10 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
         mesher.checkpoint(cfg.checkpoint)
         log.info(f"checkpointed mesher state to {cfg.checkpoint}")
         return []
-    with stats.timer("write.time"):
+    with process_cpu("write"), timeplot.Action("write", driver,
+                                               stats.timer("write.time")):
         outputs = mesher.write(output, writer_factory=writer_factory,
-                               split_size=cfg.output_split_size)
+                               split_size=cfg.output_split_size, plot=driver)
     mesher.cleanup()
     return outputs
 

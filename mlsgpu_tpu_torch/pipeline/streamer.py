@@ -67,7 +67,7 @@ import torch
 from mlsgpu_tpu_torch.core.splat import block_inputs
 from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
 from mlsgpu_tpu_torch.utils import misc, step_profile, timeplot
-from mlsgpu_tpu_torch.utils.statistics import Peak, get_registry
+from mlsgpu_tpu_torch.utils.statistics import Peak, Variable, get_registry
 
 from mlsgpu_tpu_torch.ops import launches
 from mlsgpu_tpu_torch.ops.block import (CountsView, Format, block_step,
@@ -391,6 +391,14 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
     image, so that a block whose decode finished early waits in the
     budget. An exception in a decode ends the run as one in a worker does.
 
+    Timeplot actions and what they record, wall and thread CPU time a
+    block: the loader's `load` (loader.time, loader.cpu), a worker's
+    `compute` (device.time, device.cpu) with its `h2d` and a `sync` around
+    each of the step's waits on the card (device.syncWait, their sum), and
+    a decode thread's `readback` (readback.wait) and `decode`
+    (readback.decodeCpu). A worker process records the same statistics
+    and no spans but its compute.
+
     `devices` is one device or a sequence; a sequence may name a device
     more than once (each entry gets its own workers). `buckets` is any
     iterable, drawn from by the loader alone and possibly lazy: a
@@ -464,7 +472,8 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                         and load_budget.acquire(nbytes)):
                     return
                 with timeplot.Action("load", worker,
-                                     stats.variable("loader.time")):
+                                     stats.variable("loader.time"),
+                                     stats.variable("loader.cpu")):
                     if processes:   # a worker process converts its own
                         splats, valid = load_bucket_shared(source, info,
                                                            b), None
@@ -487,20 +496,29 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         """One block on this thread: h2d, the step and the start of its
         readback; the entry for the generator. `taken` holds the loader's
         item and is emptied, so the host copy of the splats goes as soon
-        as it is on the device."""
+        as it is on the device. The `compute` action (device.time,
+        device.cpu) holds the `h2d` action and a `sync` action around each
+        of the step's waits on the card (their sum a block:
+        device.syncWait)."""
         seq, b, nbytes, splats, valid = taken.pop()
         load_budget.release(nbytes)
         t0 = time.monotonic()
-        with timeplot.Action("compute", plot, stats.variable("device.time")), \
+        waits = Variable("sync")
+        with timeplot.Action("compute", plot, stats.variable("device.time"),
+                             stats.variable("device.cpu")), \
                 (torch.cuda.device(device) if device.type == "cuda"
                  else contextlib.nullcontext()):
-            sp, va, pts = workers_mod.to_device(device, splats, valid,
-                                                b.skeleton)
+            with timeplot.Action("h2d", plot):
+                sp, va, pts = workers_mod.to_device(device, splats, valid,
+                                                    b.skeleton)
             del splats, valid
             with profiler.step():
                 result = step(sp, va, *region_of(b), points=pts,
+                              sync=functools.partial(timeplot.Action, "sync",
+                                                     plot, waits),
                               **step_args)
             del sp, va, pts
+        stats.variable("device.syncWait").add(waits.sum)
         host_budget.release(nbytes)
         tensors = readback_tensors(result) if read_images else []
         image_bytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -580,7 +598,8 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
                     continue
                 b, block, held, slots = to_host(entry, plot)
                 del entry
-                with timeplot.Action("decode", plot):
+                with timeplot.Action("decode", plot, cpu_stat=stats.variable(
+                        "readback.decodeCpu")):
                     out = decode(block, b)
                 del block
                 window.deposit(seq, (b, out, held, slots))

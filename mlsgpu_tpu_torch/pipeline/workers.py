@@ -57,6 +57,7 @@ library) and workers.startTime (request to ready).
 
 from __future__ import annotations
 
+import functools
 import pickle
 import signal
 import threading
@@ -74,7 +75,7 @@ from mlsgpu_tpu_torch.device import set_precision
 from mlsgpu_tpu_torch.ops import launches, mls_cuda
 from mlsgpu_tpu_torch.ops.block import readback_tensors
 from mlsgpu_tpu_torch.pipeline import worker_start
-from mlsgpu_tpu_torch.utils import misc, step_profile
+from mlsgpu_tpu_torch.utils import misc, step_profile, timeplot
 from mlsgpu_tpu_torch.utils.errors import MlsError
 from mlsgpu_tpu_torch.utils.statistics import (Registry, TimerStat, Variable,
                                                get_registry, set_registry)
@@ -196,6 +197,7 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
     or until the parent's end of the pipe closes."""
     signal.signal(signal.SIGINT, signal.SIG_IGN)  # the parent stops us
     profiler = step_profile.StepProfiler(name)
+    plot = timeplot.Worker(name)   # no file here: statistics alone
     try:
         torch.set_num_threads(threads)
         misc.bound_mmap_threshold()
@@ -220,15 +222,24 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
             with reg.timer("workers.convert"):
                 splats, valid = block_inputs(raw.numpy(), grid)
             del raw
+            # the streamer's compute span, its thread CPU time and its
+            # waits on the card, as a worker thread records them there
             t0 = time.monotonic()
+            c0 = time.thread_time()
+            waits = Variable("sync")
             sp, va, pts = to_device(device, splats, valid, points)
             del splats, valid, points
             with profiler.step():
                 result = step(sp, va, region, origin, points=pts,
+                              sync=functools.partial(timeplot.Action, "sync",
+                                                     plot, waits),
                               **step_args)
             del sp, va, pts
+            c1 = time.thread_time()
             t1 = time.monotonic()
             reg.variable("device.time").add(t1 - t0)
+            reg.variable("device.cpu").add(c1 - c0)
+            reg.variable("device.syncWait").add(waits.sum)
             reg.variable("device.occTiles").add(result.num_occ_tiles)
             reg.counter(f"readback.mode.{result.readback}").add(1)
             tensors = readback_tensors(result) if read_images else []

@@ -2114,6 +2114,30 @@ def test_launches_and_syncs_a_stage_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_each_wait_on_the_card_is_inside_the_sync_hook(cuda_device):
+    """The `sync` hook (the streamer's `sync` span) is entered once around
+    each host wait: classify's totals, generate_mesh's (the same), the
+    weld's counts; the stream is idle when each ends."""
+    import contextlib
+    field = card_field(256, cuda_device)
+    region, origin = (255, 255, 255), (0, 0, 0)
+    entered = []
+
+    @contextlib.contextmanager
+    def sync():
+        entered.append(torch.cuda.current_stream(cuda_device).query())
+        yield
+        assert torch.cuda.current_stream(cuda_device).query()
+
+    marching_cuda.classify(field, region, sync=sync)
+    assert len(entered) == 1
+    mesh = mesh_cuda.generate_mesh(field, region, origin, sync=sync)
+    assert len(entered) == 2
+    mesh_cuda.weld(mesh, sync=sync)
+    assert len(entered) == 3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("levels", [6, 7])
 @pytest.mark.parametrize("readback", ["packed", "raw"])
 def test_mesh_estimate_holds_the_stage_on_card(cuda_device, levels,

@@ -117,6 +117,20 @@ class KillOn:
         return block_step(splats, valid, region, origin, **kw)
 
 
+#: The wait SyncStep makes inside its step's `sync` hook, seconds.
+SYNC_WAIT_S = 0.05
+
+
+class SyncStep:
+    """The block step, with a wait of SYNC_WAIT_S inside its `sync` hook,
+    as a step on a card waits there for the stream."""
+
+    def __call__(self, *args, sync, **kw):
+        with sync():
+            time.sleep(SYNC_WAIT_S)
+        return block_step(*args, sync=sync, **kw)
+
+
 @pytest.fixture(scope="module")
 def small():
     """The multidevice tests' cloud, its first 8 buckets: each worker
@@ -301,6 +315,54 @@ def test_worker_compute_spans_in_the_timeplot(small, checked):
     assert len(compute) == len(small[3])
     assert all(t0 <= float(e[3]) <= float(e[4]) <= t1 for e in compute)
     assert {"loader", "readback"} <= {e[1] for e in events}
+
+
+@pytest.mark.parametrize("entries", [1, 2], ids=["thread", "processes"])
+def test_the_steps_waits_are_sync_spans_inside_compute(small, tmp_path,
+                                                      entries):
+    """The streamer hands the block step a `sync` hook: its waits are
+    summed into device.syncWait, one sample a block, in a worker thread
+    and in worker processes alike, with device.cpu beside device.time,
+    which still spans the copy and the whole step. On a worker thread the
+    trace has the `h2d` and `sync` actions inside `compute`: the worker's
+    intervals touch end to end and add up to device.time, the sync
+    intervals to device.syncWait. A worker process keeps no spans but its
+    compute."""
+    cfg, source, info, buckets = small
+    trace = str(tmp_path / "trace.txt")
+    timeplot.init(trace)
+    try:
+        got, err, _ = _run(cfg, source, info, buckets, [CPU] * entries,
+                           read_images=False, step=SyncStep())
+    finally:
+        timeplot.init(None)
+    assert err is None, err
+    n = len(buckets)
+    tick = 1.0 / os.sysconf("SC_CLK_TCK")
+    stats = get_registry().to_dict()
+    for name in ("device.time", "device.cpu", "device.syncWait",
+                 "dispatch.h2d"):
+        assert stats[name]["n"] == n, name
+    wall, cpu, wait, h2d = (stats[k]["sum"] for k in (
+        "device.time", "device.cpu", "device.syncWait", "dispatch.h2d"))
+    assert wait >= n * SYNC_WAIT_S
+    assert wall >= h2d + wait
+    assert cpu <= wall - wait + n * tick
+    with open(trace) as f:
+        events = [ln.split() for ln in f if ln.startswith("EVENT ")]
+    mine = sorted((float(e[3]), float(e[4]), e[2]) for e in events
+                  if e[1].startswith("device."))
+    if entries == 2:
+        assert [a for _, _, a in mine] == ["compute"] * n
+        return
+    assert sum(a == "sync" for _, _, a in mine) == n
+    assert sum(a == "h2d" for _, _, a in mine) == n
+    assert sum(a == "compute" for _, _, a in mine) >= 3 * n
+    assert all(x[1] <= y[0] for x, y in zip(mine, mine[1:]))
+    assert sum(hi - lo for lo, hi, _ in mine) == pytest.approx(wall,
+                                                               abs=1e-6)
+    assert sum(hi - lo for lo, hi, a in mine if a == "sync") == \
+        pytest.approx(wait, abs=1e-6)
 
 
 def test_a_worker_process_imports_neither_jax_nor_the_jax_package(checked):
@@ -837,6 +899,36 @@ def test_pace_statistics_reach_the_parent(end_to_end):
                      "readback.decodeCpu", "mesher.time"):
             assert stats[name]["n"] == blocks, (mode, n, name)
         assert stats["consumer.busy"]["sum"] >= stats["mesher.time"]["sum"]
+
+
+def test_cpu_time_and_waits_one_sample_a_block(end_to_end):
+    """device.cpu, device.syncWait, mesher.cpu, loader.cpu and
+    readback.decodeCpu have one sample a block in every readback mode with
+    1, 2 and 4 workers; device.time holds the copy and the waits; each
+    span's CPU time is at most its wall time and a clock tick a block
+    (the decode's span holds readback.decode's timer and a few calls
+    besides); the process's CPU time over pass 1 holds every spanned
+    thread's of this process (the step's too with one worker, which is a
+    thread here), and each phase's is one sample."""
+    tick = 1.0 / os.sysconf("SC_CLK_TCK")
+    for (mode, n), (_, stats, _) in end_to_end.items():
+        blocks = stats["bucket.count"]["total"]
+        for name in ("device.cpu", "device.syncWait", "mesher.cpu",
+                     "loader.cpu", "readback.decodeCpu"):
+            assert stats[name]["n"] == blocks, (mode, n, name)
+        s = {k: v["sum"] for k, v in stats.items() if "sum" in v}
+        assert s["device.time"] >= s["dispatch.h2d"] + s["device.syncWait"]
+        for cpu, wall in (("device.cpu", "device.time"),
+                          ("mesher.cpu", "mesher.time"),
+                          ("loader.cpu", "loader.time"),
+                          ("readback.decodeCpu", "readback.decode")):
+            assert s[cpu] <= s[wall] + blocks * tick, (mode, n, cpu)
+        spanned = s["loader.cpu"] + s["readback.decodeCpu"] + s["mesher.cpu"]
+        if n == 1:
+            spanned += s["device.cpu"]
+        assert s["pass1.cpu"] >= spanned - tick, (mode, n)
+        for phase in ("pass0", "bucket", "pass1", "write"):
+            assert stats[f"{phase}.cpu"]["n"] == 1, (mode, n, phase)
 
 
 def test_the_mesher_gets_blocks_in_the_loaders_order(small):
