@@ -75,7 +75,8 @@ raises, exits non-zero and prints no result line:
      against their plain versions on the three T-junction blocks, the
      fields bit for bit;
   5. end to end through `mlsgpu_tpu_torch.cli.main` on the 2M-splat bench
-     cloud (tools/cloud.py make_cloud) written as a PLY: manifold output,
+     cloud (tools/cloud.py make_cloud) written as a PLY, `--readback codes`
+     (the host rebuild; `auto` is packed on a card): manifold output,
      kernel launches >= blocks; then `--readback packed` and `raw` on it
      (every block through the mesh kernels): manifold, the codes run's
      vertex, triangle, boundary-edge and component counts, and whether
@@ -127,7 +128,8 @@ raises, exits non-zero and prints no result line:
      process), then `2` and `4` (that many worker processes on the one
      card, forked from one worker server: pipeline/worker_start.py) and,
      with more than one card visible, `--device cuda --num-devices 0`
-     (every card, a worker process each): each mesh's digest is phase 5's
+     (every card, a worker process each), all with `--readback codes`:
+     each mesh's digest is phase 5's
      (the vertex and triangle arrays phase 5 checked manifold), 50 kernel
      launches of the field, face and binning kernels (counted in the
      worker processes and carried to the run's `mls.launches`,
@@ -1589,7 +1591,7 @@ def _same_mesh(res, ref, name):
 
 
 def phase5_end_to_end(cloud, info) -> dict:
-    res = cli_run(cloud, "codes")
+    res = cli_run(cloud, "codes", ["--readback", "codes"])
     stats = res.pop("stats")
     elapsed = res["seconds"]
     ncells = int(np.prod(info.grid.shape_cells))
@@ -2282,9 +2284,12 @@ def phase14_queues_and_cards(bench, codes, two_ranks) -> dict:
     cards = torch.cuda.device_count()
     context = worker_context()
     phase(14, f"idle worker process on the card: {json.dumps(context)}")
-    one_card = ["--device", "cuda:0", "--device-threads"]
-    every_card = [(f"{cards} cards", ["--device", "cuda", "--num-devices",
-                                      "0"], cards)] if cards > 1 else []
+    # the codes readback, as phase 5's run whose digest each must repeat
+    one_card = ["--readback", "codes", "--device", "cuda:0",
+                "--device-threads"]
+    every_card = [(f"{cards} cards", ["--readback", "codes", "--device",
+                                      "cuda", "--num-devices", "0"],
+                   cards)] if cards > 1 else []
     out = _queue_runs(bench, [("1 queue", [*one_card, "1"], 1),
                               ("2 queues", [*one_card, "2"], 2),
                               ("4 queues", [*one_card, "4"], 4),

@@ -2,7 +2,9 @@
 
 The option surface is the JAX package's (`mlsgpu_tpu/cli.py:23-178`,
 copied here with the same options and defaults), plus `--device` (default
-cuda). `--readback codes|packed|raw|auto` picks the block readback and
+cuda). `--readback codes|packed|raw|auto` picks the block readback (`auto`:
+packed on a card, which welds on the device; codes on the CPU, rebuilt
+and welded by the native host library, or packed without it) and
 `--statistics-device` times each block-step stage on the device
 (`device.<stage>.time`). A multi-host run starts one process per rank with
 `--coordinator HOST:PORT --num-processes N --process-id R` (parallel/
@@ -103,8 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="device->host mesh readback format: codes = per-"
                         "cell case codes + interpolants, host rebuilds the "
-                        "welded mesh natively (fastest); packed = quantized "
-                        "welded mesh; raw = full arrays [auto]")
+                        "welded mesh natively; packed = quantized mesh "
+                        "welded on the device; raw = full arrays; auto = "
+                        "packed on a CUDA device, codes on the CPU (packed "
+                        "without the native library) [auto]")
     a.add_argument("--mem-reorder", type=parse_capacity, default=d.mem_reorder,
                    help="mesher reorder-window byte budget before spilling "
                         "to disk [%(default)s]")

@@ -175,14 +175,23 @@ def pack_format(levels: int, subsampling: int,
     return PackFormat(index_mode, vertex_words, coord_bits)
 
 
-def resolve_readback(requested: str, levels: int, subsampling: int) -> str:
-    """'auto' -> 'codes' when the native host rebuild is available and the
-    block size fits flat u32 cell ids, else 'packed' (the JAX package's
-    rule, mlsgpu_tpu/ops/block.py:660-669)."""
+def resolve_readback(requested: str, levels: int, subsampling: int,
+                     device_type: str) -> str:
+    """The readback mode of a run on devices of `device_type` ('cuda' or
+    'cpu'). 'auto' -> 'packed' on a CUDA device wherever the packed layout
+    holds the block: the card welds and packs in hand kernels, and the
+    host's decode is then a linear unpack in place of the one-thread hash
+    weld of the codes rebuild. Elsewhere the JAX package's rule
+    (mlsgpu_tpu/ops/block.py:660-669): 'codes' when the native host
+    rebuild is available and the block size fits flat u32 cell ids, else
+    'packed'."""
     if requested and requested != "auto":
         if requested not in READBACK_MODES:
             raise ValueError(f"unknown readback mode {requested!r}")
         return requested
+    if device_type == "cuda" and pack_format(levels, subsampling,
+                                             0) is not None:
+        return "packed"
     from mlsgpu_tpu_torch import _native
     if _native.available() and codes_format(levels, subsampling) is not None:
         return "codes"

@@ -67,7 +67,8 @@ def require_native():
 def prepare_run(cfg: ReconstructConfig, device, device_filter=None):
     """What every run settles before its first pass, single-process or one
     rank of a distributed run: the options are valid and ported, the
-    devices exist, the readback mode is resolved (here and nowhere else),
+    devices exist, the readback mode is resolved from the devices' type
+    (here and nowhere else; ops/block.py::resolve_readback),
     the native library is there when that mode needs it, and the device
     memory estimate fits every card once per queue
     (resources.validate_device). `device` is a name or a torch device,
@@ -88,7 +89,7 @@ def prepare_run(cfg: ReconstructConfig, device, device_filter=None):
         readback = "raw"
     else:
         readback = resolve_readback(cfg.readback, cfg.device_levels,
-                                    cfg.subsampling)
+                                    cfg.subsampling, devices[0].type)
     log.info(f"readback mode: {readback}"
              + (" (a device filter needs raw arrays)"
                 if device_filter is not None else ""))

@@ -74,7 +74,8 @@ def main(argv=None):
     on_card = dev.type == "cuda"
     splats, sr = cloud.make_cloud(args.splats)
     cfg = cloud.bench_config(sr, levels=args.levels)
-    rb = block.resolve_readback("auto", cfg.device_levels, cfg.subsampling)
+    rb = block.resolve_readback("auto", cfg.device_levels, cfg.subsampling,
+                                dev.type)
     src = SequenceSource(splats)
     info, _, b = cloud.densest_bucket(src, cfg)
     grid_form, valid = load_bucket(src, info, b)

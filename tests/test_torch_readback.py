@@ -151,15 +151,57 @@ def test_packed_matches_jax(inputs, port_modes):
         assert rep.num_boundary_edges == 0
 
 
-def test_resolve_readback(monkeypatch):
-    assert block.resolve_readback("raw", LEVELS, 3) == "raw"
-    assert block.resolve_readback("auto", LEVELS, 3) == (
-        "codes" if nat.available() else "packed")
-    assert block.resolve_readback("auto", 9, 3) == "packed"  # 2^11 corners
-    monkeypatch.setattr(nat, "available", lambda: False)
-    assert block.resolve_readback("auto", LEVELS, 3) == "packed"
-    with pytest.raises(ValueError):
-        block.resolve_readback("bogus", LEVELS, 3)
+@pytest.mark.parametrize("device_type, requested, levels, native, want", [
+    ("cuda", "auto", LEVELS, True, "packed"),   # the card welds
+    ("cuda", "auto", 11, True, "packed"),       # 2^13 corners: packed holds
+    ("cuda", "auto", 12, True, "cpu rule"),     # 2^14: packed cannot
+    ("cuda", "auto", LEVELS, False, "packed"),
+    ("cuda", "codes", LEVELS, True, "codes"),
+    ("cuda", "raw", LEVELS, True, "raw"),
+    ("cpu", "auto", LEVELS, True, "codes"),
+    ("cpu", "auto", LEVELS, False, "packed"),
+    ("cpu", "auto", 9, True, "packed"),         # 2^11 corners
+    ("cpu", "raw", LEVELS, True, "raw"),
+    ("cpu", "bogus", LEVELS, True, ValueError),
+    ("cuda", "bogus", LEVELS, True, ValueError),
+])
+def test_resolve_readback(monkeypatch, device_type, requested, levels,
+                          native, want):
+    """'auto' is packed on a card wherever the packed layout holds the
+    block, and elsewhere the JAX package's rule: codes with the native
+    library and flat u32 cell ids, else packed; explicit modes stand."""
+    monkeypatch.setattr(nat, "available", lambda: native)
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            block.resolve_readback(requested, levels, 3, device_type)
+        return
+    if want == "cpu rule":
+        want = block.resolve_readback(requested, levels, 3, "cpu")
+    assert block.resolve_readback(requested, levels, 3, device_type) == want
+
+
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+def test_prepare_run_resolves_by_device_type(monkeypatch, device_type):
+    """prepare_run hands the type of the run's devices to the readback
+    rule (a card is faked: its resolution and memory check are stubbed)."""
+    seen = []
+
+    def rule(*args):
+        seen.append(args[-1])
+        return block.resolve_readback(*args)
+
+    monkeypatch.setattr(nat, "available", lambda: True)
+    monkeypatch.setattr(trec, "require_native", lambda: None)
+    monkeypatch.setattr(trec, "resolve_readback", rule)
+    monkeypatch.setattr(trec, "resolve_devices",
+                        lambda name, n: [torch.device(device_type, 0)])
+    monkeypatch.setattr(trec, "validate_device", lambda *a: None)
+    cfg = ReconstructConfig(fit_grid=0.1, levels=LEVELS, leaf_cells=8,
+                            progress=False)
+    devices, readback = trec.prepare_run(cfg, device_type)
+    assert [d.type for d in devices] == [device_type]
+    assert seen == [device_type]
+    assert readback == {"cpu": "codes", "cuda": "packed"}[device_type]
 
 
 def test_device_filter_needs_raw(inputs):
@@ -220,4 +262,4 @@ def test_codes_without_native_raises(monkeypatch, tmp_path):
         trec.reconstruct(SequenceSource(splats), cfg,
                          str(tmp_path / "x.ply"), device="cpu")
     assert "pass0.time" not in get_registry().to_dict()
-    assert block.resolve_readback("auto", LEVELS, 3) == "packed"
+    assert block.resolve_readback("auto", LEVELS, 3, "cpu") == "packed"
