@@ -17,6 +17,8 @@ import queue
 import threading
 from typing import List, Optional
 
+import numpy as np
+
 from mlsgpu_tpu_torch.utils.misc import create_tmp_file
 from mlsgpu_tpu_torch.utils.statistics import get_registry
 
@@ -27,7 +29,7 @@ class SpillStore:
         self._file = open(self._path, "r+b")
         self._budget = int(mem_budget)
         self._lock = threading.Condition()
-        self._mem: List[bytes] = []        # pending buffers, append order
+        self._mem: List = []               # pending buffers (bytes-like)
         self._mem_offsets: List[int] = []  # start offset of each buffer
         self._mem_bytes = 0
         self._disk_end = 0                 # all bytes < this are on disk
@@ -61,8 +63,16 @@ class SpillStore:
 
     # ------------------------------------------------------------- producer
     def append(self, data) -> int:
-        """Append bytes (or a numpy array's raw bytes); returns the offset."""
-        data = data.tobytes() if hasattr(data, "tobytes") else bytes(data)
+        """Append bytes or a numpy array's raw bytes; returns the offset. A
+        C-contiguous array is kept as it is, not copied (at 512^3 a block's
+        records are tens of MiB): the caller hands it over and does not
+        write to it again, as the mesher's records, made afresh for each
+        block, are not."""
+        if isinstance(data, np.ndarray):
+            data = memoryview(
+                np.ascontiguousarray(data).reshape(-1).view(np.uint8))
+        else:
+            data = bytes(data)
         with self._lock:
             if self._error:
                 raise self._error
@@ -153,14 +163,18 @@ class SpillStore:
         if self._error:
             raise self._error
 
-    def read(self, offset: int, nbytes: int) -> bytes:
-        """Read a byte range of already-appended data. Safe concurrently
-        with ongoing appends and the background flusher (the eager chunk
-        writer reads a finished chunk's records while later chunks still
-        append): the memory window is snapshotted under the lock (bytes
-        objects stay valid even once the flusher pops them), and the disk
-        part uses pread so no file position is shared with the flusher.
-        Ranges may span the disk/memory boundary and multiple appends."""
+    def read(self, offset: int, nbytes: int) -> memoryview:
+        """Read a byte range of already-appended data, as a read-only view.
+        A range inside one in-memory append is a view of that append (no
+        copy: the final write reads slices of up to 16 MiB, which a copy
+        would add to the resident set at its peak); any other range is
+        copied once into a buffer of its own. Safe concurrently with ongoing
+        appends and the background flusher (the eager chunk writer reads a
+        finished chunk's records while later chunks still append): the
+        memory window is snapshotted under the lock (its buffers stay valid
+        even once the flusher pops them), and the disk part uses
+        preadv so no file position is shared with the flusher. Ranges may
+        span the disk/memory boundary and multiple appends."""
         end = offset + nbytes
         with self._lock:
             if self._error:
@@ -180,10 +194,24 @@ class SpillStore:
                         break
                     parts.append((start, self._mem[i]))
                     i += 1
-        out = bytearray()
+        if offset >= disk_end and parts:
+            start, buf = parts[0]
+            if start <= offset and end <= start + len(buf):
+                return memoryview(buf)[offset - start:end - start].toreadonly()
+        out = memoryview(bytearray(nbytes))
+        filled = 0
         if offset < disk_end:
             n = min(end, disk_end) - offset
-            out += os.pread(self._file.fileno(), n, offset)
+            while filled < n:
+                got = os.preadv(self._file.fileno(), [out[filled:n]],
+                                offset + filled)
+                if got <= 0:
+                    break
+                filled += got
+            if filled < n:
+                raise EOFError(
+                    f"spill read past end: wanted [{offset}, {end}), "
+                    f"the file holds {offset + filled}")
             offset += n
         for start, buf in parts:
             if offset >= end:
@@ -192,13 +220,14 @@ class SpillStore:
             hi = min(end - start, len(buf))
             if lo < 0 or lo >= hi:
                 continue
-            out += buf[lo:hi]
+            out[filled:filled + hi - lo] = memoryview(buf)[lo:hi]
+            filled += hi - lo
             offset = start + hi
-        if len(out) != nbytes:
+        if filled != nbytes:
             raise EOFError(
                 f"spill read past end: wanted [{end - nbytes}, {end}), "
                 f"have {self._end}")
-        return bytes(out)
+        return out.toreadonly()
 
     def flush_all(self) -> str:
         """Force every byte to disk (checkpoint path); returns the file."""

@@ -127,6 +127,10 @@ class CountsView:
     def num_occ_tiles(self) -> int:    # MLS tiles with candidates
         return int(self.counts[6])
 
+    @property
+    def num_march_tiles(self) -> int:  # tiled classification's candidates
+        return int(self.counts[7])
+
 
 class _BlockResult(NamedTuple):
     packed: Optional[torch.Tensor]  # (words,) int32 image (u32 bits): codes

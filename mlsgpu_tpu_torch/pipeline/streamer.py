@@ -526,8 +526,7 @@ def stream_blocks(source: SplatSource, info, buckets: Iterable, cfg,
         if not window.admit(seq, held):
             return None
         hosts, event = _start_readback(tensors, device)
-        stats.variable("device.occTiles").add(result.num_occ_tiles)
-        stats.counter(f"readback.mode.{result.readback}").add(1)
+        workers_mod.count_block(stats, result)
         # the device tensors stay referenced until their copy is done
         return seq, (b, result.readback, result.fmt, result.counts, hosts,
                      event, tensors, image_bytes, held), \

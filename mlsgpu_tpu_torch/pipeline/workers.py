@@ -73,7 +73,7 @@ import torch.multiprocessing  # noqa: F401 (tensors through shared memory)
 from mlsgpu_tpu_torch.core.splat import block_inputs
 from mlsgpu_tpu_torch.device import set_precision
 from mlsgpu_tpu_torch.ops import launches, mls_cuda
-from mlsgpu_tpu_torch.ops.block import readback_tensors
+from mlsgpu_tpu_torch.ops.block import BlockResult, readback_tensors
 from mlsgpu_tpu_torch.pipeline import worker_start
 from mlsgpu_tpu_torch.utils import misc, step_profile, timeplot
 from mlsgpu_tpu_torch.utils.errors import MlsError
@@ -115,6 +115,27 @@ def to_device(device: torch.device, splats: np.ndarray, valid: np.ndarray,
                else torch.as_tensor(points, device=device))
         return (torch.as_tensor(splats).to(device),
                 torch.as_tensor(valid).to(device), pts)
+
+
+def count_block(reg: Registry, result: BlockResult) -> None:
+    """A finished block step's statistics, taken from the counts the host
+    already holds (no wait on the card): its MLS tiles (device.occTiles),
+    its readback mode (readback.mode.<mode>) and its shapes as counters:
+    march.cells (occupied cells), march.candidateTiles and
+    march.tiledBlocks (tiled classification's candidate tiles, and the
+    blocks that took it), weld.unwelded and weld.welded (the vertices
+    before and after the step's weld: packed and raw readbacks), and
+    readback.index.<u16|u21x3|u32> (the packed image's index words)."""
+    reg.variable("device.occTiles").add(result.num_occ_tiles)
+    reg.counter(f"readback.mode.{result.readback}").add(1)
+    reg.counter("march.cells").add(result.num_cells)
+    reg.counter("march.candidateTiles").add(result.num_march_tiles)
+    reg.counter("march.tiledBlocks").add(int(result.num_march_tiles > 0))
+    if result.readback != "codes":
+        reg.counter("weld.unwelded").add(result.num_unwelded)
+        reg.counter("weld.welded").add(result.num_vertices)
+    if result.readback == "packed":
+        reg.counter(f"readback.index.{result.fmt.index_mode}").add(1)
 
 
 def _shared(a) -> torch.Tensor:
@@ -240,8 +261,7 @@ def _worker_main(conn, marks: Dict, name: str, device: torch.device,
             reg.variable("device.time").add(t1 - t0)
             reg.variable("device.cpu").add(c1 - c0)
             reg.variable("device.syncWait").add(waits.sum)
-            reg.variable("device.occTiles").add(result.num_occ_tiles)
-            reg.counter(f"readback.mode.{result.readback}").add(1)
+            count_block(reg, result)
             tensors = readback_tensors(result) if read_images else []
             conn.send(("counts", result.counts, result.readback, result.fmt,
                        sum(t.numel() * t.element_size() for t in tensors)))
