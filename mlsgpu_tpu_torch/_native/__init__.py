@@ -17,11 +17,11 @@ import os
 import shlex
 import subprocess
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
-from mlsgpu_tpu_torch.utils import native_build
+from mlsgpu_tpu_torch.utils import misc, native_build
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "native.cpp")
@@ -124,12 +124,16 @@ def _declare(lib) -> None:
     lib.mls_unpack_readback.argtypes = [
         _U32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, _I64, _F32, _I32, _I64]
-    lib.mls_mesher_add.restype = ctypes.c_int64
-    lib.mls_mesher_add.argtypes = [
+    lib.mls_mesher_prepare.restype = ctypes.c_int64
+    lib.mls_mesher_prepare.argtypes = [
         _F32, ctypes.c_int64, _I32, ctypes.c_int64, ctypes.c_int64,
-        _I64, _I64, _I64, _I64, _I64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        _U32, _U32, _I64]
+        _I64, _I64, _U32, _U32, _I64, _I64]
+    lib.mls_mesher_commit.restype = ctypes.c_int64
+    lib.mls_mesher_commit.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _I64,
+        ctypes.c_int64, _I64, _I64, _I64, ctypes.c_int64, _U32, _U32,
+        _I64, _I64, _I64, _I64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, _I64]
     lib.mls_rebuild_block.restype = ctypes.c_int64
     lib.mls_rebuild_block.argtypes = [
         _U32, _U8, ctypes.POINTER(ctypes.c_uint16),
@@ -281,7 +285,7 @@ def decode_splats(buf: bytes, n: int, stride: int, offsets: np.ndarray,
     """Decode n raw PLY records into `out` ((n, 8) f32, C-contiguous; a new
     array when None); nthreads > 1 splits rows across native threads (the
     reference's OpenMP decode, src/splat_set.cpp:213). nthreads=0 uses the
-    hardware core count."""
+    cores this process may run on, at most one per 64K rows."""
     lib = get_lib()
     if lib is None:
         return None
@@ -293,7 +297,8 @@ def decode_splats(buf: bytes, n: int, stride: int, offsets: np.ndarray,
         raise ValueError("decode_splats: out must be a C-contiguous "
                          f"({n}, 8) float32 array")
     if nthreads == 0:
-        nthreads = os.cpu_count() or 1
+        # a thread's start costs more than a share under 64K rows saves
+        nthreads = max(1, min(misc.cores(), n >> 16))
     if nthreads > 1:
         lib.mls_decode_splats_mt(buf, n, stride, _ptr(offsets, _I64),
                                  np.float32(smooth), np.float32(max_radius),
@@ -398,35 +403,78 @@ def unpack_readback(flat: np.ndarray, ni: int, nv: int, fe: int,
     return verts, tris, keys
 
 
-def mesher_add(verts, tris, first_ext, keys, clumps, base,
-               key_clump: "KeyMap", chunk_keys: "KeyMap",
-               chunk_nv_base: int):
-    """Fused OOCMesher.add hot path. clumps supplies raw int64 capacity
-    buffers (_parent/_size/_nv/_nt), pre-grown to hold base + len(verts)
-    nodes. Returns (n_new, vrec (n_new,4) u32, trec (m,3) u32,
-    stats [num_local, new_global_keys, new_chunk_keys]) or None when the
-    library (or a native map) is unavailable. Raises ValueError on a
-    corrupt triangle index."""
+class MesherRecords(NamedTuple):
+    """A block's records as mesher_prepare leaves them: vertex records
+    (n, 4) u32 with the local label in the clump lane, triangle records
+    (m, 3) u32 in block-local ids, each label's vertex and triangle counts
+    (num_local,) i64 and the flat triangle-record slots (s,) i64 that name
+    an external vertex."""
+    vrec: np.ndarray
+    trec: np.ndarray
+    label_nv: np.ndarray
+    label_nt: np.ndarray
+    ext_slots: np.ndarray
+
+
+def mesher_prepare(verts, tris, first_ext: int,
+                   reuse_triangles: bool = False) -> Optional[MesherRecords]:
+    """The half of OOCMesher.add that reads the block alone (native.cpp's
+    mls_mesher_prepare). Returns its MesherRecords, or None when the
+    library is unavailable. Raises ValueError on a corrupt triangle
+    index. The counts and the slot list are views of buffers sized for
+    every vertex and slot, of which only the pages written are touched.
+    The triangle records take the memory of `tris` (their bits are its
+    int32 indices) when the caller hands it over (`reuse_triangles`) or
+    when it had to be converted to int32 anyway: a block's records then
+    cost no second triangle array, which is a fresh mapping to fault in
+    (utils/misc.bound_mmap_threshold)."""
     lib = get_lib()
-    if lib is None or key_clump._h is None or chunk_keys._h is None:
+    if lib is None:
         return None
     verts = np.ascontiguousarray(verts, dtype=np.float32)
+    given = tris
     tris = np.ascontiguousarray(tris, dtype=np.int32)
-    keys = np.ascontiguousarray(keys, dtype=np.int64)
     n, m = len(verts), len(tris)
     vrec = np.empty((max(n, 1), 4), np.uint32)
-    trec = np.empty((max(m, 1), 3), np.uint32)
-    stats = np.zeros(3, np.int64)
-    n_new = lib.mls_mesher_add(
+    if m and tris.ndim == 2 and tris.flags.writeable \
+            and (reuse_triangles or tris is not given):
+        trec = tris.view(np.uint32)
+    else:
+        trec = np.empty((max(m, 1), 3), np.uint32)
+    counts = np.empty((2, max(n, 1)), np.int64)
+    slots = np.empty(max(3 * m, 1), np.int64)
+    num_slots = np.zeros(1, np.int64)
+    num_local = lib.mls_mesher_prepare(
         _ptr(verts, _F32), n, _ptr(tris, _I32), m, first_ext,
-        _ptr(keys, _I64),
+        _ptr(counts[0], _I64), _ptr(counts[1], _I64), _ptr(vrec, _U32),
+        _ptr(trec, _U32), _ptr(slots, _I64), _ptr(num_slots, _I64))
+    if num_local < 0:
+        raise ValueError("triangle index out of range")
+    return MesherRecords(vrec[:n], trec[:m], counts[0, :num_local],
+                         counts[1, :num_local], slots[:int(num_slots[0])])
+
+
+def mesher_commit(records: MesherRecords, first_ext: int, keys, clumps,
+                  base: int, key_clump: "KeyMap", chunk_keys: "KeyMap",
+                  chunk_nv_base: int):
+    """The ordered half of OOCMesher.add (native.cpp's mls_mesher_commit),
+    on records from mesher_prepare, which it rewrites in place. clumps
+    supplies raw int64 capacity buffers (_parent/_size/_nv/_nt), pre-grown
+    to hold base + len(records.label_nv) nodes. Returns (n_new, stats
+    [new_global_keys, new_chunk_keys]): records.vrec[:n_new] are the
+    vertex records written."""
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    stats = np.zeros(2, np.int64)
+    n_new = get_lib().mls_mesher_commit(
+        len(records.vrec), len(records.trec), first_ext, _ptr(keys, _I64),
+        len(records.label_nv), _ptr(records.label_nv, _I64),
+        _ptr(records.label_nt, _I64), _ptr(records.ext_slots, _I64),
+        len(records.ext_slots), _ptr(records.vrec, _U32),
+        _ptr(records.trec, _U32),
         _ptr(clumps._parent, _I64), _ptr(clumps._size, _I64),
         _ptr(clumps._nv, _I64), _ptr(clumps._nt, _I64), base,
-        key_clump._h, chunk_keys._h, chunk_nv_base,
-        _ptr(vrec, _U32), _ptr(trec, _U32), _ptr(stats, _I64))
-    if n_new < 0:
-        raise ValueError("triangle index out of range")
-    return n_new, vrec[:n_new], trec[:m], stats
+        key_clump._h, chunk_keys._h, chunk_nv_base, _ptr(stats, _I64))
+    return int(n_new), stats
 
 
 def write_pass_a(raw: np.ndarray, parent: np.ndarray,

@@ -9,7 +9,7 @@ acceleration structure (FastBlobSet) lives in pipeline/blobs.py.
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -127,17 +127,3 @@ class FileSource(SplatSource):
     def close(self) -> None:
         for r in self._readers:
             r.close()
-
-
-def merge_ranges(ranges: Iterable[Tuple[int, int]], max_gap: int = 0
-                 ) -> List[Tuple[int, int]]:
-    """Merge overlapping/adjacent [a, b) ranges (BucketLoader's range
-    coalescing, src/bucket_loader.cpp)."""
-    ranges = sorted(ranges)
-    out: List[Tuple[int, int]] = []
-    for a, b in ranges:
-        if out and a <= out[-1][1] + max_gap:
-            out[-1] = (out[-1][0], max(out[-1][1], b))
-        else:
-            out.append((a, b))
-    return out

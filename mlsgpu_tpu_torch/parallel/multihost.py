@@ -715,9 +715,9 @@ def _rank_passes(source: SplatSource, cfg: ReconstructConfig,
                                    show=cfg.progress)
     local_splats = 0
 
-    def consume(bucket, block):
+    def consume(bucket, prepared):
         nonlocal local_splats
-        mesher.add(block)
+        mesher.commit(prepared)
         progress.add(bucket.num_splats)
         local_splats += bucket.num_splats
 
@@ -725,7 +725,7 @@ def _rank_passes(source: SplatSource, cfg: ReconstructConfig,
         consume_threaded(
             stream_blocks(source, info, mine_iter, cfg, devices, readback,
                           group=group, decode=block_result_to_input),
-            consume)
+            consume, prepare=lambda bucket, block: mesher.prepare(block))
     finally:
         progress.close()
     return mesher, local_splats

@@ -4,8 +4,9 @@
 blob pass -> bucketing -> per-bucket device block step (streamer) -> host
 decode of each block's readback (codes: native rebuild + weld; packed:
 native unpack; raw: the welded arrays) on the streamer's decode stage, a
-thread per worker -> optional host filters -> out-of-core mesher, on a
-thread of its own, in the loader's order -> write. The host layer (blobs,
+thread per worker -> optional host filters and the mesher's order-free
+prepare on a small pool -> the out-of-core mesher's commit, on a thread of
+its own, in the loader's order -> write. The host layer (blobs,
 bucketing, mesher, native helpers, host mesh filters) is the port's copy
 of the JAX package's (pipeline/blobs.py, bucket.py, mesher.py,
 mesh_filter.py, _native/).
@@ -117,8 +118,11 @@ def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
     coordinates (mlsgpu_tpu/pipeline/reconstruct.py:240-309): codes are
     rebuilt and welded natively, a packed image is unpacked natively, raw
     arrays get the block origin added and their 63-bit weld keys joined.
-    A run calls it on the streamer's decode stage (stream_blocks(decode=)),
-    whose `decode` action records its thread CPU time."""
+    The block owns its triangles where the decode made them, and not
+    where they are a view of the readback (raw; the numpy unpack's u32
+    indices). A run calls it on the streamer's decode stage
+    (stream_blocks(decode=)), whose `decode` action records its thread CPU
+    time."""
     stats = get_registry()
     origin = bucket.cell_lo.astype(np.int64)
     with stats.timer("readback.decode"):
@@ -139,7 +143,9 @@ def block_result_to_input(result: HostBlock, bucket) -> BlockInput:
             keys = (((hi.astype(np.int64) & 0x7FFFFFFF) << 32)
                     | lo.astype(np.int64))
     return BlockInput(chunk_id=bucket.chunk_id, vertices=verts,
-                      first_external=fe, ext_keys=keys, triangles=tris)
+                      first_external=fe, ext_keys=keys, triangles=tris,
+                      owns_triangles=not any(np.may_share_memory(tris, a)
+                                             for a in result.arrays))
 
 
 @contextlib.contextmanager
@@ -172,7 +178,9 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
 
     The phases are actions of the timeplot worker `driver`: `blob_pass`,
     `bucketing` and `write` (its `write.passA`, `write.verts` and
-    `write.tris` nested); pass 1 is the streamer's and the mesher's."""
+    `write.tris` nested); pass 1 is the streamer's and the mesher's: its
+    `prepare` actions on the pool's `mesher_prep` workers (the filters
+    too), its commits as `mesher` actions (mesher.time, mesher.cpu)."""
     devices, readback = prepare_run(cfg, device, device_filter)
     stats = get_registry()
     driver = timeplot.Worker("driver")
@@ -216,25 +224,30 @@ def reconstruct(source: SplatSource, cfg: ReconstructConfig, output: str,
         with stats.timer("pass1.time"), process_cpu("pass1"):
             mesher_worker = timeplot.Worker("mesher")
 
-            def consume(bucket, block):
+            def prepare(bucket, block):
+                if filters is not None:
+                    v, t = filters(block.vertices, block.triangles)
+                    block = BlockInput(
+                        chunk_id=block.chunk_id, vertices=v,
+                        first_external=block.first_external,
+                        ext_keys=block.ext_keys, triangles=t)
+                return mesher.prepare(block)
+
+            def consume(bucket, prepared):
                 with timeplot.Action("mesher", mesher_worker,
                                      stats.variable("mesher.time"),
                                      stats.variable("mesher.cpu")):
-                    if filters is not None:
-                        v, t = filters(block.vertices, block.triangles)
-                        block = BlockInput(
-                            chunk_id=block.chunk_id, vertices=v,
-                            first_external=block.first_external,
-                            ext_keys=block.ext_keys, triangles=t)
-                    mesher.add(block)
+                    mesher.commit(prepared)
                 progress.add(bucket.num_splats)
 
+            # a filter chain sees the blocks one at a time, in order
             consume_threaded(stream_blocks(source, info, buckets, cfg,
                                            devices, readback,
                                            device_filter=device_filter,
                                            group=group,
                                            decode=block_result_to_input),
-                             consume)
+                             consume, prepare=prepare,
+                             threads=1 if filters is not None else 0)
     finally:
         stop_workers(group)
 

@@ -5,11 +5,13 @@ into shared memory and each process converts its own: the parent's one
 interpreter feeds N workers), device workers run the block step and start
 each block's readback, a decode stage (a thread per worker) decodes each
 finished block as soon as its images are on the host, the generator hands
-the blocks out in the loader's order, and `consume_threaded` passes them to
-the mesher on its own thread, which does nothing else: it is one thread,
-as in the reference (src/mesher.cpp), and its input is order-dependent.
-The native decodes release the interpreter lock, so the stage's threads
-decode side by side.
+the blocks out in the loader's order, and `consume_threaded` runs each
+block's order-free mesher work on a small prepare pool and passes the
+prepared blocks, in that order, to the mesher's commit on its own thread,
+which does nothing else: it is one thread, as in the reference
+(src/mesher.cpp), and its input is order-dependent. The native decodes
+and prepares release the interpreter lock, so the threads of each stage
+work side by side.
 
 Workers. A run has D devices x T queues (--num-devices, --device-threads).
 One worker runs its block steps on a thread of this process, under
@@ -52,8 +54,10 @@ speculative readback.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
+import itertools
 import os
 import queue
 import threading
@@ -65,7 +69,7 @@ import numpy as np
 import torch
 
 from mlsgpu_tpu_torch.core.splat import block_inputs
-from mlsgpu_tpu_torch.io.splat_set import SplatSource, merge_ranges
+from mlsgpu_tpu_torch.io.splat_set import SplatSource
 from mlsgpu_tpu_torch.utils import misc, step_profile, timeplot
 from mlsgpu_tpu_torch.utils.statistics import Peak, Variable, get_registry
 
@@ -140,10 +144,21 @@ class ByteBudget:
 def bucket_ranges(info, b) -> List[Tuple[int, int]]:
     """A bucket's blobs' splat ranges, merged in ascending splat id, so
     two buckets list the splats they share in the same relative order: the
-    stream order that the face and skeleton passes sum in (ops/mls.py)."""
-    start, count = info.blobs.start, info.blobs.count
-    return merge_ranges((int(start[i]), int(start[i] + count[i]))
-                        for i in b.blob_ids)
+    stream order that the face and skeleton passes sum in (ops/mls.py).
+    Overlapping and adjacent ranges merge (BucketLoader's range coalescing,
+    src/bucket_loader.cpp), in numpy: a 512^3 bucket has ~13,000 blobs."""
+    ids = np.asarray(b.blob_ids, dtype=np.int64)
+    lo = np.asarray(info.blobs.start, dtype=np.int64)[ids]
+    hi = lo + np.asarray(info.blobs.count, dtype=np.int64)[ids]
+    order = np.lexsort((hi, lo))
+    lo, hi = lo[order], hi[order]
+    if not len(lo):
+        return []
+    # a range opens a run where it starts past every end before it
+    reach = np.maximum.accumulate(hi)
+    first = np.flatnonzero(np.concatenate([[True], lo[1:] > reach[:-1]]))
+    return list(zip(lo[first].tolist(),
+                    np.maximum.reduceat(hi, first).tolist()))
 
 
 def decoded_bytes(counts: np.ndarray) -> int:
@@ -159,9 +174,14 @@ def decoded_bytes(counts: np.ndarray) -> int:
 def decode_threads(workers: int) -> int:
     """Threads of a run's decode stage (stream_blocks): one per worker, at
     most half of the cores this process may run on."""
-    cores = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
-             else os.cpu_count() or 2)
-    return max(1, min(workers, cores // 2))
+    return max(1, min(workers, misc.cores() // 2))
+
+
+def prepare_threads(depth: int) -> int:
+    """Threads of the mesher's prepare pool (consume_threaded): at most
+    half of the cores this process may run on, as decode_threads, and no
+    more than the depth + 1 items the pool may hold at once."""
+    return max(1, min(depth + 1, misc.cores() // 2))
 
 
 def load_bucket(source: SplatSource, info, b):
@@ -186,18 +206,35 @@ def load_bucket_shared(source: SplatSource, info, b) -> torch.Tensor:
     return out
 
 
-def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
+def consume_threaded(pairs: Iterator, fn, depth: int = 2,
+                     prepare: Optional[Callable] = None,
+                     threads: int = 0) -> None:
     """Run `fn(bucket, result)` on a consumer thread while the producer
-    iterator keeps the device fed. `depth` bounds queued results.
-    Exceptions on either side cancel the other and re-raise. Records
-    consumer.busy, the consumer's seconds in `fn` per item, and
-    consumer.wait, the producer's wait for room in the queue per item:
-    while it waits, the producer (stream_blocks) yields nothing and frees
-    no worker's slot."""
+    iterator keeps the device fed. At most depth + 1 items are handed over
+    and not yet consumed. Exceptions on either side cancel the other and
+    re-raise. Records consumer.busy, the consumer's seconds in `fn` per
+    item, and consumer.wait, the producer's wait for room per item: while
+    it waits, the producer (stream_blocks) yields nothing and frees no
+    worker's slot.
+
+    With `prepare`, each item's `prepare(bucket, result)` runs first on a
+    pool of `threads` threads (0: prepare_threads(depth)), several items at
+    once, and the consumer calls `fn(bucket, prepared)` in the producer's
+    order: the mesher's order-free half off its thread (OOCMesher.prepare
+    and commit). The pool records mesher.prepareThreads (its width, once),
+    each prepare as a `prepare` action of its thread's `mesher_prep`
+    worker (mesher.prepareTime, mesher.prepareCpu) and the consumer's
+    wait for it (mesher.prepareWait). An exception in a prepare re-raises as
+    one in `fn` does."""
     stats = get_registry()
     busy, wait = stats.variable("consumer.busy"), stats.timer("consumer.wait")
-    out_q: "queue.Queue" = queue.Queue(maxsize=depth)
+    room = threading.Semaphore(depth + 1)
+    out_q: "queue.Queue" = queue.Queue()
     err: List[BaseException] = []
+    pool = None
+    if prepare is not None:
+        pool = _PreparePool(prepare, threads or prepare_threads(depth))
+        prep_wait = stats.variable("mesher.prepareWait")
 
     def consumer():
         while True:
@@ -205,39 +242,77 @@ def consume_threaded(pairs: Iterator, fn, depth: int = 2) -> None:
             if item is _SENTINEL:
                 return
             try:
+                if pool is not None:
+                    bucket, future = item
+                    t0 = time.monotonic()
+                    item = bucket, future.result()
+                    prep_wait.add(time.monotonic() - t0)
+                    del future
                 t0 = time.monotonic()
                 fn(*item)
                 busy.add(time.monotonic() - t0)
             except BaseException as e:  # re-raised on the producer side
                 err.append(e)
                 return
+            del item
+            room.release()
 
     t = threading.Thread(target=consumer, name="mesher", daemon=True)
     t.start()
     try:
         for pair in pairs:
             with wait:
-                while not err:
-                    try:
-                        out_q.put(pair, timeout=0.2)
-                        break
-                    except queue.Full:
-                        continue
+                while not err and not room.acquire(timeout=0.2):
+                    pass
             if err:
                 break
+            out_q.put(pair if pool is None
+                      else (pair[0], pool.submit(*pair)))
+            del pair
     finally:
         close = getattr(pairs, "close", None)
         if close is not None:
             close()  # run the producer's cleanup (loader join) promptly
-        while not err:
-            try:
-                out_q.put(_SENTINEL, timeout=0.2)
-                break
-            except queue.Full:
-                continue
+        out_q.put(_SENTINEL)
         t.join()
+        if pool is not None:
+            pool.shutdown()
     if err:
         raise err[0]
+
+
+class _PreparePool:
+    """consume_threaded's prepare pool: `threads` threads, each with a
+    `mesher_prep` timeplot worker of its own."""
+
+    def __init__(self, prepare: Callable, threads: int):
+        stats = get_registry()
+        stats.counter("mesher.prepareThreads").add(threads)
+        self._time = stats.variable("mesher.prepareTime")
+        self._cpu = stats.variable("mesher.prepareCpu")
+        self._prepare = prepare
+        # the initializer refers to no `self`: a cycle through the executor
+        # would keep `prepare`, and the mesher it holds, until a collection
+        local = self._local = threading.local()
+        index = itertools.count()
+
+        def start():
+            local.plot = timeplot.Worker("mesher_prep", next(index))
+
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            threads, thread_name_prefix="mesher_prep", initializer=start)
+
+    def _run(self, bucket, result):
+        with timeplot.Action("prepare", self._local.plot, self._time,
+                             self._cpu):
+            return self._prepare(bucket, result)
+
+    def submit(self, bucket, result):
+        return self._pool.submit(self._run, bucket, result)
+
+    def shutdown(self) -> None:
+        """Cancel what has not started, and wait for what has."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 class MeshWindow:

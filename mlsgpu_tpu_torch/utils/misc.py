@@ -29,6 +29,12 @@ def div_down(a: int, b: int) -> int:
     return a // b
 
 
+def cores() -> int:
+    """The cores this process may run on."""
+    return (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+            else os.cpu_count() or 2)
+
+
 _LIBC = None
 
 

@@ -123,13 +123,24 @@ def mesher_inputs(tmp_path_factory):
                                  cfg.fit_grid, cfg.micro_cells).grid
 
     class Recorder(mesher.OOCMesher):
+        """Keeps a copy of each block a run prepares (a decoded block
+        hands its triangles over to the records), in the order of its
+        commits (the loader's order; prepares run on a pool)."""
+
         def __init__(self, grid):
             super().__init__(grid)
             self.blocks = []
+            self._given = {}
 
-        def add(self, b):
-            self.blocks.append(b)
-            super().add(b)
+        def prepare(self, b):
+            kept = dataclasses.replace(b, triangles=b.triangles.copy())
+            prepared = super().prepare(b)
+            self._given[id(prepared)] = kept
+            return prepared
+
+        def commit(self, prepared):
+            self.blocks.append(self._given.pop(id(prepared)))
+            super().commit(prepared)
 
     rec = Recorder(info.grid)
     out = str(tmp_path_factory.mktemp("mesher") / "run.ply")
